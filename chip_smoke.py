@@ -1,0 +1,410 @@
+#!/usr/bin/env python3
+"""Drive the port's provisioning solve on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py          (from the repository root; needs one card)
+
+Runs the karpenter_tpu_torch main path at full width -- the 627-type
+generated catalog, 50,000 pending pods from 160 templates, one NodePool,
+g_max 1024, the price objective -- through the entry point a user calls,
+`TorchSolver.solve`, for two ticks: tick 1 on an empty cluster (kernel A),
+tick 2 with a second wave of 10,000 pods packed first onto the nodes of
+tick 1 (kernel B, one candidate set) and then opened for the rest
+(kernel A). Phases, one JSON line each:
+
+  device   the card, its count and `nvidia-smi` name and power limit
+  build    nvcc for sm_90a, one process per source, with ptxas -v lines
+  main     the two ticks with every launch count set to 0 before a tick
+           and read after it; every pod must be placed exactly once
+  kernels  each kernel against its plain torch version on the card, on
+           the main path's own inputs and on pinned edge cases (tied
+           prices, exact quotients; kernel B also at 64 candidate sets);
+           equality is exact
+  plain    the same two ticks with both kernels swapped for their plain
+           versions: the decisions must be identical
+  times    CUDA-event medians of each kernel and its plain version at the
+           main-path shapes, tick walls and their stages, peak device
+           memory, bounds
+
+Then the nvidia-smi line, the kernels line and, last, the result line.
+Any failed phase raises: the script exits non-zero and prints no result.
+JAX and the JAX package are not imported.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 20_260_101
+N_PODS = 50_000
+N_WAVE = 10_000
+G_MAX = 1024
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+FP32_OPS_PER_S = 67e12         # H100 SXM float32 peak outside the tensor cores
+
+
+def emit(doc: dict) -> None:
+    print(json.dumps(doc), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    if not out:
+        raise RuntimeError("nvidia-smi printed nothing")
+    return out[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of fn() from CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def wall_ms(fn, reps: int):
+    """(first, median) host milliseconds of fn(), each ending in a sync."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times[0], statistics.median(times)
+
+
+def max_abs_diff(got, want) -> float:
+    return max(
+        float((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0.0
+        for a, b in zip(got, want)
+    )
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, ops: float):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
+        return 2
+    from karpenter_tpu_torch import workload
+    from karpenter_tpu_torch.apis import NodePool
+    from karpenter_tpu_torch.solver import encode, ffd
+    from karpenter_tpu_torch.solver.kernels import build
+    from karpenter_tpu_torch.solver.kernels import disrupt_repack as kb
+    from karpenter_tpu_torch.solver.kernels import ffd_scan as ka
+    from karpenter_tpu_torch.solver.oracle import SchedulingResult
+    from karpenter_tpu_torch.solver.service import TorchSolver
+
+    # -- device ---------------------------------------------------------------
+    card = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = nvidia_smi()
+    power_limit = smi.split(",")[-1].strip()
+    tag = {"card": card, "power_limit": power_limit}
+    emit({"phase": "device", "kind": card, "count": count, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    dev = torch.device(DEVICE)
+
+    # -- build ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_flags": " ".join(build.NVCC_FLAGS),
+          "sources": {name: build.BUILD_LOG.get(name, {"seconds": 0.0, "ptxas": ["cached"]})
+                      for name in build.SOURCES}, **tag})
+
+    # -- main path --------------------------------------------------------------
+    items = workload.build_catalog_items()
+    pool = NodePool("default")
+    pods1 = workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS, salt=1)
+    pods2 = workload.synth_pods(np.random.default_rng(SEED + 1), workload.ZONES, N_WAVE, salt=2)
+    solver = TorchSolver(g_max=G_MAX, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+
+    ka.launches = kb.launches = 0
+    t0 = time.perf_counter()
+    tick1 = solver.solve(pool, items, pods1)
+    torch.cuda.synchronize()
+    wall1_cold = (time.perf_counter() - t0) * 1e3
+    launches1 = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+    nodes = workload.nodes_from_result(tick1)
+
+    ka.launches = kb.launches = 0
+    t0 = time.perf_counter()
+    tick2 = solver.solve(pool, items, pods2, existing_nodes=nodes)
+    torch.cuda.synchronize()
+    wall2_cold = (time.perf_counter() - t0) * 1e3
+    launches2 = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    if launches1["ffd_scan"] < 1 or launches2["ffd_scan"] < 1:
+        raise AssertionError(f"kernel A did not run on the main path: {launches1} {launches2}")
+    if launches2["disrupt_repack"] < 1:
+        raise AssertionError(f"kernel B did not run on tick 2: {launches2}")
+
+    def accounted(result, pods):
+        names = [p.metadata.name for g in result.new_groups for p in g.pods]
+        names += list(result.existing_assignments) + list(result.unschedulable)
+        if sorted(names) != sorted(p.metadata.name for p in pods):
+            raise AssertionError("a pod was lost or placed twice")
+        for g in result.new_groups:
+            vec = np.asarray(g.requested.to_vector())
+            if not g.instance_types or not np.all(np.isfinite(vec)):
+                raise AssertionError("a group without a type or with a non-finite request")
+        return {"groups": len(result.new_groups), "on_existing": len(result.existing_assignments),
+                "unschedulable": len(result.unschedulable)}
+
+    emit({"phase": "main", "pods": [N_PODS, N_WAVE], "existing_nodes": len(nodes),
+          "tick1": accounted(tick1, pods1), "tick2": accounted(tick2, pods2),
+          "launches": {"tick1": launches1, "tick2": launches2}, **tag})
+
+    # the main path's own kernel inputs: tick 1's scan, tick 2's repack
+    classes1 = encode.group_pods(pods1, extra_requirements=pool.requirements())
+    classes2 = encode.group_pods(pods2, extra_requirements=pool.requirements())
+    entry = solver._catalog(items)
+    cs1 = solver._encode(pool, entry, classes1, np.zeros(len(classes1), dtype=np.int64))
+
+    def scan_ops(class_set, objective, packed, staged=entry.staged):
+        inp = ffd.make_inputs_staged(staged, class_set, packed_masks=packed)
+        return ffd.scan_operands(inp, entry.offsets, entry.words, objective)
+
+    ops_a = scan_ops(cs1, "price", True)
+    ops_b = solver._repack_operands(classes2, nodes)
+
+    # -- kernels against their plain versions -----------------------------------
+    checks = []
+    err_a = err_b = 0.0
+
+    def check_scan(label, ops, objective, g_max=G_MAX):
+        nonlocal err_a
+        got = ka.fused_scan(*ops, g_max=g_max, objective=objective)
+        want = ka.fused_scan_reference(*ops, g_max=g_max, objective=objective)
+        torch.cuda.synchronize()
+        err = max_abs_diff(got, want)
+        err_a = max(err_a, err)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        checks.append({"kernel": "ffd_scan", "case": label, "equal": same, "max_abs_err": err})
+        if not same:
+            raise AssertionError(f"kernel A differs from its plain version: {label}")
+
+    def check_repack(label, ops):
+        nonlocal err_b
+        got = kb.disrupt_repack(*ops)
+        want = kb.repack_reference(*ops)
+        torch.cuda.synchronize()
+        err = max_abs_diff(got, want)
+        err_b = max(err_b, err)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        checks.append({"kernel": "disrupt_repack", "case": label, "equal": same, "max_abs_err": err})
+        if not same:
+            raise AssertionError(f"kernel B differs from its plain version: {label}")
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        """Both wrappers swapped for their plain versions (the reference
+        run: not the main path, and not counted)."""
+        saved = ka.fused_scan, kb.disrupt_repack
+        ka.fused_scan = ka.fused_scan_reference
+        kb.disrupt_repack = kb.repack_reference
+        try:
+            yield
+        finally:
+            ka.fused_scan, kb.disrupt_repack = saved
+
+    nnz1 = ffd.nnz_budget(cs1.c_pad, G_MAX)
+    for objective in ("price", "fit"):
+        for packed in (True, False):
+            inp = ffd.make_inputs_staged(entry.staged, cs1, packed_masks=packed)
+            kw = dict(g_max=G_MAX, nnz_max=nnz1, word_offsets=entry.offsets,
+                      words=entry.words, objective=objective)
+            got = ffd.fetch_fused(ffd.ffd_solve_fused(inp, **kw))
+            with plain_kernels():
+                want = ffd.fetch_fused(ffd.ffd_solve_fused(inp, **kw))
+            same = got.tobytes() == want.tobytes()
+            checks.append({"kernel": "ffd_scan", "case": f"tick1 fused buffer {objective} "
+                           f"{'packed' if packed else 'full'}", "equal": same, "lanes": int(got.size)})
+            if not same:
+                raise AssertionError(f"fused buffers differ ({objective}, packed={packed})")
+            check_scan(f"tick1 scan {objective} {'packed' if packed else 'full'}",
+                       scan_ops(cs1, objective, packed), objective)
+    # tied prices: every offering at one price, so the envelope's argmin ties
+    tied = encode.encode_catalog(items)
+    tied.price = np.where(np.isfinite(tied.price), np.float32(1.0), tied.price).astype(np.float32)
+    staged_tied, _, _ = ffd.stage_catalog(tied, dev)
+    check_scan("tied prices", scan_ops(cs1, "price", True, staged_tied), "price")
+    # exact quotients: capacities exact multiples of the requests (6/3 = 2)
+    exact = encode.encode_catalog(items)
+    real = exact.cap[:, 0] > 0
+    exact.cap[real, 0] = 6000.0
+    exact.cap[real, 1] = 8192.0
+    staged_exact, _, _ = ffd.stage_catalog(exact, dev)
+    check_scan("exact quotients", scan_ops(cs1, "price", True, staged_exact), "price")
+    check_scan("slot exhaustion g_max=64", ops_a, "price", g_max=64)
+
+    check_repack("tick2 pre-pass S=1", ops_b)
+    rng = np.random.default_rng(SEED)
+    from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
+    for s in range(2):
+        s_, c_, n_ = 64, ops_b[2].shape[0], ops_b[0].shape[0]
+        world = (
+            rng.integers(0, 64, (n_, encode.R)).astype(np.float32), rng.random((c_, n_)) < 0.7,
+            rng.integers(0, 5, (c_, encode.R)).astype(np.float32),
+            rng.integers(0, 40, (s_, c_)), rng.random((s_, n_)) < 0.2,
+        )
+        check_repack(f"random world S=64 seed {s}", disrupt_kernel.repack_from_numpy(*world, dev))
+    check_repack("exact quotient 6/3", disrupt_kernel.repack_from_numpy(
+        np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
+        np.array([[5]]), np.zeros((1, 2), bool), dev))
+    emit({"phase": "kernels", "checks": checks, **tag})
+
+    # -- the same two ticks through the plain versions, on the card --------------
+    def sig(result):
+        return (
+            sorted((tuple(sorted(p.metadata.name for p in g.pods)), g.instance_types[0].name)
+                   for g in result.new_groups),
+            sorted(result.existing_assignments.items()),
+            sorted(result.unschedulable.items()),
+        )
+
+    with plain_kernels():
+        ref_solver = TorchSolver(g_max=G_MAX, device=dev)
+        ref1 = ref_solver.solve(pool, items, pods1)
+        ref2 = ref_solver.solve(pool, items, pods2, existing_nodes=workload.nodes_from_result(ref1))
+    same1, same2 = sig(ref1) == sig(tick1), sig(ref2) == sig(tick2)
+    emit({"phase": "plain", "tick1_decisions_equal": same1, "tick2_decisions_equal": same2, **tag})
+    if not (same1 and same2):
+        raise AssertionError("the main path's decisions differ from the plain versions'")
+
+    # -- times ----------------------------------------------------------------------
+    ms_a = cuda_ms(lambda: ka.fused_scan(*ops_a, g_max=G_MAX, objective="price"), reps=20)
+    plain_a = cuda_ms(lambda: ka.fused_scan_reference(*ops_a, g_max=G_MAX, objective="price"),
+                      reps=3, warmup=1)
+    ms_b = cuda_ms(lambda: kb.disrupt_repack(*ops_b), reps=50)
+    plain_b = cuda_ms(lambda: kb.repack_reference(*ops_b), reps=5, warmup=1)
+    tick1_first, tick1_ms = wall_ms(lambda: solver.solve(pool, items, pods1), reps=5)
+    tick2_first, tick2_ms = wall_ms(
+        lambda: solver.solve(pool, items, pods2, existing_nodes=nodes), reps=5)
+
+    def stages(pods, existing) -> dict:
+        """Milliseconds of each stage of one warm tick: solve_begin and
+        solve_finish unrolled, host clock per stage; `solve_device` is the
+        CUDA-event time from the first to the last kernel the fused solve
+        enqueues (prologue, kernel A, epilogue, and any gaps between)."""
+        t = {}
+        t0 = time.perf_counter()
+        classes = encode.group_pods(pods, extra_requirements=pool.requirements())
+        t["group"] = (time.perf_counter() - t0) * 1e3
+        placed = np.zeros(len(classes), dtype=np.int64)
+        if existing:
+            t0 = time.perf_counter()
+            placed = solver._pack_existing(classes, existing, SchedulingResult())
+            t["pack_existing"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        entry = solver._catalog(items)
+        class_set = solver._encode(pool, entry, classes, placed)
+        inp = ffd.make_inputs_staged(entry.staged, class_set, packed_masks=True)
+        torch.cuda.synchronize()
+        t["encode"] = (time.perf_counter() - t0) * 1e3
+        nnz = ffd.nnz_budget(class_set.c_pad, G_MAX)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        buf = ffd.ffd_solve_fused(inp, g_max=G_MAX, nnz_max=nnz, word_offsets=entry.offsets,
+                                  words=entry.words, objective="price")
+        ev1.record()
+        host = ffd.fetch_fused(buf)
+        t["solve_and_fetch"] = (time.perf_counter() - t0) * 1e3
+        t["solve_device"] = ev0.elapsed_time(ev1)
+        t0 = time.perf_counter()
+        dense = ffd.expand_fused(host, class_set.c_pad, G_MAX, entry.tensors.k_pad,
+                                 encode.Z_PAD, encode.CT, nnz)
+        if dense is None:
+            dense = ffd.solve_dense_tuple(inp, g_max=G_MAX, word_offsets=entry.offsets,
+                                          words=entry.words, objective="price")
+        solver._decode(pool, entry, class_set, dense, None, result=SchedulingResult(),
+                       class_offset=placed)
+        t["decode"] = (time.perf_counter() - t0) * 1e3
+        return t
+
+    def median_stages(pods, existing, reps=3) -> dict:
+        runs = [stages(pods, existing) for _ in range(reps)]
+        return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+    stages1 = median_stages(pods1, ())
+    stages2 = median_stages(pods2, nodes)
+
+    # bounds from this run's shapes: bytes each input read once and each
+    # output written once; operations the function cannot skip -- kernel A's
+    # price envelope over every (class, type) and the survivor-word join of
+    # every open group at every step; kernel B's fit over every (set, class,
+    # node, axis)
+    outs_a = ka.fused_scan(*ops_a, g_max=G_MAX, objective="price")
+    take = outs_a[0].cpu().numpy()
+    # groups open after step c: every opened group takes a pod when it opens
+    last = np.where((take > 0).any(axis=1), take.shape[1] - np.argmax((take > 0)[:, ::-1], axis=1), 0)
+    open_before = np.concatenate([[0], np.maximum.accumulate(last)[:-1]])
+    C, K = ops_a[0].shape[0], ops_a[9].shape[0]
+    ops_count_a = C * K * 6 + int(open_before.sum()) * (K // 32)
+    bound_a, by_a = bound(nbytes(ops_a) + nbytes(outs_a), ops_count_a)
+    outs_b = kb.disrupt_repack(*ops_b)
+    S, N = ops_b[4].shape
+    Cb, R = ops_b[2].shape
+    bound_b, by_b = bound(nbytes(ops_b) + nbytes(outs_b), S * Cb * N * (3 * R + 4))
+    torch.cuda.synchronize()
+    emit({"phase": "times", "ffd_scan": {"ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
+                                          "bound_by": by_a, "shape": {"C": C, "G": G_MAX, "K": K}},
+          "disrupt_repack": {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b,
+                             "bound_by": by_b, "shape": {"S": S, "C": Cb, "N": N}},
+          "tick1_wall_ms": {"first": wall1_cold, "first_timed": tick1_first, "median": tick1_ms},
+          "tick2_wall_ms": {"first": wall2_cold, "first_timed": tick2_first, "median": tick2_ms},
+          "tick1_stages_ms": stages1, "tick2_stages_ms": stages2,
+          "peak_device_bytes_main_path": peak_bytes, **tag})
+
+    kernels = [
+        {"name": "ffd_scan", "route": "cuda", "source": "karpenter_tpu_torch/csrc/ffd_scan.cu",
+         "replaces": "karpenter_tpu/solver/kernels/ffd_pallas.py:70",
+         "launches": launches1["ffd_scan"] + launches2["ffd_scan"], "max_abs_err": err_a,
+         "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a, "bound_by": by_a,
+         "library_ms": None},
+        {"name": "disrupt_repack", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/disrupt_repack.cu",
+         "replaces": "karpenter_tpu/solver/kernels/disrupt_pallas.py:38",
+         "launches": launches1["disrupt_repack"] + launches2["disrupt_repack"],
+         "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b,
+         "bound_by": by_b, "library_ms": None},
+    ]
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": card, "count": count}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

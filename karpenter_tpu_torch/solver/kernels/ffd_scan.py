@@ -1,0 +1,254 @@
+"""Kernel A: the fused FFD scan (csrc/ffd_scan.cu) and its plain version.
+
+Replaces karpenter_tpu/solver/kernels/ffd_pallas.py `_fused_scan`. The
+batch prologue (compat, fresh fits, price tables) and the epilogue
+(sparse take, fused buffer) stay torch code in solver/ffd.py; this module
+is the sequential scan only, with the outputs already in the compact
+decision's packed forms.
+
+`fused_scan` takes tensors on one device. On the CPU it runs
+`fused_scan_reference`; on a CUDA device it launches the kernel or
+raises. `fused_scan_reference` is the same scan in torch ops, float32 in
+the reference's op order, with packed words in int32 lanes; the CPU tests
+hold it against the JAX package, and chip_smoke.py holds the kernel
+against it on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from karpenter_tpu_torch.solver import packing
+from karpenter_tpu_torch.solver.kernels import build
+
+# launches of the CUDA kernel by this process (a plain count: chip_smoke.py
+# zeroes it before the main path and reads it after)
+launches = 0
+
+SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
+_CT_SHIFT = 8
+_ZONE_BITS = (1 << _CT_SHIFT) - 1
+
+ScanOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def smem_bytes(g_max: int, k: int, r: int) -> int:
+    """Dynamic shared memory of one launch (the C entry's formula)."""
+    kw = k // 32
+    return 4 * (g_max * r + g_max * kw + 3 * g_max + k * r + 3 * k + 4 * kw + r + 3 * 32)
+
+
+def fused_scan(
+    req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, cap_eff, tzc,
+    *, g_max: int, objective: str,
+) -> ScanOutputs:
+    """(take [C, G] i32, unplaced [C] i32, n_open [] i32, gmask_bits
+    [G, KW] i32 lanes, gzc [G] i32 lanes).
+
+    req [C, R] f32; compat_w, fresh_w, hasres_w [C, KW] i32 lanes;
+    n_fresh, price [C, K] f32; count, env [C] i32; azc [C] i32 lanes;
+    cap_eff [K, R] f32; tzc [K] i32 lanes."""
+    args = (req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, cap_eff, tzc)
+    devices = {t.device for t in args}
+    if len(devices) != 1:
+        raise ValueError(f"fused_scan: inputs on several devices {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return fused_scan_reference(*args, g_max=g_max, objective=objective)
+    if device.type != "cuda":
+        raise ValueError(f"fused_scan: no kernel for device {device}")
+    return _launch(*args, g_max=g_max, objective=objective)
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"fused_scan: {name} is {t.dtype}, kernel takes {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"fused_scan: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"fused_scan: {name} is not contiguous")
+
+
+def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, cap_eff, tzc,
+            *, g_max: int, objective: str) -> ScanOutputs:
+    global launches
+    C, R = req.shape
+    K = cap_eff.shape[0]
+    if K % 32:
+        raise ValueError(f"fused_scan: the kernel needs K % 32 == 0, got {K}")
+    if C < 1 or g_max < 1:
+        raise ValueError(f"fused_scan: empty scan (C={C}, g_max={g_max})")
+    if objective not in ("price", "fit"):
+        raise ValueError(f"fused_scan: unknown objective {objective!r}")
+    KW = K // 32
+    smem = smem_bytes(g_max, K, R)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"fused_scan: carry of G={g_max}, K={K}, R={R} needs {smem} bytes of shared "
+            f"memory, over the {SMEM_LIMIT} one block may use")
+    for name, t, dtype, shape in (
+        ("req", req, torch.float32, (C, R)),
+        ("compat_w", compat_w, torch.int32, (C, KW)),
+        ("fresh_w", fresh_w, torch.int32, (C, KW)),
+        ("hasres_w", hasres_w, torch.int32, (C, KW)),
+        ("n_fresh", n_fresh, torch.float32, (C, K)),
+        ("price", price, torch.float32, (C, K)),
+        ("count", count, torch.int32, (C,)),
+        ("env", env, torch.int32, (C,)),
+        ("azc", azc, torch.int32, (C,)),
+        ("cap_eff", cap_eff, torch.float32, (K, R)),
+        ("tzc", tzc, torch.int32, (K,)),
+    ):
+        _check(name, t, dtype, shape)
+    dev = req.device
+    take = torch.empty((C, g_max), dtype=torch.int32, device=dev)
+    unplaced = torch.empty((C,), dtype=torch.int32, device=dev)
+    gmask_bits = torch.empty((g_max, KW), dtype=torch.int32, device=dev)
+    gzc = torch.empty((g_max,), dtype=torch.int32, device=dev)
+    n_open = torch.empty((1,), dtype=torch.int32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ffd_scan_launch(
+            req.data_ptr(), compat_w.data_ptr(), fresh_w.data_ptr(), hasres_w.data_ptr(),
+            n_fresh.data_ptr(), price.data_ptr(), count.data_ptr(), env.data_ptr(),
+            azc.data_ptr(), cap_eff.data_ptr(), tzc.data_ptr(),
+            take.data_ptr(), unplaced.data_ptr(), gmask_bits.data_ptr(), gzc.data_ptr(),
+            n_open.data_ptr(), C, g_max, K, R, int(objective == "price"), stream,
+        )
+    build.check(err, "ffd_scan")
+    launches += 1
+    return take, unplaced, n_open[0], gmask_bits, gzc
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.library("ffd_scan")
+    if lib.ffd_scan_launch.argtypes is None:   # declare once: ctypes defaults to 32-bit ints
+        p = ctypes.c_void_p
+        lib.ffd_scan_launch.argtypes = [p] * 16 + [ctypes.c_int] * 5 + [p]
+        lib.ffd_scan_launch.restype = ctypes.c_int
+    return lib
+
+
+# -- the plain version --------------------------------------------------------
+
+
+def f2i(x: torch.Tensor) -> torch.Tensor:
+    """float -> int32 as XLA and the GPU convert: truncate toward zero,
+    saturate at the int32 range, NaN -> 0 (a bare .to(int32) leaves
+    out-of-range values undefined)."""
+    x = torch.nan_to_num(x.to(torch.float64), nan=0.0)
+    return x.clamp(-(2**31), 2**31 - 1).to(torch.int32)
+
+
+def joint_ok(x: torch.Tensor) -> torch.Tensor:
+    """Both the zone and the captype sub-bitsets intersect."""
+    return ((x & _ZONE_BITS) != 0) & ((x >> _CT_SHIFT) != 0)
+
+
+def fit_counts(cap: torch.Tensor, accum: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
+    """[G, K] pods of `req` that fit in cap[k] - accum[g]; axes with
+    req == 0 are unconstrained (ffd._fit_counts, R-unrolled)."""
+    n = None
+    for r in range(cap.shape[1]):
+        pos = req[r] > 0.0
+        d = torch.where(pos, req[r], 1.0)
+        axis_n = torch.where(
+            pos, torch.floor((cap[None, :, r] - accum[:, r, None]) / d), torch.inf)
+        n = axis_n if n is None else torch.minimum(n, axis_n)
+    return torch.clamp_min(n, 0.0)
+
+
+def fused_scan_reference(
+    req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, cap_eff, tzc,
+    *, g_max: int, objective: str,
+) -> ScanOutputs:
+    """The scan of ffd._ffd_body (JAX package) in torch ops, on any
+    device, with no host synchronisation inside."""
+    C, R = req.shape
+    K = cap_eff.shape[0]
+    G = g_max
+    dev = req.device
+    compat = packing.unpack_rows(compat_w, K)
+    fresh = packing.unpack_rows(fresh_w, K)
+    has_res = packing.unpack_rows(hasres_w, K)
+    slot = torch.arange(G, dtype=torch.int32, device=dev)
+    accum = torch.zeros((G, R), dtype=torch.float32, device=dev)
+    gmask = torch.zeros((G, K), dtype=torch.bool, device=dev)
+    gzc = torch.zeros((G,), dtype=torch.int32, device=dev)
+    n_open = torch.zeros((), dtype=torch.int32, device=dev)
+    takes, unplaced = [], []
+    for c in range(C):
+        req_c, count_c, env_c, azc_c = req[c], count[c], env[c], azc[c]
+        fresh_row, n_fresh_row, price_row = fresh[c], n_fresh[c], price[c]
+
+        gzc_new = gzc & azc_c
+        m = gmask & compat[c][None, :] & joint_ok(gzc_new[:, None] & tzc[None, :])
+        n_fit = fit_counts(cap_eff, accum, req_c)
+        n_grp = torch.where(m, n_fit, 0.0).amax(dim=-1)
+        n_grp = f2i(torch.where(slot < n_open, n_grp, 0.0))
+
+        cum_before = torch.cumsum(n_grp, 0, dtype=torch.int32) - n_grp
+        take = torch.minimum(torch.clamp_min(count_c - cum_before, 0), n_grp)
+        leftover = count_c - take.sum(dtype=torch.int32)
+
+        max_fit_f = torch.where(fresh_row, n_fresh_row, 0.0).amax()
+        per_new_fit = f2i(max_fit_f)
+        if objective == "price":
+            env_n = torch.where(env_c > 0, env_c, torch.clamp_min(leftover + (-env_c - 1), 1))
+            envf = env_n.to(torch.float32)
+            ngroups = torch.ceil(envf / torch.clamp_min(n_fresh_row, 1.0))
+            need = torch.minimum(max_fit_f, envf)
+            eligible = (
+                fresh_row
+                & (n_fresh_row >= 1.0)
+                & ((2.0 * torch.minimum(n_fresh_row, envf) >= need) | has_res[c])
+            )
+            total_cost = torch.where(eligible, price_row * ngroups, torch.inf)
+            kstar = torch.argmin(total_cost)
+            ok = torch.isfinite(total_cost[kstar])
+            per_new_price = f2i(torch.where(ok, n_fresh_row[kstar], 0.0))
+            p_star = price_row[kstar]
+            price_mask = (
+                fresh_row
+                & (n_fresh_row >= per_new_price.to(torch.float32))
+                & (price_row <= p_star)
+                & ok
+            )
+            use_fit = env_c == 0
+            per_new = torch.where(use_fit, per_new_fit, per_new_price)
+            open_mask = torch.where(use_fit, fresh_row, price_mask)
+        else:
+            per_new = per_new_fit
+            open_mask = fresh_row
+
+        can_open = (leftover > 0) & (per_new > 0)
+        per_new64 = per_new.to(torch.int64)
+        ceil_div = (leftover.to(torch.int64) + per_new64 - 1) // torch.clamp_min(per_new64, 1)
+        n_new = torch.where(can_open, ceil_div, 0)
+        n_new = torch.minimum(n_new, (G - n_open).to(torch.int64)).to(torch.int32)
+        is_new = (slot >= n_open) & (slot < n_open + n_new)
+        ordinal = (slot - n_open).to(torch.int64)
+        rest = leftover.to(torch.int64) - ordinal * per_new64
+        take_new = torch.where(
+            is_new, torch.minimum(torch.clamp_min(rest, 0), per_new64), 0).to(torch.int32)
+
+        take_all = take + take_new
+        unplaced.append(count_c - take_all.sum(dtype=torch.int32))
+
+        takef = take_all.to(torch.float32)
+        accum = accum + takef[:, None] * req_c[None, :]
+        touched = take > 0
+        gmask = torch.where(touched[:, None], m & (takef[:, None] <= n_fit), gmask)
+        gmask = torch.where(
+            is_new[:, None], open_mask[None, :] & (takef[:, None] <= n_fresh_row[None, :]), gmask)
+        gzc = torch.where(touched, gzc_new, gzc)
+        gzc = torch.where(is_new, azc_c, gzc)
+        n_open = n_open + n_new
+        takes.append(take_all)
+    return (
+        torch.stack(takes), torch.stack(unplaced), n_open,
+        packing.pack_rows(gmask), gzc,
+    )

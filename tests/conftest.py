@@ -78,6 +78,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running schedules (full chaos soak); deselected by tier-1's -m 'not slow'",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); skips without a card",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,138 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked `cuda`: every test takes the `cuda` fixture, which skips when no
+CUDA device is present (the decision is made in the fixture, never at
+import, so every worker collects the same tests). The file imports
+nothing of JAX, so it runs on a machine that has only the port:
+
+    python -m pytest --noconftest -o markers=cuda -m cuda tests/test_torch_cuda.py -q
+
+Tolerance: exact equality. Inputs are small exact integers in float32 and
+both versions take the same float operations in the same order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from karpenter_tpu_torch import workload
+from karpenter_tpu_torch.apis import NodePool
+from karpenter_tpu_torch.solver import encode, ffd
+from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
+from karpenter_tpu_torch.solver.kernels import disrupt_repack as repack
+from karpenter_tpu_torch.solver.kernels import ffd_scan
+from karpenter_tpu_torch.solver.service import TorchSolver
+
+# small tensors: one intra-op thread per test worker (several workers share the cores)
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def items():
+    return workload.build_catalog_items()
+
+
+def scan_inputs(items, device, n_pods, seed, packed=True, price_scale=None):
+    pods = workload.synth_pods(np.random.default_rng(seed), workload.ZONES, n_pods, salt=seed)
+    classes = encode.group_pods(pods, extra_requirements=NodePool("default").requirements())
+    catalog = encode.encode_catalog(items)
+    if price_scale is not None:
+        catalog.price = np.where(np.isfinite(catalog.price), np.float32(price_scale), catalog.price)
+    cs = encode.encode_classes(classes, catalog, c_pad=encode.bucket(len(classes), 16))
+    staged, offsets, words = ffd.stage_catalog(catalog, device)
+    return ffd.make_inputs_staged(staged, cs, packed_masks=packed), offsets, words
+
+
+def assert_scan_equal(ops, g_max, objective):
+    before = ffd_scan.launches
+    got = ffd_scan.fused_scan(*ops, g_max=g_max, objective=objective)
+    torch.cuda.synchronize()
+    assert ffd_scan.launches == before + 1
+    want = ffd_scan.fused_scan_reference(*ops, g_max=g_max, objective=objective)
+    for name, a, b in zip(("take", "unplaced", "n_open", "gmask_bits", "gzc"), got, want):
+        assert torch.equal(a.cpu(), b.cpu()), name
+    return got
+
+
+class TestFusedScanKernel:
+    @pytest.mark.parametrize("objective", ["price", "fit"])
+    @pytest.mark.parametrize("packed", [True, False])
+    def test_matches_plain_version(self, cuda, items, packed, objective):
+        inp, offsets, words = scan_inputs(items, cuda, 8_000, seed=1, packed=packed)
+        ops = ffd.scan_operands(inp, offsets, words, objective)
+        got = assert_scan_equal(ops, 256, objective)
+        assert int(got[2]) > 0
+
+    def test_main_path_shape(self, cuda, items):
+        inp, offsets, words = scan_inputs(items, cuda, 50_000, seed=2)
+        ops = ffd.scan_operands(inp, offsets, words, "price")
+        # 50k pods of 160 templates collapse to ~62 classes (c_pad 64)
+        assert ops[0].shape[0] >= 64 and tuple(ops[4].shape[1:]) == (640,)
+        assert_scan_equal(ops, 1024, "price")
+
+    def test_tied_prices(self, cuda, items):
+        inp, offsets, words = scan_inputs(items, cuda, 4_000, seed=3, price_scale=1.0)
+        assert_scan_equal(ffd.scan_operands(inp, offsets, words, "price"), 128, "price")
+
+    def test_slot_exhaustion(self, cuda, items):
+        inp, offsets, words = scan_inputs(items, cuda, 4_000, seed=4)
+        got = assert_scan_equal(ffd.scan_operands(inp, offsets, words, "price"), 8, "price")
+        assert int(got[2]) == 8 and int(got[1].sum()) > 0
+
+
+class TestRepackKernel:
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_many_sets_match_plain_version(self, cuda, seed):
+        rng = np.random.default_rng(seed)
+        s_, c_, n_, r_ = 64, 48, 200, 9
+        world = (
+            rng.integers(0, 64, (n_, r_)).astype(np.float32), rng.random((c_, n_)) < 0.7,
+            rng.integers(0, 5, (c_, r_)).astype(np.float32), rng.integers(0, 40, (s_, c_)),
+            rng.random((s_, n_)) < 0.2,
+        )
+        ops = disrupt_kernel.repack_from_numpy(*world, cuda)
+        before = repack.launches
+        got = repack.disrupt_repack(*ops)
+        torch.cuda.synchronize()
+        assert repack.launches == before + 1
+        want = repack.repack_reference(*ops)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu())
+
+    def test_exact_quotient(self, cuda):
+        ops = disrupt_kernel.repack_from_numpy(
+            np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
+            np.array([[5]]), np.zeros((1, 2), bool), cuda)
+        left, takes = repack.disrupt_repack(*ops)
+        assert takes.cpu().tolist() == [[[2, 2]]] and left.cpu().tolist() == [[1]]
+
+
+class TestSolverOnTheCard:
+    def test_two_ticks_match_the_cpu(self, cuda, items):
+        pool = NodePool("default")
+        gpu, cpu = TorchSolver(g_max=128), TorchSolver(device="cpu", g_max=128)
+        assert gpu.device.type == "cuda"
+        pods1 = workload.synth_pods(np.random.default_rng(5), workload.ZONES, 3_000, 5, 40)
+        a1, b1 = gpu.solve(pool, items, pods1), cpu.solve(pool, items, pods1)
+        nodes = workload.nodes_from_result(b1)
+        for n in nodes[:20]:
+            n.used = n.used * 0.5
+        pods2 = workload.synth_pods(np.random.default_rng(6), workload.ZONES, 800, 6, 40)
+        a2 = gpu.solve(pool, items, pods2, existing_nodes=nodes)
+        b2 = cpu.solve(pool, items, pods2, existing_nodes=nodes)
+        for a, b in ((a1, b1), (a2, b2)):
+            assert sorted((tuple(p.metadata.name for p in g.pods), g.instance_types[0].name)
+                          for g in a.new_groups) == \
+                sorted((tuple(p.metadata.name for p in g.pods), g.instance_types[0].name)
+                       for g in b.new_groups)
+            assert a.existing_assignments == b.existing_assignments
+            assert a.unschedulable == b.unschedulable
+        assert a2.existing_assignments

@@ -1,0 +1,118 @@
+"""The port stands alone and never falls back.
+
+- no module of karpenter_tpu_torch/, and not chip_smoke.py, imports jax or
+  anything of karpenter_tpu (an AST scan);
+- a solve in a fresh interpreter leaves both out of sys.modules;
+- without CUDA, TorchSolver() raises instead of moving to the CPU, and
+  chip_smoke.py exits non-zero without printing a result;
+- a kernel wrapper given a tensor that is neither on the CPU nor on a
+  CUDA device raises.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  -- both frameworks in one process
+import pytest
+import torch
+
+from karpenter_tpu_torch.solver import service
+from karpenter_tpu_torch.solver.kernels import build, disrupt_repack, ffd_scan
+
+# small tensors: one intra-op thread per test worker (several workers share the cores)
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "karpenter_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    return root in ("jax", "jaxlib", "karpenter_tpu")
+
+
+class TestNoJaxImports:
+    def test_scan_covers_the_package(self):
+        names = {p.name for p in PORT_FILES}
+        assert {"ffd.py", "service.py", "ffd_scan.py", "disrupt_repack.py", "chip_smoke.py"} <= names
+
+    @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+    def test_no_forbidden_import(self, path):
+        bad = sorted(m for m in imported_modules(path) if forbidden(m))
+        assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+    def test_solve_in_fresh_interpreter_loads_neither(self):
+        code = (
+            "import sys\n"
+            "import numpy as np\n"
+            "from karpenter_tpu_torch import workload\n"
+            "from karpenter_tpu_torch.apis import NodePool\n"
+            "from karpenter_tpu_torch.solver.service import TorchSolver\n"
+            "items = workload.build_catalog_items()\n"
+            "pods = workload.synth_pods(np.random.default_rng(0), workload.ZONES, 200, 0, 8)\n"
+            "r = TorchSolver(device='cpu', g_max=32).solve(NodePool('default'), items, pods)\n"
+            "assert r.new_groups\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
+            "print('LOADED', bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert r.returncode == 0, r.stdout + r.stderr
+
+
+class TestNoFallback:
+    def test_solver_without_cuda_raises(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            service.TorchSolver()
+        assert service.TorchSolver(device="cpu").device.type == "cpu"
+
+    def test_chip_smoke_fails_without_a_card(self):
+        r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=str(REPO),
+                           capture_output=True, text=True, timeout=240,
+                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
+
+    def test_wrappers_refuse_other_devices(self):
+        meta = torch.empty((2, 9), device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            disrupt_repack.disrupt_repack(
+                torch.empty((4, 9), device="meta"), torch.empty((2, 4), dtype=torch.bool, device="meta"),
+                meta, torch.empty((1, 2), dtype=torch.int32, device="meta"),
+                torch.empty((1, 4), dtype=torch.bool, device="meta"))
+        with pytest.raises(ValueError, match="several devices"):
+            disrupt_repack.disrupt_repack(
+                torch.zeros((4, 9)), torch.zeros((2, 4), dtype=torch.bool), meta,
+                torch.zeros((1, 2), dtype=torch.int32), torch.zeros((1, 4), dtype=torch.bool))
+
+    def test_scan_smem_guard(self):
+        # G=1024, K=640, R=9 is the slice's shape and fits one block
+        assert ffd_scan.smem_bytes(1024, 640, 9) <= ffd_scan.SMEM_LIMIT
+        assert ffd_scan.smem_bytes(2048, 2048, 9) > ffd_scan.SMEM_LIMIT
+
+    def test_build_needs_nvcc(self, monkeypatch):
+        monkeypatch.setattr(build.shutil, "which", lambda name: None)
+        monkeypatch.setattr(build.os.path, "exists", lambda p: False)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            build.nvcc_path()
+
+    def test_library_names_follow_the_sources(self):
+        a = build._library_path("ffd_scan")
+        assert a == build._library_path("ffd_scan")
+        assert a.parent == build.BUILD_DIR and a.name.startswith("ffd_scan-")
+        assert a != build._library_path("disrupt_repack")
