@@ -16,14 +16,21 @@ tick 1 (kernel B, one candidate set) and then opened for the rest
   main     the two ticks with every launch count set to 0 before a tick
            and read after it; every pod must be placed exactly once
   kernels  each kernel against its plain torch version on the card, on
-           the main path's own inputs and on pinned edge cases (tied
-           prices, exact quotients; kernel B also at 64 candidate sets);
+           the main path's own inputs (tick 1's scan; tick 2's scan, whose
+           C=128 holds 63 padded rows; tick 2's repack) and on pinned edge
+           cases: tied prices, exact quotients, slot exhaustion, padded or
+           infeasible rows between real classes, a count-0 class that open
+           groups could join, all-zero-request classes whose int32 prefix
+           sums wrap, a C=256 world, kernel B at 64 candidate sets, and the
+           layouts each kernel falls back to when shared memory is short;
            equality is exact
   plain    the same two ticks with both kernels swapped for their plain
            versions: the decisions must be identical
-  times    CUDA-event medians of each kernel and its plain version at the
-           main-path shapes, tick walls and their stages, peak device
-           memory, bounds
+  times    each kernel and its plain version at the main-path shapes
+           (kernel A at tick 1 and tick 2), kernel A over G in {64, 256,
+           1024} on tick 1's operands and on the C=256 world, each with
+           its bound; kernel times are CUDA events around 10 back-to-back
+           calls; tick walls and their stages, peak device memory
 
 Then the nvidia-smi line, the kernels line and, last, the result line.
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -64,8 +71,11 @@ def nvidia_smi() -> str:
     return out[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() from CUDA events around each call."""
+def cuda_ms(fn, reps: int, warmup: int = 2, batch: int = 10) -> float:
+    """Median over `reps` of the mean milliseconds of `batch` back-to-back
+    calls between two CUDA events: the card stays busy, so the host's
+    enqueue of each call hides behind the kernels (a single call between
+    two events on an idle card also times the host's enqueue)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -74,10 +84,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -107,6 +118,58 @@ def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- edge cases built from real operands (also used by tests/test_torch_cuda.py) --
+
+
+def scan_rows(ops, idx):
+    """Kernel A's operands with the per-class rows `idx` (repeats allowed)."""
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=ops[0].device)
+    return tuple(t.index_select(0, idx).contiguous() if i < 9 else t for i, t in enumerate(ops))
+
+
+def real_classes(ops) -> list:
+    """Rows whose compat or fresh words are not all zero (the others are
+    no-op steps of kernel A)."""
+    return torch.nonzero((ops[1] != 0).any(1) | (ops[2] != 0).any(1)).flatten().tolist()
+
+
+def pad_scan_between(ops, pad_count=3):
+    """Two padding rows (as the prologue encodes them) after every real
+    class, C rounded up to a multiple of 32; every other padding row
+    carries `pad_count` pods, which must come back as unplaced."""
+    C = ops[0].shape[0]
+    pad = [torch.zeros_like(t[:1]) for t in ops[:9]]
+    pad[5] = torch.full_like(ops[5][:1], float("inf"))   # no admitted offering
+    pad[7] = torch.full_like(ops[7][:1], -1)             # plain leftover envelope
+    ops = tuple(torch.cat([t, p]) for t, p in zip(ops[:9], pad)) + tuple(ops[9:])
+    idx = [i for c in real_classes(ops) for i in (c, C, C)]
+    idx += [C] * (-len(idx) % 32)
+    out = scan_rows(ops, idx)
+    out[6][2::6] = pad_count
+    return out
+
+
+def zero_request(ops, c, count=None):
+    """Class c requests nothing: every open group it joins fits INT32_MAX
+    of its pods, so the prefix sum over the groups wraps."""
+    ops = scan_rows(ops, range(ops[0].shape[0]))
+    ops[0][c] = 0.0
+    ops[4][c] = float("inf")    # the prologue's fresh fit of an empty request
+    if count is not None:
+        ops[6][c] = count
+    return ops
+
+
+def gap_repack(ops, seed=0):
+    """Kernel B's operands with every third class infeasible everywhere
+    but still carrying pods."""
+    headroom0, feas, req, member, excl = (t.clone() for t in ops)
+    feas[1::3] = False
+    g = torch.Generator().manual_seed(seed)
+    member.copy_(torch.randint(1, 40, tuple(member.shape), generator=g, dtype=torch.int32))
+    return headroom0, feas, req, member, excl
 
 
 def main() -> int:
@@ -197,14 +260,29 @@ def main() -> int:
 
     ops_a = scan_ops(cs1, "price", True)
     ops_b = solver._repack_operands(classes2, nodes)
+    # tick 2's scan operands: counts net of the pre-pass (a kernel B launch
+    # outside the counted main path), C bucketed to 128 with 63 padded rows
+    placed2 = solver._pack_existing(classes2, nodes, SchedulingResult())
+    ops_a2 = scan_ops(solver._encode(pool, entry, classes2, placed2), "price", True)
+    # a C=256 class set: the same generator with 4,000 templates
+    pods3 = workload.synth_pods(np.random.default_rng(SEED + 2), workload.ZONES, N_PODS, salt=3,
+                                templates=4000)
+    classes3 = encode.group_pods(pods3, extra_requirements=pool.requirements())
+    ops_a3 = scan_ops(solver._encode(pool, entry, classes3, np.zeros(len(classes3), dtype=np.int64)),
+                      "price", True)
 
     # -- kernels against their plain versions -----------------------------------
     checks = []
     err_a = err_b = 0.0
 
-    def check_scan(label, ops, objective, g_max=G_MAX):
+    def check_scan(label, ops, objective, g_max=G_MAX, lean=False):
+        """Kernel A against its plain version; `lean` runs the layout the
+        kernel takes when the resident one does not fit."""
         nonlocal err_a
-        got = ka.fused_scan(*ops, g_max=g_max, objective=objective)
+        if lean:
+            got = ka._launch(*ops, g_max=g_max, objective=objective, resident=False)
+        else:
+            got = ka.fused_scan(*ops, g_max=g_max, objective=objective)
         want = ka.fused_scan_reference(*ops, g_max=g_max, objective=objective)
         torch.cuda.synchronize()
         err = max_abs_diff(got, want)
@@ -213,10 +291,13 @@ def main() -> int:
         checks.append({"kernel": "ffd_scan", "case": label, "equal": same, "max_abs_err": err})
         if not same:
             raise AssertionError(f"kernel A differs from its plain version: {label}")
+        return want
 
-    def check_repack(label, ops):
+    def check_repack(label, ops, scratch=False):
+        """Kernel B against its plain version; `scratch` runs the layout
+        with the headroom in device memory."""
         nonlocal err_b
-        got = kb.disrupt_repack(*ops)
+        got = kb._launch(*ops, resident=False) if scratch else kb.disrupt_repack(*ops)
         want = kb.repack_reference(*ops)
         torch.cuda.synchronize()
         err = max_abs_diff(got, want)
@@ -225,6 +306,7 @@ def main() -> int:
         checks.append({"kernel": "disrupt_repack", "case": label, "equal": same, "max_abs_err": err})
         if not same:
             raise AssertionError(f"kernel B differs from its plain version: {label}")
+        return want
 
     @contextlib.contextmanager
     def plain_kernels():
@@ -267,8 +349,29 @@ def main() -> int:
     staged_exact, _, _ = ffd.stage_catalog(exact, dev)
     check_scan("exact quotients", scan_ops(cs1, "price", True, staged_exact), "price")
     check_scan("slot exhaustion g_max=64", ops_a, "price", g_max=64)
+    check_scan("tick2 scan (63 padded rows)", ops_a2, "price")
+    real1 = real_classes(ops_a)
+    zeroed = scan_rows(ops_a2, range(ops_a2[0].shape[0]))
+    zeroed[6][real_classes(ops_a2)[-1]] = 0
+    check_scan("tick2 scan, a count-0 class open groups could join", zeroed, "price")
+    check_scan("padded rows between real classes", pad_scan_between(ops_a), "price")
+    for c, n in ((real1[-1], None), (real1[-1], 0), (real1[len(real1) // 3], None)):
+        want = check_scan(f"zero-request class {c} count {n}: the prefix sum wraps",
+                          zero_request(ops_a, c, n), "price")
+        if int(want[1][c]) >= 0:
+            raise AssertionError("the zero-request case did not wrap the prefix sum")
+    check_scan("C=256 world", ops_a3, "price")
+    check_scan("lean layout tick1", ops_a, "price", lean=True)
+    check_scan("lean layout tick2", ops_a2, "price", lean=True)
 
     check_repack("tick2 pre-pass S=1", ops_b)
+    check_repack("tick2 pre-pass, infeasible rows between real classes S=1", gap_repack(ops_b))
+    check_repack("tick2 pre-pass, scratch layout", ops_b, scratch=True)
+    zr = tuple(t.clone() for t in ops_b)
+    zr[2][3] = 0.0
+    zr[1][3] = True
+    if int(check_repack("zero-request class: the prefix sum wraps", zr)[0][0, 3]) >= 0:
+        raise AssertionError("the zero-request repack case did not wrap the prefix sum")
     rng = np.random.default_rng(SEED)
     from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
     for s in range(2):
@@ -278,7 +381,9 @@ def main() -> int:
             rng.integers(0, 5, (c_, encode.R)).astype(np.float32),
             rng.integers(0, 40, (s_, c_)), rng.random((s_, n_)) < 0.2,
         )
-        check_repack(f"random world S=64 seed {s}", disrupt_kernel.repack_from_numpy(*world, dev))
+        ops = disrupt_kernel.repack_from_numpy(*world, dev)
+        check_repack(f"random world S=64 seed {s}", ops)
+        check_repack(f"random world S=64 seed {s}, infeasible rows between", gap_repack(ops, s))
     check_repack("exact quotient 6/3", disrupt_kernel.repack_from_numpy(
         np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
         np.array([[5]]), np.zeros((1, 2), bool), dev))
@@ -303,11 +408,17 @@ def main() -> int:
         raise AssertionError("the main path's decisions differ from the plain versions'")
 
     # -- times ----------------------------------------------------------------------
-    ms_a = cuda_ms(lambda: ka.fused_scan(*ops_a, g_max=G_MAX, objective="price"), reps=20)
-    plain_a = cuda_ms(lambda: ka.fused_scan_reference(*ops_a, g_max=G_MAX, objective="price"),
-                      reps=3, warmup=1)
+    def scan_ms(ops, g_max=G_MAX):
+        return cuda_ms(lambda: ka.fused_scan(*ops, g_max=g_max, objective="price"), reps=20)
+
+    def scan_plain_ms(ops):
+        return cuda_ms(lambda: ka.fused_scan_reference(*ops, g_max=G_MAX, objective="price"),
+                       reps=3, warmup=1, batch=1)
+
+    ms_a, ms_a2 = scan_ms(ops_a), scan_ms(ops_a2)
+    plain_a, plain_a2 = scan_plain_ms(ops_a), scan_plain_ms(ops_a2)
     ms_b = cuda_ms(lambda: kb.disrupt_repack(*ops_b), reps=50)
-    plain_b = cuda_ms(lambda: kb.repack_reference(*ops_b), reps=5, warmup=1)
+    plain_b = cuda_ms(lambda: kb.repack_reference(*ops_b), reps=5, warmup=1, batch=1)
     tick1_first, tick1_ms = wall_ms(lambda: solver.solve(pool, items, pods1), reps=5)
     tick2_first, tick2_ms = wall_ms(
         lambda: solver.solve(pool, items, pods2, existing_nodes=nodes), reps=5)
@@ -360,26 +471,45 @@ def main() -> int:
     stages1 = median_stages(pods1, ())
     stages2 = median_stages(pods2, nodes)
 
-    # bounds from this run's shapes: bytes each input read once and each
+    # bounds from this run's inputs: bytes each input read once and each
     # output written once; operations the function cannot skip -- kernel A's
-    # price envelope over every (class, type) and the survivor-word join of
-    # every open group at every step; kernel B's fit over every (set, class,
-    # node, axis)
-    outs_a = ka.fused_scan(*ops_a, g_max=G_MAX, objective="price")
-    take = outs_a[0].cpu().numpy()
-    # groups open after step c: every opened group takes a pod when it opens
-    last = np.where((take > 0).any(axis=1), take.shape[1] - np.argmax((take > 0)[:, ::-1], axis=1), 0)
-    open_before = np.concatenate([[0], np.maximum.accumulate(last)[:-1]])
+    # price envelope over every (real class, type) and the survivor-word
+    # join of every open group at each real class's step; kernel B's fit
+    # over every (set, class, node, axis)
+    def scan_bound(ops, g_max=G_MAX):
+        outs = ka.fused_scan(*ops, g_max=g_max, objective="price")
+        take = outs[0].cpu().numpy()
+        # groups open after step c: every opened group takes a pod when it opens
+        last = np.where((take > 0).any(axis=1),
+                        take.shape[1] - np.argmax((take > 0)[:, ::-1], axis=1), 0)
+        open_before = np.concatenate([[0], np.maximum.accumulate(last)[:-1]])
+        real = real_classes(ops)
+        K = ops[9].shape[0]
+        n_ops = len(real) * K * 6 + int(open_before[real].sum()) * (K // 32)
+        return bound(nbytes(ops) + nbytes(outs), n_ops)
+
+    bound_a, by_a = scan_bound(ops_a)
+    bound_a2, by_a2 = scan_bound(ops_a2)
     C, K = ops_a[0].shape[0], ops_a[9].shape[0]
-    ops_count_a = C * K * 6 + int(open_before.sum()) * (K // 32)
-    bound_a, by_a = bound(nbytes(ops_a) + nbytes(outs_a), ops_count_a)
+    sweep = {}
+    for g in (64, 256, 1024):
+        b_ms, b_by = scan_bound(ops_a, g)
+        sweep[f"G={g}"] = {"ms": scan_ms(ops_a, g), "bound_ms": b_ms, "bound_by": b_by}
+    b_ms, b_by = scan_bound(ops_a3)
+    sweep["C=256 world"] = {"ms": scan_ms(ops_a3), "bound_ms": b_ms, "bound_by": b_by,
+                            "real_classes": len(real_classes(ops_a3))}
     outs_b = kb.disrupt_repack(*ops_b)
     S, N = ops_b[4].shape
     Cb, R = ops_b[2].shape
     bound_b, by_b = bound(nbytes(ops_b) + nbytes(outs_b), S * Cb * N * (3 * R + 4))
     torch.cuda.synchronize()
-    emit({"phase": "times", "ffd_scan": {"ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
-                                          "bound_by": by_a, "shape": {"C": C, "G": G_MAX, "K": K}},
+    emit({"phase": "times", "timing": "CUDA events around 10 back-to-back calls, median of 20",
+          "ffd_scan": {"ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
+                       "bound_by": by_a, "shape": {"C": C, "G": G_MAX, "K": K}},
+          "ffd_scan_tick2": {"ms": ms_a2, "plain_ms": plain_a2, "bound_ms": bound_a2,
+                             "bound_by": by_a2, "shape": {"C": ops_a2[0].shape[0], "G": G_MAX, "K": K},
+                             "real_classes": len(real_classes(ops_a2))},
+          "ffd_scan_sweep_tick1_operands": sweep,
           "disrupt_repack": {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b,
                              "bound_by": by_b, "shape": {"S": S, "C": Cb, "N": N}},
           "tick1_wall_ms": {"first": wall1_cold, "first_timed": tick1_first, "median": tick1_ms},

@@ -10,22 +10,43 @@
 // pods fit per group, floor((cap - accum) / req) over R, max over the
 // surviving types, (3) places pods first-fit by an exclusive prefix sum
 // over the groups, (4) sizes fresh groups by the price envelope (argmin of
-// the total class cost over K, first index wins) and (5) updates the carry.
-// Float operations are the reference's, in its order, rounded the same way:
-// IEEE division (never build with --use_fast_math), and -fmad=false so a
-// multiply and an add round separately.
+// the total class cost over K, first index wins, NaN first) and (5)
+// updates the carry. Float operations are the reference's, in its order,
+// rounded the same way: IEEE division (never build with --use_fast_math),
+// and -fmad=false so a multiply and an add round separately.
 //
-// What bounds it on an H100: latency. The C steps are sequential and each
-// step needs all G groups, so the scan cannot spread over the card's 132
-// SMs; the bytes it must move (about 2.4 MB at C=256, G=1024, K=640) take
-// under 1 us at 3.35 TB/s. Design: one thread block of 1024 threads runs
-// the whole scan on one SM with the carry resident in dynamic shared
-// memory (about 160 KB at G=1024, K=640), so the carry never leaves the
-// SM. Threads stride over groups; a group's survivor words are walked bit
-// by bit (__ffs), so only surviving types cost a division; block scans and
-// reductions separate the phases. The known limit is that one SM of 132
-// does the work: splitting G across a thread-block cluster is the next
-// redesign.
+// What bounds it on an H100: the latency of each class step. The C steps
+// are sequential and the work inside one is tiny (on the main path a group
+// holds at most 2 surviving types, so a step makes a few hundred fit
+// evaluations); the bytes it must move take under 1 us at 3.35 TB/s. So
+// the design cuts what a step waits on:
+//   - one thread block runs the whole scan with the carry resident in
+//     dynamic shared memory; thread t owns a contiguous run of groups for
+//     the whole launch, so the carry update needs no barrier;
+//   - a class whose compat and fresh rows are both empty is a no-op (no
+//     open group can take it and no fresh group can open), found for a
+//     chunk of classes at once; such a class only writes its zero take row
+//     and unplaced = count, and costs no step;
+//   - each group keeps a bitmap of its non-zero survivor words, so a step
+//     walks those words only;
+//   - the next real class's row (n_fresh, price, the three mask rows, req,
+//     count, env, azc) is copied into a second shared buffer with cp.async
+//     while the current step runs;
+//   - two barriers a step: the prefix sum's (which also carries the
+//     fresh-fit max and a wrap-around flag) and the envelope argmin's, and
+//     a third in a step that opens groups, after the new groups' masks are
+//     built once as words by warp ballots (every new group but the last
+//     takes per_new pods, so two masks serve them all). Each reduction is
+//     a warp REDUX, a slot per warp, one barrier, and a REDUX over the
+//     slots. The placed count is min(count, total) unless a group count
+//     could make the int32 prefix sum wrap (or count < 0); then the warp
+//     totals and the takes are summed exactly, behind more barriers;
+//   - R = 9 (the repo's request axes) is a template case, so a fit's
+//     axes unroll with the request in registers.
+// When the resident layout does not fit in shared memory, a lean layout
+// (one row buffer, no prefetch, cap_eff/tzc read through L1) takes any
+// shape the first version of this kernel took.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -34,21 +55,68 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+using ktt::kFullMask;
+using ktt::kMaxWarps;
+
+constexpr int kMaxThreads = 1024;
 constexpr int kCtShift = 8;  // captype bits sit above the zone bits
+
+struct Operands {
+    const float* req;         // [C, R]
+    const uint32_t* compat;   // [C, KW]
+    const uint32_t* fresh;    // [C, KW]
+    const uint32_t* hasres;   // [C, KW]
+    const float* n_fresh;     // [C, K]
+    const float* price;       // [C, K]
+    const int32_t* count;     // [C]
+    const int32_t* env;       // [C]
+    const uint32_t* azc;      // [C]
+    const float* cap_eff;     // [K, R]
+    const uint32_t* tzc;      // [K]
+    int32_t* take;            // [C, G]
+    int32_t* unplaced;        // [C]
+    uint32_t* gmask_out;      // [G, KW]
+    uint32_t* gzc_out;        // [G]
+    int32_t* n_open_out;      // [1]
+};
+
+// Words of one staged class row: n_fresh [K], price [K] (16-byte aligned,
+// copied 16 bytes at a time), compat/fresh/hasres [KW], req [R], count,
+// env, azc; padded to 16 bytes so a second buffer stays aligned.
+__host__ __device__ __forceinline__ int row_words(int K, int R) {
+    return (2 * K + 3 * (K >> 5) + R + 3 + 3) & ~3;
+}
+
+__host__ __device__ __forceinline__ size_t smem_words(int G, int K, int R, int threads, int resident) {
+    const size_t KW = (size_t)K >> 5;
+    const size_t NZW = (KW + 31) >> 5;
+    const size_t nbuf = resident ? 2 : 1;
+    const size_t bitmap = resident ? (size_t)threads >> 5 : 1;
+    return nbuf * row_words(K, R) + (size_t)G * ((size_t)R + KW + NZW + 2) +
+           (resident ? (size_t)K * R + K : 0) + bitmap + 4 * kMaxWarps + 2 * KW + 2 * NZW;
+}
 
 __device__ __forceinline__ bool joint_ok(uint32_t x) {
     return (x & ((1u << kCtShift) - 1u)) != 0u && (x >> kCtShift) != 0u;
 }
 
-// Pods of `req` that fit in cap - acc, min over the constrained axes,
-// clipped at 0 (ffd._fit_counts, one (group, type) entry).
-__device__ __forceinline__ float fit_count(const float* cap_k, const float* acc, const float* req, int R) {
+// Pods of the class that fit in cap - acc, min over the constrained axes,
+// clipped at 0 (ffd._fit_counts, one (group, type) entry). With RT > 0 the
+// request sits in registers (q) and the axes unroll; else it is read from
+// the staged row (req) for R axes.
+template <int RT>
+__device__ __forceinline__ float fit_count(const float* cap_k, const float* acc, const float (&q)[RT > 0 ? RT : 1],
+                                           const float* req, int R) {
     float n = ktt::f_inf();
-    for (int r = 0; r < R; ++r) {
-        const float q = req[r];
-        if (q > 0.0f) n = fminf(n, floorf(__fdiv_rn(__fsub_rn(cap_k[r], acc[r]), q)));
+    if constexpr (RT > 0) {
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+            if (q[r] > 0.0f) n = fminf(n, floorf(__fdiv_rn(__fsub_rn(cap_k[r], acc[r]), q[r])));
+    } else {
+        for (int r = 0; r < R; ++r) {
+            const float qr = req[r];
+            if (qr > 0.0f) n = fminf(n, floorf(__fdiv_rn(__fsub_rn(cap_k[r], acc[r]), qr)));
+        }
     }
     return fmaxf(n, 0.0f);
 }
@@ -57,210 +125,384 @@ __device__ __forceinline__ bool bit_of(const uint32_t* words, int k) {
     return (words[k >> 5] >> (k & 31)) & 1u;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) ffd_scan_kernel(
-    const float* __restrict__ req,        // [C, R]
-    const uint32_t* __restrict__ compat_w,  // [C, KW]
-    const uint32_t* __restrict__ fresh_w,   // [C, KW]
-    const uint32_t* __restrict__ hasres_w,  // [C, KW]
-    const float* __restrict__ n_fresh,    // [C, K]
-    const float* __restrict__ price,      // [C, K]
-    const int32_t* __restrict__ count,    // [C]
-    const int32_t* __restrict__ env,      // [C]
-    const uint32_t* __restrict__ azc,     // [C]
-    const float* __restrict__ cap_eff,    // [K, R]
-    const uint32_t* __restrict__ tzc,     // [K]
-    int32_t* __restrict__ take_out,       // [C, G]
-    int32_t* __restrict__ unplaced_out,   // [C]
-    uint32_t* __restrict__ gmask_out,     // [G, KW]
-    uint32_t* __restrict__ gzc_out,       // [G]
-    int32_t* __restrict__ n_open_out,     // [1]
-    int C, int G, int K, int R, int price_objective) {
+// Start copying class c's row into `dst`: 16-byte cp.async for the
+// n_fresh and price rows, 4 bytes for the rest, issued from the top threads
+// (the warps with no types to scan); completed with __pipeline_wait_prior.
+__device__ __forceinline__ void load_row(float* dst, int c, const Operands& o, int K, int R) {
     const int KW = K >> 5;
+    const int T = blockDim.x;
+    const int me = T - 1 - (int)threadIdx.x;
+    const int quads = K >> 2;
+    const float* nf = o.n_fresh + (size_t)c * K;
+    const float* pr = o.price + (size_t)c * K;
+    for (int i = me; i < 2 * quads; i += T) {
+        const bool second = i >= quads;
+        const int j = (second ? i - quads : i) << 2;
+        __pipeline_memcpy_async(dst + (second ? K : 0) + j, (second ? pr : nf) + j, 16);
+    }
+    uint32_t* w = reinterpret_cast<uint32_t*>(dst + 2 * K);
+    const int nw = 3 * KW + R + 3;
+    for (int i = me; i < nw; i += T) {
+        const void* src;
+        if (i < KW) src = o.compat + (size_t)c * KW + i;
+        else if (i < 2 * KW) src = o.fresh + (size_t)c * KW + (i - KW);
+        else if (i < 3 * KW) src = o.hasres + (size_t)c * KW + (i - 2 * KW);
+        else if (i < 3 * KW + R) src = o.req + (size_t)c * R + (i - 3 * KW);
+        else if (i == 3 * KW + R) src = o.count + c;
+        else if (i == 3 * KW + R + 1) src = o.env + c;
+        else src = o.azc + c;
+        __pipeline_memcpy_async(w + i, src, 4);
+    }
+    __pipeline_commit();
+}
+
+// First class after `after` whose bit is set in the chunk bitmap, or cend.
+__device__ __forceinline__ int next_real(const uint32_t* bitmap, int nbits, int base, int after, int cend) {
+    for (int j = after - base + 1; j < nbits; j = (j | 31) + 1) {
+        const uint32_t w = bitmap[j >> 5] & (kFullMask << (j & 31));
+        if (w) return min(base + (j & ~31) + __ffs(w) - 1, cend);
+    }
+    return cend;
+}
+
+// RT > 0 fixes R at compile time (the request axes of the repo's encoding),
+// so each fit's loads and divides unroll and issue together; RT = 0 takes R
+// at run time.
+template <int RT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    ffd_scan_kernel(Operands o, int C, int G, int K, int r_arg, int price_objective, int resident) {
+    const int R = RT > 0 ? RT : r_arg;
+    const int KW = K >> 5;
+    const int NZW = (KW + 31) >> 5;
+    const int T = blockDim.x;
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
+    const int nwarps = T >> 5;
+    const int ROW = row_words(K, R);
+    const int nbits = resident ? T : 32;  // classes per chunk
 
-    extern __shared__ uint32_t smem[];
-    float* accum = reinterpret_cast<float*>(smem);               // [G, R]
-    uint32_t* gmask = smem + G * R;                              // [G, KW]
-    uint32_t* gzc = gmask + G * KW;                              // [G]
-    int32_t* ngrp = reinterpret_cast<int32_t*>(gzc + G);         // [G]
-    int32_t* take = ngrp + G;                                    // [G]
-    float* cap = reinterpret_cast<float*>(take + G);             // [K, R]
-    uint32_t* tz = reinterpret_cast<uint32_t*>(cap + K * R);     // [K]
-    float* nf_row = reinterpret_cast<float*>(tz + K);            // [K]
-    float* pr_row = nf_row + K;                                  // [K]
-    uint32_t* compat_row = reinterpret_cast<uint32_t*>(pr_row + K);  // [KW]
-    uint32_t* fresh_row = compat_row + KW;                       // [KW]
-    uint32_t* hasres_row = fresh_row + KW;                       // [KW]
-    uint32_t* open_row = hasres_row + KW;                        // [KW]
-    float* req_row = reinterpret_cast<float*>(open_row + KW);    // [R]
-    uint32_t* red_u = reinterpret_cast<uint32_t*>(req_row + R);  // [kWarps]
-    float* red_f = reinterpret_cast<float*>(red_u + kWarps);     // [kWarps]
-    int32_t* red_i = reinterpret_cast<int32_t*>(red_f + kWarps);  // [kWarps]
+    extern __shared__ __align__(16) uint32_t smem[];
+    float* rows = reinterpret_cast<float*>(smem);                  // [nbuf, ROW]
+    float* cap_s = rows + (resident ? 2 : 1) * ROW;                // [K, R] (resident)
+    uint32_t* tz_s = reinterpret_cast<uint32_t*>(cap_s + (resident ? K * R : 0));  // [K] (resident)
+    float* accum = reinterpret_cast<float*>(tz_s + (resident ? K : 0));  // [G, R]
+    uint32_t* gmask = reinterpret_cast<uint32_t*>(accum + G * R);  // [G, KW]
+    uint32_t* gnz = gmask + G * KW;                                // [G, NZW] non-zero survivor words
+    uint32_t* gzc = gnz + G * NZW;                                 // [G]
+    int32_t* ngrp = reinterpret_cast<int32_t*>(gzc + G);           // [G] fits, then takes
+    uint32_t* bitmap = reinterpret_cast<uint32_t*>(ngrp + G);      // [nbits / 32] real classes
+    uint32_t* s_scan = bitmap + (nbits >> 5);                      // [32] per-warp slots
+    uint32_t* s_mfit = s_scan + kMaxWarps;
+    uint32_t* s_hi = s_mfit + kMaxWarps;
+    uint32_t* s_idx = s_hi + kMaxWarps;
+    uint32_t* open_full = s_idx + kMaxWarps;                      // [KW] a full new group's mask
+    uint32_t* open_last = open_full + KW;                          // [KW] the last new group's mask
+    uint32_t* open_nz_full = open_last + KW;                       // [NZW] their non-zero words
+    uint32_t* open_nz_last = open_nz_full + NZW;                   // [NZW]
+    const float* cap = resident ? cap_s : o.cap_eff;
+    const uint32_t* tz = resident ? tz_s : o.tzc;
 
-    for (int i = tid; i < G * R; i += kThreads) accum[i] = 0.0f;
-    for (int i = tid; i < G * KW; i += kThreads) gmask[i] = 0u;
-    for (int i = tid; i < G; i += kThreads) gzc[i] = 0u;
-    for (int i = tid; i < K * R; i += kThreads) cap[i] = cap_eff[i];
-    for (int i = tid; i < K; i += kThreads) tz[i] = tzc[i];
+    // thread t owns groups [g0, g1) for the whole launch
+    const int gpt = (G + T - 1) / T;
+    const int g0 = min(tid * gpt, G);
+    const int g1 = min(g0 + gpt, G);
+    for (int g = g0; g < g1; ++g) {
+        for (int r = 0; r < R; ++r) accum[g * R + r] = 0.0f;
+        for (int wi = 0; wi < KW; ++wi) gmask[g * KW + wi] = 0u;
+        for (int j = 0; j < NZW; ++j) gnz[g * NZW + j] = 0u;
+        gzc[g] = 0u;
+    }
+    if (resident) {
+        // 16 bytes a copy (K is a multiple of 32); waited for with the first row
+        for (int i = tid; i < (K * R) >> 2; i += T) __pipeline_memcpy_async(cap_s + 4 * i, o.cap_eff + 4 * i, 16);
+        for (int i = tid; i < K >> 2; i += T) __pipeline_memcpy_async(tz_s + 4 * i, o.tzc + 4 * i, 16);
+        __pipeline_commit();
+    }
+    // a group count above vmax could make the prefix sum over G groups wrap
+    const uint32_t vmax = 0x7fffffffu / (uint32_t)G;
     int32_t n_open = 0;  // identical in every thread
 
-    for (int c = 0; c < C; ++c) {
-        // -- stage the class's streamed row --------------------------------
+    for (int base = 0; base < C; base += nbits) {
+        const int cend = min(base + nbits, C);
+        __syncthreads();  // the previous chunk's readers are done with the bitmap and the rows
+        for (int i = tid; i < (nbits >> 5); i += T) bitmap[i] = 0u;
         __syncthreads();
-        for (int i = tid; i < KW; i += kThreads) {
-            compat_row[i] = compat_w[c * KW + i];
-            fresh_row[i] = fresh_w[c * KW + i];
-            hasres_row[i] = hasres_w[c * KW + i];
+        // a warp per class, its lanes over the compat and fresh words
+#pragma unroll 4
+        for (int cl = warp; cl < cend - base; cl += nwarps) {
+            const int c = base + cl;
+            uint32_t any = 0u;
+            for (int wi = lane; wi < KW; wi += 32) any |= o.compat[(size_t)c * KW + wi] | o.fresh[(size_t)c * KW + wi];
+            if (__any_sync(kFullMask, any != 0u)) {
+                if (lane == 0) atomicOr(&bitmap[cl >> 5], 1u << (cl & 31));
+            } else if (lane == 0) {
+                o.unplaced[c] = o.count[c];
+            }
         }
-        for (int k = tid; k < K; k += kThreads) {
-            nf_row[k] = n_fresh[(size_t)c * K + k];
-            pr_row[k] = price[(size_t)c * K + k];
-        }
-        if (tid < R) req_row[tid] = req[c * R + tid];
         __syncthreads();
-        const int32_t count_c = count[c];
-        const int32_t env_c = env[c];
-        const uint32_t azc_c = azc[c];
+        // no-op classes: a zero take row each (16 bytes a store when rows allow)
+        for (int wd = 0; wd < (nbits >> 5); ++wd) {
+            uint32_t idle = ~bitmap[wd];
+            while (idle) {
+                const int c = base + (wd << 5) + __ffs(idle) - 1;
+                idle &= idle - 1u;
+                if (c >= cend) break;
+                if ((G & 3) == 0) {
+                    int4* row4 = reinterpret_cast<int4*>(o.take + (size_t)c * G);
+                    for (int i = tid; i < (G >> 2); i += T) row4[i] = make_int4(0, 0, 0, 0);
+                } else {
+                    for (int g = tid; g < G; g += T) o.take[(size_t)c * G + g] = 0;
+                }
+            }
+        }
 
-        // -- (1)+(2) best fit of the class on each open group ---------------
-        for (int g = tid; g < G; g += kThreads) {
-            float best = 0.0f;
-            if (g < n_open) {
-                const uint32_t gz = gzc[g] & azc_c;
-                const float* acc = accum + g * R;
-                for (int wi = 0; wi < KW; ++wi) {
-                    uint32_t w = gmask[g * KW + wi] & compat_row[wi];
-                    while (w) {
-                        const int k = (wi << 5) + (__ffs(w) - 1);
-                        w &= w - 1u;
-                        if (!joint_ok(gz & tz[k])) continue;
-                        best = fmaxf(best, fit_count(cap + k * R, acc, req_row, R));
+        int c = next_real(bitmap, nbits, base, base - 1, cend);
+        if (resident && c < cend) {
+            load_row(rows, c, o, K, R);
+            __pipeline_wait_prior(0);
+            __syncthreads();
+        }
+        for (int step = 0; c < cend; ++step) {
+            const int c_next = next_real(bitmap, nbits, base, c, cend);
+            float* row = rows + (resident ? (step & 1) * ROW : 0);
+            if (!resident) {
+                __syncthreads();  // everyone is done with the previous row
+                load_row(row, c, o, K, R);
+                __pipeline_wait_prior(0);
+                __syncthreads();
+            }
+            const float* nf_row = row;
+            const float* pr_row = row + K;
+            const uint32_t* compat_row = reinterpret_cast<const uint32_t*>(row + 2 * K);
+            const uint32_t* fresh_row = compat_row + KW;
+            const uint32_t* hasres_row = fresh_row + KW;
+            const float* req_row = reinterpret_cast<const float*>(hasres_row + KW);
+            const int32_t* scal = reinterpret_cast<const int32_t*>(req_row + R);
+            const int32_t count_c = scal[0];
+            const int32_t env_c = scal[1];
+            const uint32_t azc_c = (uint32_t)scal[2];
+
+            // the fresh-fit max is free of the carry: warp partials now,
+            // combined behind the prefix sum's barrier
+            uint32_t mk = 0u;
+            for (int k = T - 1 - tid; k < K; k += T)
+                mk = max(mk, ktt::fkey_max(bit_of(fresh_row, k) ? nf_row[k] : 0.0f));
+            // the request in registers for the fits of this step
+            float q[RT > 0 ? RT : 1];
+            if constexpr (RT > 0) {
+#pragma unroll
+                for (int r = 0; r < RT; ++r) q[r] = req_row[r];
+            }
+            mk = __reduce_max_sync(kFullMask, mk);
+            if (lane == 0) s_mfit[warp] = mk;
+
+            // -- (1)+(2) best fit of the class on each owned open group ------
+            uint32_t tv = 0u;
+            bool risk = false;
+            for (int g = g0; g < g1; ++g) {
+                float best = 0.0f;
+                if (g < n_open) {
+                    const uint32_t gz = gzc[g] & azc_c;
+                    const float* acc = accum + g * R;
+                    for (int j = 0; j < NZW; ++j) {
+                        uint32_t nzw = gnz[g * NZW + j];
+                        while (nzw) {
+                            const int wi = (j << 5) + __ffs(nzw) - 1;
+                            nzw &= nzw - 1u;
+                            uint32_t w = gmask[g * KW + wi] & compat_row[wi];
+                            while (w) {
+                                const int k = (wi << 5) + __ffs(w) - 1;
+                                w &= w - 1u;
+                                if (!joint_ok(gz & tz[k])) continue;
+                                best = fmaxf(best, fit_count<RT>(cap + k * R, acc, q, req_row, R));
+                            }
+                        }
                     }
                 }
+                const int32_t v = ktt::f2i_sat(best);
+                ngrp[g] = v;
+                tv += (uint32_t)v;
+                risk |= (uint32_t)v > vmax;
             }
-            ngrp[g] = ktt::f2i_sat(best);
-        }
 
-        // -- (3) first fit: exclusive prefix sum over the groups ------------
-        uint32_t running = 0;
-        uint32_t placed = 0;
-        for (int base = 0; base < G; base += kThreads) {
-            const int g = base + tid;
-            const uint32_t v = g < G ? (uint32_t)ngrp[g] : 0u;
-            uint32_t chunk;
-            const uint32_t incl = ktt::block_incl_scan_u32(v, red_u, &chunk);
-            const int32_t before = (int32_t)(running + incl - v);
-            int32_t t = (int32_t)((uint32_t)count_c - (uint32_t)before);
-            t = max(t, 0);
-            t = min(t, (int32_t)v);
-            if (g < G) take[g] = t;
-            running += chunk;
-            placed += ktt::block_sum_u32(g < G ? (uint32_t)t : 0u, red_u);
-        }
-        const int32_t leftover = (int32_t)((uint32_t)count_c - placed);
+            // -- (3) first fit: exclusive prefix sum in group order ----------
+            const uint32_t incl = ktt::warp_incl_scan_u32(tv);
+            // a warp whose fits could wrap the prefix sum says so with an
+            // all-ones slot (no true warp total comes near it)
+            const bool warp_risk = __any_sync(kFullMask, risk);
+            if (lane == 31) s_scan[warp] = warp_risk ? kFullMask : incl;
+            __syncthreads();  // barrier 1
+            if (resident && c_next < cend) load_row(rows + ((step + 1) & 1) * ROW, c_next, o, K, R);
+            if (tid == 0)
+                for (int j = 0; j < NZW; ++j) open_nz_full[j] = open_nz_last[j] = 0u;
+            uint32_t sv = lane < nwarps ? s_scan[lane] : 0u;
+            risk = __any_sync(kFullMask, sv == kFullMask);
+            if (risk) {
+                // the exact wrapped warp totals instead
+                __syncthreads();  // every warp has read the slots
+                if (lane == 31) s_scan[warp] = incl;
+                __syncthreads();
+                sv = lane < nwarps ? s_scan[lane] : 0u;
+            }
+            const uint32_t total = __reduce_add_sync(kFullMask, sv);
+            uint32_t before = __reduce_add_sync(kFullMask, lane < warp ? sv : 0u) + incl - tv;
+            const float max_fit_f =
+                ktt::fkey_value(__reduce_max_sync(kFullMask, lane < nwarps ? s_mfit[lane] : 0u));
+            uint32_t tsum = 0u;
+            for (int g = g0; g < g1; ++g) {
+                const int32_t v = ngrp[g];
+                int32_t t = (int32_t)((uint32_t)count_c - before);
+                t = min(max(t, 0), v);
+                ngrp[g] = t;
+                before += (uint32_t)v;
+                tsum += (uint32_t)t;
+            }
+            uint32_t placed;
+            if (!risk && count_c >= 0) {
+                // no prefix wraps: the takes fill the groups in order up to count
+                placed = min((uint32_t)count_c, total);
+            } else {
+                tsum = __reduce_add_sync(kFullMask, tsum);
+                __syncthreads();  // every warp has read the scan slots
+                if (lane == 0) s_scan[warp] = tsum;
+                __syncthreads();
+                placed = __reduce_add_sync(kFullMask, lane < nwarps ? s_scan[lane] : 0u);
+            }
+            const int32_t leftover = (int32_t)((uint32_t)count_c - placed);
 
-        // -- (4) the fresh-group envelope ------------------------------------
-        float mf = 0.0f;
-        for (int k = tid; k < K; k += kThreads)
-            if (bit_of(fresh_row, k)) mf = fmaxf(mf, nf_row[k]);
-        const float max_fit_f = ktt::block_max_f32(mf, red_f);
-        const int32_t per_new_fit = ktt::f2i_sat(max_fit_f);
-        int32_t per_new;
-        if (price_objective) {
-            const int32_t tail = (int32_t)((uint32_t)leftover + (uint32_t)(-env_c - 1));
-            const int32_t env_n = env_c > 0 ? env_c : max(tail, 1);
-            const float envf = (float)env_n;
-            const float need = fminf(max_fit_f, envf);
-            float bv = ktt::f_inf();
-            int32_t bi = INT32_MAX;
-            for (int k = tid; k < K; k += kThreads) {
-                const float nf = nf_row[k];
-                const float ngroups = ceilf(__fdiv_rn(envf, fmaxf(nf, 1.0f)));
-                const bool eligible = bit_of(fresh_row, k) && nf >= 1.0f &&
-                                      (__fmul_rn(2.0f, fminf(nf, envf)) >= need || bit_of(hasres_row, k));
-                const float tc = eligible ? __fmul_rn(pr_row[k], ngroups) : ktt::f_inf();
-                if (tc < bv || (tc == bv && k < bi)) {
-                    bv = tc;
-                    bi = k;
+            // -- (4) the fresh-group envelope --------------------------------
+            const bool use_price = price_objective && env_c != 0;
+            if (use_price) {
+                const int32_t tail = (int32_t)((uint32_t)leftover + ~(uint32_t)env_c);  // leftover + (-env - 1)
+                const int32_t env_n = env_c > 0 ? env_c : max(tail, 1);
+                const float envf = (float)env_n;
+                const float need = max_fit_f != max_fit_f ? max_fit_f : fminf(max_fit_f, envf);
+                uint32_t bh = kFullMask, bi = kFullMask;
+                for (int k = tid; k < K; k += T) {
+                    const float nf = nf_row[k];
+                    const float ngroups = ceilf(__fdiv_rn(envf, fmaxf(nf, 1.0f)));
+                    const bool eligible = bit_of(fresh_row, k) && nf >= 1.0f &&
+                                          (__fmul_rn(2.0f, fminf(nf, envf)) >= need || bit_of(hasres_row, k));
+                    const uint32_t h = ktt::fkey_min(eligible ? __fmul_rn(pr_row[k], ngroups) : ktt::f_inf());
+                    if (h < bh) {  // k rises within a thread: ties keep the first
+                        bh = h;
+                        bi = (uint32_t)k;
+                    }
+                }
+                const uint32_t wh = __reduce_min_sync(kFullMask, bh);
+                const uint32_t wk = __reduce_min_sync(kFullMask, bh == wh ? bi : kFullMask);
+                if (lane == 0) {
+                    s_hi[warp] = wh;
+                    s_idx[warp] = wk;
                 }
             }
-            float tc_min;
-            int32_t kstar;
-            ktt::block_argmin_f32(bv, bi, red_f, red_i, &tc_min, &kstar);
-            if (kstar < 0 || kstar >= K) kstar = 0;  // all +inf: argmin is the first index
-            const bool ok = isfinite(tc_min);
-            const int32_t per_new_price = ok ? ktt::f2i_sat(nf_row[kstar]) : 0;
-            const float p_star = pr_row[kstar];
-            const float pnp = (float)per_new_price;
-            const bool use_fit = env_c == 0;
-            per_new = use_fit ? per_new_fit : per_new_price;
-            // the open mask as packed words: one ballot per 32 types
-            for (int base = warp << 5; base < K; base += kThreads) {
-                const int k = base + lane;
-                const bool pm = ok && bit_of(fresh_row, k) && nf_row[k] >= pnp && pr_row[k] <= p_star;
-                const unsigned word = __ballot_sync(ktt::kFullMask, pm);
-                if (lane == 0) open_row[k >> 5] = use_fit ? fresh_row[k >> 5] : word;
+            if (resident) __pipeline_wait_prior(0);  // the next row has landed (this thread's part)
+            __syncthreads();                          // barrier 2: argmin slots, and the next row, visible
+
+            int32_t per_new;
+            bool ok = false;
+            float p_star = 0.0f, pnp = 0.0f;
+            if (use_price) {
+                const uint32_t sh = lane < nwarps ? s_hi[lane] : kFullMask;
+                const uint32_t si = lane < nwarps ? s_idx[lane] : kFullMask;
+                const uint32_t hi = __reduce_min_sync(kFullMask, sh);
+                uint32_t kstar = __reduce_min_sync(kFullMask, sh == hi ? si : kFullMask);
+                if (kstar >= (uint32_t)K) kstar = 0;
+                ok = isfinite(ktt::fkey_value(hi));
+                per_new = ok ? ktt::f2i_sat(nf_row[kstar]) : 0;
+                p_star = pr_row[kstar];
+                pnp = (float)per_new;
+            } else {
+                per_new = ktt::f2i_sat(max_fit_f);
             }
-        } else {
-            per_new = per_new_fit;
-            for (int i = tid; i < KW; i += kThreads) open_row[i] = fresh_row[i];
-        }
-        __syncthreads();
 
-        // -- open fresh identical groups for the remainder -------------------
-        int32_t n_new = 0;
-        if (leftover > 0 && per_new > 0)
-            n_new = (int32_t)(((int64_t)leftover + per_new - 1) / per_new);
-        n_new = min(n_new, G - n_open);
+            // -- open fresh identical groups for the remainder ---------------
+            int32_t n_new = 0;
+            if (leftover > 0 && per_new > 0) {
+                // both below 2^31, so the ceiling divides exactly in uint32
+                const uint32_t want = ((uint32_t)leftover + (uint32_t)per_new - 1u) / (uint32_t)per_new;
+                n_new = (int32_t)min(want, (uint32_t)(G - n_open));
+            }
 
-        // -- (5) carry update; each thread owns its groups' rows -------------
-        uint32_t placed_all = 0;
-        for (int base = 0; base < G; base += kThreads) {
-            const int g = base + tid;
-            int32_t ta = 0;
-            if (g < G) {
-                const int32_t tk = take[g];
+            // -- (5) carry update; each thread owns its groups' rows ---------
+            const int64_t left64 = leftover;
+            const int64_t pn64 = per_new;
+            if (n_new > 0) {
+                // a new group's mask is the open mask's types that hold its
+                // take: per_new for all but the last, which may take less;
+                // built once as words by ballot, then copied per group
+                const int64_t last = left64 - (int64_t)(n_new - 1) * pn64;
+                const float full_f = (float)per_new;
+                const float last_f = (float)(last > pn64 ? pn64 : last);
+                for (int base_k = warp << 5; base_k < K; base_k += T) {
+                    const int k = base_k + lane;
+                    const float nf = nf_row[k];
+                    const bool open = bit_of(fresh_row, k) && (!use_price || (ok && nf >= pnp && pr_row[k] <= p_star));
+                    const uint32_t wf = __ballot_sync(kFullMask, open && full_f <= nf);
+                    const uint32_t wl = __ballot_sync(kFullMask, open && last_f <= nf);
+                    if (lane == 0) {
+                        const int wi = base_k >> 5;
+                        open_full[wi] = wf;
+                        open_last[wi] = wl;
+                        if (wf) atomicOr(&open_nz_full[wi >> 5], 1u << (wi & 31));
+                        if (wl) atomicOr(&open_nz_last[wi >> 5], 1u << (wi & 31));
+                    }
+                }
+                __syncthreads();  // barrier 3, only in steps that open groups
+            }
+            for (int g = g0; g < g1; ++g) {
+                const int32_t tk = ngrp[g];
                 const bool is_new = g >= n_open && g < n_open + n_new;
                 int32_t tn = 0;
                 if (is_new) {
-                    int64_t rest = (int64_t)leftover - (int64_t)(g - n_open) * per_new;
-                    if (rest < 0) rest = 0;
-                    if (rest > per_new) rest = per_new;
-                    tn = (int32_t)rest;
+                    int64_t rest = left64 - (int64_t)(g - n_open) * pn64;
+                    rest = rest < 0 ? 0 : rest;
+                    tn = (int32_t)(rest > pn64 ? pn64 : rest);
                 }
-                ta = tk + tn;
-                take_out[(size_t)c * G + g] = ta;
+                const int32_t ta = tk + tn;
+                o.take[(size_t)c * G + g] = ta;
                 const float takef = (float)ta;
                 if (tk > 0) {
                     // touched open group: keep the surviving types the class
                     // joined on that still hold the new total
                     const uint32_t gz = gzc[g] & azc_c;
                     const float* acc = accum + g * R;
-                    for (int wi = 0; wi < KW; ++wi) {
-                        uint32_t w = gmask[g * KW + wi] & compat_row[wi];
-                        uint32_t keep = 0u;
-                        while (w) {
-                            const int j = __ffs(w) - 1;
-                            w &= w - 1u;
-                            const int k = (wi << 5) + j;
-                            if (joint_ok(gz & tz[k]) && takef <= fit_count(cap + k * R, acc, req_row, R))
-                                keep |= 1u << j;
+                    for (int j = 0; j < NZW; ++j) {
+                        uint32_t nzw = gnz[g * NZW + j];
+                        uint32_t nz_new = 0u;
+                        while (nzw) {
+                            const int wi = (j << 5) + __ffs(nzw) - 1;
+                            nzw &= nzw - 1u;
+                            uint32_t w = gmask[g * KW + wi] & compat_row[wi];
+                            uint32_t keep = 0u;
+                            while (w) {
+                                const int b = __ffs(w) - 1;
+                                w &= w - 1u;
+                                const int k = (wi << 5) + b;
+                                if (joint_ok(gz & tz[k]) && takef <= fit_count<RT>(cap + k * R, acc, q, req_row, R))
+                                    keep |= 1u << b;
+                            }
+                            gmask[g * KW + wi] = keep;
+                            if (keep) nz_new |= 1u << (wi & 31);
                         }
-                        gmask[g * KW + wi] = keep;
+                        gnz[g * NZW + j] = nz_new;
                     }
                     gzc[g] = gz;
                 } else if (is_new) {
-                    for (int wi = 0; wi < KW; ++wi) {
-                        uint32_t w = open_row[wi];
-                        uint32_t keep = 0u;
-                        while (w) {
-                            const int j = __ffs(w) - 1;
-                            w &= w - 1u;
-                            if (takef <= nf_row[(wi << 5) + j]) keep |= 1u << j;
+                    // a fresh group (all-zero mask until now): copy the
+                    // non-zero words of its open mask
+                    const bool is_last = g == n_open + n_new - 1;
+                    const uint32_t* open = is_last ? open_last : open_full;
+                    const uint32_t* open_nz = is_last ? open_nz_last : open_nz_full;
+                    for (int j = 0; j < NZW; ++j) {
+                        uint32_t m = open_nz[j];
+                        gnz[g * NZW + j] = m;
+                        while (m) {
+                            const int wi = (j << 5) + __ffs(m) - 1;
+                            m &= m - 1u;
+                            gmask[g * KW + wi] = open[wi];
                         }
-                        gmask[g * KW + wi] = keep;
                     }
                     gzc[g] = azc_c;
                 }
@@ -269,43 +511,59 @@ __global__ void __launch_bounds__(kThreads, 1) ffd_scan_kernel(
                     for (int r = 0; r < R; ++r) acc[r] = __fadd_rn(acc[r], __fmul_rn(takef, req_row[r]));
                 }
             }
-            placed_all += ktt::block_sum_u32((uint32_t)ta, red_u);
+            if (tid == 0) {
+                // the new groups' takes sum to leftover, or to n_new full groups when clipped
+                const int64_t full = (int64_t)n_new * pn64;
+                const int64_t sum_new = n_new > 0 ? (left64 < full ? left64 : full) : 0;
+                o.unplaced[c] = (int32_t)((uint32_t)count_c - placed - (uint32_t)sum_new);
+            }
+            n_open += n_new;
+            c = c_next;
         }
-        if (tid == 0) unplaced_out[c] = (int32_t)((uint32_t)count_c - placed_all);
-        n_open += n_new;
     }
 
-    __syncthreads();
-    for (int i = tid; i < G * KW; i += kThreads) gmask_out[i] = gmask[i];
-    for (int i = tid; i < G; i += kThreads) gzc_out[i] = gzc[i];
-    if (tid == 0) n_open_out[0] = n_open;
+    __pipeline_wait_prior(0);  // no copy outlives the block
+    __syncthreads();  // the carry rows, written by their owners, out in coalesced order
+    for (int i = tid; i < G * KW; i += T) o.gmask_out[i] = gmask[i];
+    for (int i = tid; i < G; i += T) o.gzc_out[i] = gzc[i];
+    if (tid == 0) o.n_open_out[0] = n_open;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs for these shapes, in bytes.
-size_t ffd_scan_smem_bytes(int G, int K, int R) {
-    const size_t KW = (size_t)K / 32;
-    return 4 * ((size_t)G * R + (size_t)G * KW + 3 * (size_t)G + (size_t)K * R + 3 * (size_t)K +
-                4 * KW + (size_t)R + 3 * (size_t)kWarps);
+// Dynamic shared memory of one launch, in bytes: `resident` 1 keeps
+// cap_eff/tzc in shared memory and double-buffers the class row, 0 is the
+// lean layout.
+size_t ffd_scan_smem_bytes(int G, int K, int R, int threads, int resident) {
+    return 4 * smem_words(G, K, R, threads, resident);
 }
 
 int ffd_scan_launch(const void* req, const void* compat_w, const void* fresh_w, const void* hasres_w,
                     const void* n_fresh, const void* price, const void* count, const void* env,
                     const void* azc, const void* cap_eff, const void* tzc, void* take_out,
                     void* unplaced_out, void* gmask_out, void* gzc_out, void* n_open_out, int C, int G,
-                    int K, int R, int price_objective, void* stream) {
-    const size_t smem = ffd_scan_smem_bytes(G, K, R);
-    cudaError_t err = cudaFuncSetAttribute(ffd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ffd_scan_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)req, (const uint32_t*)compat_w, (const uint32_t*)fresh_w, (const uint32_t*)hasres_w,
-        (const float*)n_fresh, (const float*)price, (const int32_t*)count, (const int32_t*)env,
-        (const uint32_t*)azc, (const float*)cap_eff, (const uint32_t*)tzc, (int32_t*)take_out,
-        (int32_t*)unplaced_out, (uint32_t*)gmask_out, (uint32_t*)gzc_out, (int32_t*)n_open_out, C, G, K, R,
-        price_objective);
+                    int K, int R, int price_objective, int threads, int resident, void* stream) {
+    if (threads < 32 || threads > kMaxThreads || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = ffd_scan_smem_bytes(G, K, R, threads, resident);
+    auto kernel = R == 9 ? ffd_scan_kernel<9> : ffd_scan_kernel<0>;
+    // raise the kernel's shared-memory ceiling once per size seen (the call
+    // costs host time on every launch otherwise)
+    static size_t ceiling[2] = {0, 0};
+    size_t& have = ceiling[kernel == ffd_scan_kernel<9> ? 0 : 1];
+    if (smem > have) {
+        const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        have = smem;
+    }
+    Operands o{(const float*)req,     (const uint32_t*)compat_w, (const uint32_t*)fresh_w,
+               (const uint32_t*)hasres_w, (const float*)n_fresh, (const float*)price,
+               (const int32_t*)count, (const int32_t*)env,      (const uint32_t*)azc,
+               (const float*)cap_eff, (const uint32_t*)tzc,     (int32_t*)take_out,
+               (int32_t*)unplaced_out, (uint32_t*)gmask_out,     (uint32_t*)gzc_out,
+               (int32_t*)n_open_out};
+    kernel<<<1, threads, smem, (cudaStream_t)stream>>>(o, C, G, K, R, price_objective, resident);
     return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,7 @@ uint8 (the float32 conversion of the Pallas kernel was a TPU constraint).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,6 +21,31 @@ from karpenter_tpu_torch.solver.kernels.ffd_scan import f2i
 launches = 0
 
 _MASK_DTYPES = (torch.bool, torch.uint8)
+SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
+_MAX_CHUNK = 256      # classes staged at once
+_SLOT_WORDS = 3 * 32  # the prefix sum's two parity slots and the exact sum's
+
+
+def smem_bytes(n: int, r: int, chunk: int, resident: bool) -> int:
+    """Dynamic shared memory of one launch (the C entry's formula):
+    resident keeps headroom [N, R], fits [N] and the chunk's feasibility
+    bits in shared memory; every layout stages the chunk's requests and
+    members."""
+    nw = (n + 31) // 32
+    per_class = (nw if resident else 0) + r + 1
+    return 4 * ((n * (r + 1) if resident else 0) + chunk * per_class + (chunk + 31) // 32
+                + _SLOT_WORDS)
+
+
+def layout(n: int, r: int, c: int) -> Tuple[bool, int]:
+    """(resident, classes per chunk): the resident layout with the largest
+    chunk that fits, else headroom in a device-memory scratch."""
+    chunk = max(1, min(c, _MAX_CHUNK))
+    while chunk > 1 and smem_bytes(n, r, chunk, True) > SMEM_LIMIT:
+        chunk //= 2
+    if smem_bytes(n, r, chunk, True) <= SMEM_LIMIT:
+        return True, chunk
+    return False, max(1, min(c, _MAX_CHUNK))
 
 
 def disrupt_repack(headroom0, feas, req, member, excl) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -41,7 +66,9 @@ def disrupt_repack(headroom0, feas, req, member, excl) -> Tuple[torch.Tensor, to
     return _launch(*args)
 
 
-def _launch(headroom0, feas, req, member, excl):
+def _launch(headroom0, feas, req, member, excl, *, resident: Optional[bool] = None):
+    """Launch kernel B. `resident` None picks the layout from the shapes;
+    the tests pass False to run the scratch layout at a shape that fits both."""
     global launches
     S, N = excl.shape
     C, R = req.shape
@@ -64,16 +91,20 @@ def _launch(headroom0, feas, req, member, excl):
         if not t.is_contiguous():
             raise ValueError(f"disrupt_repack: {name} is not contiguous")
     dev = req.device
+    resident_fits, chunk = layout(N, R, C)
+    resident = resident_fits and resident is not False
     leftover = torch.empty((S, C), dtype=torch.int32, device=dev)
     takes = torch.empty((S, C, N), dtype=torch.int32, device=dev)
-    scratch = torch.empty((S, N, R), dtype=torch.float32, device=dev)
+    # headroom and fits of each set, only where shared memory cannot hold them
+    scratch = None if resident else torch.empty((S, N, R + 1), dtype=torch.float32, device=dev)
     threads = min(1024, max(32, (N + 31) // 32 * 32))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.disrupt_repack_launch(
             headroom0.data_ptr(), req.data_ptr(), feas.data_ptr(), member.data_ptr(),
-            excl.data_ptr(), leftover.data_ptr(), takes.data_ptr(), scratch.data_ptr(),
-            S, C, N, R, threads, stream,
+            excl.data_ptr(), leftover.data_ptr(), takes.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            S, C, N, R, threads, chunk, int(resident), stream,
         )
     build.check(err, "disrupt_repack")
     launches += 1
@@ -84,7 +115,7 @@ def _library() -> ctypes.CDLL:
     lib = build.library("disrupt_repack")
     if lib.disrupt_repack_launch.argtypes is None:   # declare once: ctypes defaults to 32-bit ints
         p = ctypes.c_void_p
-        lib.disrupt_repack_launch.argtypes = [p] * 8 + [ctypes.c_int] * 5 + [p]
+        lib.disrupt_repack_launch.argtypes = [p] * 8 + [ctypes.c_int] * 7 + [p]
         lib.disrupt_repack_launch.restype = ctypes.c_int
         lib.disrupt_repack_max_r.argtypes = []
         lib.disrupt_repack_max_r.restype = ctypes.c_int

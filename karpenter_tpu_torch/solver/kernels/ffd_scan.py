@@ -16,7 +16,7 @@ against it on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,16 +28,41 @@ from karpenter_tpu_torch.solver.kernels import build
 launches = 0
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
+THREADS = 1024        # threads of the one block that runs the scan
 _CT_SHIFT = 8
 _ZONE_BITS = (1 << _CT_SHIFT) - 1
+_SLOT_WORDS = 4 * 32  # four reductions' per-warp slots
 
 ScanOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def smem_bytes(g_max: int, k: int, r: int) -> int:
-    """Dynamic shared memory of one launch (the C entry's formula)."""
+def smem_bytes(g_max: int, k: int, r: int, resident: bool = True) -> int:
+    """Dynamic shared memory of one launch (the C entry's formula).
+
+    Resident: two class-row buffers (the next real class lands while the
+    current one runs) and cap_eff/tzc in shared memory. Lean: one row
+    buffer and cap_eff/tzc read from device memory."""
     kw = k // 32
-    return 4 * (g_max * r + g_max * kw + 3 * g_max + k * r + 3 * k + 4 * kw + r + 3 * 32)
+    nzw = (kw + 31) // 32
+    row = (2 * k + 3 * kw + r + 3 + 3) & ~3
+    per_group = r + kw + nzw + 2          # accum, survivor words, their bitmap, gzc, fit
+    fixed = _SLOT_WORDS + 2 * kw + 2 * nzw  # slots, the new groups' two mask rows and their bitmaps
+    if resident:
+        return 4 * (2 * row + g_max * per_group + k * r + k + THREADS // 32 + fixed)
+    return 4 * (row + g_max * per_group + 1 + fixed)
+
+
+def layout(g_max: int, k: int, r: int) -> bool:
+    """True for the resident layout, False for the lean one; raises when
+    neither fits in one block's shared memory."""
+    if smem_bytes(g_max, k, r, True) <= SMEM_LIMIT:
+        return True
+    if smem_bytes(g_max, k, r, False) <= SMEM_LIMIT:
+        return False
+    raise ValueError(
+        f"fused_scan: carry of G={g_max}, K={k}, R={r} needs "
+        f"{smem_bytes(g_max, k, r, False)} bytes of shared memory, over the "
+        f"{SMEM_LIMIT} one block may use")
 
 
 def fused_scan(
@@ -72,7 +97,9 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None
 
 
 def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, cap_eff, tzc,
-            *, g_max: int, objective: str) -> ScanOutputs:
+            *, g_max: int, objective: str, resident: Optional[bool] = None) -> ScanOutputs:
+    """Launch kernel A. `resident` None picks the layout from the shapes;
+    the tests pass False to run the lean layout at a shape that fits both."""
     global launches
     C, R = req.shape
     K = cap_eff.shape[0]
@@ -83,11 +110,8 @@ def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, c
     if objective not in ("price", "fit"):
         raise ValueError(f"fused_scan: unknown objective {objective!r}")
     KW = K // 32
-    smem = smem_bytes(g_max, K, R)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"fused_scan: carry of G={g_max}, K={K}, R={R} needs {smem} bytes of shared "
-            f"memory, over the {SMEM_LIMIT} one block may use")
+    fits = layout(g_max, K, R)
+    resident = fits if resident is None else (resident and fits)
     for name, t, dtype, shape in (
         ("req", req, torch.float32, (C, R)),
         ("compat_w", compat_w, torch.int32, (C, KW)),
@@ -102,6 +126,10 @@ def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, c
         ("tzc", tzc, torch.int32, (K,)),
     ):
         _check(name, t, dtype, shape)
+    # the kernel copies these 16 bytes at a time: a view that starts off a
+    # 16-byte boundary is copied first
+    n_fresh, price, cap_eff, tzc = (
+        t if t.data_ptr() % 16 == 0 else t.clone() for t in (n_fresh, price, cap_eff, tzc))
     dev = req.device
     take = torch.empty((C, g_max), dtype=torch.int32, device=dev)
     unplaced = torch.empty((C,), dtype=torch.int32, device=dev)
@@ -116,7 +144,8 @@ def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, c
             n_fresh.data_ptr(), price.data_ptr(), count.data_ptr(), env.data_ptr(),
             azc.data_ptr(), cap_eff.data_ptr(), tzc.data_ptr(),
             take.data_ptr(), unplaced.data_ptr(), gmask_bits.data_ptr(), gzc.data_ptr(),
-            n_open.data_ptr(), C, g_max, K, R, int(objective == "price"), stream,
+            n_open.data_ptr(), C, g_max, K, R, int(objective == "price"), THREADS,
+            int(resident), stream,
         )
     build.check(err, "ffd_scan")
     launches += 1
@@ -127,7 +156,7 @@ def _library() -> ctypes.CDLL:
     lib = build.library("ffd_scan")
     if lib.ffd_scan_launch.argtypes is None:   # declare once: ctypes defaults to 32-bit ints
         p = ctypes.c_void_p
-        lib.ffd_scan_launch.argtypes = [p] * 16 + [ctypes.c_int] * 5 + [p]
+        lib.ffd_scan_launch.argtypes = [p] * 16 + [ctypes.c_int] * 7 + [p]
         lib.ffd_scan_launch.restype = ctypes.c_int
     return lib
 

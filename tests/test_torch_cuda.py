@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from karpenter_tpu_torch import workload
 from karpenter_tpu_torch.apis import NodePool
 from karpenter_tpu_torch.solver import encode, ffd
@@ -40,8 +41,9 @@ def items():
     return workload.build_catalog_items()
 
 
-def scan_inputs(items, device, n_pods, seed, packed=True, price_scale=None):
-    pods = workload.synth_pods(np.random.default_rng(seed), workload.ZONES, n_pods, salt=seed)
+def scan_inputs(items, device, n_pods, seed, packed=True, price_scale=None, templates=0):
+    pods = workload.synth_pods(np.random.default_rng(seed), workload.ZONES, n_pods, salt=seed,
+                               templates=templates)
     classes = encode.group_pods(pods, extra_requirements=NodePool("default").requirements())
     catalog = encode.encode_catalog(items)
     if price_scale is not None:
@@ -88,6 +90,52 @@ class TestFusedScanKernel:
         assert int(got[2]) == 8 and int(got[1].sum()) > 0
 
 
+class TestSkippedAndWrappingRows:
+    """The rows kernel A skips (no-op classes) and those it must not: the
+    edge cases of chip_smoke.py, at a small size."""
+
+    @pytest.fixture(scope="class")
+    def ops(self, cuda, items):
+        inp, offsets, words = scan_inputs(items, cuda, 8_000, seed=1)
+        return ffd.scan_operands(inp, offsets, words, "price")
+
+    def test_padded_rows_between_real_classes(self, ops):
+        got = assert_scan_equal(chip_smoke.pad_scan_between(ops), 256, "price")
+        assert torch.all(got[1][2::6].cpu() == 3)
+
+    def test_count_zero_class_with_joinable_groups(self, ops):
+        zeroed = chip_smoke.scan_rows(ops, range(ops[0].shape[0]))
+        zeroed[6][chip_smoke.real_classes(ops)[-1]] = 0
+        assert_scan_equal(zeroed, 256, "price")
+
+    @pytest.mark.parametrize("count", [None, 0])
+    def test_zero_request_class_wraps_the_prefix_sum(self, ops, count):
+        c = chip_smoke.real_classes(ops)[-1]
+        got = assert_scan_equal(chip_smoke.zero_request(ops, c, count), 256, "price")
+        assert int(got[1][c]) < 0
+
+    @pytest.mark.parametrize("g_max", [256, 1500])
+    def test_lean_layout(self, ops, g_max):
+        got = ffd_scan._launch(*ops, g_max=g_max, objective="price", resident=False)
+        want = ffd_scan.fused_scan_reference(*ops, g_max=g_max, objective="price")
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu())
+
+    def test_request_axes_other_than_nine(self, ops):
+        """R = 9 is a template case of the kernel; any other R takes the
+        run-time path."""
+        r8 = list(ops)
+        r8[0] = ops[0][:, :8].contiguous()
+        r8[9] = ops[9][:, :8].contiguous()
+        assert_scan_equal(tuple(r8), 256, "price")
+
+    def test_c256_world(self, cuda, items):
+        inp, offsets, words = scan_inputs(items, cuda, 50_000, seed=3, templates=4000)
+        ops = ffd.scan_operands(inp, offsets, words, "price")
+        assert ops[0].shape[0] == 256
+        assert_scan_equal(ops, 1024, "price")
+
+
 class TestRepackKernel:
     @pytest.mark.parametrize("seed", [0, 1])
     def test_many_sets_match_plain_version(self, cuda, seed):
@@ -105,6 +153,48 @@ class TestRepackKernel:
         assert repack.launches == before + 1
         want = repack.repack_reference(*ops)
         for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu())
+
+    @pytest.mark.parametrize("s_", [1, 64])
+    def test_infeasible_rows_between_real_classes(self, cuda, s_):
+        rng = np.random.default_rng(s_)
+        c_, n_ = 48, 200
+        world = (
+            rng.integers(0, 64, (n_, 9)).astype(np.float32), rng.random((c_, n_)) < 0.7,
+            rng.integers(0, 5, (c_, 9)).astype(np.float32), rng.integers(0, 40, (s_, c_)),
+            rng.random((s_, n_)) < 0.2,
+        )
+        ops = chip_smoke.gap_repack(disrupt_kernel.repack_from_numpy(*world, cuda))
+        left, takes = repack.disrupt_repack(*ops)
+        want_left, want_takes = repack.repack_reference(*ops)
+        assert torch.equal(left.cpu(), want_left.cpu()) and torch.equal(takes.cpu(), want_takes.cpu())
+        assert torch.equal(left[:, 1::3].cpu(), ops[3][:, 1::3].cpu())
+
+    def test_zero_request_class_wraps_and_scratch_layout(self, cuda):
+        rng = np.random.default_rng(9)
+        world = (
+            rng.integers(0, 64, (64, 9)).astype(np.float32), rng.random((16, 64)) < 0.7,
+            rng.integers(0, 5, (16, 9)).astype(np.float32), rng.integers(0, 40, (1, 16)),
+            np.zeros((1, 64), bool),
+        )
+        world[2][5] = 0.0
+        world[1][5] = True
+        ops = disrupt_kernel.repack_from_numpy(*world, cuda)
+        want = repack.repack_reference(*ops)
+        assert int(want[0][0, 5]) < 0
+        for got in (repack.disrupt_repack(*ops), repack._launch(*ops, resident=False)):
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b.cpu())
+
+    def test_request_axes_other_than_nine(self, cuda):
+        rng = np.random.default_rng(4)
+        world = (
+            rng.integers(0, 64, (96, 8)).astype(np.float32), rng.random((16, 96)) < 0.7,
+            rng.integers(0, 5, (16, 8)).astype(np.float32), rng.integers(0, 40, (4, 16)),
+            rng.random((4, 96)) < 0.2,
+        )
+        ops = disrupt_kernel.repack_from_numpy(*world, cuda)
+        for a, b in zip(repack.disrupt_repack(*ops), repack.repack_reference(*ops)):
             assert torch.equal(a.cpu(), b.cpu())
 
     def test_exact_quotient(self, cuda):

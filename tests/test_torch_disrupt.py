@@ -1,8 +1,10 @@
 """The port's repack (kernel B's plain version and its entry) against the
 JAX package's `disrupt_repack` and the Pallas `disrupt_repack_pallas`
 (interpreted), exactly, on the random worlds of tests/test_packing.py:427
-and on the one-set shape the provisioning solve's existing-node pre-pass
-sends.
+on the one-set shape the provisioning solve's existing-node pre-pass
+sends, and on the rows kernel B skips or must not skip: classes with an
+empty feasibility row between real ones, and an all-zero-request class
+whose int32 prefix sum over the nodes wraps.
 """
 import numpy as np
 import pytest
@@ -99,3 +101,63 @@ class TestRepackIdentity:
         ops[1] = ops[1].to(torch.uint8)
         ops[4] = ops[4].to(torch.uint8)
         assert_equal_to(world, *tk.repack_reference(*ops))
+
+
+def gapped_world(seed, s_=1):
+    """The pre-pass world with every third class infeasible everywhere
+    (kernel B's no-op steps between real classes) but still carrying pods,
+    and, for s_ > 1, random exclusions."""
+    headroom, feas, req, member, _ = pack_existing_world(seed, c_=24)
+    feas[1::3] = False
+    rng = np.random.default_rng(seed + 100)
+    member = rng.integers(1, 30, (s_, feas.shape[0]), dtype=np.int32)
+    excl = rng.random((s_, feas.shape[1])) < (0.2 if s_ > 1 else 0.0)
+    return headroom, feas, req, member, excl
+
+
+class TestSkippedAndWrappingRows:
+    @pytest.mark.parametrize("s_", [1, 4])
+    def test_infeasible_rows_between_real_classes(self, s_):
+        world = gapped_world(5, s_)
+        left, takes = port_repack(world)
+        assert_equal_to(world, left, takes)
+        assert np.array_equal(left.numpy()[:, 1::3], world[3][:, 1::3])
+        assert not takes.numpy()[:, 1::3].any() and takes.numpy().any()
+
+    def test_infeasible_rows_match_pallas_interpreted(self):
+        world = gapped_world(6, 4)
+        left, takes = port_repack(world)
+        pl, pt = disrupt_pallas.disrupt_repack_pallas(*world)
+        assert np.array_equal(left.numpy(), np.asarray(pl))
+        assert np.array_equal(takes.numpy(), np.asarray(pt))
+
+    @pytest.mark.parametrize("member", [0, 7])
+    def test_zero_request_class_wraps_the_prefix_sum(self, member):
+        """A class that requests nothing fits INT32_MAX pods on every
+        feasible node: the prefix sum wraps and the leftover goes negative
+        on both sides."""
+        headroom, feas, req, members, excl = pack_existing_world(7)
+        req[4] = 0.0
+        feas[4] = True
+        members[0, 4] = member
+        world = (headroom, feas, req, members, excl)
+        left, takes = port_repack(world)
+        assert_equal_to(world, left, takes)
+        assert int(left[0, 4]) < 0
+
+
+class TestLayout:
+    def test_pre_pass_shape_is_resident(self):
+        resident, chunk = tk.layout(1024, 9, 128)
+        assert resident and chunk == 128
+        assert tk.smem_bytes(1024, 9, 128, True) <= tk.SMEM_LIMIT
+
+    @pytest.mark.parametrize("n", [1, 17, 1024, 5000, 6000, 100_000, 3_000_000])
+    def test_every_shape_has_a_layout(self, n):
+        """No node count is refused: headroom moves to device memory when
+        shared memory cannot hold it, and the staged chunk still fits."""
+        for c in (1, 128, 4096):
+            resident, chunk = tk.layout(n, 9, c)
+            assert 1 <= chunk <= min(c, 256)
+            assert tk.smem_bytes(n, 9, chunk, resident) <= tk.SMEM_LIMIT
+            assert resident == (tk.smem_bytes(n, 9, 1, True) <= tk.SMEM_LIMIT)

@@ -7,8 +7,11 @@ buffer (its plain scan on the CPU) must equal `ffd.ffd_solve_fused`
 exactly -- all operands are small exact integers in float32 and the op
 order is the same, which is why the JAX package asserts bit-identity
 across its own rungs. The worlds are those of tests/test_packing.py:409,
-plus pinned edge cases: tied prices, exact quotients, slot exhaustion
-and a sparse overflow that takes the dense path.
+plus pinned edge cases: tied prices, exact quotients, slot exhaustion,
+a sparse overflow that takes the dense path, and the rows kernel A skips
+or must not skip: padded (compat-empty) rows between real classes, a
+count-0 class that open groups could join, and an all-zero-request class
+whose int32 prefix sum over the groups wraps.
 """
 import dataclasses
 
@@ -30,6 +33,12 @@ CATALOG_FIELDS = ("cap", "tcode", "tnum", "tnum_present", "tzone", "tcap", "pric
 CLASS_FIELDS = (
     "req", "count", "env_count", "allowed", "num_lo", "num_hi", "azone", "acap",
     "schedulable", "node_overhead", "open_allowed", "join_allowed",
+)
+
+# every per-class row of a PodClassSet (allowed is a list of per-dim arrays)
+ROW_FIELDS = (
+    "req", "count", "env_count", "num_lo", "num_hi", "azone", "acap", "schedulable",
+    "open_allowed", "join_allowed", "base_req",
 )
 
 # small tensors: one intra-op thread per test worker (several workers share the cores)
@@ -172,3 +181,124 @@ class TestSparseTake:
         assert np.array_equal(idx.numpy()[:n], nz[:n])
         assert np.array_equal(val.numpy()[:n], flat[nz[:n]])
         assert np.all(idx.numpy()[n:] == -1) and np.all(val.numpy()[n:] == 0)
+
+
+def take_rows(cs, idx):
+    """The class set made of rows `idx` of `cs` (repeats allowed)."""
+    idx = np.asarray(idx)
+    rows = {f: None if getattr(cs, f) is None else np.array(np.asarray(getattr(cs, f))[idx])
+            for f in ROW_FIELDS}
+    rows["allowed"] = [np.asarray(a)[idx] for a in cs.allowed]
+    return dataclasses.replace(cs, c_real=len(idx), c_pad=len(idx), **rows)
+
+
+def padded_between(cs, pad_count=3):
+    """Two padding rows after every real class (kernel A's no-op steps in
+    the middle of the scan), C rounded up to a multiple of 32; every other
+    padding row carries a count, which must come back as unplaced."""
+    pad = cs.c_pad - 1
+    assert pad >= cs.c_real and not cs.schedulable[pad]
+    idx = [i for c in range(cs.c_real) for i in (c, pad, pad)]
+    idx += [pad] * (-len(idx) % 32)
+    out = take_rows(cs, idx)
+    out.count[2::6] = pad_count
+    return out
+
+
+class TestSkippedAndWrappingRows:
+    """What kernel A's no-op skip and its placed-count shortcut must
+    reproduce, pinned on the plain version against the JAX package."""
+
+    @pytest.fixture(scope="class")
+    def world(self, entry):
+        # many small groups: cap clipped so 400 pods open every slot
+        pods = churn_pods(np.random.default_rng(7), 0, 400)
+        cs = jencode.encode_classes(jencode.group_pods(pods), entry.tensors, c_pad=C_PAD)
+        cat = dataclasses.replace(entry.tensors, cap=np.minimum(entry.tensors.cap, 4000.0))
+        return cat, cs
+
+    @pytest.mark.parametrize("objective", ["price", "fit"])
+    def test_padded_rows_between_real_classes(self, world, objective):
+        cat, cs = world
+        padded = padded_between(cs)
+        want, got, _ = both_buffers(cat, padded, packed=True, objective=objective)
+        assert_bytes_equal(want, got)
+        unplaced = got[2: 2 + padded.c_pad].view(np.int32)
+        assert np.all(unplaced[2::6] == 3) and int(got[1]) > 0
+
+    @pytest.mark.parametrize("objective", ["price", "fit"])
+    def test_count_zero_class_with_joinable_groups(self, world, objective):
+        cat, cs = world
+        zeroed = take_rows(cs, np.arange(cs.c_pad))
+        zeroed.count[cs.c_real - 1] = 0
+        want, got, _ = both_buffers(cat, zeroed, packed=True, objective=objective)
+        assert_bytes_equal(want, got)
+        assert got[2 + cs.c_real - 1].view(np.int32) == 0
+
+    @pytest.mark.parametrize("count", [None, 0])
+    @pytest.mark.parametrize("objective", ["price", "fit"])
+    def test_zero_request_class_wraps_the_prefix_sum(self, world, objective, count):
+        """Every open group fits INT32_MAX pods of a class that requests
+        nothing, so the int32 prefix sum wraps: the takes and the negative
+        unplaced count are the wrap's, on both sides."""
+        cat, cs = world
+        c = cs.c_real - 1
+        z = take_rows(cs, np.arange(cs.c_pad))
+        z.req[c] = 0.0
+        if count is not None:
+            z.count[c] = count
+        want, got, _ = both_buffers(cat, z, packed=True, objective=objective)
+        assert_bytes_equal(want, got)
+        assert got[2 + c].view(np.int32) < 0
+
+    def test_matches_pallas_kernel_interpreted(self, world):
+        """Padded rows between real classes and a wrapping zero-request
+        class in one scan, against the Pallas kernel run interpreted."""
+        from karpenter_tpu.solver.kernels import ffd_pallas
+
+        cat, cs = world
+        w = padded_between(cs)
+        last = 3 * (cs.c_real - 1)
+        w.req[last] = 0.0
+        jinp, offsets, words = jffd.make_inputs(cat, w, packed_masks=True)
+        tinp, _, _ = port_inputs(cat, w, True)
+        kw = dict(g_max=G, nnz_max=jffd.nnz_budget(w.c_pad, G), word_offsets=offsets,
+                  words=words, objective="price")
+        want = np.asarray(ffd_pallas.ffd_solve_fused_pallas(jinp, **kw))
+        got = tffd.fetch_fused(tffd.ffd_solve_fused(tinp, **kw))
+        assert_bytes_equal(want, got)
+        assert got[2 + last].view(np.int32) < 0
+
+
+def pr1_smem_bytes(g, k, r):
+    """Shared memory of the first CUDA version of kernel A: the shapes it
+    took are those where this is within one block's limit."""
+    kw = k // 32
+    return 4 * (g * r + g * kw + 3 * g + k * r + 3 * k + 4 * kw + r + 3 * 32)
+
+
+class TestScanLayout:
+    def test_main_path_shape_is_resident(self):
+        from karpenter_tpu_torch.solver.kernels import ffd_scan
+
+        assert ffd_scan.layout(1024, 640, 9) is True
+        assert ffd_scan.smem_bytes(1024, 640, 9) <= ffd_scan.SMEM_LIMIT
+
+    @pytest.mark.parametrize("k", [32, 64, 640, 1024, 1056, 2048, 8192])
+    @pytest.mark.parametrize("r", [1, 9, 32])
+    def test_takes_every_shape_the_first_version_took(self, k, r):
+        """The lean layout never needs more shared memory than the first
+        version did, so no shape it took is refused now."""
+        from karpenter_tpu_torch.solver.kernels import ffd_scan
+
+        limit = ffd_scan.SMEM_LIMIT
+        g_top = next(g for g in range(1, 20_000) if pr1_smem_bytes(g + 1, k, r) > limit) \
+            if pr1_smem_bytes(1, k, r) <= limit else 0
+        for g in sorted({1, 64, 1024, g_top // 2, g_top} - {0}):
+            if pr1_smem_bytes(g, k, r) > limit:
+                continue
+            assert ffd_scan.smem_bytes(g, k, r, resident=False) <= pr1_smem_bytes(g, k, r)
+            ffd_scan.layout(g, k, r)  # does not raise
+        if g_top:
+            with pytest.raises(ValueError, match="shared memory"):
+                ffd_scan.layout(g_top + 4 * (k + 1), k, r)
