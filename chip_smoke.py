@@ -120,58 +120,6 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# -- edge cases built from real operands (also used by tests/test_torch_cuda.py) --
-
-
-def scan_rows(ops, idx):
-    """Kernel A's operands with the per-class rows `idx` (repeats allowed)."""
-    idx = torch.as_tensor(idx, dtype=torch.int64, device=ops[0].device)
-    return tuple(t.index_select(0, idx).contiguous() if i < 9 else t for i, t in enumerate(ops))
-
-
-def real_classes(ops) -> list:
-    """Rows whose compat or fresh words are not all zero (the others are
-    no-op steps of kernel A)."""
-    return torch.nonzero((ops[1] != 0).any(1) | (ops[2] != 0).any(1)).flatten().tolist()
-
-
-def pad_scan_between(ops, pad_count=3):
-    """Two padding rows (as the prologue encodes them) after every real
-    class, C rounded up to a multiple of 32; every other padding row
-    carries `pad_count` pods, which must come back as unplaced."""
-    C = ops[0].shape[0]
-    pad = [torch.zeros_like(t[:1]) for t in ops[:9]]
-    pad[5] = torch.full_like(ops[5][:1], float("inf"))   # no admitted offering
-    pad[7] = torch.full_like(ops[7][:1], -1)             # plain leftover envelope
-    ops = tuple(torch.cat([t, p]) for t, p in zip(ops[:9], pad)) + tuple(ops[9:])
-    idx = [i for c in real_classes(ops) for i in (c, C, C)]
-    idx += [C] * (-len(idx) % 32)
-    out = scan_rows(ops, idx)
-    out[6][2::6] = pad_count
-    return out
-
-
-def zero_request(ops, c, count=None):
-    """Class c requests nothing: every open group it joins fits INT32_MAX
-    of its pods, so the prefix sum over the groups wraps."""
-    ops = scan_rows(ops, range(ops[0].shape[0]))
-    ops[0][c] = 0.0
-    ops[4][c] = float("inf")    # the prologue's fresh fit of an empty request
-    if count is not None:
-        ops[6][c] = count
-    return ops
-
-
-def gap_repack(ops, seed=0):
-    """Kernel B's operands with every third class infeasible everywhere
-    but still carrying pods."""
-    headroom0, feas, req, member, excl = (t.clone() for t in ops)
-    feas[1::3] = False
-    g = torch.Generator().manual_seed(seed)
-    member.copy_(torch.randint(1, 40, tuple(member.shape), generator=g, dtype=torch.int32))
-    return headroom0, feas, req, member, excl
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -179,7 +127,7 @@ def main() -> int:
     from karpenter_tpu_torch import workload
     from karpenter_tpu_torch.apis import NodePool
     from karpenter_tpu_torch.solver import encode, ffd
-    from karpenter_tpu_torch.solver.kernels import build
+    from karpenter_tpu_torch.solver.kernels import build, cases
     from karpenter_tpu_torch.solver.kernels import disrupt_repack as kb
     from karpenter_tpu_torch.solver.kernels import ffd_scan as ka
     from karpenter_tpu_torch.solver.oracle import SchedulingResult
@@ -350,14 +298,17 @@ def main() -> int:
     check_scan("exact quotients", scan_ops(cs1, "price", True, staged_exact), "price")
     check_scan("slot exhaustion g_max=64", ops_a, "price", g_max=64)
     check_scan("tick2 scan (63 padded rows)", ops_a2, "price")
-    real1 = real_classes(ops_a)
-    zeroed = scan_rows(ops_a2, range(ops_a2[0].shape[0]))
-    zeroed[6][real_classes(ops_a2)[-1]] = 0
+    zeroed = tuple(t.clone() for t in ops_a2)
+    zeroed[6][cases.real_classes(ops_a2)[-1]] = 0
     check_scan("tick2 scan, a count-0 class open groups could join", zeroed, "price")
-    check_scan("padded rows between real classes", pad_scan_between(ops_a), "price")
-    for c, n in ((real1[-1], None), (real1[-1], 0), (real1[len(real1) // 3], None)):
+    want = check_scan("padded rows between real classes",
+                      scan_ops(cases.padded_between(cs1), "price", True), "price")
+    if not torch.all(want[1][2::6] == 3):
+        raise AssertionError("the padded rows' pods did not come back as unplaced")
+    last = cs1.c_real - 1
+    for c, n in ((last, None), (last, 0), (cs1.c_real // 3, None)):
         want = check_scan(f"zero-request class {c} count {n}: the prefix sum wraps",
-                          zero_request(ops_a, c, n), "price")
+                          scan_ops(cases.zero_request(cs1, c, n), "price", True), "price")
         if int(want[1][c]) >= 0:
             raise AssertionError("the zero-request case did not wrap the prefix sum")
     check_scan("C=256 world", ops_a3, "price")
@@ -365,7 +316,7 @@ def main() -> int:
     check_scan("lean layout tick2", ops_a2, "price", lean=True)
 
     check_repack("tick2 pre-pass S=1", ops_b)
-    check_repack("tick2 pre-pass, infeasible rows between real classes S=1", gap_repack(ops_b))
+    check_repack("tick2 pre-pass, infeasible rows between real classes S=1", cases.gap_repack(ops_b))
     check_repack("tick2 pre-pass, scratch layout", ops_b, scratch=True)
     zr = tuple(t.clone() for t in ops_b)
     zr[2][3] = 0.0
@@ -383,7 +334,7 @@ def main() -> int:
         )
         ops = disrupt_kernel.repack_from_numpy(*world, dev)
         check_repack(f"random world S=64 seed {s}", ops)
-        check_repack(f"random world S=64 seed {s}, infeasible rows between", gap_repack(ops, s))
+        check_repack(f"random world S=64 seed {s}, infeasible rows between", cases.gap_repack(ops, s))
     check_repack("exact quotient 6/3", disrupt_kernel.repack_from_numpy(
         np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
         np.array([[5]]), np.zeros((1, 2), bool), dev))
@@ -471,11 +422,11 @@ def main() -> int:
     stages1 = median_stages(pods1, ())
     stages2 = median_stages(pods2, nodes)
 
-    # bounds from this run's inputs: bytes each input read once and each
-    # output written once; operations the function cannot skip -- kernel A's
-    # price envelope over every (real class, type) and the survivor-word
-    # join of every open group at each real class's step; kernel B's fit
-    # over every (set, class, node, axis)
+    # bounds from this run's inputs: bytes the function must read once and
+    # write once; operations it cannot skip -- kernel A's price envelope
+    # over every (real class, type) and the survivor-word join of every
+    # open group at each real class's step; kernel B's fit over every
+    # (set, class, node, axis)
     def scan_bound(ops, g_max=G_MAX):
         outs = ka.fused_scan(*ops, g_max=g_max, objective="price")
         take = outs[0].cpu().numpy()
@@ -483,10 +434,14 @@ def main() -> int:
         last = np.where((take > 0).any(axis=1),
                         take.shape[1] - np.argmax((take > 0)[:, ::-1], axis=1), 0)
         open_before = np.concatenate([[0], np.maximum.accumulate(last)[:-1]])
-        real = real_classes(ops)
-        K = ops[9].shape[0]
+        real = cases.real_classes(ops)
+        C, K = ops[0].shape[0], ops[9].shape[0]
         n_ops = len(real) * K * 6 + int(open_before[real].sum()) * (K // 32)
-        return bound(nbytes(ops) + nbytes(outs), n_ops)
+        # a no-op row is known by its compat and fresh words: of it only
+        # those and its count are read (and its zero take row written)
+        bytes_in = (len(real) * nbytes(t[0] for t in ops[:9])
+                    + (C - len(real)) * nbytes(ops[i][0] for i in (1, 2, 6)) + nbytes(ops[9:]))
+        return bound(bytes_in + nbytes(outs), n_ops)
 
     bound_a, by_a = scan_bound(ops_a)
     bound_a2, by_a2 = scan_bound(ops_a2)
@@ -497,18 +452,22 @@ def main() -> int:
         sweep[f"G={g}"] = {"ms": scan_ms(ops_a, g), "bound_ms": b_ms, "bound_by": b_by}
     b_ms, b_by = scan_bound(ops_a3)
     sweep["C=256 world"] = {"ms": scan_ms(ops_a3), "bound_ms": b_ms, "bound_by": b_by,
-                            "real_classes": len(real_classes(ops_a3))}
+                            "real_classes": len(cases.real_classes(ops_a3))}
     outs_b = kb.disrupt_repack(*ops_b)
     S, N = ops_b[4].shape
     Cb, R = ops_b[2].shape
-    bound_b, by_b = bound(nbytes(ops_b) + nbytes(outs_b), S * Cb * N * (3 * R + 4))
+    # a class with an empty feasibility row reads no request and fits nowhere
+    feasible = ops_b[1].to(torch.bool)
+    idle_b = int((~feasible.any(1)).sum())
+    bound_b, by_b = bound(nbytes(ops_b) - idle_b * nbytes([ops_b[2][0]]) + nbytes(outs_b),
+                          S * int(feasible.sum()) * (3 * R + 4))
     torch.cuda.synchronize()
     emit({"phase": "times", "timing": "CUDA events around 10 back-to-back calls, median of 20",
           "ffd_scan": {"ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
                        "bound_by": by_a, "shape": {"C": C, "G": G_MAX, "K": K}},
           "ffd_scan_tick2": {"ms": ms_a2, "plain_ms": plain_a2, "bound_ms": bound_a2,
                              "bound_by": by_a2, "shape": {"C": ops_a2[0].shape[0], "G": G_MAX, "K": K},
-                             "real_classes": len(real_classes(ops_a2))},
+                             "real_classes": len(cases.real_classes(ops_a2))},
           "ffd_scan_sweep_tick1_operands": sweep,
           "disrupt_repack": {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b,
                              "bound_by": by_b, "shape": {"S": S, "C": Cb, "N": N}},

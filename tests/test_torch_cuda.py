@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from karpenter_tpu_torch import workload
 from karpenter_tpu_torch.apis import NodePool
 from karpenter_tpu_torch.solver import encode, ffd
 from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
+from karpenter_tpu_torch.solver.kernels import cases
 from karpenter_tpu_torch.solver.kernels import disrupt_repack as repack
 from karpenter_tpu_torch.solver.kernels import ffd_scan
 from karpenter_tpu_torch.solver.service import TorchSolver
@@ -41,7 +41,8 @@ def items():
     return workload.build_catalog_items()
 
 
-def scan_inputs(items, device, n_pods, seed, packed=True, price_scale=None, templates=0):
+def class_world(items, device, n_pods, seed, price_scale=None, templates=0):
+    """(class set, staged catalog, word offsets, words) of a synthetic world."""
     pods = workload.synth_pods(np.random.default_rng(seed), workload.ZONES, n_pods, salt=seed,
                                templates=templates)
     classes = encode.group_pods(pods, extra_requirements=NodePool("default").requirements())
@@ -49,8 +50,18 @@ def scan_inputs(items, device, n_pods, seed, packed=True, price_scale=None, temp
     if price_scale is not None:
         catalog.price = np.where(np.isfinite(catalog.price), np.float32(price_scale), catalog.price)
     cs = encode.encode_classes(classes, catalog, c_pad=encode.bucket(len(classes), 16))
-    staged, offsets, words = ffd.stage_catalog(catalog, device)
+    return (cs, *ffd.stage_catalog(catalog, device))
+
+
+def scan_inputs(items, device, n_pods, seed, packed=True, price_scale=None, templates=0):
+    cs, staged, offsets, words = class_world(items, device, n_pods, seed, price_scale, templates)
     return ffd.make_inputs_staged(staged, cs, packed_masks=packed), offsets, words
+
+
+def price_operands(world, cs):
+    """Kernel A's operands of class set `cs` over the world's staged catalog."""
+    _, staged, offsets, words = world
+    return ffd.scan_operands(ffd.make_inputs_staged(staged, cs, packed_masks=True), offsets, words, "price")
 
 
 def assert_scan_equal(ops, g_max, objective):
@@ -92,26 +103,33 @@ class TestFusedScanKernel:
 
 class TestSkippedAndWrappingRows:
     """The rows kernel A skips (no-op classes) and those it must not: the
-    edge cases of chip_smoke.py, at a small size."""
+    edge cases of chip_smoke.py (karpenter_tpu_torch.solver.kernels.cases),
+    at a small size."""
 
     @pytest.fixture(scope="class")
-    def ops(self, cuda, items):
-        inp, offsets, words = scan_inputs(items, cuda, 8_000, seed=1)
-        return ffd.scan_operands(inp, offsets, words, "price")
+    def world(self, cuda, items):
+        return class_world(items, cuda, 8_000, seed=1)
 
-    def test_padded_rows_between_real_classes(self, ops):
-        got = assert_scan_equal(chip_smoke.pad_scan_between(ops), 256, "price")
+    @pytest.fixture(scope="class")
+    def ops(self, world):
+        return price_operands(world, world[0])
+
+    def test_padded_rows_between_real_classes(self, world):
+        got = assert_scan_equal(price_operands(world, cases.padded_between(world[0])), 256, "price")
         assert torch.all(got[1][2::6].cpu() == 3)
 
-    def test_count_zero_class_with_joinable_groups(self, ops):
-        zeroed = chip_smoke.scan_rows(ops, range(ops[0].shape[0]))
-        zeroed[6][chip_smoke.real_classes(ops)[-1]] = 0
-        assert_scan_equal(zeroed, 256, "price")
+    def test_count_zero_class_with_joinable_groups(self, world):
+        cs = world[0]
+        zeroed = cases.take_rows(cs, np.arange(cs.c_pad))
+        zeroed.count[cs.c_real - 1] = 0
+        ops = price_operands(world, zeroed)
+        assert cs.c_real - 1 in cases.real_classes(ops)
+        assert_scan_equal(ops, 256, "price")
 
     @pytest.mark.parametrize("count", [None, 0])
-    def test_zero_request_class_wraps_the_prefix_sum(self, ops, count):
-        c = chip_smoke.real_classes(ops)[-1]
-        got = assert_scan_equal(chip_smoke.zero_request(ops, c, count), 256, "price")
+    def test_zero_request_class_wraps_the_prefix_sum(self, world, count):
+        c = world[0].c_real - 1
+        got = assert_scan_equal(price_operands(world, cases.zero_request(world[0], c, count)), 256, "price")
         assert int(got[1][c]) < 0
 
     @pytest.mark.parametrize("g_max", [256, 1500])
@@ -164,7 +182,7 @@ class TestRepackKernel:
             rng.integers(0, 5, (c_, 9)).astype(np.float32), rng.integers(0, 40, (s_, c_)),
             rng.random((s_, n_)) < 0.2,
         )
-        ops = chip_smoke.gap_repack(disrupt_kernel.repack_from_numpy(*world, cuda))
+        ops = cases.gap_repack(disrupt_kernel.repack_from_numpy(*world, cuda))
         left, takes = repack.disrupt_repack(*ops)
         want_left, want_takes = repack.repack_reference(*ops)
         assert torch.equal(left.cpu(), want_left.cpu()) and torch.equal(takes.cpu(), want_takes.cpu())

@@ -15,6 +15,7 @@ import torch
 from karpenter_tpu.solver.disrupt import kernel as jkernel
 from karpenter_tpu.solver.kernels import disrupt_pallas
 from karpenter_tpu_torch.solver.disrupt import kernel as tkernel
+from karpenter_tpu_torch.solver.kernels import cases
 from karpenter_tpu_torch.solver.kernels import disrupt_repack as tk
 
 # small tensors: one intra-op thread per test worker (several workers share the cores)
@@ -104,15 +105,15 @@ class TestRepackIdentity:
 
 
 def gapped_world(seed, s_=1):
-    """The pre-pass world with every third class infeasible everywhere
-    (kernel B's no-op steps between real classes) but still carrying pods,
-    and, for s_ > 1, random exclusions."""
-    headroom, feas, req, member, _ = pack_existing_world(seed, c_=24)
-    feas[1::3] = False
+    """The pre-pass world with s_ sets (random exclusions for s_ > 1)
+    through `cases.gap_repack`: every third class infeasible everywhere
+    (kernel B's no-op steps between real classes) but still carrying pods."""
+    headroom, feas, req, _, _ = pack_existing_world(seed, c_=24)
     rng = np.random.default_rng(seed + 100)
-    member = rng.integers(1, 30, (s_, feas.shape[0]), dtype=np.int32)
+    member = np.zeros((s_, feas.shape[0]), dtype=np.int32)
     excl = rng.random((s_, feas.shape[1])) < (0.2 if s_ > 1 else 0.0)
-    return headroom, feas, req, member, excl
+    ops = cases.gap_repack(tkernel.repack_from_numpy(headroom, feas, req, member, excl, "cpu"), seed)
+    return tuple(t.numpy() for t in ops)
 
 
 class TestSkippedAndWrappingRows:
@@ -123,6 +124,7 @@ class TestSkippedAndWrappingRows:
         assert_equal_to(world, left, takes)
         assert np.array_equal(left.numpy()[:, 1::3], world[3][:, 1::3])
         assert not takes.numpy()[:, 1::3].any() and takes.numpy().any()
+        assert not world[1][1::3].any() and world[3].min() >= 1
 
     def test_infeasible_rows_match_pallas_interpreted(self):
         world = gapped_world(6, 4)

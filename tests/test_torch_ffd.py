@@ -25,6 +25,7 @@ from karpenter_tpu.solver import encode as jencode
 from karpenter_tpu.solver import ffd as jffd
 from karpenter_tpu.solver.service import TPUSolver
 from karpenter_tpu_torch.solver import ffd as tffd
+from karpenter_tpu_torch.solver.kernels import cases
 from tests.test_packing import _masked_inputs, catalog_items, churn_pods  # noqa: F401
 
 G = 64
@@ -33,12 +34,6 @@ CATALOG_FIELDS = ("cap", "tcode", "tnum", "tnum_present", "tzone", "tcap", "pric
 CLASS_FIELDS = (
     "req", "count", "env_count", "allowed", "num_lo", "num_hi", "azone", "acap",
     "schedulable", "node_overhead", "open_allowed", "join_allowed",
-)
-
-# every per-class row of a PodClassSet (allowed is a list of per-dim arrays)
-ROW_FIELDS = (
-    "req", "count", "env_count", "num_lo", "num_hi", "azone", "acap", "schedulable",
-    "open_allowed", "join_allowed", "base_req",
 )
 
 # small tensors: one intra-op thread per test worker (several workers share the cores)
@@ -183,31 +178,11 @@ class TestSparseTake:
         assert np.all(idx.numpy()[n:] == -1) and np.all(val.numpy()[n:] == 0)
 
 
-def take_rows(cs, idx):
-    """The class set made of rows `idx` of `cs` (repeats allowed)."""
-    idx = np.asarray(idx)
-    rows = {f: None if getattr(cs, f) is None else np.array(np.asarray(getattr(cs, f))[idx])
-            for f in ROW_FIELDS}
-    rows["allowed"] = [np.asarray(a)[idx] for a in cs.allowed]
-    return dataclasses.replace(cs, c_real=len(idx), c_pad=len(idx), **rows)
-
-
-def padded_between(cs, pad_count=3):
-    """Two padding rows after every real class (kernel A's no-op steps in
-    the middle of the scan), C rounded up to a multiple of 32; every other
-    padding row carries a count, which must come back as unplaced."""
-    pad = cs.c_pad - 1
-    assert pad >= cs.c_real and not cs.schedulable[pad]
-    idx = [i for c in range(cs.c_real) for i in (c, pad, pad)]
-    idx += [pad] * (-len(idx) % 32)
-    out = take_rows(cs, idx)
-    out.count[2::6] = pad_count
-    return out
-
-
 class TestSkippedAndWrappingRows:
     """What kernel A's no-op skip and its placed-count shortcut must
-    reproduce, pinned on the plain version against the JAX package."""
+    reproduce, pinned on the plain version against the JAX package. The
+    worlds come from karpenter_tpu_torch.solver.kernels.cases, which the
+    card-only tests and chip_smoke.py use too."""
 
     @pytest.fixture(scope="class")
     def world(self, entry):
@@ -220,7 +195,7 @@ class TestSkippedAndWrappingRows:
     @pytest.mark.parametrize("objective", ["price", "fit"])
     def test_padded_rows_between_real_classes(self, world, objective):
         cat, cs = world
-        padded = padded_between(cs)
+        padded = cases.padded_between(cs)
         want, got, _ = both_buffers(cat, padded, packed=True, objective=objective)
         assert_bytes_equal(want, got)
         unplaced = got[2: 2 + padded.c_pad].view(np.int32)
@@ -229,7 +204,7 @@ class TestSkippedAndWrappingRows:
     @pytest.mark.parametrize("objective", ["price", "fit"])
     def test_count_zero_class_with_joinable_groups(self, world, objective):
         cat, cs = world
-        zeroed = take_rows(cs, np.arange(cs.c_pad))
+        zeroed = cases.take_rows(cs, np.arange(cs.c_pad))
         zeroed.count[cs.c_real - 1] = 0
         want, got, _ = both_buffers(cat, zeroed, packed=True, objective=objective)
         assert_bytes_equal(want, got)
@@ -243,13 +218,27 @@ class TestSkippedAndWrappingRows:
         unplaced count are the wrap's, on both sides."""
         cat, cs = world
         c = cs.c_real - 1
-        z = take_rows(cs, np.arange(cs.c_pad))
-        z.req[c] = 0.0
-        if count is not None:
-            z.count[c] = count
+        z = cases.zero_request(cs, c, count)
         want, got, _ = both_buffers(cat, z, packed=True, objective=objective)
         assert_bytes_equal(want, got)
         assert got[2 + c].view(np.int32) < 0
+
+    def test_builders_place_the_no_op_rows(self, world):
+        """padded_between puts two no-op rows (no compat or fresh word)
+        after every class, so the real rows of kernel A's operands are
+        those of the original world, three apart; a class set without a
+        padding row is refused."""
+        cat, cs = world
+        words = port_inputs(cat, cs, True)[1:]
+
+        def real(class_set):
+            inp = port_inputs(cat, class_set, True)[0]
+            return cases.real_classes(tffd.scan_operands(inp, *words, "price"))
+
+        assert real(cases.padded_between(cs)) == [3 * c for c in real(cs)]
+        assert real(cs) and max(real(cs)) < cs.c_real
+        with pytest.raises(ValueError, match="padding row"):
+            cases.padded_between(cases.take_rows(cs, np.arange(cs.c_real)))
 
     def test_matches_pallas_kernel_interpreted(self, world):
         """Padded rows between real classes and a wrapping zero-request
@@ -257,7 +246,7 @@ class TestSkippedAndWrappingRows:
         from karpenter_tpu.solver.kernels import ffd_pallas
 
         cat, cs = world
-        w = padded_between(cs)
+        w = cases.padded_between(cs)
         last = 3 * (cs.c_real - 1)
         w.req[last] = 0.0
         jinp, offsets, words = jffd.make_inputs(cat, w, packed_masks=True)
