@@ -5,32 +5,46 @@
 
 Runs the karpenter_tpu_torch main path at full width -- the 627-type
 generated catalog, 50,000 pending pods from 160 templates, one NodePool,
-g_max 1024, the price objective -- through the entry point a user calls,
-`TorchSolver.solve`, for two ticks: tick 1 on an empty cluster (kernel A),
-tick 2 with a second wave of 10,000 pods packed first onto the nodes of
-tick 1 (kernel B, one candidate set) and then opened for the rest
-(kernel A). Phases, one JSON line each:
+g_max 1024, the price objective -- through the entry points a user calls.
+`TorchSolver.solve` takes two ticks: tick 1 on an empty cluster
+(kernel A), tick 2 with a second wave of 10,000 pods packed first onto the
+nodes of tick 1 (kernel B, one candidate set) and then opened for the rest
+(kernel A). `TorchSolver.schedule`, the routing entry point, takes four
+worlds: `suffix` (49,500 of those pods plus 500 with required hostname
+pod affinity: the oracle suffix), `spread` (16 templates with zone
+spread, two ticks, the second seeded with the first's pods: the split
+pass, kernel B on zone-pinned rows), `merged` (the 50k pods under
+weighted spot and on-demand NodePools: 1,254 joint columns) and
+`pipelined` (schedule_begin/schedule_finish on tick 1). Phases, one JSON
+line each:
 
   device   the card, its count and `nvidia-smi` name and power limit
   build    nvcc for sm_90a, one process per source, with ptxas -v lines
   main     the two ticks with every launch count set to 0 before a tick
            and read after it; every pod must be placed exactly once
+  schedule the four worlds, counted the same way, each with its route,
+           C and K of kernel A, the layout it chose, and its unschedulable
+           pods; each must take its route and account for every pod once
   kernels  each kernel against its plain torch version on the card, on
            the main path's own inputs (tick 1's scan; tick 2's scan, whose
-           C=128 holds 63 padded rows; tick 2's repack) and on pinned edge
+           C=128 holds 63 padded rows; tick 2's repack; the schedule
+           worlds' scans and the spread wave's repack) and on pinned edge
            cases: tied prices, exact quotients, slot exhaustion, padded or
            infeasible rows between real classes, a count-0 class that open
            groups could join, all-zero-request classes whose int32 prefix
            sums wrap, a C=256 world, kernel B at 64 candidate sets, and the
            layouts each kernel falls back to when shared memory is short;
            equality is exact
-  plain    the same two ticks with both kernels swapped for their plain
-           versions: the decisions must be identical
-  times    each kernel and its plain version at the main-path shapes
-           (kernel A at tick 1 and tick 2), kernel A over G in {64, 256,
-           1024} on tick 1's operands and on the C=256 world, each with
-           its bound; kernel times are CUDA events around 10 back-to-back
-           calls; tick walls and their stages, peak device memory
+  plain    the same ticks and worlds with both kernels swapped for their
+           plain versions: the decisions must be identical
+  times    each kernel and its plain version at every main-path shape
+           (kernel A at tick 1, tick 2 and in each world; kernel B at
+           tick 2 and the spread wave), kernel A over G in {64, 256, 1024}
+           on tick 1's operands, on the C=256 world and under the fit
+           objective, each with its bound and, at G=1024, the surviving
+           types of its groups; kernel times are CUDA events around 10
+           back-to-back calls; tick walls and their stages per tick and
+           world, peak device memory
 
 Then the nvidia-smi line, the kernels line and, last, the result line.
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -51,6 +65,8 @@ import torch
 SEED = 20_260_101
 N_PODS = 50_000
 N_WAVE = 10_000
+N_AFF = 500                    # the suffix world's affinity pods
+N_SPREAD = 16                  # the spread world's zone-spread templates
 G_MAX = 1024
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -120,17 +136,78 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+@contextlib.contextmanager
+def recording(ka, kb):
+    """The operands each kernel wrapper is called with inside the block,
+    per kernel; the calls go on to the wrappers unchanged."""
+    rec = {"ffd_scan": [], "disrupt_repack": []}
+    scan, repack = ka.fused_scan, kb.disrupt_repack
+
+    def scan_rec(*ops, **kw):
+        rec["ffd_scan"].append(ops)
+        return scan(*ops, **kw)
+
+    def repack_rec(*ops):
+        rec["disrupt_repack"].append(ops)
+        return repack(*ops)
+
+    ka.fused_scan, kb.disrupt_repack = scan_rec, repack_rec
+    try:
+        yield rec
+    finally:
+        ka.fused_scan, kb.disrupt_repack = scan, repack
+
+
+# the host stages of a tick (TorchSolver methods and ffd functions), in
+# the order a tick runs them; `fetch` waits for the device, and
+# `solve_finish` holds `fetch` and `decode`
+SOLVER_STAGES = ("_group", "supports", "_merged_catalog", "_split_spread", "_pack_existing",
+                 "_encode", "solve_finish", "_decode", "_oracle_suffix")
+FFD_STAGES = ("ffd_solve_fused", "fetch_fused")
+
+
+@contextlib.contextmanager
+def stage_timer(solver, ffd_mod):
+    """Host-clock milliseconds spent in each stage of SOLVER_STAGES and
+    FFD_STAGES over the calls inside the block (a nested stage counts in
+    its parent too)."""
+    times = {}
+
+    def timed(label, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                times[label] = times.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
+        return call
+
+    saved = {name: getattr(ffd_mod, name) for name in FFD_STAGES}
+    for name in SOLVER_STAGES:
+        setattr(solver, name, timed(name.lstrip("_"), getattr(solver, name)))
+    for name, fn in saved.items():
+        setattr(ffd_mod, name, timed(name, fn))
+    try:
+        yield times
+    finally:
+        for name in SOLVER_STAGES:
+            delattr(solver, name)
+        for name, fn in saved.items():
+            setattr(ffd_mod, name, fn)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
         return 2
     from karpenter_tpu_torch import workload
-    from karpenter_tpu_torch.apis import NodePool
-    from karpenter_tpu_torch.solver import encode, ffd
+    from karpenter_tpu_torch.apis import NodePool, labels as wk
+    from karpenter_tpu_torch.scheduling import Requirement
+    from karpenter_tpu_torch.solver import encode, ffd, packing
     from karpenter_tpu_torch.solver.kernels import build, cases
     from karpenter_tpu_torch.solver.kernels import disrupt_repack as kb
     from karpenter_tpu_torch.solver.kernels import ffd_scan as ka
-    from karpenter_tpu_torch.solver.oracle import SchedulingResult
+    from karpenter_tpu_torch.solver.oracle import Scheduler, SchedulingResult
     from karpenter_tpu_torch.solver.service import TorchSolver
 
     # -- device ---------------------------------------------------------------
@@ -192,9 +269,100 @@ def main() -> int:
         return {"groups": len(result.new_groups), "on_existing": len(result.existing_assignments),
                 "unschedulable": len(result.unschedulable)}
 
+    def sig(result):
+        """A decision: groups by pod names and cheapest type, existing-node
+        assignments, unschedulable reasons."""
+        return (
+            sorted((tuple(sorted(p.metadata.name for p in g.pods)), g.instance_types[0].name)
+                   for g in result.new_groups),
+            sorted(result.existing_assignments.items()),
+            sorted(result.unschedulable.items()),
+        )
+
     emit({"phase": "main", "pods": [N_PODS, N_WAVE], "existing_nodes": len(nodes),
           "tick1": accounted(tick1, pods1), "tick2": accounted(tick2, pods2),
           "launches": {"tick1": launches1, "tick2": launches2}, **tag})
+
+    # -- schedule(): the routing entry point on four worlds ----------------------
+    zones = set(workload.ZONES)
+    default_pools = [pool]
+    spot_od = [
+        NodePool(name, weight=weight,
+                 requirements=[Requirement(wk.CAPACITY_TYPE_LABEL, "In", [name])])
+        for name, weight in ((wk.CAPACITY_TYPE_SPOT, 100), (wk.CAPACITY_TYPE_ON_DEMAND, 10))
+    ]
+    pods_aff = workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS - N_AFF,
+                                   salt=1) + workload.affinity_pods(1, N_AFF)
+    pods_sp1 = workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS, salt=1,
+                                   spread=N_SPREAD)
+    pods_sp2 = workload.synth_pods(np.random.default_rng(SEED + 1), workload.ZONES, N_WAVE,
+                                   salt=2, spread=N_SPREAD)
+
+    def sched(pools, existing=(), pods_by_node=None):
+        return Scheduler(nodepools=pools, instance_types={p.name: items for p in pools},
+                         existing_nodes=existing, pods_by_node=pods_by_node, zones=zones)
+
+    # world -> (pods, the route it must take, the kernels it must launch)
+    world_spec = {
+        "suffix": (pods_aff, "device+suffix", ("ffd_scan",)),
+        "spread tick 1": (pods_sp1, "device", ("ffd_scan",)),
+        "spread tick 2": (pods_sp2, "device", ("ffd_scan", "disrupt_repack")),
+        "merged": (pods1, "merged", ("ffd_scan",)),
+        "pipelined": (pods1, "device", ("ffd_scan",)),
+    }
+
+    def worlds_of(solver, done):
+        """The schedule() worlds in run order, name -> thunk. The spread
+        wave packs onto fresh nodes of `done["spread tick 1"]`, seeded
+        with that tick's pods."""
+        def spread2():
+            s1 = done["spread tick 1"]
+            return solver.schedule(sched(default_pools, workload.nodes_from_result(s1),
+                                         workload.pods_by_node(s1)), pods_sp2)
+
+        return {
+            "suffix": lambda: solver.schedule(sched(default_pools), pods_aff),
+            "spread tick 1": lambda: solver.schedule(sched(default_pools), pods_sp1),
+            "spread tick 2": spread2,
+            "merged": lambda: solver.schedule(sched(spot_od), pods1),
+            "pipelined": lambda: solver.schedule_finish(
+                solver.schedule_begin(sched(default_pools), pods1)),
+        }
+
+    sched_solver = TorchSolver(g_max=G_MAX, device=dev)
+    world_results, world_ops, world_launches, world_docs = {}, {}, {}, {}
+    for name, fn in worlds_of(sched_solver, world_results).items():
+        pods_w, route, needed = world_spec[name]
+        with recording(ka, kb) as rec:
+            ka.launches = kb.launches = 0
+            result = fn()
+            torch.cuda.synchronize()
+            world_launches[name] = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+        world_results[name], world_ops[name] = result, rec
+        if sched_solver.last_route["path"] != route:
+            raise AssertionError(f"world {name} took route {sched_solver.last_route}, not {route}")
+        missing = [k for k in needed if world_launches[name][k] < 1]
+        if missing:
+            raise AssertionError(f"world {name} did not launch {missing}: {world_launches[name]}")
+        scan_ops = rec["ffd_scan"][0]
+        C_w, R_w = scan_ops[0].shape
+        K_w = scan_ops[9].shape[0]
+        doc = {"route": dict(sched_solver.last_route), "pods": len(pods_w),
+               "c_pad": C_w, "k_pad": K_w, "real_classes": len(cases.real_classes(scan_ops)),
+               "layout": "resident" if ka.layout(G_MAX, K_w, R_w) else "lean",
+               "launches": world_launches[name], **accounted(result, pods_w)}
+        if rec["disrupt_repack"]:
+            S_w, N_w = rec["disrupt_repack"][0][4].shape
+            doc["repack_shape"] = {"S": S_w, "C": rec["disrupt_repack"][0][2].shape[0], "N": N_w}
+        world_docs[name] = doc
+    # uncounted: the synchronous call the pipelined one must equal
+    same_pipe = (sig(world_results["pipelined"])
+                 == sig(sched_solver.schedule(sched(default_pools), pods1)) == sig(tick1))
+    emit({"phase": "schedule", "g_max": G_MAX, "objective": "price", "worlds": world_docs,
+          "spread_templates": N_SPREAD, "pipelined_equals_solve": same_pipe, **tag})
+    if not same_pipe:
+        raise AssertionError("schedule_begin/schedule_finish decided differently from "
+                             "schedule or solve")
 
     # the main path's own kernel inputs: tick 1's scan, tick 2's repack
     classes1 = encode.group_pods(pods1, extra_requirements=pool.requirements())
@@ -338,29 +506,35 @@ def main() -> int:
     check_repack("exact quotient 6/3", disrupt_kernel.repack_from_numpy(
         np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
         np.array([[5]]), np.zeros((1, 2), bool), dev))
+    # the schedule worlds' own operands: the merged catalog (K=1280, the
+    # lean layout), the split pass's zone-pinned sub-classes, the wave's
+    # repack onto zone-pinned rows
+    for name in world_spec:
+        ops = world_ops[name]["ffd_scan"][0]
+        check_scan(f"{name} scan C={ops[0].shape[0]} K={ops[9].shape[0]} "
+                   f"({world_docs[name]['layout']} layout)", ops, "price")
+    check_repack("spread tick 2 pre-pass, zone-pinned rows",
+                 world_ops["spread tick 2"]["disrupt_repack"][0])
     emit({"phase": "kernels", "checks": checks, **tag})
 
     # -- the same two ticks through the plain versions, on the card --------------
-    def sig(result):
-        return (
-            sorted((tuple(sorted(p.metadata.name for p in g.pods)), g.instance_types[0].name)
-                   for g in result.new_groups),
-            sorted(result.existing_assignments.items()),
-            sorted(result.unschedulable.items()),
-        )
-
     with plain_kernels():
         ref_solver = TorchSolver(g_max=G_MAX, device=dev)
         ref1 = ref_solver.solve(pool, items, pods1)
         ref2 = ref_solver.solve(pool, items, pods2, existing_nodes=workload.nodes_from_result(ref1))
+        ref_worlds = {}
+        for name, fn in worlds_of(TorchSolver(g_max=G_MAX, device=dev), ref_worlds).items():
+            ref_worlds[name] = fn()
     same1, same2 = sig(ref1) == sig(tick1), sig(ref2) == sig(tick2)
-    emit({"phase": "plain", "tick1_decisions_equal": same1, "tick2_decisions_equal": same2, **tag})
-    if not (same1 and same2):
+    same_worlds = {name: sig(ref_worlds[name]) == sig(world_results[name]) for name in world_spec}
+    emit({"phase": "plain", "tick1_decisions_equal": same1, "tick2_decisions_equal": same2,
+          "schedule_worlds_decisions_equal": same_worlds, **tag})
+    if not (same1 and same2 and all(same_worlds.values())):
         raise AssertionError("the main path's decisions differ from the plain versions'")
 
     # -- times ----------------------------------------------------------------------
-    def scan_ms(ops, g_max=G_MAX):
-        return cuda_ms(lambda: ka.fused_scan(*ops, g_max=g_max, objective="price"), reps=20)
+    def scan_ms(ops, g_max=G_MAX, objective="price"):
+        return cuda_ms(lambda: ka.fused_scan(*ops, g_max=g_max, objective=objective), reps=20)
 
     def scan_plain_ms(ops):
         return cuda_ms(lambda: ka.fused_scan_reference(*ops, g_max=G_MAX, objective="price"),
@@ -427,8 +601,8 @@ def main() -> int:
     # over every (real class, type) and the survivor-word join of every
     # open group at each real class's step; kernel B's fit over every
     # (set, class, node, axis)
-    def scan_bound(ops, g_max=G_MAX):
-        outs = ka.fused_scan(*ops, g_max=g_max, objective="price")
+    def scan_bound(ops, g_max=G_MAX, objective="price"):
+        outs = ka.fused_scan(*ops, g_max=g_max, objective=objective)
         take = outs[0].cpu().numpy()
         # groups open after step c: every opened group takes a pod when it opens
         last = np.where((take > 0).any(axis=1),
@@ -453,14 +627,89 @@ def main() -> int:
     b_ms, b_by = scan_bound(ops_a3)
     sweep["C=256 world"] = {"ms": scan_ms(ops_a3), "bound_ms": b_ms, "bound_by": b_by,
                             "real_classes": len(cases.real_classes(ops_a3))}
-    outs_b = kb.disrupt_repack(*ops_b)
+
+    def survivors(ops, objective):
+        """(median, max) surviving types over the groups the scan opened."""
+        _, _, n_open, gmask_bits, _ = ka.fused_scan(*ops, g_max=G_MAX, objective=objective)
+        n = packing.unpack_rows(gmask_bits[: int(n_open)], ops[9].shape[0]).sum(1)
+        return float(n.float().median()), int(n.max())
+
+    # the fit objective keeps every compatible type in a fresh group (as a
+    # zone-spread sub-class does): kernel A with wide groups at tick 1
+    ops_fit = scan_ops(cs1, "fit", True)
+    b_ms, b_by = scan_bound(ops_fit, objective="fit")
+    sweep["G=1024"]["group_types_median_max"] = survivors(ops_a, "price")
+    sweep["tick 1, fit objective"] = {
+        "ms": scan_ms(ops_fit, objective="fit"), "bound_ms": b_ms, "bound_by": b_by,
+        "group_types_median_max": survivors(ops_fit, "fit")}
+
+    def repack_bound(ops):
+        outs = kb.disrupt_repack(*ops)
+        S, _ = ops[4].shape
+        R = ops[2].shape[1]
+        # a class with an empty feasibility row reads no request and fits nowhere
+        feasible = ops[1].to(torch.bool)
+        idle = int((~feasible.any(1)).sum())
+        return bound(nbytes(ops) - idle * nbytes([ops[2][0]]) + nbytes(outs),
+                     S * int(feasible.sum()) * (3 * R + 4))
+
+    bound_b, by_b = repack_bound(ops_b)
     S, N = ops_b[4].shape
     Cb, R = ops_b[2].shape
-    # a class with an empty feasibility row reads no request and fits nowhere
-    feasible = ops_b[1].to(torch.bool)
-    idle_b = int((~feasible.any(1)).sum())
-    bound_b, by_b = bound(nbytes(ops_b) - idle_b * nbytes([ops_b[2][0]]) + nbytes(outs_b),
-                          S * int(feasible.sum()) * (3 * R + 4))
+
+    # every shape the main path gave each kernel: name -> (operands, launches)
+    shapes_a = {"tick 1": (ops_a, launches1["ffd_scan"]), "tick 2": (ops_a2, launches2["ffd_scan"])}
+    shapes_b = {"tick 2": (ops_b, launches2["disrupt_repack"])}
+    for name in world_spec:
+        shapes_a[name] = (world_ops[name]["ffd_scan"][0], world_launches[name]["ffd_scan"])
+        if world_ops[name]["disrupt_repack"]:
+            shapes_b[name] = (world_ops[name]["disrupt_repack"][0],
+                              world_launches[name]["disrupt_repack"])
+    shape_rows = {"ffd_scan": [], "disrupt_repack": []}
+    for name, (ops, n) in shapes_a.items():
+        if name == "tick 1":
+            ms, plain, (b_ms, b_by) = ms_a, plain_a, (bound_a, by_a)
+        elif name == "tick 2":
+            ms, plain, (b_ms, b_by) = ms_a2, plain_a2, (bound_a2, by_a2)
+        else:
+            ms, plain, (b_ms, b_by) = scan_ms(ops), scan_plain_ms(ops), scan_bound(ops)
+        C_s, R_s = ops[0].shape
+        K_s = ops[9].shape[0]
+        shape_rows["ffd_scan"].append({
+            "path": name, "shape": {"C": C_s, "G": G_MAX, "K": K_s, "R": R_s},
+            "real_classes": len(cases.real_classes(ops)),
+            "layout": "resident" if ka.layout(G_MAX, K_s, R_s) else "lean",
+            # kernel A walks each open group's survivors at every later
+            # step, one thread per group
+            "group_types_median_max": survivors(ops, "price"),
+            "launches": n, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by})
+    for name, (ops, n) in shapes_b.items():
+        if name == "tick 2":
+            ms, plain, (b_ms, b_by) = ms_b, plain_b, (bound_b, by_b)
+        else:
+            ms = cuda_ms(lambda: kb.disrupt_repack(*ops), reps=50)
+            plain = cuda_ms(lambda: kb.repack_reference(*ops), reps=5, warmup=1, batch=1)
+            b_ms, b_by = repack_bound(ops)
+        shape_rows["disrupt_repack"].append({
+            "path": name, "shape": {"S": ops[4].shape[0], "C": ops[2].shape[0],
+                                    "N": ops[4].shape[1], "R": ops[2].shape[1]},
+            "feasible_classes": int(ops[1].any(1).sum()),
+            "launches": n, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by})
+
+    # each world's tick wall and host stages (median of 3 warm runs)
+    world_walls, world_stages = {}, {}
+    warm_results = dict(world_results)
+    for name, fn in worlds_of(sched_solver, warm_results).items():
+        first, med = wall_ms(fn, reps=3)
+        world_walls[name] = {"first_timed": first, "median": med}
+        runs = []
+        for _ in range(3):
+            with stage_timer(sched_solver, ffd) as t:
+                fn()
+                torch.cuda.synchronize()
+            runs.append(t)
+        world_stages[name] = {k: statistics.median(r.get(k, 0.0) for r in runs)
+                              for k in runs[0]}
     torch.cuda.synchronize()
     emit({"phase": "times", "timing": "CUDA events around 10 back-to-back calls, median of 20",
           "ffd_scan": {"ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
@@ -474,20 +723,29 @@ def main() -> int:
           "tick1_wall_ms": {"first": wall1_cold, "first_timed": tick1_first, "median": tick1_ms},
           "tick2_wall_ms": {"first": wall2_cold, "first_timed": tick2_first, "median": tick2_ms},
           "tick1_stages_ms": stages1, "tick2_stages_ms": stages2,
+          "kernel_shapes": shape_rows,
+          "schedule_wall_ms": world_walls, "schedule_stages_ms": world_stages,
+          "stages_note": "host clock; solve_finish holds fetch_fused and decode, "
+                         "oracle_suffix holds the oracle's pass, fetch_fused waits "
+                         "for the device",
           "peak_device_bytes_main_path": peak_bytes, **tag})
+
+    def launches_on_paths(kernel):
+        return (launches1[kernel] + launches2[kernel]
+                + sum(n[kernel] for n in world_launches.values()))
 
     kernels = [
         {"name": "ffd_scan", "route": "cuda", "source": "karpenter_tpu_torch/csrc/ffd_scan.cu",
          "replaces": "karpenter_tpu/solver/kernels/ffd_pallas.py:70",
-         "launches": launches1["ffd_scan"] + launches2["ffd_scan"], "max_abs_err": err_a,
+         "launches": launches_on_paths("ffd_scan"), "max_abs_err": err_a,
          "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a, "bound_by": by_a,
-         "library_ms": None},
+         "library_ms": None, "shapes": shape_rows["ffd_scan"]},
         {"name": "disrupt_repack", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/disrupt_repack.cu",
          "replaces": "karpenter_tpu/solver/kernels/disrupt_pallas.py:38",
-         "launches": launches1["disrupt_repack"] + launches2["disrupt_repack"],
+         "launches": launches_on_paths("disrupt_repack"),
          "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b,
-         "bound_by": by_b, "library_ms": None},
+         "bound_by": by_b, "library_ms": None, "shapes": shape_rows["disrupt_repack"]},
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

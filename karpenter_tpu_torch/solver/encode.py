@@ -1,10 +1,10 @@
 """Dense tensor encoding: catalog and pod classes -> solver inputs.
 
 Copy of karpenter_tpu/solver/encode.py. It stays NumPy: the host builds
-the encoded arrays, and solver/ffd.py moves them to the device. Grouping
-is the pure-Python loop (the JAX package's C grouping extension gives the
-same classes and is not carried over); the cross-tick IncrementalGrouper
-belongs to the routing slice.
+the encoded arrays, and solver/ffd.py moves them to the device. Grouping,
+in group_pods and in the cross-tick IncrementalGrouper, is the
+pure-Python loop (the JAX package's C grouping extension gives the same
+classes and is not carried over).
 
 This is the bridge between the host-side constraint algebra and the
 device decision plane.
@@ -485,6 +485,139 @@ def group_pods(pods: Sequence[Pod], extra_requirements: Optional[Requirements] =
     out = list(groups.values())
     out.sort(key=lambda pc: pod_sort_key(pc.pods[0]))
     return out
+
+
+class IncrementalGrouper:
+    """Dirty-tracking grouping across scheduling ticks (the delta-solve
+    engine's host layer). group() is drop-in equivalent to group_pods(pods)
+    -- same classes, same order, same pods lists, fresh PodClass objects
+    per call (pipelined tickets own their class lists) -- but every
+    per-signature canonical computation is memoized ACROSS ticks instead
+    of per call: Requirements construction, the class key, the scaled
+    request vector, the routing flags, and the FFD sort key (a pure
+    function of class identity: every pod_sort_key component is determined
+    by the _class_key components). A warm steady-state tick's grouping
+    therefore costs one token/signature dict probe + list append per pod
+    (the same loop group_pods runs) plus canonical work ONLY for
+    signatures never seen before -- classification cost scales with churn,
+    not cluster size.
+
+    Routing flags are memoized PER SIGNATURE and OR'd over the signatures
+    present THIS tick (exactly group_pods' fresh semantics -- a class whose
+    affinity-carrying pods all left does not keep a stale flag).
+
+    last_stats reports the tick-over-tick churn: classes whose pod count
+    changed, appeared, or vanished since the previous call -- the
+    dirty-fraction signal the delta wire metrics and span attrs quote.
+
+    Not thread-safe; owned by the (single-threaded) scheduling tick."""
+
+    def __init__(self):
+        # sig id -> (class key, Requirements, requests f32, flags)
+        self._sig_memo: Dict[int, tuple] = {}
+        self._sort_memo: Dict[tuple, tuple] = {}   # class key -> pod_sort_key
+        self._prev_counts: Dict[tuple, int] = {}
+        self.last_stats = {
+            "pods": 0, "classes": 0, "dirty_classes": 0, "new_classes": 0,
+            "removed_classes": 0, "dirty_fraction": 1.0, "full_rebuild": True,
+        }
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def group(self, pods: Sequence[Pod]) -> List[PodClass]:
+        if len(self._sig_memo) > (1 << 16):
+            # bound memo growth under signature churn: a clear only
+            # re-derives canonical keys once (ids are monotone, so a stale
+            # _sig_id can never alias -- see the _SIGS intern table)
+            self._sig_memo.clear()
+            self._sort_memo.clear()
+        first = not self._prev_counts
+        sig_memo = self._sig_memo
+        tok_to_class: Dict[int, PodClass] = {}
+        id_to_class: Dict[int, PodClass] = {}
+        groups: Dict[tuple, PodClass] = {}
+        tok_get = tok_to_class.get
+        id_get = id_to_class.get
+
+        def classify(pod: Pod) -> PodClass:
+            sid = pod._sig_id
+            if sid is None:
+                sid = pod._sig_id = _intern_sig(pod.grouping_signature())
+            pc = id_get(sid)
+            if pc is not None:
+                return pc
+            ent = sig_memo.get(sid)
+            if ent is None:
+                reqs = pod.scheduling_requirements()[0]
+                key = _class_key(pod, reqs)
+                requested = scale_vector(
+                    (pod.requests + _one_pod()).to_vector()
+                ).astype(np.float32)
+                flags = (
+                    bool(pod.affinity_terms),
+                    len(pod.node_affinity_terms) > 1,
+                    bool(pod.preferred_node_affinity_terms or pod.preferred_affinity_terms),
+                )
+                ent = sig_memo[sid] = (key, reqs, requested, flags)
+            key, reqs, requested, flags = ent
+            pc = groups.get(key)
+            if pc is None:
+                pc = groups[key] = PodClass(
+                    pods=[], requests=requested, requirements=reqs, key=key
+                )
+            if flags[0]:
+                pc.has_affinity = True
+            if flags[1]:
+                pc.multi_node_affinity = True
+            if flags[2]:
+                pc.has_preferences = True
+            id_to_class[sid] = pc
+            return pc
+
+        with gc_paused():
+            for pod in pods:
+                tok = pod._spec_token
+                if tok is not None:
+                    pc = tok_get(tok)
+                    if pc is None:
+                        pc = tok_to_class[tok] = classify(pod)
+                else:
+                    pc = classify(pod)
+                pc.pods.append(pod)
+        sort_memo = self._sort_memo
+
+        def order_key(pc: PodClass) -> tuple:
+            k = sort_memo.get(pc.key)
+            if k is None:
+                k = sort_memo[pc.key] = pod_sort_key(pc.pods[0])
+            return k
+
+        out = list(groups.values())
+        out.sort(key=order_key)
+        prev = self._prev_counts
+        counts = {pc.key: len(pc.pods) for pc in out}
+        new = sum(1 for k in counts if k not in prev)
+        changed = sum(1 for k, n in counts.items() if k in prev and prev[k] != n)
+        removed = sum(1 for k in prev if k not in counts)
+        self._prev_counts = counts
+        n_classes = len(counts)
+        self.last_stats = {
+            "pods": len(pods),
+            "classes": n_classes,
+            "dirty_classes": new + changed,
+            "new_classes": new,
+            "removed_classes": removed,
+            # denominator = |prev UNION cur| (= cur + removed), so a full
+            # turnover reads 1.0, never above -- the histogram buckets and
+            # the span attr both promise a fraction
+            "dirty_fraction": (
+                1.0 if first
+                else (new + changed + removed) / max(1, n_classes + removed)
+            ),
+            "full_rebuild": first,
+        }
+        return out
 
 
 def with_extra_requirements(classes: Sequence[PodClass], extra: Requirements) -> List[PodClass]:

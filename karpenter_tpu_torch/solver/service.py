@@ -1,11 +1,27 @@
-"""TorchSolver: the single-NodePool provisioning solve on the GPU.
+"""TorchSolver: the provisioning solve on the GPU, with schedule() routing.
 
-Counterpart of the in-process, single-pool path of TPUSolver
-(karpenter_tpu/solver/service.py): `solve` = `solve_finish(solve_begin(...))`.
+Counterpart of the in-process path of TPUSolver
+(karpenter_tpu/solver/service.py). `schedule(scheduler, pods)` is the
+entry point the provisioner calls: it decides, per batch, which pods the
+device solve places and which go to the pure-Python oracle `Scheduler`
+(solver/oracle.py), exactly as TPUSolver.schedule does:
 
-    host    group_pods, encode_classes     pods -> classes -> dense arrays
+    device                all classes on the card
+    device+suffix         (anti-)affinity/preference classes continue on
+                          the oracle after the device pass
+    prefix+device         minValues classes on the oracle before it
+    prefix+device+suffix  both
+    merged                overlapping pools in one joint-catalog solve
+                          (solver/multipool.py)
+    oracle                the whole batch on the oracle
+
+`solve` = `solve_finish(solve_begin(...))` is the inner, single-pool call:
+
+    host    group_pods, spread split       pods -> classes, zone-spread
+                                           classes -> zone-pinned chunks
     device  _pack_existing                 kernel B (S=1) packs pending pods
                                            onto existing nodes
+    host    encode_classes                 classes -> dense arrays
     device  ffd.ffd_solve_fused            prologue, kernel A, fused buffer
     host    one fetch, expand_fused, _decode -> NewNodeGroups
 
@@ -13,11 +29,8 @@ The catalog is staged on the device once per catalog list. Each tick
 fetches one fused buffer; the dense refetch runs only when the sparse
 take overflows its budget.
 
-Not here yet (the routing slice and later): `schedule()` routing with the
-oracle `Scheduler`, zone topology spread, the oracle suffix for
-(anti-)affinity and preferences, several pools, the wire sidecar, the
-mesh, the convex tier, the quality bound and AOT. Pods that need those
-raise ValueError, as TPUSolver.solve does for what it cannot place.
+Not here (later slices): the wire sidecar, the mesh, the convex tier, the
+quality bound, AOT, metrics and tracing.
 """
 from __future__ import annotations
 
@@ -28,13 +41,17 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.apis import NodePool, Pod, labels as wk
-from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements, Resources
+from karpenter_tpu_torch.scheduling import (
+    Operator, Requirement, Requirements, Resources, tolerates_all,
+)
 from karpenter_tpu_torch.scheduling import resources as res
-from karpenter_tpu_torch.solver import encode, ffd
+from karpenter_tpu_torch.solver import encode, ffd, multipool, spread
 from karpenter_tpu_torch.solver.disrupt import engine as disrupt_engine
 from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
 from karpenter_tpu_torch.solver.encode import CatalogTensors
-from karpenter_tpu_torch.solver.oracle import ExistingNode, NewNodeGroup, SchedulingResult
+from karpenter_tpu_torch.solver.oracle import (
+    _ALLOW_UNDEFINED, ExistingNode, NewNodeGroup, Scheduler, SchedulingResult,
+)
 from karpenter_tpu_torch.utils import gc_paused
 
 _bucket = encode.bucket
@@ -53,6 +70,17 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _spread_keys(classes) -> set:
+    """Topology-spread identity per class representative -- spread counts
+    are global per (topology key, selector), so two partitions sharing a
+    key would need shared state (both partition guards check this)."""
+    return {
+        (t.topology_key, tuple(sorted(t.label_selector.items())))
+        for pc in classes
+        for t in pc.pods[0].topology_spread
+    }
+
+
 class _CatalogEntry(NamedTuple):
     """One catalog's immutable staged snapshot (see TorchSolver._catalog)."""
 
@@ -64,6 +92,22 @@ class _CatalogEntry(NamedTuple):
     order: np.ndarray                  # argsort indices into the catalog list
     catalog_list: Sequence             # strong ref: keeps the id() key sound
     row_cache: dict                    # encode_classes row memo for this encoding
+    # merged multi-pool solves only (solver/multipool.py): pool index per
+    # real column, the pool objects (weight order), and the ORIGINAL type
+    # objects in types_by_price order for decode emission
+    col_pools: Optional[np.ndarray] = None
+    pools: Optional[tuple] = None
+    decode_types: Optional[np.ndarray] = None
+
+
+class _MergedVirtualPool(NodePool):
+    """The solve-level stand-in pool for merged multi-pool dispatches: no
+    requirements of its own (each class carries its admitted-pool pin; each
+    column carries its pool's requirements), no taints (toleration is part
+    of host-side admission), no limits (carved out)."""
+
+    def requirements(self):
+        return Requirements()
 
 
 class _PendingSolve:
@@ -78,32 +122,9 @@ class _PendingSolve:
         self.done = done
 
 
-def hard_zone_tsc(pod: Pod):
-    """The pod's single hard zone-spread constraint it matches itself, or
-    None (karpenter_tpu/solver/spread.py)."""
-    hard = [t for t in pod.topology_spread if t.hard()]
-    if not hard:
-        return None
-    t = hard[0]
-    if len(hard) > 1 or t.topology_key != wk.ZONE_LABEL:
-        raise ValueError("route to oracle: multi-constraint or non-zone spread")
-    if not all(pod.metadata.labels.get(k) == v for k, v in t.label_selector.items()):
-        return None
-    return t
-
-
-def spread_eligible(pods: Sequence[Pod]) -> bool:
-    """True when every pod's spread constraints are zone-only and single
-    (karpenter_tpu/solver/spread.py)."""
-    for p in pods:
-        hard = [t for t in p.topology_spread if t.hard()]
-        if hard and (len(hard) > 1 or hard[0].topology_key != wk.ZONE_LABEL):
-            return False
-    return True
-
-
 class TorchSolver:
-    def __init__(self, g_max: int = 1024, objective: str = "price", device=None):
+    def __init__(self, g_max: int = 1024, objective: str = "price", device=None,
+                 incremental: bool = True):
         if objective not in ("price", "fit"):
             raise ValueError(f"objective must be 'price' or 'fit', got {objective!r}")
         self.device = resolve_device(device)
@@ -115,6 +136,17 @@ class TorchSolver:
         # serves several nodepools whose catalogs alternate within a tick
         self._catalog_cache: Dict[int, _CatalogEntry] = {}
         self._catalog_cache_cap = 8
+        # the cross-tick grouping cache (encode.IncrementalGrouper): the
+        # same classes as group_pods, with per-signature canonical work
+        # memoized across ticks; incremental=False groups afresh each call
+        self.incremental = incremental
+        self._grouper = encode.IncrementalGrouper()
+        self.last_group_stats = dict(self._grouper.last_stats)
+        # routing of the last schedule() batch
+        self.last_route = {"device_pods": 0, "oracle_pods": 0, "path": "none"}
+        # merged multi-pool catalog lists, keyed by (per-pool catalog ids,
+        # per-pool requirement hashes, overheads, taints); bounded
+        self._merged_cache: Dict[tuple, tuple] = {}
         self._lock = threading.Lock()
 
     # -- catalog staging ----------------------------------------------------
@@ -143,6 +175,507 @@ class TorchSolver:
                 self._catalog_cache.pop(next(iter(self._catalog_cache)))
             return entry
 
+    # -- routing ------------------------------------------------------------
+    @staticmethod
+    def supports(scheduler: Scheduler, pods: Sequence[Pod], classes=None,
+                 overlap: Optional[bool] = None) -> bool:
+        """True when the batch may take a device route (TPUSolver.supports):
+        routing features live on the classes, so a 50k-pod scan becomes a
+        few dozen class checks."""
+        if classes is None:
+            classes = encode.group_pods(pods)
+        # un-encodable requirement keys (custom labels, zone-id, ...): two
+        # classes with DIFFERENT constraints on one such key would falsely
+        # share groups on the device, so they take the oracle
+        unenc: Dict[str, set] = {}
+        for pc in classes:
+            for r in pc.requirements:
+                if r.key not in encode.ENCODABLE_KEYS:
+                    unenc.setdefault(r.key, set()).add(
+                        (r.complement, tuple(sorted(r.values)), r.greater_than, r.less_than))
+        if any(len(v) > 1 for v in unenc.values()):
+            return False
+        # minValues classes split off to an oracle prefix unless every
+        # class is affected or the two partitions could contend
+        mv_classes = TorchSolver._mv_classes(scheduler, classes)
+        if mv_classes:
+            mv_ids = {id(pc) for pc in mv_classes}
+            rest = [pc for pc in classes if id(pc) not in mv_ids]
+            if not rest or TorchSolver._mv_partition_blocked(scheduler, mv_classes, rest):
+                return False
+        # affinity/preference classes sort last in the canonical order and
+        # continue on the oracle after the device pass, provided the
+        # partitions cannot interact and the pools do not overlap
+        aff_classes = TorchSolver._suffix_classes(classes)
+        device_classes = classes
+        if aff_classes:
+            aff_ids = {id(pc) for pc in aff_classes}
+            device_classes = [pc for pc in classes if id(pc) not in aff_ids]
+            if not device_classes:
+                return False
+            if overlap is None:
+                overlap = len(scheduler.nodepools) > 1 and TorchSolver._pools_overlap(
+                    scheduler.nodepools, pods, classes=classes)
+            if overlap:
+                return False
+            if TorchSolver._aff_partition_blocked(scheduler, aff_classes, device_classes):
+                return False
+        reps = []
+        any_spread = False
+        any_soft = False
+        for pc in device_classes:
+            p = pc.pods[0]
+            reps.append(p)
+            if any(r.min_values is not None for r in pc.requirements):
+                return False
+            if any(t.hard() for t in p.topology_spread):
+                any_spread = True
+            elif spread.soft_zone_tsc(p) is not None:
+                any_spread = any_soft = True
+        if any_soft and any(p.limits is not None for p in scheduler.nodepools):
+            # soft spread is pin-then-relax: a pool limit can reject the
+            # pinned zone while the relaxed pod fits elsewhere, which one
+            # device dispatch cannot express
+            return False
+        if any_spread:
+            # hostname spread and multi-constraint pods take the oracle
+            if not spread.spread_eligible(reps):
+                return False
+            if overlap is None:
+                overlap = len(scheduler.nodepools) > 1 and TorchSolver._pools_overlap(
+                    scheduler.nodepools, pods, classes=classes)
+            if (
+                len(scheduler.nodepools) > 1 and not overlap
+                and TorchSolver._spread_spans_pools(scheduler, device_classes)
+            ):
+                # one selector's classes in different disjoint pools: its
+                # counts are cross-pool state the pool-sequential solve
+                # cannot thread in the oracle's interleaved order
+                return False
+        return True
+
+    @staticmethod
+    def _spread_spans_pools(scheduler: Scheduler, classes) -> bool:
+        """True when one topology-spread selector's classes are admitted
+        by DIFFERENT pools (disjoint-pool context)."""
+        pool_reqs = [p.requirements() for p in scheduler.nodepools]
+        owner: Dict[tuple, int] = {}
+        for pc in classes:
+            rep = pc.pods[0]
+            if not rep.topology_spread:
+                continue
+            pi = next(
+                (i for i, reqs in enumerate(pool_reqs)
+                 if reqs.compatible(pc.requirements, allow_undefined=_ALLOW_UNDEFINED)),
+                -1,
+            )
+            if pi < 0:
+                continue  # admitted nowhere: unschedulable either way
+            for t in rep.topology_spread:
+                key = (t.topology_key, tuple(sorted(t.label_selector.items())))
+                if owner.setdefault(key, pi) != pi:
+                    return True
+        return False
+
+    @staticmethod
+    def _mv_classes(scheduler: Scheduler, classes) -> list:
+        """The classes some minValues pool could schedule (the
+        oracle-bound prefix), scoped to pools a class is compatible with."""
+        mv_pools = [
+            p for p in scheduler.nodepools
+            if any(r.min_values is not None for r in p.requirements())
+        ]
+        if not mv_pools:
+            return []
+        return [
+            pc for pc in classes
+            if any(p.requirements().compatible(pc.requirements, allow_undefined=_ALLOW_UNDEFINED)
+                   for p in mv_pools)
+        ]
+
+    @staticmethod
+    def _mv_partition_blocked(scheduler: Scheduler, mv_classes, rest) -> bool:
+        """True when the minValues partition could CONTEND with the device
+        partition: some existing node admits pods from both sides, or the
+        two sides share a topology-spread selector."""
+        def side_reqs(side):
+            return [(pc.pods[0].tolerations, pc.pods[0].scheduling_requirements()) for pc in side]
+
+        mv_reqs, rest_reqs = side_reqs(mv_classes), side_reqs(rest)
+
+        def admits(node, tol, alts) -> bool:
+            if not tolerates_all(tol, node.taints):
+                return False
+            return any(alt.matches_labels(node.labels) for alt in alts)
+
+        for node in scheduler.existing:
+            if any(admits(node, tol, alts) for tol, alts in mv_reqs) and any(
+                admits(node, tol, alts) for tol, alts in rest_reqs
+            ):
+                return True
+        return bool(_spread_keys(mv_classes) & _spread_keys(rest))
+
+    @staticmethod
+    def _suffix_classes(classes) -> list:
+        """Classes whose pods the device kernels cannot place: (anti-)
+        affinity, several node-affinity terms, preferences (the class-level
+        mirror of encode.oracle_suffix_rank)."""
+        return [
+            pc for pc in classes
+            if pc.has_affinity or pc.multi_node_affinity or pc.has_preferences
+        ]
+
+    @staticmethod
+    def _aff_partition_blocked(scheduler: Scheduler, aff_classes, rest) -> bool:
+        """True when the oracle-suffix partition could interact with the
+        device partition other than through the sequenced hand-off: a
+        suffix selector matches a device pod's labels, the two share a
+        spread selector or a rank-stripped envelope key under some pool's
+        merge, or any pool carries limits (the oracle charges a group at
+        open time, the device decode at its final survivors)."""
+        if any(p.limits is not None for p in scheduler.nodepools):
+            return True
+        selectors: Dict[tuple, dict] = {}
+        for pc in aff_classes:
+            for p in pc.pods:
+                for t in p.affinity_terms:
+                    selectors[tuple(sorted(t.label_selector.items()))] = t.label_selector
+                for _, t in p.preferred_affinity_terms:
+                    selectors[tuple(sorted(t.label_selector.items()))] = t.label_selector
+        if selectors:
+            # single-pair selectors check as one set lookup per label pair
+            single: set = set()
+            multi: List[dict] = []
+            for key, s in selectors.items():
+                if not s:
+                    return True  # an empty selector matches every pod
+                if len(s) == 1:
+                    single.add(key[0])
+                else:
+                    multi.append(s)
+            for pc in rest:
+                for p in pc.pods:
+                    labels = p.metadata.labels
+                    if single and any(kv in single for kv in labels.items()):
+                        return True
+                    for s in multi:
+                        if all(labels.get(k) == v for k, v in s.items()):
+                            return True
+        if _spread_keys(aff_classes) & _spread_keys(rest):
+            return True
+
+        def merged_keys(side, extra) -> set:
+            out = set()
+            for pc in side:
+                reqs = pc.requirements.copy().add(*extra) if extra else pc.requirements
+                out.add(encode._class_key(pc.pods[0], reqs)[1:])
+            return out
+
+        for pool in scheduler.nodepools:
+            extra = list(pool.requirements())
+            if merged_keys(aff_classes, extra) & merged_keys(rest, extra):
+                return True
+        return False
+
+    @staticmethod
+    def _pools_overlap(pools: Sequence[NodePool], pods: Sequence[Pod], classes=None) -> bool:
+        """True when some pod class is compatible with more than one pool
+        (the oracle's _open_group gate, per class instead of per pod)."""
+        pool_reqs = [p.requirements() for p in pools]
+        if classes is None:
+            classes = encode.group_pods(pods)
+        for pc in classes:
+            n = 0
+            for reqs in pool_reqs:
+                if reqs.compatible(pc.requirements, allow_undefined=_ALLOW_UNDEFINED):
+                    n += 1
+                    if n > 1:
+                        return True
+        return False
+
+    @staticmethod
+    def _spread_seeds(scheduler: Scheduler):
+        """The oracle's seeded per-selector zone counts, re-keyed for the
+        split pass (spread.py keys by selector only)."""
+        seeds: Dict[tuple, Dict[str, int]] = {}
+        for (tkey, sel_key), counts in scheduler.topology._counts.items():
+            if tkey == wk.ZONE_LABEL:
+                seeds[sel_key] = dict(counts)
+        return seeds
+
+    def _group(self, pods: Sequence[Pod]) -> List:
+        """The tick's grouping pass: the cross-tick cache when incremental
+        mode is on, a fresh group_pods otherwise (the same classes)."""
+        if not self.incremental:
+            return encode.group_pods(pods)
+        classes = self._grouper.group(pods)
+        self.last_group_stats = self._grouper.last_stats
+        return classes
+
+    # -- entry point (Provisioner contract) ---------------------------------
+    def schedule(self, scheduler: Scheduler, pods: Sequence[Pod]) -> SchedulingResult:
+        # ONE grouping pass serves routing and the first pool's solve
+        base_classes = self._group(pods)
+        pools = scheduler.nodepools
+        self.last_route = {"device_pods": len(pods), "oracle_pods": 0, "path": "device"}
+        overlap = len(pools) > 1 and self._pools_overlap(pools, pods, classes=base_classes)
+        if not self.supports(scheduler, pods, classes=base_classes, overlap=overlap):
+            # the oracle packs with THIS solver's objective
+            scheduler.objective = self.objective
+            self.last_route = {"device_pods": 0, "oracle_pods": len(pods), "path": "oracle"}
+            return scheduler.schedule(pods)
+        if overlap:
+            # classes compatible with SEVERAL pools can join another
+            # class's group across the pool boundary: the merged-catalog
+            # solve expresses that; the oracle takes its carve-outs
+            merged = self._try_solve_merged(scheduler, pods, base_classes)
+            if merged is not None:
+                self.last_route = {"device_pods": len(pods), "oracle_pods": 0, "path": "merged"}
+                return merged
+            scheduler.objective = self.objective
+            self.last_route = {"device_pods": 0, "oracle_pods": len(pods), "path": "oracle"}
+            return scheduler.schedule(pods)
+        # oracle suffix: affinity/preference classes sort last in the
+        # canonical order, so the device solves the plain prefix and the
+        # oracle continues the same pass over the suffix
+        aff_pods: List[Pod] = []
+        aff_classes = self._suffix_classes(base_classes)
+        if aff_classes:
+            aff_ids = {id(pc) for pc in aff_classes}
+            aff_pods = [p for pc in aff_classes for p in pc.pods]
+            base_classes = [pc for pc in base_classes if id(pc) not in aff_ids]
+            pods = [p for pc in base_classes for p in pc.pods]
+            self.last_route = {
+                "device_pods": len(pods), "oracle_pods": len(aff_pods), "path": "device+suffix",
+            }
+        # minValues prefix: those classes run on the oracle first and book
+        # the shared existing-node capacity the device pass then sees
+        mv_classes = self._mv_classes(scheduler, base_classes)
+        mv_result = None
+        if mv_classes:
+            mv_ids = {id(pc) for pc in mv_classes}
+            mv_pods = [p for pc in mv_classes for p in pc.pods]
+            base_classes = [pc for pc in base_classes if id(pc) not in mv_ids]
+            pods = [p for pc in base_classes for p in pc.pods]
+            self.last_route = {
+                "device_pods": len(pods),
+                "oracle_pods": len(mv_pods) + len(aff_pods),
+                "path": "prefix+device+suffix" if aff_pods else "prefix+device",
+            }
+            scheduler.objective = self.objective
+            mv_result = scheduler.schedule(mv_pods)
+        result = SchedulingResult()
+        device_assignments: Dict[str, str] = {}
+        if mv_result is not None:
+            result.new_groups.extend(mv_result.new_groups)
+            result.existing_assignments.update(mv_result.existing_assignments)
+            if not pods:
+                result.unschedulable.update(mv_result.unschedulable)
+                if aff_pods:
+                    # no plain middle: the prefix already booked node.used
+                    self._oracle_suffix(scheduler, aff_pods, [], result, device_assignments)
+                return result
+        # pools in weight order, first feasible pool wins: each pool's solve
+        # takes the previous pool's leftovers; existing capacity is packed
+        # in the first round only
+        pods_left: List[Pod] = list(pods)
+        for i, pool in enumerate(pools):
+            items = scheduler.instance_types.get(pool.name, [])
+            existing = scheduler.existing if i == 0 else ()
+            if not items and not existing:
+                continue
+            res_pool = self.solve(
+                pool, items, pods_left,
+                nodepool_usage=scheduler.usage.get(pool.name),
+                existing_nodes=existing,
+                zones=sorted(scheduler.zones),
+                # seeds every round: a pool-local spread class may only be
+                # admitted by a LATER pool in the weight order
+                spread_seeds=self._spread_seeds(scheduler),
+                classes=base_classes if i == 0 else None,
+                daemon_overhead=scheduler.daemon_overhead.get(pool.name),
+            )
+            result.new_groups.extend(res_pool.new_groups)
+            result.existing_assignments.update(res_pool.existing_assignments)
+            device_assignments.update(res_pool.existing_assignments)
+            by_name = {p.metadata.name: p for p in pods_left}
+            result.unschedulable = res_pool.unschedulable
+            pods_left = [by_name[n] for n in res_pool.unschedulable if n in by_name]
+            if not pods_left:
+                break
+        if pods_left and not result.unschedulable:
+            for p in pods_left:
+                result.unschedulable[p.metadata.name] = "no instance types for nodepool"
+        if mv_result is not None:
+            # merged last: the pool loop REPLACES result.unschedulable
+            result.unschedulable.update(mv_result.unschedulable)
+        if aff_pods:
+            self._oracle_suffix(scheduler, aff_pods, pods, result, device_assignments)
+        return result
+
+    # -- pipelined entry point ------------------------------------------------
+    def schedule_begin(self, scheduler: Scheduler, pods: Sequence[Pod]) -> _PendingSolve:
+        """The dispatch half of schedule(): host stages run and the device
+        solve is enqueued; the fetch/decode barrier waits for
+        schedule_finish. Only one nodepool with the whole batch on the
+        device pipelines; every other route completes inside this call."""
+        base_classes = self._group(pods)
+        pools = scheduler.nodepools
+        overlap = len(pools) > 1 and self._pools_overlap(pools, pods, classes=base_classes)
+        items = scheduler.instance_types.get(pools[0].name, []) if pools else []
+        pipelinable = (
+            len(pools) == 1
+            and bool(items)
+            and self.supports(scheduler, pods, classes=base_classes, overlap=overlap)
+            and not self._suffix_classes(base_classes)
+            and not self._mv_classes(scheduler, base_classes)
+        )
+        if not pipelinable:
+            return _PendingSolve(done=self.schedule(scheduler, pods))
+        pool = pools[0]
+        self.last_route = {"device_pods": len(pods), "oracle_pods": 0, "path": "device"}
+        return self.solve_begin(
+            pool, items, list(pods),
+            nodepool_usage=scheduler.usage.get(pool.name),
+            existing_nodes=scheduler.existing,
+            zones=sorted(scheduler.zones),
+            spread_seeds=self._spread_seeds(scheduler),
+            classes=base_classes,
+            daemon_overhead=scheduler.daemon_overhead.get(pool.name),
+        )
+
+    def schedule_finish(self, pending: _PendingSolve) -> SchedulingResult:
+        """The barrier half of schedule_begin."""
+        return self.solve_finish(pending)
+
+    def _oracle_suffix(
+        self, scheduler: Scheduler, aff_pods: List[Pod],
+        device_pods: Sequence[Pod], result: SchedulingResult,
+        device_assignments: Dict[str, str],
+    ) -> None:
+        """Continue the canonical pass on the oracle for the suffix
+        partition: book the device pass's existing-node assignments into
+        node.used (_pack_existing records them without mutating the
+        nodes), then schedule the suffix INTO the shared result, so suffix
+        pods join device-opened groups as one full oracle pass would.
+        The device pods' labels are not ingested: supports() blocked the
+        split unless no suffix selector can match them."""
+        if device_assignments:
+            by_name = {p.metadata.name: p for p in device_pods}
+            nodes = {n.name: n for n in scheduler.existing}
+            one_pod = Resources.from_base_units({res.PODS: 1})
+            for pod_name, node_name in device_assignments.items():
+                p, node = by_name.get(pod_name), nodes.get(node_name)
+                if p is not None and node is not None:
+                    node.used = node.used + p.requests + one_pod
+        scheduler.objective = self.objective
+        scheduler.schedule(aff_pods, seed_result=result)
+
+    @staticmethod
+    def _unify_envelopes(classes, class_set, pool_of) -> None:
+        """The oracle's price envelope is keyed per (pool, merged
+        requirement class): classes whose requirements COINCIDE once a
+        pool's requirements merge share ONE remaining-count envelope. Per
+        row r opening in pool p = pool_of(r): the first member of a key
+        encodes env_count = -(1 + pods of LATER members coinciding under
+        p) (kernel semantics: leftover + (-env - 1)); later members get a
+        static pin equal to the first member's envelope total. `pool_of`
+        gives (pool name, extra requirements or None), or None for a row
+        that opens nowhere."""
+        n = len(classes)
+        infos = [pool_of(c) for c in range(n)]
+        keys_under: Dict[str, list] = {}
+
+        def keys_for(pool_name: str, extra) -> list:
+            out = keys_under.get(pool_name)
+            if out is None:
+                out = []
+                for pc in classes:
+                    reqs = pc.requirements
+                    if extra is not None:
+                        reqs = reqs.copy().add(*extra)
+                    out.append(encode._class_key(pc.pods[0], reqs))
+                keys_under[pool_name] = out
+            return out
+
+        first_member: Dict[tuple, int] = {}
+        for c in range(n):
+            if class_set.env_count[c] != -1 or infos[c] is None:
+                continue
+            pool_name, extra = infos[c]
+            keys = keys_for(pool_name, extra)
+            group_key = (pool_name, keys[c])
+            first = first_member.get(group_key)
+            if first is None:
+                first_member[group_key] = c
+                tail_after = sum(
+                    len(classes[j].pods) for j in range(c + 1, n) if keys[j] == keys[c])
+                if tail_after:
+                    class_set.env_count[c] = -(1 + tail_after)
+            else:
+                class_set.env_count[c] = sum(
+                    len(classes[j].pods) for j in range(first, n) if keys[j] == keys[c])
+
+    # -- merged multi-pool solve (solver/multipool.py) -----------------------
+    def _merged_catalog(self, scheduler: Scheduler):
+        """(merged_items, entry) for the scheduler's pools, or None when no
+        pool has a usable type. The merged list is cached per pool
+        catalogs, requirements, overheads and taints; its staged entry
+        carries the column -> pool map."""
+        pools = scheduler.nodepools  # weight-descending (oracle order)
+        overheads = [scheduler.daemon_overhead.get(p.name) or Resources() for p in pools]
+        cat_lists = tuple(scheduler.instance_types.get(p.name) for p in pools)
+        key = (
+            tuple(id(cl) for cl in cat_lists),
+            tuple(p.requirements().stable_hash() for p in pools),
+            tuple(encode.scale_vector(o.to_vector()).tobytes() for o in overheads),
+            tuple(tuple((t.key, t.value, t.effect) for t in p.template.taints) for p in pools),
+        )
+        cached = self._merged_cache.get(key)
+        if cached is not None and all(a is b for a, b in zip(cached[0], cat_lists)):
+            _, merged_items, originals, col_pools = cached
+        else:
+            merged_items, originals, col_pools = multipool.build_merged(
+                pools, scheduler.instance_types, overheads=overheads)
+            if not merged_items:
+                return None
+            self._merged_cache[key] = (cat_lists, merged_items, originals, col_pools)
+            while len(self._merged_cache) > 4:
+                self._merged_cache.pop(next(iter(self._merged_cache)))
+        entry = self._catalog(merged_items)
+        if entry.col_pools is None:
+            entry = entry._replace(
+                col_pools=col_pools, pools=tuple(pools),
+                decode_types=np.array(list(originals), dtype=object)[entry.order],
+            )
+            with self._lock:
+                self._catalog_cache[id(merged_items)] = entry
+        return merged_items, entry
+
+    def _try_solve_merged(self, scheduler, pods, base_classes):
+        """Overlapping-compat multi-pool batch on the device via the
+        merged catalog, or None when a carve-out applies (pool limits,
+        minValues pools): the caller then takes the oracle."""
+        pools = scheduler.nodepools
+        if any(p.limits is not None for p in pools):
+            return None
+        if any(any(r.min_values is not None for r in p.requirements()) for p in pools):
+            return None
+        merged = self._merged_catalog(scheduler)
+        if merged is None:
+            return None
+        merged_items, _ = merged
+        # the virtual pool carries NO taints and NO overhead: toleration
+        # gates per column via join_allowed, and each column's allocatable
+        # already carries its pool's daemonset reserve (build_merged)
+        return self.solve(
+            _MergedVirtualPool("__merged__"), merged_items, list(pods),
+            existing_nodes=scheduler.existing,
+            zones=sorted(scheduler.zones),
+            spread_seeds=self._spread_seeds(scheduler),
+            classes=base_classes,
+        )
+
     # -- the batch solve ----------------------------------------------------
     def solve(
         self,
@@ -151,20 +684,17 @@ class TorchSolver:
         pods: Sequence[Pod],
         nodepool_usage: Optional[Resources] = None,
         existing_nodes: Sequence[ExistingNode] = (),
+        zones: Sequence[str] = (),
+        spread_seeds: Optional[Dict] = None,
+        classes: Optional[List] = None,
+        daemon_overhead: Optional[Resources] = None,
     ) -> SchedulingResult:
         """The synchronous solve: dispatch + barrier in one call."""
         return self.solve_finish(self.solve_begin(
             pool, instance_types, pods,
-            nodepool_usage=nodepool_usage, existing_nodes=existing_nodes))
-
-    @staticmethod
-    def _suffix_classes(classes) -> list:
-        """Classes whose pods the device kernels cannot place: (anti-)
-        affinity, several node-affinity terms, preferences."""
-        return [
-            pc for pc in classes
-            if pc.has_affinity or pc.multi_node_affinity or pc.has_preferences
-        ]
+            nodepool_usage=nodepool_usage, existing_nodes=existing_nodes,
+            zones=zones, spread_seeds=spread_seeds, classes=classes,
+            daemon_overhead=daemon_overhead))
 
     def solve_begin(
         self,
@@ -173,24 +703,61 @@ class TorchSolver:
         pods: Sequence[Pod],
         nodepool_usage: Optional[Resources] = None,
         existing_nodes: Sequence[ExistingNode] = (),
+        zones: Sequence[str] = (),
+        spread_seeds: Optional[Dict] = None,
+        classes: Optional[List] = None,
+        daemon_overhead: Optional[Resources] = None,
     ) -> _PendingSolve:
-        classes = encode.group_pods(pods, extra_requirements=pool.requirements())
-        reps = [pc.pods[0] for pc in classes]
-        if not spread_eligible(reps):
+        pool_reqs = pool.requirements()
+        # per-fresh-node daemonset reserve, scaled to the solver's exact
+        # small-int float32 vector; None/zero = no reserve
+        overhead_vec = None
+        if daemon_overhead is not None and any(daemon_overhead.to_vector()):
+            overhead_vec = encode.scale_vector(daemon_overhead.to_vector()).astype(np.float32)
+        if classes is None:
+            classes = encode.group_pods(pods, extra_requirements=pool_reqs)
+        else:
+            # pre-grouped by schedule(): merge the pool's requirements per class
+            classes = encode.with_extra_requirements(classes, pool_reqs)
+        # spread constraints are part of class identity, so one pod per
+        # class decides for the class
+        if not spread.spread_eligible([pc.pods[0] for pc in classes]):
             raise ValueError(
                 "TorchSolver.solve: pods carry out-of-scope spread constraints "
-                "(hostname or multiple hard constraints); routing to the oracle "
-                "is not ported yet")
-        if any(hard_zone_tsc(p) is not None or encode.soft_zone_tsc(p) is not None for p in reps):
-            raise ValueError(
-                "TorchSolver.solve: pods carry zone topology spread; the zone "
-                "split pass is not ported yet")
+                "(hostname or multiple hard constraints); call schedule() so "
+                "routing can fall back to the oracle")
         if self._suffix_classes(classes):
             raise ValueError(
                 "TorchSolver.solve: pods carry (anti-)affinity or preference "
-                "terms the device kernels do not model; routing them to the "
-                "oracle suffix is not ported yet")
+                "terms the device kernels do not model; call schedule() so "
+                "routing can carve them to the oracle suffix")
         result = SchedulingResult()
+
+        # phase 0 (host): the zone-spread split runs before the existing-
+        # node phase so the pinned zones gate node packing
+        if not instance_types and any(spread.hard_zone_tsc(pc.pods[0]) for pc in classes):
+            # no catalog -> no feasible spread domains: the oracle rejects
+            # every node for these pods
+            kept = []
+            for pc in classes:
+                if spread.hard_zone_tsc(pc.pods[0]):
+                    for p in pc.pods:
+                        result.unschedulable[p.metadata.name] = (
+                            "topology spread constraints unsatisfiable")
+                else:
+                    kept.append(pc)
+            classes = kept
+            if not classes:
+                return _PendingSolve(done=result)
+        if instance_types and any(
+            spread.hard_zone_tsc(pc.pods[0]) is not None
+            or spread.soft_zone_tsc(pc.pods[0]) is not None
+            for pc in classes
+        ):
+            classes = self._split_spread(
+                pool, instance_types, classes, zones, spread_seeds, overhead_vec, result)
+            if not classes:
+                return _PendingSolve(done=result)
 
         # phase 1 (device): pack onto existing capacity first, exactly as
         # the oracle tries existing nodes before opening groups
@@ -208,7 +775,7 @@ class TorchSolver:
 
         # phase 2 (device): batched FFD over the leftovers
         entry = self._catalog(instance_types)
-        class_set = self._encode(pool, entry, classes, placed_existing)
+        class_set = self._encode(pool, entry, classes, placed_existing, overhead_vec)
         # the open/join masks travel bit-packed (the form kernel A reads)
         inp = ffd.make_inputs_staged(entry.staged, class_set, packed_masks=True)
         nnz_max = ffd.nnz_budget(class_set.c_pad, self.g_max)
@@ -227,16 +794,90 @@ class TorchSolver:
         )
         return pending
 
-    def _encode(self, pool: NodePool, entry: _CatalogEntry, classes, placed_existing: np.ndarray):
-        """The classes' dense tensors for kernel A: encoded against the
-        staged catalog, price envelopes unified, and counts net of the
-        pods the pre-pass placed on existing nodes."""
-        class_set = encode.encode_classes(
-            classes, entry.tensors, pool_taints=list(pool.template.taints),
-            c_pad=_bucket(len(classes), _C_PAD_MIN), row_cache=entry.row_cache,
+    def _split_spread(self, pool, instance_types, classes, zones, spread_seeds,
+                      overhead_vec, result: SchedulingResult) -> list:
+        """Phase 0: split every zone-spread class into zone-pinned,
+        group-sized sub-classes with the oracle's exact per-zone
+        distribution (solver/spread.py); counts seed from live pods.
+        Unsatisfiable pods land in `result`."""
+        entry0 = self._catalog(instance_types)
+        catalog0 = entry0.tensors
+        pre_set = encode.encode_classes(
+            classes, catalog0, pool_taints=list(pool.template.taints),
+            c_pad=_bucket(len(classes), _C_PAD_MIN), row_cache=entry0.row_cache,
         )
-        if self.objective == "price":
-            self._unify_envelopes(classes, class_set)
+        compat = encode.compat_matrix(catalog0, pre_set)[: len(classes)]
+        if entry0.col_pools is not None:
+            # merged multi-pool: the oracle derives a spread pod's zone
+            # DOMAINS from its FIRST requirements-compatible pool's catalog
+            # only (oracle._zone_choice); restrict each spread class's
+            # columns to that pool so the domains agree
+            k_real0 = entry0.col_pools.shape[0]
+            for c, pc in enumerate(classes):
+                if (spread.hard_zone_tsc(pc.pods[0]) is None
+                        and spread.soft_zone_tsc(pc.pods[0]) is None):
+                    continue
+                pi = multipool.first_compat_pool(pc, entry0.pools)
+                colmask = np.zeros((compat.shape[1],), dtype=bool)
+                if pi >= 0:
+                    colmask[:k_real0] = entry0.col_pools == pi
+                compat[c] &= colmask
+        cap0 = catalog0.cap
+        if overhead_vec is not None:
+            cap0 = np.maximum(cap0 - overhead_vec[None, :], np.float32(0.0))
+        fits_one = np.all(cap0[None, :, :] >= pre_set.req[: len(classes), None, :], axis=-1)
+        split = spread.split_zone_spread(
+            classes, catalog0, list(zones) or list(catalog0.zones), compat, fits_one,
+            seed_counts=spread_seeds, node_overhead=overhead_vec,
+        )
+        result.unschedulable.update(split.unschedulable)
+        return split.classes
+
+    def _encode(self, pool: NodePool, entry: _CatalogEntry, classes, placed_existing: np.ndarray,
+                overhead_vec: Optional[np.ndarray] = None):
+        """The classes' dense tensors for kernel A: encoded against the
+        staged catalog, the merged catalog's open/join masks, price
+        envelopes unified, and counts net of the pods the pre-pass placed
+        on existing nodes."""
+        catalog = entry.tensors
+        class_set = encode.encode_classes(
+            classes, catalog, pool_taints=list(pool.template.taints),
+            c_pad=_bucket(len(classes), _C_PAD_MIN), node_overhead=overhead_vec,
+            row_cache=entry.row_cache,
+        )
+        if entry.col_pools is not None:
+            # merged multi-pool: opening is restricted to each class's
+            # first feasible pool in weight order (the oracle's
+            # _open_group pool iteration); joins stay free across all
+            # admitted columns
+            compat_h = encode.compat_matrix(catalog, class_set)[: len(classes)]
+            cap_h = catalog.cap
+            if overhead_vec is not None:
+                cap_h = np.maximum(cap_h - overhead_vec[None, :], np.float32(0.0))
+            fits_one_h = np.all(cap_h[None, :, :] >= class_set.req[: len(classes), None, :], axis=-1)
+            admitted_all = [multipool.admitted_pools(pc, entry.pools) for pc in classes]
+            class_set.open_allowed, open_pool_idx = multipool.open_allowed_mask(
+                classes, admitted_all, entry.col_pools, compat_h, fits_one_h,
+                class_set.c_pad, catalog.k_pad,
+            )
+            # per-pool TAINTS gate joins per column (merged groups are
+            # single-pool by construction); untainted pools need no mask
+            if any(p.template.taints for p in entry.pools):
+                class_set.join_allowed = multipool.join_allowed_mask(
+                    classes, entry.pools, entry.col_pools, class_set.c_pad, catalog.k_pad)
+            if self.objective == "price":
+                # envelopes unify under each class's OPENING pool -- the
+                # same choice the open mask encodes
+                self._unify_envelopes(
+                    classes, class_set,
+                    lambda c: None if open_pool_idx[c] < 0 else (
+                        entry.pools[open_pool_idx[c]].name,
+                        entry.pools[open_pool_idx[c]].requirements(),
+                    ),
+                )
+        elif self.objective == "price":
+            # single pool: class requirements already carry the pool's
+            self._unify_envelopes(classes, class_set, lambda c: (pool.name, None))
         counts = class_set.count.copy()
         counts[: len(classes)] -= placed_existing.astype(counts.dtype)
         class_set.count = counts
@@ -262,36 +903,10 @@ class TorchSolver:
             result=pending.result, class_offset=pending.placed_existing,
         )
 
-    @staticmethod
-    def _unify_envelopes(classes, class_set) -> None:
-        """The oracle's price envelope is keyed per (pool, merged
-        requirement class): classes whose requirements COINCIDE share ONE
-        remaining-count envelope. Single pool: class requirements already
-        carry the pool's, so coincidence is equality of class keys. The
-        first member of a key encodes env_count = -(1 + pods of LATER
-        members) (kernel semantics: leftover + (-env - 1)); later members
-        get a static pin equal to the first member's envelope total
-        (TPUSolver._unify_envelopes, single-pool branch)."""
-        n = len(classes)
-        keys = [encode._class_key(pc.pods[0], pc.requirements) for pc in classes]
-        first_member: Dict[tuple, int] = {}
-        for c in range(n):
-            if class_set.env_count[c] != -1:
-                continue
-            first = first_member.get(keys[c])
-            if first is None:
-                first_member[keys[c]] = c
-                tail_after = sum(
-                    len(classes[j].pods) for j in range(c + 1, n) if keys[j] == keys[c])
-                if tail_after:
-                    class_set.env_count[c] = -(1 + tail_after)
-            else:
-                class_set.env_count[c] = sum(
-                    len(classes[j].pods) for j in range(first, n) if keys[j] == keys[c])
-
     def _repack_operands(self, classes, existing_nodes) -> Tuple[torch.Tensor, ...]:
         """Kernel B's operands for packing `classes` onto `existing_nodes`:
-        one candidate set, nothing excluded, C and N padded to buckets."""
+        one candidate set, nothing excluded, C and N padded to buckets;
+        a spread sub-class's pinned zone gates the nodes it may use."""
         C = _bucket(len(classes), _C_PAD_MIN)
         N = _bucket(len(existing_nodes), 16)
         req = np.zeros((C, encode.R), dtype=np.float32)
@@ -334,7 +949,7 @@ class TorchSolver:
         result: SchedulingResult,
         class_offset: np.ndarray,
     ) -> SchedulingResult:
-        """Placements -> NewNodeGroups (TPUSolver._decode, single pool)."""
+        """Placements -> NewNodeGroups (TPUSolver._decode)."""
         catalog = entry.tensors
         take, unplaced, n_open, gmask, gzone, gcap = dense
         take = np.asarray(take)                        # [C, G]
@@ -361,7 +976,14 @@ class TorchSolver:
             group_req_vecs = take_t.astype(np.float64) @ class_base
         else:
             group_req_vecs = np.zeros((0, encode.R))
+        # merged multi-pool entries attribute each group to the pool of its
+        # surviving columns (single-pool by construction), with that pool's
+        # base requirements and taints, and emit the ORIGINAL types
+        merged = entry.col_pools is not None
         pool_base_reqs = pool.requirements()
+        pool_base_memo: Dict[int, Requirements] = {}
+        if merged:
+            types_by_price = entry.decode_types
         # consecutive groups hosting the same class mix carry identical
         # survivor masks and merged requirements: both memoized on bytes
         survivors_memo: Dict[bytes, List] = {}
@@ -399,10 +1021,19 @@ class TorchSolver:
                     for p in group_pods:
                         result.unschedulable[p.metadata.name] = "no surviving instance type"
                     continue
+                g_pool = pool
+                base = pool_base_reqs
                 req_key = (classes_on_g.tobytes(), gzone[g].tobytes(), gcap[g].tobytes())
+                if merged:
+                    pi = int(entry.col_pools[np.nonzero(gmask_real[g])[0][0]])
+                    g_pool = entry.pools[pi]
+                    base = pool_base_memo.get(pi)
+                    if base is None:
+                        base = pool_base_memo[pi] = g_pool.requirements()
+                    req_key = req_key + (pi,)
                 reqs = reqs_memo.get(req_key)
                 if reqs is None:
-                    reqs = pool_base_reqs.copy()
+                    reqs = base.copy()
                     for c in classes_on_g:
                         reqs.add(*class_set.classes[c].requirements)
                     zones = [zone_names[z] for z in np.nonzero(gzone[g][:n_zones])[0]]
@@ -422,8 +1053,9 @@ class TorchSolver:
                         continue
                     usage = usage + smallest.capacity
                 result.new_groups.append(NewNodeGroup(
-                    nodepool=pool, requirements=reqs, instance_types=group_types,
-                    taints=taints, pods=group_pods, requested=requested,
+                    nodepool=g_pool, requirements=reqs, instance_types=group_types,
+                    taints=list(g_pool.template.taints) if merged else taints,
+                    pods=group_pods, requested=requested,
                 ))
             # unplaced pass: only the classes with leftovers
             take_sums = take[: class_set.c_real].sum(axis=1)

@@ -7,17 +7,21 @@ the nodes one tick leaves for the next.
   every zone (bench.py `build_catalog_items`): same names, capacities,
   offerings and prices, from the deterministic generator.
 - `synth_pods()` is bench.py's seeded pod generator (`synth_pods`): the
-  same numpy draws give the same pods.
+  same numpy draws give the same pods. `spread=` gives some of its
+  templates a zone topology spread constraint, drawing nothing more.
+- `affinity_pods()` are the required hostname-affinity pods of bench.py's
+  mixed-affinity datapoint (`_mixed_affinity`).
 - `nodes_from_result()` launches a tick's NewNodeGroups as ExistingNodes,
-  so a second tick packs onto them.
+  so a second tick packs onto them; `pods_by_node()` names the pods each
+  such node carries, which seeds a Scheduler's topology counts.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
-from karpenter_tpu_torch.apis import Pod, labels as wk
+from karpenter_tpu_torch.apis import Pod, PodAffinityTerm, TopologySpreadConstraint, labels as wk
 from karpenter_tpu_torch.providers.instancetype import gen_catalog
 from karpenter_tpu_torch.providers.instancetype.types import (
     InstanceType, NodeClassConfig, Offering, Resolver,
@@ -54,13 +58,15 @@ def build_catalog_items() -> List[InstanceType]:
 
 
 def synth_pods(rng: np.random.Generator, zones, n_pods: int, salt: int,
-               templates: int = 0) -> List[Pod]:
+               templates: int = 0, spread: int = 0) -> List[Pod]:
     """A pending set of real Pod objects: many replicas over ~160
     deployment specs -- mostly small web pods, some medium services, a few
     large; ~20% zone-pinned, ~15% on-demand-only, some arch constrained,
     some tolerating dedicated taints. Pods of one template share one spec
     object, as ReplicaSet replicas do. `templates` overrides the number of
-    templates."""
+    templates. `spread` gives the first that many templates without a node
+    selector one zone spread constraint on their own label, maxSkew 1:
+    every fourth ScheduleAnyway, the rest DoNotSchedule."""
     cpu_choices = np.array([100, 100, 250, 250, 500, 500, 1000, 2000, 4000, 8000])
     mem_choices = np.array([128, 256, 512, 512, 1024, 2048, 4096, 8192, 16384, 32768])
 
@@ -91,15 +97,40 @@ def synth_pods(rng: np.random.Generator, zones, n_pods: int, salt: int,
 
     pods = []
     i = 0
+    n_spread = 0
     for t in range(T):
         requests, selector, tolerations = specs[t]
+        labels = {"app": f"app-{salt}-{t}"}
+        tsc = []
+        if n_spread < spread and not selector:
+            when = "ScheduleAnyway" if n_spread % 4 == 3 else "DoNotSchedule"
+            tsc = [TopologySpreadConstraint(1, wk.ZONE_LABEL, when, dict(labels))]
+            n_spread += 1
         for _ in range(int(counts[t])):
             pods.append(Pod(
                 f"bench-{salt}-{i}", requests=requests, node_selector=selector,
-                tolerations=tolerations, labels={"app": f"app-{salt}-{t}"},
+                tolerations=tolerations, labels=labels, topology_spread=tsc,
             ))
             i += 1
     return pods
+
+
+def affinity_pods(salt: int, n: int) -> List[Pod]:
+    """`n` pods with required hostname pod affinity to their own tier (16
+    tiers), cpu 150/350/650 m and 256 Mi: values synth_pods never draws,
+    so the oracle-suffix carve is never blocked by a shared envelope."""
+    out = []
+    for a in range(n):
+        tier = f"bench-aff-{salt}-{a % 16}"
+        out.append(Pod(
+            f"aff-{salt}-{a}",
+            requests=Resources.from_base_units(
+                {res.CPU: [150.0, 350.0, 650.0][a % 3], res.MEMORY: 256.0 * 2**20}),
+            labels={"tier": tier},
+            affinity_terms=[PodAffinityTerm(label_selector={"tier": tier},
+                                            topology_key=wk.HOSTNAME_LABEL)],
+        ))
+    return out
 
 
 def nodes_from_result(result: SchedulingResult, prefix: str = "node") -> List[ExistingNode]:
@@ -126,3 +157,8 @@ def nodes_from_result(result: SchedulingResult, prefix: str = "node") -> List[Ex
             taints=list(group.taints), used=group.requested,
         ))
     return nodes
+
+
+def pods_by_node(result: SchedulingResult, prefix: str = "node") -> Dict[str, List[Pod]]:
+    """The pods each node of `nodes_from_result(result, prefix)` carries."""
+    return {f"{prefix}-{i}": list(group.pods) for i, group in enumerate(result.new_groups)}

@@ -21,7 +21,9 @@ from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
 from karpenter_tpu_torch.solver.kernels import cases
 from karpenter_tpu_torch.solver.kernels import disrupt_repack as repack
 from karpenter_tpu_torch.solver.kernels import ffd_scan
-from karpenter_tpu_torch.solver.service import TorchSolver
+from karpenter_tpu_torch.scheduling import Requirement
+from karpenter_tpu_torch.solver.oracle import Scheduler
+from karpenter_tpu_torch.solver.service import TorchSolver, _MergedVirtualPool
 
 # small tensors: one intra-op thread per test worker (several workers share the cores)
 torch.set_num_threads(1)
@@ -244,3 +246,88 @@ class TestSolverOnTheCard:
             assert a.existing_assignments == b.existing_assignments
             assert a.unschedulable == b.unschedulable
         assert a2.existing_assignments
+
+
+def merged_operands(items, device, pools, n_pods=8_000, seed=7):
+    """Kernel A's operands for a merged multi-pool catalog of `pools`."""
+    solver = TorchSolver(g_max=1024, device=device)
+    sched = Scheduler(nodepools=pools, instance_types={p.name: items for p in pools},
+                      zones=set(workload.ZONES))
+    _, entry = solver._merged_catalog(sched)
+    pods = workload.synth_pods(np.random.default_rng(seed), workload.ZONES, n_pods, salt=seed)
+    classes = encode.group_pods(pods)
+    cs = solver._encode(_MergedVirtualPool("__merged__"), entry, classes,
+                        np.zeros(len(classes), dtype=np.int64))
+    inp = ffd.make_inputs_staged(entry.staged, cs, packed_masks=True)
+    return ffd.scan_operands(inp, entry.offsets, entry.words, "price")
+
+
+def spot_on_demand_pools():
+    return [
+        NodePool("spot", weight=100,
+                 requirements=[Requirement("karpenter.sh/capacity-type", "In", ["spot"])]),
+        NodePool("on-demand", weight=10,
+                 requirements=[Requirement("karpenter.sh/capacity-type", "In", ["on-demand"])]),
+    ]
+
+
+class TestMergedCatalogWidths:
+    """Two overlapping pools over the 627-type catalog give K=1280, where
+    kernel A's resident layout no longer fits and the lean one does; three
+    give K=1920, where neither fits and the wrapper raises."""
+
+    def test_k1280_lean_layout_matches_plain_version(self, cuda, items):
+        ops = merged_operands(items, cuda, spot_on_demand_pools())
+        assert ops[9].shape[0] == 1280
+        assert ffd_scan.layout(1024, 1280, ops[0].shape[1]) is False
+        got = assert_scan_equal(ops, 1024, "price")
+        assert int(got[2]) > 0
+
+    def test_k1920_raises_naming_the_shape(self, cuda, items):
+        ops = merged_operands(items, cuda, spot_on_demand_pools() + [NodePool("default")],
+                              n_pods=2_000)
+        assert ops[9].shape[0] == 1920
+        before = ffd_scan.launches
+        with pytest.raises(ValueError, match="G=1024, K=1920"):
+            ffd_scan.fused_scan(*ops, g_max=1024, objective="price")
+        assert ffd_scan.launches == before
+
+
+class TestScheduleOnTheCard:
+    def test_merged_and_spread_routes_match_the_cpu(self, cuda, items):
+        """schedule() through both kernels decides as the plain versions
+        do: a merged two-pool batch, and a zone-spread wave onto existing
+        nodes (kernel B on zone-pinned rows)."""
+        pods = workload.synth_pods(np.random.default_rng(8), workload.ZONES, 2_000, 8, 40,
+                                   spread=8)
+        wave = workload.synth_pods(np.random.default_rng(9), workload.ZONES, 600, 9, 40,
+                                   spread=8)
+        results = []
+        for device in (cuda, "cpu"):
+            solver = TorchSolver(g_max=256, device=device)
+            pools = spot_on_demand_pools()
+            merged = solver.schedule(Scheduler(
+                nodepools=pools, instance_types={p.name: items for p in pools},
+                zones=set(workload.ZONES)), pods)
+            assert solver.last_route["path"] == "merged"
+            pool = NodePool("default")
+            tick1 = solver.schedule(Scheduler(
+                nodepools=[pool], instance_types={pool.name: items},
+                zones=set(workload.ZONES)), pods)
+            nodes = workload.nodes_from_result(tick1)
+            for n in nodes[:30]:
+                n.used = n.used * 0.5
+            before = repack.launches
+            tick2 = solver.schedule(Scheduler(
+                nodepools=[pool], instance_types={pool.name: items}, existing_nodes=nodes,
+                pods_by_node=workload.pods_by_node(tick1), zones=set(workload.ZONES)), wave)
+            assert solver.last_route["path"] == "device"
+            if device is cuda:
+                assert repack.launches == before + 1
+            results.append([
+                (sorted((tuple(p.metadata.name for p in g.pods), g.instance_types[0].name)
+                        for g in r.new_groups), r.existing_assignments, r.unschedulable)
+                for r in (merged, tick1, tick2)
+            ])
+        assert results[0] == results[1]
+        assert results[0][2][1], "the wave packed nothing onto the existing nodes"

@@ -105,6 +105,16 @@ class TestNoFallback:
         assert ffd_scan.smem_bytes(1024, 640, 9) <= ffd_scan.SMEM_LIMIT
         assert ffd_scan.smem_bytes(2048, 2048, 9) > ffd_scan.SMEM_LIMIT
 
+    def test_scan_layout_at_merged_widths(self):
+        """Two pools over the 627-type catalog (K=1280) fit only the lean
+        layout; three (K=1920) fit neither, and the layout check raises
+        naming the shape instead of choosing the plain version."""
+        assert ffd_scan.layout(1024, 640, 9) is True
+        assert ffd_scan.layout(1024, 1280, 9) is False
+        assert ffd_scan.smem_bytes(1024, 1280, 9, resident=False) <= ffd_scan.SMEM_LIMIT
+        with pytest.raises(ValueError, match="G=1024, K=1920, R=9"):
+            ffd_scan.layout(1024, 1920, 9)
+
     def test_build_needs_nvcc(self, monkeypatch):
         monkeypatch.setattr(build.shutil, "which", lambda name: None)
         monkeypatch.setattr(build.os.path, "exists", lambda p: False)

@@ -32,6 +32,7 @@ from tests.test_packing import catalog_items, churn_pods  # noqa: F401
 from tests.test_torch_catalog import (  # noqa: F401
     decision_sig, jax_nodes, node_specs, port_churn_pods, port_items, port_nodes,
 )
+from tests.test_torch_oracle import build, fuzz_spec
 
 # small tensors: one intra-op thread per test worker (several workers share the cores)
 torch.set_num_threads(1)
@@ -136,8 +137,8 @@ class TestSolveIdentity:
 
 
 class TestOutOfScope:
-    """Pods the port's solve does not model raise, as TPUSolver.solve
-    does for affinity (routing is a later slice)."""
+    """solve() raises on what only schedule() routes (affinity), as
+    TPUSolver.solve does, and takes zone spread itself."""
 
     def test_affinity_raises_on_both(self, catalog_items, port_items):  # noqa: F811
         req = {"cpu": "500m", "memory": "1Gi"}
@@ -148,9 +149,16 @@ class TestOutOfScope:
         with pytest.raises(ValueError):
             TorchSolver(device="cpu", g_max=G).solve(TNodePool("default"), port_items, [tpod])
 
-    def test_zone_spread_raises(self, port_items):
-        pod = TPod("s", requests=TResources({"cpu": "1"}), labels={"app": "s"},
-                   topology_spread=[TSpread(1, "topology.kubernetes.io/zone",
-                                            label_selector={"app": "s"})])
-        with pytest.raises(ValueError, match="zone"):
-            TorchSolver(device="cpu", g_max=G).solve(TNodePool("default"), port_items, [pod])
+    def test_zone_spread_raises(self, catalog_items, port_items):  # noqa: F811
+        """solve() takes zone spread itself: it runs the split pass and,
+        given the same zones and seeded counts, decides as TPUSolver.solve."""
+        spec = fuzz_spec(3, spread=1.0)
+        items = {"jax": catalog_items, "torch": port_items}
+        j, t = build("jax", spec, items), build("torch", spec, items)
+        seeds = {(("app", "w0"),): {"us-central-1a": 2}, (("app", "w1"),): {"us-central-1c": 1}}
+        kw = dict(zones=spec["zones"], spread_seeds=seeds)
+        want = decision_sig(TPUSolver(g_max=G).solve(j.pools[0], catalog_items, j.pods, **kw))
+        got = decision_sig(TorchSolver(device="cpu", g_max=G).solve(
+            t.pools[0], port_items, t.pods, **kw))
+        assert got == want
+        assert any(TSpread is type(c) for p in t.pods for c in p.topology_spread)
