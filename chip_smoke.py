@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's provisioning solve on one NVIDIA GPU and check it.
+"""Drive the port's provisioning solve and consolidation engine on one NVIDIA GPU.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
@@ -9,42 +9,61 @@ g_max 1024, the price objective -- through the entry points a user calls.
 `TorchSolver.solve` takes two ticks: tick 1 on an empty cluster
 (kernel A), tick 2 with a second wave of 10,000 pods packed first onto the
 nodes of tick 1 (kernel B, one candidate set) and then opened for the rest
-(kernel A). `TorchSolver.schedule`, the routing entry point, takes four
+(kernel A). `TorchSolver.schedule`, the routing entry point, takes five
 worlds: `suffix` (49,500 of those pods plus 500 with required hostname
 pod affinity: the oracle suffix), `spread` (16 templates with zone
 spread, two ticks, the second seeded with the first's pods: the split
 pass, kernel B on zone-pinned rows), `merged` (the 50k pods under
-weighted spot and on-demand NodePools: 1,254 joint columns) and
-`pipelined` (schedule_begin/schedule_finish on tick 1). Phases, one JSON
-line each:
+weighted spot and on-demand NodePools: 1,254 joint columns), `merged 3
+pools` (the same pods under spot, on-demand and default: K=1920, kernel A
+in its scratch layout) and `pipelined` (schedule_begin/schedule_finish on
+tick 1). `DisruptEngine(solver=...).evaluate`, the consolidation entry
+point, takes four sweeps of 301 candidate sets each (256 singletons,
+prefixes 2..32, 14 pairs): `bench-sweep` (bench.py's consolidation stage:
+1,024 nodes, one pool), `rampdown-sweep` over tick 1's nodes after 75 % of
+their pods left, once under one default pool and once under weighted spot
+/ on-demand pools with daemonset overhead, and `steady-sweep` (the same
+cluster before any pod left, so the replacement search decides some sets,
+under the spot / on-demand pools). Phases, one JSON line each:
 
-  device   the card, its count and `nvidia-smi` name and power limit
-  build    nvcc for sm_90a, one process per source, with ptxas -v lines
-  main     the two ticks with every launch count set to 0 before a tick
-           and read after it; every pod must be placed exactly once
-  schedule the four worlds, counted the same way, each with its route,
-           C and K of kernel A, the layout it chose, and its unschedulable
-           pods; each must take its route and account for every pod once
-  kernels  each kernel against its plain torch version on the card, on
-           the main path's own inputs (tick 1's scan; tick 2's scan, whose
-           C=128 holds 63 padded rows; tick 2's repack; the schedule
-           worlds' scans and the spread wave's repack) and on pinned edge
-           cases: tied prices, exact quotients, slot exhaustion, padded or
-           infeasible rows between real classes, a count-0 class that open
-           groups could join, all-zero-request classes whose int32 prefix
-           sums wrap, a C=256 world, kernel B at 64 candidate sets, and the
-           layouts each kernel falls back to when shared memory is short;
-           equality is exact
-  plain    the same ticks and worlds with both kernels swapped for their
-           plain versions: the decisions must be identical
-  times    each kernel and its plain version at every main-path shape
-           (kernel A at tick 1, tick 2 and in each world; kernel B at
-           tick 2 and the spread wave), kernel A over G in {64, 256, 1024}
-           on tick 1's operands, on the C=256 world and under the fit
-           objective, each with its bound and, at G=1024, the surviving
-           types of its groups; kernel times are CUDA events around 10
-           back-to-back calls; tick walls and their stages per tick and
-           world, peak device memory
+  device      the card, its count and `nvidia-smi` name and power limit
+  build       nvcc for sm_90a, one process per source, with ptxas -v lines
+  main        the two ticks with every launch count set to 0 before a tick
+              and read after it; every pod must be placed exactly once
+  schedule    the five worlds, counted the same way, each with its route,
+              C and K of kernel A, the layout it chose, and its
+              unschedulable pods; each must take its route and account for
+              every pod once
+  consolidate the four sweeps, counted the same way: kernel B once per
+              sweep at S=512, N=1024, the replacement passes, and the
+              verdicts by action (delete / replace-cheaper / blocked,
+              against the candidates' own prices); every verdict must be
+              well formed
+  kernels     each kernel against its plain torch version on the card, on
+              the main path's own inputs (tick 1's scan; tick 2's scan,
+              whose C=128 holds 63 padded rows; tick 2's repack; the
+              schedule worlds' scans, K=1920 among them, and the spread
+              wave's repack; each sweep's repack) and on pinned edge cases:
+              tied prices, exact quotients, slot exhaustion, padded or
+              infeasible rows between real classes, a count-0 class that
+              open groups could join, all-zero-request classes whose int32
+              prefix sums wrap, a C=256 world, kernel B at 64 candidate
+              sets, and the layouts each kernel takes when shared memory is
+              short, run at shapes the others fit too; equality is exact
+  plain       the same ticks, worlds and sweeps with both kernels swapped
+              for their plain versions: the decisions must be identical
+  times       each kernel and its plain version at every main-path shape
+              (kernel A at tick 1, tick 2 and in each world; kernel B at
+              tick 2, the spread wave and each sweep), kernel A over G in
+              {64, 256, 1024} on tick 1's operands, on the C=256 world and
+              under the fit objective, each with its bound and, at G=1024,
+              the surviving types of its groups; the scratch layout against
+              the lean one at K=1280; kernel times are CUDA events around
+              10 back-to-back calls; tick walls and their stages per tick
+              and world, peak device memory; per sweep its wall (median of
+              warm sweeps) with host stages, each replacement pass in CUDA
+              events, and on bench-sweep the candidate nodes judged per
+              second
 
 Then the nvidia-smi line, the kernels line and, last, the result line.
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -52,8 +71,10 @@ JAX and the JAX package are not imported.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -196,6 +217,42 @@ def stage_timer(solver, ffd_mod):
             setattr(ffd_mod, name, fn)
 
 
+# the host stages of a sweep: DisruptEngine methods in the order a sweep
+# runs them (`assemble` holds the replacement passes)
+ENGINE_STAGES = {"_encode_sets": "encode_sets", "_pool_contexts": "pool_contexts",
+                 "_dispatch_local": "repack", "_assemble": "assemble"}
+
+
+@contextlib.contextmanager
+def sweep_stage_timer(engine, functions):
+    """Host-clock milliseconds in each stage of ENGINE_STAGES and in each
+    module function of `functions` ((module, name, label) triples) over
+    the calls inside the block (a nested stage counts in its parent too)."""
+    times = {}
+
+    def timed(label, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                times[label] = times.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
+        return call
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in functions]
+    for name, label in ENGINE_STAGES.items():
+        setattr(engine, name, timed(label, getattr(engine, name)))
+    for mod, name, label in functions:
+        setattr(mod, name, timed(label, getattr(mod, name)))
+    try:
+        yield times
+    finally:
+        for name in ENGINE_STAGES:
+            delattr(engine, name)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -207,6 +264,9 @@ def main() -> int:
     from karpenter_tpu_torch.solver.kernels import build, cases
     from karpenter_tpu_torch.solver.kernels import disrupt_repack as kb
     from karpenter_tpu_torch.solver.kernels import ffd_scan as ka
+    from karpenter_tpu_torch.solver.disrupt import DisruptEngine
+    from karpenter_tpu_torch.solver.disrupt import engine as engine_mod
+    from karpenter_tpu_torch.solver.disrupt import kernel as dk
     from karpenter_tpu_torch.solver.oracle import Scheduler, SchedulingResult
     from karpenter_tpu_torch.solver.service import TorchSolver
 
@@ -291,6 +351,7 @@ def main() -> int:
                  requirements=[Requirement(wk.CAPACITY_TYPE_LABEL, "In", [name])])
         for name, weight in ((wk.CAPACITY_TYPE_SPOT, 100), (wk.CAPACITY_TYPE_ON_DEMAND, 10))
     ]
+    three_pools = spot_od + [NodePool("default")]
     pods_aff = workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS - N_AFF,
                                    salt=1) + workload.affinity_pods(1, N_AFF)
     pods_sp1 = workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS, salt=1,
@@ -308,6 +369,7 @@ def main() -> int:
         "spread tick 1": (pods_sp1, "device", ("ffd_scan",)),
         "spread tick 2": (pods_sp2, "device", ("ffd_scan", "disrupt_repack")),
         "merged": (pods1, "merged", ("ffd_scan",)),
+        "merged 3 pools": (pods1, "merged", ("ffd_scan",)),
         "pipelined": (pods1, "device", ("ffd_scan",)),
     }
 
@@ -325,6 +387,7 @@ def main() -> int:
             "spread tick 1": lambda: solver.schedule(sched(default_pools), pods_sp1),
             "spread tick 2": spread2,
             "merged": lambda: solver.schedule(sched(spot_od), pods1),
+            "merged 3 pools": lambda: solver.schedule(sched(three_pools), pods1),
             "pipelined": lambda: solver.schedule_finish(
                 solver.schedule_begin(sched(default_pools), pods1)),
         }
@@ -349,7 +412,7 @@ def main() -> int:
         K_w = scan_ops[9].shape[0]
         doc = {"route": dict(sched_solver.last_route), "pods": len(pods_w),
                "c_pad": C_w, "k_pad": K_w, "real_classes": len(cases.real_classes(scan_ops)),
-               "layout": "resident" if ka.layout(G_MAX, K_w, R_w) else "lean",
+               "layout": ka.layout(G_MAX, K_w, R_w),
                "launches": world_launches[name], **accounted(result, pods_w)}
         if rec["disrupt_repack"]:
             S_w, N_w = rec["disrupt_repack"][0][4].shape
@@ -363,6 +426,95 @@ def main() -> int:
     if not same_pipe:
         raise AssertionError("schedule_begin/schedule_finish decided differently from "
                              "schedule or solve")
+    three = world_docs["merged 3 pools"]
+    # at g_max 1024 neither shared-memory layout holds a K=1920 carry
+    if three["k_pad"] != 1920 or (G_MAX == 1024 and three["layout"] != "scratch"):
+        raise AssertionError(f"the three-pool world did not run kernel A at K=1920 in the "
+                             f"scratch layout: {three}")
+
+    # -- consolidate: DisruptEngine.evaluate on four sweeps --------------------------
+    bench_spec = workload.bench_sweep_spec()
+    ramp_spec = workload.rampdown_sweep_spec(tick1, np.random.default_rng(SEED + 3))
+    steady_spec = workload.rampdown_sweep_spec(tick1, np.random.default_rng(SEED + 3), keep=1.0)
+    # sweep -> (spec, pools)
+    sweep_spec = {
+        "bench-sweep": (bench_spec, "default"),
+        "rampdown-sweep default": (ramp_spec, "default"),
+        "rampdown-sweep spot-od": (ramp_spec, "spot-od"),
+        "steady-sweep spot-od": (steady_spec, "spot-od"),
+    }
+    by_name = {it.name: it for it in items}
+
+    def node_price(labels) -> float:
+        """The hourly price of a node's own offering; 0.0 for a node that
+        names no catalog type (bench-sweep's nodes): then only `delete`
+        beats its budget."""
+        it = by_name.get(labels.get(wk.INSTANCE_TYPE_LABEL))
+        for o in (it.offerings if it is not None else ()):
+            if (o.zone, o.capacity_type) == (labels.get(wk.ZONE_LABEL),
+                                             labels.get(wk.CAPACITY_TYPE_LABEL)):
+                return o.price
+        return 0.0
+
+    sweeps = {}
+    for name, (spec, kind) in sweep_spec.items():
+        nodes_s, sets_s = workload.sweep_world(spec)
+        pools_s, ovh_s = workload.sweep_pools(kind)
+        price_of = {n[0]: node_price(n[1]) for n in spec["nodes"]}
+        sweeps[name] = {
+            "nodes": nodes_s, "sets": sets_s,
+            "budgets": [sum(price_of[c] for c in excluded) for _, excluded in sets_s],
+            "kw": dict(pools=pools_s, catalogs={p.name: items for p in pools_s},
+                       daemon_overhead=ovh_s),
+        }
+
+    def well_formed(v, n_pods, pools_s) -> bool:
+        infinite = math.isinf(v.replace_price) and math.isinf(v.replace_od_price)
+        if v.can_delete:
+            return v.leftover == 0 and infinite and v.replace_type is None and v.nodepool is None
+        if not 0 < v.leftover <= n_pods:
+            return False
+        if math.isfinite(v.replace_price):
+            return (v.replace_od_price >= v.replace_price and v.replace_type in by_name
+                    and v.nodepool in {p.name for p in pools_s})
+        return infinite and v.replace_type is None and v.nodepool is None
+
+    engine = DisruptEngine(solver=solver)
+    sweep_results, sweep_ops, sweep_launches, sweep_docs = {}, {}, {}, {}
+    for name, sw in sweeps.items():
+        with recording(ka, kb) as rec:
+            ka.launches = kb.launches = dk.replace_calls = 0
+            verdicts = engine.evaluate(sw["nodes"], sw["sets"], **sw["kw"])
+            torch.cuda.synchronize()
+            sweep_launches[name] = {"disrupt_repack": kb.launches, "ffd_scan": ka.launches,
+                                    "disrupt_replace": dk.replace_calls}
+        sweep_results[name], sweep_ops[name] = verdicts, rec
+        if kb.launches != 1 or len(rec["disrupt_repack"]) != 1:
+            raise AssertionError(f"sweep {name} did not launch kernel B once: {sweep_launches[name]}")
+        ops = rec["disrupt_repack"][0]
+        (S_s, N_s), C_s = ops[4].shape, ops[2].shape[0]
+        want_shape = (encode.bucket(len(sw["sets"])), encode.bucket(len(sw["nodes"]), lo=16))
+        if (S_s, N_s) != want_shape:
+            raise AssertionError(f"sweep {name}: kernel B at S={S_s}, N={N_s}, not {want_shape}")
+        bad = [i for i, (v, (pods_i, _)) in enumerate(zip(verdicts, sw["sets"]))
+               if not well_formed(v, len(pods_i), sw["kw"]["pools"])]
+        if len(verdicts) != len(sw["sets"]) or bad:
+            raise AssertionError(f"sweep {name}: malformed verdicts at sets {bad[:10]}")
+        actions = collections.Counter(v.action(b) for v, b in zip(verdicts, sw["budgets"]))
+        sweep_docs[name] = {
+            "sets": len(sw["sets"]), "candidates": sum(len(x) == 1 for _, x in sw["sets"]),
+            "nodes": len(sw["nodes"]),
+            # a candidate's pods appear in every set that holds it
+            "pod_entries": sum(len(p) for p, _ in sw["sets"]),
+            "repack_shape": {"S": S_s, "C": C_s, "N": N_s, "R": ops[2].shape[1]},
+            "feasible_classes": int(ops[1].any(1).sum()), "launches": sweep_launches[name],
+            "actions": {a: actions.get(a, 0) for a in ("delete", "replace-cheaper", "blocked")},
+            "replacement_pools": dict(collections.Counter(
+                v.nodepool for v in verdicts if v.nodepool is not None)),
+            "first_sweep_ms": engine.last_dispatch["ms"],
+        }
+    emit({"phase": "consolidate", "entry": "DisruptEngine(solver=TorchSolver).evaluate",
+          "sweeps": sweep_docs, **tag})
 
     # the main path's own kernel inputs: tick 1's scan, tick 2's repack
     classes1 = encode.group_pods(pods1, extra_requirements=pool.requirements())
@@ -391,12 +543,13 @@ def main() -> int:
     checks = []
     err_a = err_b = 0.0
 
-    def check_scan(label, ops, objective, g_max=G_MAX, lean=False):
-        """Kernel A against its plain version; `lean` runs the layout the
-        kernel takes when the resident one does not fit."""
+    def check_scan(label, ops, objective, g_max=G_MAX, layout_name=None):
+        """Kernel A against its plain version; `layout_name` runs a layout
+        the kernel takes when shared memory is short ("lean", "scratch")
+        at a shape where the resident one fits too."""
         nonlocal err_a
-        if lean:
-            got = ka._launch(*ops, g_max=g_max, objective=objective, resident=False)
+        if layout_name is not None:
+            got = ka._launch(*ops, g_max=g_max, objective=objective, layout_name=layout_name)
         else:
             got = ka.fused_scan(*ops, g_max=g_max, objective=objective)
         want = ka.fused_scan_reference(*ops, g_max=g_max, objective=objective)
@@ -480,8 +633,12 @@ def main() -> int:
         if int(want[1][c]) >= 0:
             raise AssertionError("the zero-request case did not wrap the prefix sum")
     check_scan("C=256 world", ops_a3, "price")
-    check_scan("lean layout tick1", ops_a, "price", lean=True)
-    check_scan("lean layout tick2", ops_a2, "price", lean=True)
+    for layout_name in ("lean", "scratch"):
+        check_scan(f"{layout_name} layout tick1", ops_a, "price", layout_name=layout_name)
+        check_scan(f"{layout_name} layout tick2", ops_a2, "price", layout_name=layout_name)
+    r8 = list(ops_a)
+    r8[0], r8[9] = ops_a[0][:, :8].contiguous(), ops_a[9][:, :8].contiguous()
+    check_scan("scratch layout tick1, R=8 (run-time R)", tuple(r8), "price", layout_name="scratch")
 
     check_repack("tick2 pre-pass S=1", ops_b)
     check_repack("tick2 pre-pass, infeasible rows between real classes S=1", cases.gap_repack(ops_b))
@@ -492,7 +649,6 @@ def main() -> int:
     if int(check_repack("zero-request class: the prefix sum wraps", zr)[0][0, 3]) >= 0:
         raise AssertionError("the zero-request repack case did not wrap the prefix sum")
     rng = np.random.default_rng(SEED)
-    from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
     for s in range(2):
         s_, c_, n_ = 64, ops_b[2].shape[0], ops_b[0].shape[0]
         world = (
@@ -500,10 +656,10 @@ def main() -> int:
             rng.integers(0, 5, (c_, encode.R)).astype(np.float32),
             rng.integers(0, 40, (s_, c_)), rng.random((s_, n_)) < 0.2,
         )
-        ops = disrupt_kernel.repack_from_numpy(*world, dev)
+        ops = dk.repack_from_numpy(*world, dev)
         check_repack(f"random world S=64 seed {s}", ops)
         check_repack(f"random world S=64 seed {s}, infeasible rows between", cases.gap_repack(ops, s))
-    check_repack("exact quotient 6/3", disrupt_kernel.repack_from_numpy(
+    check_repack("exact quotient 6/3", dk.repack_from_numpy(
         np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
         np.array([[5]]), np.zeros((1, 2), bool), dev))
     # the schedule worlds' own operands: the merged catalog (K=1280, the
@@ -515,6 +671,10 @@ def main() -> int:
                    f"({world_docs[name]['layout']} layout)", ops, "price")
     check_repack("spread tick 2 pre-pass, zone-pinned rows",
                  world_ops["spread tick 2"]["disrupt_repack"][0])
+    # each sweep's own repack: one block per candidate set
+    for name in sweeps:
+        ops = sweep_ops[name]["disrupt_repack"][0]
+        check_repack(f"{name} S={ops[4].shape[0]} C={ops[2].shape[0]} N={ops[4].shape[1]}", ops)
     emit({"phase": "kernels", "checks": checks, **tag})
 
     # -- the same two ticks through the plain versions, on the card --------------
@@ -525,11 +685,17 @@ def main() -> int:
         ref_worlds = {}
         for name, fn in worlds_of(TorchSolver(g_max=G_MAX, device=dev), ref_worlds).items():
             ref_worlds[name] = fn()
+        ref_engine = DisruptEngine(solver=TorchSolver(g_max=G_MAX, device=dev))
+        ref_sweeps = {name: ref_engine.evaluate(sw["nodes"], sw["sets"], **sw["kw"])
+                      for name, sw in sweeps.items()}
     same1, same2 = sig(ref1) == sig(tick1), sig(ref2) == sig(tick2)
     same_worlds = {name: sig(ref_worlds[name]) == sig(world_results[name]) for name in world_spec}
+    same_sweeps = {name: [repr(v) for v in ref_sweeps[name]]
+                   == [repr(v) for v in sweep_results[name]] for name in sweeps}
     emit({"phase": "plain", "tick1_decisions_equal": same1, "tick2_decisions_equal": same2,
-          "schedule_worlds_decisions_equal": same_worlds, **tag})
-    if not (same1 and same2 and all(same_worlds.values())):
+          "schedule_worlds_decisions_equal": same_worlds,
+          "sweep_verdict_reprs_equal": same_sweeps, **tag})
+    if not (same1 and same2 and all(same_worlds.values()) and all(same_sweeps.values())):
         raise AssertionError("the main path's decisions differ from the plain versions'")
 
     # -- times ----------------------------------------------------------------------
@@ -665,6 +831,8 @@ def main() -> int:
         if world_ops[name]["disrupt_repack"]:
             shapes_b[name] = (world_ops[name]["disrupt_repack"][0],
                               world_launches[name]["disrupt_repack"])
+    for name in sweeps:
+        shapes_b[name] = (sweep_ops[name]["disrupt_repack"][0], sweep_launches[name]["disrupt_repack"])
     shape_rows = {"ffd_scan": [], "disrupt_repack": []}
     for name, (ops, n) in shapes_a.items():
         if name == "tick 1":
@@ -678,7 +846,7 @@ def main() -> int:
         shape_rows["ffd_scan"].append({
             "path": name, "shape": {"C": C_s, "G": G_MAX, "K": K_s, "R": R_s},
             "real_classes": len(cases.real_classes(ops)),
-            "layout": "resident" if ka.layout(G_MAX, K_s, R_s) else "lean",
+            "layout": ka.layout(G_MAX, K_s, R_s),
             # kernel A walks each open group's survivors at every later
             # step, one thread per group
             "group_types_median_max": survivors(ops, "price"),
@@ -695,6 +863,52 @@ def main() -> int:
                                     "N": ops[4].shape[1], "R": ops[2].shape[1]},
             "feasible_classes": int(ops[1].any(1).sum()),
             "launches": n, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by})
+
+    # kernel A's scratch layout against the lean one at K=1280 (the merged
+    # world's operands), in turns: lean, scratch, scratch, lean
+    ops_m = world_ops["merged"]["ffd_scan"][0]
+    turns = []
+    for layout_name in ("lean", "scratch", "scratch", "lean"):
+        turns.append((layout_name, cuda_ms(lambda: ka._launch(
+            *ops_m, g_max=G_MAX, objective="price", layout_name=layout_name), reps=20)))
+    scratch_vs_lean = {"shape": {"C": ops_m[0].shape[0], "G": G_MAX, "K": ops_m[9].shape[0]},
+                       "turns_ms": turns}
+
+    # each sweep: one replacement pass per pool (CUDA events, on the pass's
+    # operands: the sweep's kernel-B leftover and the pool's context), the
+    # sweep wall (median of 3 warm sweeps) and its host stages
+    od_col = int(encode.CAPTYPE_INDEX[wk.CAPACITY_TYPE_ON_DEMAND])
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    sweep_times = {}
+    for name, sw in sweeps.items():
+        enc = engine._encode_sets(sw["nodes"], sw["sets"])
+        leftover = kb.disrupt_repack(*sweep_ops[name]["disrupt_repack"][0])[0]
+        replace_ms = {}
+        for ctx in engine._pool_contexts(enc, sw["kw"]["pools"], sw["kw"]["catalogs"],
+                                         sw["kw"]["daemon_overhead"]):
+            r_ops = (leftover, put(ctx.cs.req), put(ctx.compat), put(ctx.cs.azone),
+                     put(ctx.cs.acap), ctx.cap, put(ctx.ovh), ctx.price)
+            replace_ms[ctx.pool.name] = {
+                "ms": cuda_ms(lambda: dk.disrupt_replace(*r_ops, od_col=od_col), reps=10),
+                "shape": {"S": leftover.shape[0], "C": leftover.shape[1], "K": ctx.cap.shape[0]}}
+        runs = []
+        for _ in range(3):
+            with sweep_stage_timer(engine, [(dk, "disrupt_replace", "replace"),
+                                            (encode, "group_pods", "group"),
+                                            (engine_mod, "_node_feasibility", "feasibility")]) as t:
+                t0 = time.perf_counter()
+                engine.evaluate(sw["nodes"], sw["sets"], **sw["kw"])
+                torch.cuda.synchronize()
+                t["wall"] = (time.perf_counter() - t0) * 1e3
+            runs.append(t)
+        stages_s = {k: statistics.median(r.get(k, 0.0) for r in runs) for k in runs[0]}
+        sweep_times[name] = {"wall_ms_median": stages_s.pop("wall"), "stages_ms": stages_s,
+                             "replace_pass": replace_ms}
+    bench_wall = sweep_times["bench-sweep"]["wall_ms_median"]
+    bench_nodes_per_s = sweep_docs["bench-sweep"]["candidates"] / (bench_wall / 1e3)
 
     # each world's tick wall and host stages (median of 3 warm runs)
     world_walls, world_stages = {}, {}
@@ -728,11 +942,20 @@ def main() -> int:
           "stages_note": "host clock; solve_finish holds fetch_fused and decode, "
                          "oracle_suffix holds the oracle's pass, fetch_fused waits "
                          "for the device",
-          "peak_device_bytes_main_path": peak_bytes, **tag})
+          "peak_device_bytes_main_path": peak_bytes,
+          "ffd_scan_scratch_vs_lean_k1280": scratch_vs_lean,
+          "consolidate": sweep_times, "bench_sweep_nodes_per_s": bench_nodes_per_s,
+          "consolidate_stages_note": "host clock; encode_sets holds group (group_pods) and "
+                                     "feasibility (the [C, N] loop), repack holds kernel B "
+                                     "and the fetch of the leftover totals, assemble holds "
+                                     "the replacement passes and their fetches, replace is "
+                                     "their enqueue",
+          **tag})
 
     def launches_on_paths(kernel):
         return (launches1[kernel] + launches2[kernel]
-                + sum(n[kernel] for n in world_launches.values()))
+                + sum(n[kernel] for n in world_launches.values())
+                + sum(n[kernel] for n in sweep_launches.values()))
 
     kernels = [
         {"name": "ffd_scan", "route": "cuda", "source": "karpenter_tpu_torch/csrc/ffd_scan.cu",

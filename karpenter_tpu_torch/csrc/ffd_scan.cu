@@ -45,7 +45,16 @@
 //     axes unroll with the request in registers.
 // When the resident layout does not fit in shared memory, a lean layout
 // (one row buffer, no prefetch, cap_eff/tzc read through L1) takes any
-// shape the first version of this kernel took.
+// shape the first version of this kernel took. When neither fits (a
+// merged catalog over three full pools: K = 1920 at G = 1024), the scratch
+// layout keeps the survivor words in device memory: each group's words
+// [G, KW] live in the gmask output itself and their non-zero bitmaps
+// [G, NZW] in a scratch buffer the wrapper allocates, about 0.25 MB at
+// that shape, well inside the 50 MB L2. Only the owning thread touches a
+// group's words, so the carry update needs no new barrier. accum, gzc and
+// the fits (R + 2 words a group) stay in shared memory, beside the lean
+// layout's one row buffer. It is a template case, so the other layouts
+// keep their survivor words in shared memory with shared-memory loads.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,7 +87,13 @@ struct Operands {
     uint32_t* gmask_out;      // [G, KW]
     uint32_t* gzc_out;        // [G]
     int32_t* n_open_out;      // [1]
+    uint32_t* gnz_scratch;    // [G, NZW] survivor-word bitmaps (scratch layout)
 };
+
+// The three layouts, as the wrapper names them.
+constexpr int kLean = 0;
+constexpr int kResident = 1;
+constexpr int kScratch = 2;
 
 // Words of one staged class row: n_fresh [K], price [K] (16-byte aligned,
 // copied 16 bytes at a time), compat/fresh/hasres [KW], req [R], count,
@@ -87,13 +102,15 @@ __host__ __device__ __forceinline__ int row_words(int K, int R) {
     return (2 * K + 3 * (K >> 5) + R + 3 + 3) & ~3;
 }
 
-__host__ __device__ __forceinline__ size_t smem_words(int G, int K, int R, int threads, int resident) {
+__host__ __device__ __forceinline__ size_t smem_words(int G, int K, int R, int threads, int layout) {
     const size_t KW = (size_t)K >> 5;
     const size_t NZW = (KW + 31) >> 5;
+    const bool resident = layout == kResident;
     const size_t nbuf = resident ? 2 : 1;
     const size_t bitmap = resident ? (size_t)threads >> 5 : 1;
-    return nbuf * row_words(K, R) + (size_t)G * ((size_t)R + KW + NZW + 2) +
-           (resident ? (size_t)K * R + K : 0) + bitmap + 4 * kMaxWarps + 2 * KW + 2 * NZW;
+    const size_t per_group = (size_t)R + 2 + (layout == kScratch ? 0 : KW + NZW);
+    return nbuf * row_words(K, R) + (size_t)G * per_group + (resident ? (size_t)K * R + K : 0) + bitmap +
+           4 * kMaxWarps + 2 * KW + 2 * NZW;
 }
 
 __device__ __forceinline__ bool joint_ok(uint32_t x) {
@@ -167,8 +184,9 @@ __device__ __forceinline__ int next_real(const uint32_t* bitmap, int nbits, int 
 
 // RT > 0 fixes R at compile time (the request axes of the repo's encoding),
 // so each fit's loads and divides unroll and issue together; RT = 0 takes R
-// at run time.
-template <int RT>
+// at run time. SCRATCH keeps the survivor words and their bitmaps in
+// device memory (then `resident` is 0).
+template <int RT, bool SCRATCH>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     ffd_scan_kernel(Operands o, int C, int G, int K, int r_arg, int price_objective, int resident) {
     const int R = RT > 0 ? RT : r_arg;
@@ -187,9 +205,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     float* cap_s = rows + (resident ? 2 : 1) * ROW;                // [K, R] (resident)
     uint32_t* tz_s = reinterpret_cast<uint32_t*>(cap_s + (resident ? K * R : 0));  // [K] (resident)
     float* accum = reinterpret_cast<float*>(tz_s + (resident ? K : 0));  // [G, R]
-    uint32_t* gmask = reinterpret_cast<uint32_t*>(accum + G * R);  // [G, KW]
-    uint32_t* gnz = gmask + G * KW;                                // [G, NZW] non-zero survivor words
-    uint32_t* gzc = gnz + G * NZW;                                 // [G]
+    uint32_t* after_accum = reinterpret_cast<uint32_t*>(accum + G * R);
+    uint32_t* gmask = SCRATCH ? o.gmask_out : after_accum;         // [G, KW]
+    uint32_t* gnz = SCRATCH ? o.gnz_scratch : gmask + G * KW;      // [G, NZW] non-zero survivor words
+    uint32_t* gzc = SCRATCH ? after_accum : gnz + G * NZW;         // [G]
     int32_t* ngrp = reinterpret_cast<int32_t*>(gzc + G);           // [G] fits, then takes
     uint32_t* bitmap = reinterpret_cast<uint32_t*>(ngrp + G);      // [nbits / 32] real classes
     uint32_t* s_scan = bitmap + (nbits >> 5);                      // [32] per-warp slots
@@ -524,7 +543,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
     __pipeline_wait_prior(0);  // no copy outlives the block
     __syncthreads();  // the carry rows, written by their owners, out in coalesced order
-    for (int i = tid; i < G * KW; i += T) o.gmask_out[i] = gmask[i];
+    if (!SCRATCH)
+        for (int i = tid; i < G * KW; i += T) o.gmask_out[i] = gmask[i];
     for (int i = tid; i < G; i += T) o.gzc_out[i] = gzc[i];
     if (tid == 0) o.n_open_out[0] = n_open;
 }
@@ -533,25 +553,34 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
 extern "C" {
 
-// Dynamic shared memory of one launch, in bytes: `resident` 1 keeps
-// cap_eff/tzc in shared memory and double-buffers the class row, 0 is the
-// lean layout.
-size_t ffd_scan_smem_bytes(int G, int K, int R, int threads, int resident) {
-    return 4 * smem_words(G, K, R, threads, resident);
+// Dynamic shared memory of one launch, in bytes: `layout` 1 (resident)
+// keeps cap_eff/tzc in shared memory and double-buffers the class row, 0 is
+// the lean layout, 2 the scratch layout (survivor words in device memory).
+size_t ffd_scan_smem_bytes(int G, int K, int R, int threads, int layout) {
+    return 4 * smem_words(G, K, R, threads, layout);
 }
 
+// `gnz_scratch` is a [G, ceil(K / 1024)] u32 buffer for the scratch layout,
+// unused (may be null) by the others.
 int ffd_scan_launch(const void* req, const void* compat_w, const void* fresh_w, const void* hasres_w,
                     const void* n_fresh, const void* price, const void* count, const void* env,
                     const void* azc, const void* cap_eff, const void* tzc, void* take_out,
-                    void* unplaced_out, void* gmask_out, void* gzc_out, void* n_open_out, int C, int G,
-                    int K, int R, int price_objective, int threads, int resident, void* stream) {
+                    void* unplaced_out, void* gmask_out, void* gzc_out, void* n_open_out, void* gnz_scratch,
+                    int C, int G, int K, int R, int price_objective, int threads, int layout, void* stream) {
     if (threads < 32 || threads > kMaxThreads || threads % 32 != 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = ffd_scan_smem_bytes(G, K, R, threads, resident);
-    auto kernel = R == 9 ? ffd_scan_kernel<9> : ffd_scan_kernel<0>;
+    if (layout < kLean || layout > kScratch || (layout == kScratch && gnz_scratch == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = ffd_scan_smem_bytes(G, K, R, threads, layout);
+    const bool scratch = layout == kScratch;
+    // the four template cases: R = 9 or run-time R, by scratch or not
+    const int which = (R == 9 ? 0 : 1) + (scratch ? 2 : 0);
+    void (*const kernels[4])(Operands, int, int, int, int, int, int) = {
+        ffd_scan_kernel<9, false>, ffd_scan_kernel<0, false>, ffd_scan_kernel<9, true>, ffd_scan_kernel<0, true>};
+    auto kernel = kernels[which];
     // raise the kernel's shared-memory ceiling once per size seen (the call
     // costs host time on every launch otherwise)
-    static size_t ceiling[2] = {0, 0};
-    size_t& have = ceiling[kernel == ffd_scan_kernel<9> ? 0 : 1];
+    static size_t ceiling[4] = {0, 0, 0, 0};
+    size_t& have = ceiling[which];
     if (smem > have) {
         const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
@@ -562,8 +591,8 @@ int ffd_scan_launch(const void* req, const void* compat_w, const void* fresh_w, 
                (const int32_t*)count, (const int32_t*)env,      (const uint32_t*)azc,
                (const float*)cap_eff, (const uint32_t*)tzc,     (int32_t*)take_out,
                (int32_t*)unplaced_out, (uint32_t*)gmask_out,     (uint32_t*)gzc_out,
-               (int32_t*)n_open_out};
-    kernel<<<1, threads, smem, (cudaStream_t)stream>>>(o, C, G, K, R, price_objective, resident);
+               (int32_t*)n_open_out,  (uint32_t*)gnz_scratch};
+    kernel<<<1, threads, smem, (cudaStream_t)stream>>>(o, C, G, K, R, price_objective, (int)(layout == kResident));
     return (int)cudaGetLastError();
 }
 

@@ -36,33 +36,42 @@ _SLOT_WORDS = 4 * 32  # four reductions' per-warp slots
 ScanOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def smem_bytes(g_max: int, k: int, r: int, resident: bool = True) -> int:
+# the kernel's layouts, in the order `layout` tries them, with the C entry's codes
+LAYOUTS = {"resident": 1, "lean": 0, "scratch": 2}
+
+
+def smem_bytes(g_max: int, k: int, r: int, layout: str = "resident") -> int:
     """Dynamic shared memory of one launch (the C entry's formula).
 
-    Resident: two class-row buffers (the next real class lands while the
-    current one runs) and cap_eff/tzc in shared memory. Lean: one row
-    buffer and cap_eff/tzc read from device memory."""
+    resident: two class-row buffers (the next real class lands while the
+    current one runs) and cap_eff/tzc in shared memory. lean: one row
+    buffer and cap_eff/tzc read from device memory. scratch: as lean, with
+    the survivor words and their bitmaps in device memory as well."""
     kw = k // 32
     nzw = (kw + 31) // 32
     row = (2 * k + 3 * kw + r + 3 + 3) & ~3
-    per_group = r + kw + nzw + 2          # accum, survivor words, their bitmap, gzc, fit
+    per_group = r + 2                       # accum, gzc, fit
+    if layout != "scratch":
+        per_group += kw + nzw               # survivor words, their bitmap
     fixed = _SLOT_WORDS + 2 * kw + 2 * nzw  # slots, the new groups' two mask rows and their bitmaps
-    if resident:
+    if layout == "resident":
         return 4 * (2 * row + g_max * per_group + k * r + k + THREADS // 32 + fixed)
     return 4 * (row + g_max * per_group + 1 + fixed)
 
 
-def layout(g_max: int, k: int, r: int) -> bool:
-    """True for the resident layout, False for the lean one; raises when
-    neither fits in one block's shared memory."""
-    if smem_bytes(g_max, k, r, True) <= SMEM_LIMIT:
-        return True
-    if smem_bytes(g_max, k, r, False) <= SMEM_LIMIT:
-        return False
+def layout(g_max: int, k: int, r: int) -> str:
+    """The first of resident, lean and scratch that fits in one block's
+    shared memory. Raises where even scratch does not: its G * (R + 2)
+    words of carry plus one class row (2K + 3K/32 + R words) pass the
+    block's SMEM_LIMIT bytes."""
+    for name in LAYOUTS:
+        if smem_bytes(g_max, k, r, name) <= SMEM_LIMIT:
+            return name
     raise ValueError(
-        f"fused_scan: carry of G={g_max}, K={k}, R={r} needs "
-        f"{smem_bytes(g_max, k, r, False)} bytes of shared memory, over the "
-        f"{SMEM_LIMIT} one block may use")
+        f"fused_scan: G={g_max}, K={k}, R={r} needs {smem_bytes(g_max, k, r, 'scratch')} "
+        f"bytes of shared memory even with the survivor words in device memory (the "
+        f"scratch layout keeps G * (R + 2) words of carry and one class row of 2K + 3K/32 "
+        f"+ R words there), over the {SMEM_LIMIT} one block may use")
 
 
 def fused_scan(
@@ -97,9 +106,10 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None
 
 
 def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, cap_eff, tzc,
-            *, g_max: int, objective: str, resident: Optional[bool] = None) -> ScanOutputs:
-    """Launch kernel A. `resident` None picks the layout from the shapes;
-    the tests pass False to run the lean layout at a shape that fits both."""
+            *, g_max: int, objective: str, layout_name: Optional[str] = None) -> ScanOutputs:
+    """Launch kernel A. `layout_name` None picks the layout from the
+    shapes; the tests name one to run it at a shape where an earlier one
+    fits too (it raises where the named one does not fit)."""
     global launches
     C, R = req.shape
     K = cap_eff.shape[0]
@@ -110,8 +120,10 @@ def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, c
     if objective not in ("price", "fit"):
         raise ValueError(f"fused_scan: unknown objective {objective!r}")
     KW = K // 32
-    fits = layout(g_max, K, R)
-    resident = fits if resident is None else (resident and fits)
+    if layout_name is None:
+        layout_name = layout(g_max, K, R)
+    elif smem_bytes(g_max, K, R, layout_name) > SMEM_LIMIT:
+        raise ValueError(f"fused_scan: the {layout_name} layout does not fit G={g_max}, K={K}, R={R}")
     for name, t, dtype, shape in (
         ("req", req, torch.float32, (C, R)),
         ("compat_w", compat_w, torch.int32, (C, KW)),
@@ -136,6 +148,10 @@ def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, c
     gmask_bits = torch.empty((g_max, KW), dtype=torch.int32, device=dev)
     gzc = torch.empty((g_max,), dtype=torch.int32, device=dev)
     n_open = torch.empty((1,), dtype=torch.int32, device=dev)
+    # the survivor words' bitmaps, only where shared memory cannot hold the
+    # words (the words themselves are carried in gmask_bits)
+    gnz = (torch.empty((g_max, (KW + 31) // 32), dtype=torch.int32, device=dev)
+           if layout_name == "scratch" else None)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -144,8 +160,8 @@ def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, c
             n_fresh.data_ptr(), price.data_ptr(), count.data_ptr(), env.data_ptr(),
             azc.data_ptr(), cap_eff.data_ptr(), tzc.data_ptr(),
             take.data_ptr(), unplaced.data_ptr(), gmask_bits.data_ptr(), gzc.data_ptr(),
-            n_open.data_ptr(), C, g_max, K, R, int(objective == "price"), THREADS,
-            int(resident), stream,
+            n_open.data_ptr(), None if gnz is None else gnz.data_ptr(),
+            C, g_max, K, R, int(objective == "price"), THREADS, LAYOUTS[layout_name], stream,
         )
     build.check(err, "ffd_scan")
     launches += 1
@@ -156,7 +172,7 @@ def _library() -> ctypes.CDLL:
     lib = build.library("ffd_scan")
     if lib.ffd_scan_launch.argtypes is None:   # declare once: ctypes defaults to 32-bit ints
         p = ctypes.c_void_p
-        lib.ffd_scan_launch.argtypes = [p] * 16 + [ctypes.c_int] * 7 + [p]
+        lib.ffd_scan_launch.argtypes = [p] * 17 + [ctypes.c_int] * 7 + [p]
         lib.ffd_scan_launch.restype = ctypes.c_int
     return lib
 

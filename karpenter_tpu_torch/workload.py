@@ -14,10 +14,16 @@ the nodes one tick leaves for the next.
 - `nodes_from_result()` launches a tick's NewNodeGroups as ExistingNodes,
   so a second tick packs onto them; `pods_by_node()` names the pods each
   such node carries, which seeds a Scheduler's topology counts.
+- The consolidation sweeps, as plain specs (numbers, strings, dicts) that
+  either package builds into its own objects: `bench_sweep_spec()` is
+  bench.py's consolidation stage (`_consolidation_stage`) and
+  `rampdown_sweep_spec()` the cluster a solve tick leaves after traffic
+  falls (or, with `keep=1.0`, as the tick left it); `sweep_world()`
+  builds a spec with this package's types.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -26,8 +32,9 @@ from karpenter_tpu_torch.providers.instancetype import gen_catalog
 from karpenter_tpu_torch.providers.instancetype.types import (
     InstanceType, NodeClassConfig, Offering, Resolver,
 )
-from karpenter_tpu_torch.scheduling import Resources, Toleration
+from karpenter_tpu_torch.scheduling import Resources, Taint, Toleration
 from karpenter_tpu_torch.scheduling import resources as res
+from karpenter_tpu_torch.solver.disrupt.engine import enumerate_pairs
 from karpenter_tpu_torch.solver.oracle import ExistingNode, SchedulingResult
 
 ZONES = list(gen_catalog.ZONE_NAMES)
@@ -162,3 +169,117 @@ def nodes_from_result(result: SchedulingResult, prefix: str = "node") -> List[Ex
 def pods_by_node(result: SchedulingResult, prefix: str = "node") -> Dict[str, List[Pod]]:
     """The pods each node of `nodes_from_result(result, prefix)` carries."""
     return {f"{prefix}-{i}": list(group.pods) for i, group in enumerate(result.new_groups)}
+
+
+# -- the consolidation sweeps ---------------------------------------------------
+
+SWEEP_CANDIDATES = 256         # candidate nodes a sweep judges
+SWEEP_PREFIX_MAX = 32          # the longest price-ranked multi-node prefix
+# the rampdown sweep's weighted pools and their daemonset reserve (base units)
+SWEEP_POOLS = ((wk.CAPACITY_TYPE_SPOT, 100), (wk.CAPACITY_TYPE_ON_DEMAND, 10))
+SWEEP_OVERHEAD = {
+    wk.CAPACITY_TYPE_SPOT: {res.CPU: 300.0, res.MEMORY: 256.0 * 2**20},
+    wk.CAPACITY_TYPE_ON_DEMAND: {res.CPU: 200.0, res.MEMORY: 128.0 * 2**20},
+}
+
+
+def sweep_sets(n_cand: int, prefix_max: int = SWEEP_PREFIX_MAX) -> List[Tuple[int, ...]]:
+    """The disruption controller's enumeration over candidates in cost
+    order, as candidate indices: singletons, prefixes 2..prefix_max, and
+    the underutilized pairs (`enumerate_pairs`)."""
+    sets = [(i,) for i in range(n_cand)]
+    sets += [tuple(range(k)) for k in range(2, min(prefix_max, n_cand) + 1)]
+    sets += list(enumerate_pairs(n_cand))
+    return sets
+
+
+def bench_sweep_spec(n_nodes: int = 1024, n_cand: int = SWEEP_CANDIDATES, seed: int = 7) -> dict:
+    """bench.py `_consolidation_stage` at its 50k tier: `n_nodes` nodes of
+    three shapes with seeded usage, in one zone; the first `n_cand` are the
+    candidates, each holding 1-3 residual pods of 500m / 512Mi."""
+    rng = np.random.default_rng(seed)
+    shapes = ((4000, 8 << 30), (8000, 16 << 30), (16000, 32 << 30))
+    nodes = []
+    for i in range(n_nodes):
+        cpu_m, mem = shapes[int(rng.integers(0, len(shapes)))]
+        used_cpu = int(rng.integers(200, cpu_m // 4))
+        name = f"bench-n{i}"
+        nodes.append((name, {wk.HOSTNAME_LABEL: name, wk.ZONE_LABEL: "us-central-1a"},
+                      {res.CPU: float(cpu_m), res.MEMORY: float(mem), res.PODS: 110.0},
+                      {res.CPU: float(used_cpu), res.MEMORY: float(mem // 8)}, []))
+    pods = [
+        [{"name": f"bench-c{i}-{j}", "req": {res.CPU: 500.0, res.MEMORY: 512.0 * 2**20}}
+         for j in range(1 + i % 3)]
+        for i in range(min(n_cand, n_nodes))
+    ]
+    return {"nodes": nodes, "candidates": [n[0] for n in nodes[: len(pods)]], "pods": pods,
+            "sets": sweep_sets(len(pods))}
+
+
+def _pod_spec(p: Pod) -> dict:
+    return {"name": p.metadata.name, "req": dict(p.requests.items()),
+            "selector": dict(p.node_selector),
+            "tol": [(t.key, t.operator, t.value, t.effect) for t in p.tolerations],
+            "labels": dict(p.metadata.labels)}
+
+
+def rampdown_sweep_spec(result: SchedulingResult, rng: np.random.Generator,
+                        n_cand: int = SWEEP_CANDIDATES, prefix: str = "node",
+                        keep: float = 0.25) -> dict:
+    """The cluster a solve tick leaves (`nodes_from_result`), after traffic
+    falls: a seeded 75 % of each node's pods are gone (`keep` is the share
+    that stays; 1.0 is the cluster as the tick left it) and its used
+    capacity counts only the pods that stay. The `n_cand` nodes with the
+    least remaining requested cpu are the candidates, in that order."""
+    one = Resources.from_base_units({res.PODS: 1})
+    by_node = pods_by_node(result, prefix)
+    specs, stay, cpu_left = [], [], []
+    for node in nodes_from_result(result, prefix):
+        pods = by_node[node.name]
+        n = len(pods)
+        kept = np.sort(rng.choice(n, n - int((1.0 - keep) * n), replace=False))
+        left = [pods[int(i)] for i in kept]
+        used = Resources.from_base_units({res.PODS: 0})
+        for p in left:
+            used = used + p.requests + one
+        specs.append((node.name, dict(node.labels), dict(node.allocatable.items()),
+                      dict(used.items()), [(t.key, t.effect, t.value) for t in node.taints]))
+        stay.append([_pod_spec(p) for p in left])
+        cpu_left.append(used.get(res.CPU))
+    order = sorted(range(len(specs)), key=lambda i: (cpu_left[i], i))[:n_cand]
+    return {"nodes": specs, "candidates": [specs[i][0] for i in order],
+            "pods": [stay[i] for i in order], "sets": sweep_sets(len(order))}
+
+
+def sweep_world(spec: dict) -> Tuple[List[ExistingNode], List[Tuple[List[Pod], List[str]]]]:
+    """(nodes, candidate sets) of a sweep spec, as DisruptEngine.evaluate
+    takes them: each set is (its candidates' pods, their node names)."""
+    nodes = [
+        ExistingNode(name, dict(labels), Resources.from_base_units(alloc),
+                     [Taint(k, e, v) for k, e, v in taints], Resources.from_base_units(used))
+        for name, labels, alloc, used, taints in spec["nodes"]
+    ]
+    pods = [
+        [Pod(p["name"], requests=Resources.from_base_units(p["req"]),
+             node_selector=p.get("selector") or {},
+             tolerations=[Toleration(*t) for t in p.get("tol", ())],
+             labels=dict(p.get("labels") or {}))
+         for p in cand]
+        for cand in spec["pods"]
+    ]
+    sets = [([p for i in idx for p in pods[i]], [spec["candidates"][i] for i in idx])
+            for idx in spec["sets"]]
+    return nodes, sets
+
+
+def sweep_pools(which: str) -> Tuple[list, Dict[str, Resources]]:
+    """(pools, daemonset overhead) of a sweep: `default` (one pool, no
+    overhead) or `spot-od` (SWEEP_POOLS with SWEEP_OVERHEAD)."""
+    from karpenter_tpu_torch.apis import NodePool
+    from karpenter_tpu_torch.scheduling import Requirement
+
+    if which == "default":
+        return [NodePool("default")], {}
+    pools = [NodePool(name, weight=w, requirements=[Requirement(wk.CAPACITY_TYPE_LABEL, "In", [name])])
+             for name, w in SWEEP_POOLS]
+    return pools, {name: Resources.from_base_units(v) for name, v in SWEEP_OVERHEAD.items()}

@@ -136,7 +136,20 @@ class TestSkippedAndWrappingRows:
 
     @pytest.mark.parametrize("g_max", [256, 1500])
     def test_lean_layout(self, ops, g_max):
-        got = ffd_scan._launch(*ops, g_max=g_max, objective="price", resident=False)
+        got = ffd_scan._launch(*ops, g_max=g_max, objective="price", layout_name="lean")
+        want = ffd_scan.fused_scan_reference(*ops, g_max=g_max, objective="price")
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu())
+
+    @pytest.mark.parametrize("r", [9, 8])
+    @pytest.mark.parametrize("g_max", [256, 1500])
+    def test_scratch_layout(self, ops, g_max, r):
+        """The survivor words in device memory, at a shape where the
+        shared-memory layouts fit too; R = 8 takes the run-time-R case."""
+        ops = list(ops)
+        ops[0] = ops[0][:, :r].contiguous()
+        ops[9] = ops[9][:, :r].contiguous()
+        got = ffd_scan._launch(*ops, g_max=g_max, objective="price", layout_name="scratch")
         want = ffd_scan.fused_scan_reference(*ops, g_max=g_max, objective="price")
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b.cpu())
@@ -274,23 +287,23 @@ def spot_on_demand_pools():
 class TestMergedCatalogWidths:
     """Two overlapping pools over the 627-type catalog give K=1280, where
     kernel A's resident layout no longer fits and the lean one does; three
-    give K=1920, where neither fits and the wrapper raises."""
+    give K=1920, where neither fits and the scratch layout keeps the
+    survivor words in device memory."""
 
     def test_k1280_lean_layout_matches_plain_version(self, cuda, items):
         ops = merged_operands(items, cuda, spot_on_demand_pools())
         assert ops[9].shape[0] == 1280
-        assert ffd_scan.layout(1024, 1280, ops[0].shape[1]) is False
+        assert ffd_scan.layout(1024, 1280, ops[0].shape[1]) == "lean"
         got = assert_scan_equal(ops, 1024, "price")
         assert int(got[2]) > 0
 
-    def test_k1920_raises_naming_the_shape(self, cuda, items):
+    def test_k1920_scratch_layout_matches_plain_version(self, cuda, items):
         ops = merged_operands(items, cuda, spot_on_demand_pools() + [NodePool("default")],
                               n_pods=2_000)
         assert ops[9].shape[0] == 1920
-        before = ffd_scan.launches
-        with pytest.raises(ValueError, match="G=1024, K=1920"):
-            ffd_scan.fused_scan(*ops, g_max=1024, objective="price")
-        assert ffd_scan.launches == before
+        assert ffd_scan.layout(1024, 1920, ops[0].shape[1]) == "scratch"
+        got = assert_scan_equal(ops, 1024, "price")
+        assert int(got[2]) > 0
 
 
 class TestScheduleOnTheCard:
@@ -331,3 +344,28 @@ class TestScheduleOnTheCard:
             ])
         assert results[0] == results[1]
         assert results[0][2][1], "the wave packed nothing onto the existing nodes"
+
+
+class TestConsolidationOnTheCard:
+    @pytest.mark.parametrize("keep", [0.25, 1.0])
+    def test_rampdown_sweep_matches_the_cpu(self, cuda, items, keep):
+        """DisruptEngine on the card (kernel B, one block per set, and the
+        replacement search in torch) decides as device="cpu" does, on a
+        reduced ramp-down sweep (and on the cluster before the ramp-down)
+        under the weighted spot / on-demand pools with daemonset overhead."""
+        from karpenter_tpu_torch.solver.disrupt import DisruptEngine
+
+        pods = workload.synth_pods(np.random.default_rng(5), workload.ZONES, 3_000, 5, 40)
+        tick = TorchSolver(device="cpu", g_max=128).solve(NodePool("default"), items, pods)
+        spec = workload.rampdown_sweep_spec(tick, np.random.default_rng(11), n_cand=32, keep=keep)
+        nodes, sets = workload.sweep_world(spec)
+        pools, ovh = workload.sweep_pools("spot-od")
+        kw = dict(pools=pools, catalogs={p.name: items for p in pools}, daemon_overhead=ovh)
+        before, calls = repack.launches, disrupt_kernel.replace_calls
+        gpu = DisruptEngine(solver=TorchSolver(g_max=128)).evaluate(nodes, sets, **kw)
+        assert repack.launches == before + 1
+        cpu = DisruptEngine(device="cpu").evaluate(nodes, sets, **kw)
+        assert [repr(v) for v in gpu] == [repr(v) for v in cpu]
+        if keep == 1.0:
+            assert disrupt_kernel.replace_calls > calls
+            assert any(v.replace_type is not None for v in cpu)

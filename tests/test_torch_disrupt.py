@@ -154,6 +154,13 @@ class TestLayout:
         assert resident and chunk == 128
         assert tk.smem_bytes(1024, 9, 128, True) <= tk.SMEM_LIMIT
 
+    @pytest.mark.parametrize("c", [8, 64, 256])
+    def test_sweep_shapes_are_resident(self, c):
+        """The consolidation sweeps' shapes (N=1024 nodes, C from 8 to
+        256): headroom in shared memory and the whole class axis staged as
+        one chunk (N % 16 == 0 also takes the 16-byte feasibility loads)."""
+        assert tk.layout(1024, 9, c) == (True, c)
+
     @pytest.mark.parametrize("n", [1, 17, 1024, 5000, 6000, 100_000, 3_000_000])
     def test_every_shape_has_a_layout(self, n):
         """No node count is refused: headroom moves to device memory when

@@ -270,14 +270,15 @@ class TestScanLayout:
     def test_main_path_shape_is_resident(self):
         from karpenter_tpu_torch.solver.kernels import ffd_scan
 
-        assert ffd_scan.layout(1024, 640, 9) is True
+        assert ffd_scan.layout(1024, 640, 9) == "resident"
         assert ffd_scan.smem_bytes(1024, 640, 9) <= ffd_scan.SMEM_LIMIT
 
     @pytest.mark.parametrize("k", [32, 64, 640, 1024, 1056, 2048, 8192])
     @pytest.mark.parametrize("r", [1, 9, 32])
     def test_takes_every_shape_the_first_version_took(self, k, r):
         """The lean layout never needs more shared memory than the first
-        version did, so no shape it took is refused now."""
+        version did, so no shape it took is refused now; the scratch layout
+        takes more groups still, and past it the layout check raises."""
         from karpenter_tpu_torch.solver.kernels import ffd_scan
 
         limit = ffd_scan.SMEM_LIMIT
@@ -286,8 +287,12 @@ class TestScanLayout:
         for g in sorted({1, 64, 1024, g_top // 2, g_top} - {0}):
             if pr1_smem_bytes(g, k, r) > limit:
                 continue
-            assert ffd_scan.smem_bytes(g, k, r, resident=False) <= pr1_smem_bytes(g, k, r)
+            assert ffd_scan.smem_bytes(g, k, r, "lean") <= pr1_smem_bytes(g, k, r)
+            assert ffd_scan.layout(g, k, r) in ("resident", "lean")
+        fits = [g for g in (1, 1024, 4096) if ffd_scan.smem_bytes(g, k, r, "scratch") <= limit]
+        for g in fits:
             ffd_scan.layout(g, k, r)  # does not raise
-        if g_top:
-            with pytest.raises(ValueError, match="shared memory"):
-                ffd_scan.layout(g_top + 4 * (k + 1), k, r)
+        g_over = next(g for g in range(1, 60_000) if ffd_scan.smem_bytes(g, k, r, "scratch") > limit)
+        assert g_over > g_top
+        with pytest.raises(ValueError, match="shared memory"):
+            ffd_scan.layout(g_over, k, r)

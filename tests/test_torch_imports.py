@@ -46,7 +46,13 @@ def forbidden(module: str) -> bool:
 class TestNoJaxImports:
     def test_scan_covers_the_package(self):
         names = {p.name for p in PORT_FILES}
-        assert {"ffd.py", "service.py", "ffd_scan.py", "disrupt_repack.py", "chip_smoke.py"} <= names
+        assert {"ffd.py", "service.py", "ffd_scan.py", "disrupt_repack.py", "chip_smoke.py",
+                "engine.py", "kernel.py", "consolidate.py"} <= names
+        rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
+        assert {"karpenter_tpu_torch/solver/disrupt/engine.py",
+                "karpenter_tpu_torch/solver/disrupt/kernel.py",
+                "karpenter_tpu_torch/solver/disrupt/__init__.py",
+                "karpenter_tpu_torch/solver/consolidate.py"} <= rel
 
     @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
     def test_no_forbidden_import(self, path):
@@ -54,6 +60,8 @@ class TestNoJaxImports:
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
     def test_solve_in_fresh_interpreter_loads_neither(self):
+        """A solve and a consolidation sweep, on the CPU, in a fresh
+        interpreter."""
         code = (
             "import sys\n"
             "import numpy as np\n"
@@ -64,6 +72,13 @@ class TestNoJaxImports:
             "pods = workload.synth_pods(np.random.default_rng(0), workload.ZONES, 200, 0, 8)\n"
             "r = TorchSolver(device='cpu', g_max=32).solve(NodePool('default'), items, pods)\n"
             "assert r.new_groups\n"
+            "from karpenter_tpu_torch.solver.consolidate import ConsolidationEvaluator\n"
+            "spec = workload.rampdown_sweep_spec(r, np.random.default_rng(1), n_cand=4)\n"
+            "nodes, sets = workload.sweep_world(spec)\n"
+            "pools, ovh = workload.sweep_pools('spot-od')\n"
+            "v = ConsolidationEvaluator(device='cpu').evaluate(\n"
+            "    nodes, sets, pools=pools, catalogs={p.name: items for p in pools}, daemon_overhead=ovh)\n"
+            "assert len(v) == len(sets)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
             "print('LOADED', bad)\n"
             "sys.exit(1 if bad else 0)\n"
@@ -107,13 +122,18 @@ class TestNoFallback:
 
     def test_scan_layout_at_merged_widths(self):
         """Two pools over the 627-type catalog (K=1280) fit only the lean
-        layout; three (K=1920) fit neither, and the layout check raises
-        naming the shape instead of choosing the plain version."""
-        assert ffd_scan.layout(1024, 640, 9) is True
-        assert ffd_scan.layout(1024, 1280, 9) is False
-        assert ffd_scan.smem_bytes(1024, 1280, 9, resident=False) <= ffd_scan.SMEM_LIMIT
-        with pytest.raises(ValueError, match="G=1024, K=1920, R=9"):
-            ffd_scan.layout(1024, 1920, 9)
+        layout; three (K=1920) fit neither and take the scratch layout,
+        survivor words in device memory. Past what even scratch holds, the
+        layout check raises naming the shape instead of choosing the plain
+        version."""
+        assert ffd_scan.layout(1024, 640, 9) == "resident"
+        assert ffd_scan.layout(1024, 1280, 9) == "lean"
+        assert ffd_scan.smem_bytes(1024, 1280, 9, "lean") <= ffd_scan.SMEM_LIMIT
+        assert ffd_scan.smem_bytes(1024, 1920, 9, "lean") > ffd_scan.SMEM_LIMIT
+        assert ffd_scan.layout(1024, 1920, 9) == "scratch"
+        assert ffd_scan.smem_bytes(1024, 1920, 9, "scratch") < 64 * 1024
+        with pytest.raises(ValueError, match="G=8192, K=32768, R=9"):
+            ffd_scan.layout(8192, 32768, 9)
 
     def test_build_needs_nvcc(self, monkeypatch):
         monkeypatch.setattr(build.shutil, "which", lambda name: None)
