@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's provisioning solve and consolidation engine on one NVIDIA GPU.
+"""Drive the port's provisioning solve, its convex tier and the consolidation engine on one GPU.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
@@ -24,7 +24,11 @@ prefixes 2..32, 14 pairs): `bench-sweep` (bench.py's consolidation stage:
 their pods left, once under one default pool and once under weighted spot
 / on-demand pools with daemonset overhead, and `steady-sweep` (the same
 cluster before any pod left, so the replacement search decides some sets,
-under the spot / on-demand pools). Phases, one JSON line each:
+under the spot / on-demand pools). Every device solve also enqueues the
+fractional price bound and publishes `last_quality`. `TorchSolver(tier=
+"convex")` takes three worlds: tick 1 (50k pods), bench.py's convex stage
+at 2,000 pods, and tests/test_convex.py's 30-pod adversarial mix. Phases,
+one JSON line each:
 
   device      the card, its count and `nvidia-smi` name and power limit
   build       nvcc for sm_90a, one process per source, with ptxas -v lines
@@ -34,6 +38,18 @@ under the spot / on-demand pools). Phases, one JSON line each:
               C and K of kernel A, the layout it chose, and its
               unschedulable pods; each must take its route and account for
               every pod once
+  quality     the quality document of both ticks and each world (gap >= 1),
+              the bound's [R] totals against the same function on a CPU
+              copy of its inputs (rel 1e-6), the bound's dispatch + fetch
+              (median of 30) and its share of the warm tick (the JAX
+              bench's budget, < 1 %, printed, not asserted)
+  convex      the three convex worlds, counted the same way: every pod
+              once, the chosen price never above FFD's, iterations in
+              1..48, the winner each must have, decisions and
+              `last_convex` equal to a device="cpu" solver's, x and the
+              lower bound within 5e-5 of the relaxation on a CPU copy;
+              times: convex tick against FFD tick, the relaxation's
+              enqueue and device time, its fetch, rounding and `choose`
   consolidate the four sweeps, counted the same way: kernel B once per
               sweep at S=512, N=1024, the replacement passes, and the
               verdicts by action (delete / replace-cheaper / blocked,
@@ -54,7 +70,8 @@ under the spot / on-demand pools). Phases, one JSON line each:
               for their plain versions: the decisions must be identical
   times       each kernel and its plain version at every main-path shape
               (kernel A at tick 1, tick 2 and in each world; kernel B at
-              tick 2, the spread wave and each sweep), kernel A over G in
+              tick 2, the spread wave and each sweep; kernel A also on
+              the convex worlds), kernel A over G in
               {64, 256, 1024} on tick 1's operands, on the C=256 world and
               under the fit objective, each with its bound and, at G=1024,
               the surviving types of its groups; the scratch layout against
@@ -179,6 +196,98 @@ def recording(ka, kb):
         ka.fused_scan, kb.disrupt_repack = scan, repack
 
 
+@contextlib.contextmanager
+def calls_of(mod, name):
+    """Every call of the module function `mod.name` inside the block, as
+    (args, kwargs, result); the calls go on to the function unchanged."""
+    rec = []
+    fn = getattr(mod, name)
+
+    def call(*a, **k):
+        out = fn(*a, **k)
+        rec.append((a, k, out))
+        return out
+
+    setattr(mod, name, call)
+    try:
+        yield rec
+    finally:
+        setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def fn_timer(targets):
+    """Host-clock milliseconds in each callable of `targets` ((owner,
+    name, label) triples: a module's function or an object's method) over
+    the calls inside the block (a nested call counts in its caller too)."""
+    times = {}
+    saved = [(owner, name, name in vars(owner), getattr(owner, name))
+             for owner, name, _ in targets]
+
+    def timed(label, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                times[label] = times.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
+        return call
+
+    for owner, name, label in targets:
+        setattr(owner, name, timed(label, getattr(owner, name)))
+    try:
+        yield times
+    finally:
+        for owner, name, own, fn in reversed(saved):
+            if own:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
+
+
+def graph_device_ms(fn, reps: int) -> dict:
+    """Median CUDA-event milliseconds of one replay of fn's device work
+    captured in a CUDA graph: the device time of its many small ops
+    without the host's enqueue between them (a work of ~3,000 launches
+    fills the launch queue, so holding the stream while the host
+    enqueues cannot separate the two). A capture the runtime refuses
+    leaves the number unmeasured, with the reason."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return {"ms": None, "not_measured": f"{type(e).__name__}: {e}"[:300]}
+    return {"ms": cuda_ms(graph.replay, reps=reps, batch=1)}
+
+
+def device_busy_ms(fn, reps: int = 3):
+    """(median wall ms, median device-busy ms) of fn() ending in a sync,
+    the busy time being the sum of the CUDA kernels and copies
+    torch.profiler records; busy None when the profiler records no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walls, busy = [], []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages() if "CUDA" in str(e.device_type))
+        busy.append(us / 1e3)
+    med = statistics.median(busy)
+    return statistics.median(walls), (med if med > 0 else None)
+
+
 # the host stages of a tick (TorchSolver methods and ffd functions), in
 # the order a tick runs them; `fetch` waits for the device, and
 # `solve_finish` holds `fetch` and `decode`
@@ -187,34 +296,12 @@ SOLVER_STAGES = ("_group", "supports", "_merged_catalog", "_split_spread", "_pac
 FFD_STAGES = ("ffd_solve_fused", "fetch_fused")
 
 
-@contextlib.contextmanager
 def stage_timer(solver, ffd_mod):
     """Host-clock milliseconds spent in each stage of SOLVER_STAGES and
     FFD_STAGES over the calls inside the block (a nested stage counts in
     its parent too)."""
-    times = {}
-
-    def timed(label, fn):
-        def call(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                times[label] = times.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
-        return call
-
-    saved = {name: getattr(ffd_mod, name) for name in FFD_STAGES}
-    for name in SOLVER_STAGES:
-        setattr(solver, name, timed(name.lstrip("_"), getattr(solver, name)))
-    for name, fn in saved.items():
-        setattr(ffd_mod, name, timed(name, fn))
-    try:
-        yield times
-    finally:
-        for name in SOLVER_STAGES:
-            delattr(solver, name)
-        for name, fn in saved.items():
-            setattr(ffd_mod, name, fn)
+    return fn_timer([(solver, name, name.lstrip("_")) for name in SOLVER_STAGES]
+                    + [(ffd_mod, name, name) for name in FFD_STAGES])
 
 
 # the host stages of a sweep: DisruptEngine methods in the order a sweep
@@ -223,34 +310,12 @@ ENGINE_STAGES = {"_encode_sets": "encode_sets", "_pool_contexts": "pool_contexts
                  "_dispatch_local": "repack", "_assemble": "assemble"}
 
 
-@contextlib.contextmanager
 def sweep_stage_timer(engine, functions):
     """Host-clock milliseconds in each stage of ENGINE_STAGES and in each
     module function of `functions` ((module, name, label) triples) over
     the calls inside the block (a nested stage counts in its parent too)."""
-    times = {}
-
-    def timed(label, fn):
-        def call(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                times[label] = times.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
-        return call
-
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in functions]
-    for name, label in ENGINE_STAGES.items():
-        setattr(engine, name, timed(label, getattr(engine, name)))
-    for mod, name, label in functions:
-        setattr(mod, name, timed(label, getattr(mod, name)))
-    try:
-        yield times
-    finally:
-        for name in ENGINE_STAGES:
-            delattr(engine, name)
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+    return fn_timer([(engine, name, label) for name, label in ENGINE_STAGES.items()]
+                    + list(functions))
 
 
 def main() -> int:
@@ -258,9 +323,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
         return 2
     from karpenter_tpu_torch import workload
-    from karpenter_tpu_torch.apis import NodePool, labels as wk
-    from karpenter_tpu_torch.scheduling import Requirement
+    from karpenter_tpu_torch.apis import NodePool, Pod, labels as wk
+    from karpenter_tpu_torch.scheduling import Requirement, Resources
+    from karpenter_tpu_torch.solver import bound as price_bound
     from karpenter_tpu_torch.solver import encode, ffd, packing
+    from karpenter_tpu_torch.solver.convex import relax, rounding
+    from karpenter_tpu_torch.solver.convex import tier as convex_tier
     from karpenter_tpu_torch.solver.kernels import build, cases
     from karpenter_tpu_torch.solver.kernels import disrupt_repack as kb
     from karpenter_tpu_torch.solver.kernels import ffd_scan as ka
@@ -296,20 +364,27 @@ def main() -> int:
     solver = TorchSolver(g_max=G_MAX, device=dev)
     torch.cuda.reset_peak_memory_stats()
 
-    ka.launches = kb.launches = 0
-    t0 = time.perf_counter()
-    tick1 = solver.solve(pool, items, pods1)
-    torch.cuda.synchronize()
-    wall1_cold = (time.perf_counter() - t0) * 1e3
-    launches1 = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
-    nodes = workload.nodes_from_result(tick1)
+    # each tick's quality document and its bound's call (phase `quality`)
+    quality_docs, bound_calls = {}, {}
+    with calls_of(price_bound, "fractional_price_bound") as qcalls:
+        ka.launches = kb.launches = 0
+        solver.last_quality = None
+        t0 = time.perf_counter()
+        tick1 = solver.solve(pool, items, pods1)
+        torch.cuda.synchronize()
+        wall1_cold = (time.perf_counter() - t0) * 1e3
+        launches1 = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+        quality_docs["tick 1"], bound_calls["tick 1"] = solver.last_quality, qcalls[-1:]
+        nodes = workload.nodes_from_result(tick1)
 
-    ka.launches = kb.launches = 0
-    t0 = time.perf_counter()
-    tick2 = solver.solve(pool, items, pods2, existing_nodes=nodes)
-    torch.cuda.synchronize()
-    wall2_cold = (time.perf_counter() - t0) * 1e3
-    launches2 = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+        ka.launches = kb.launches = 0
+        solver.last_quality = None
+        t0 = time.perf_counter()
+        tick2 = solver.solve(pool, items, pods2, existing_nodes=nodes)
+        torch.cuda.synchronize()
+        wall2_cold = (time.perf_counter() - t0) * 1e3
+        launches2 = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+        quality_docs["tick 2"], bound_calls["tick 2"] = solver.last_quality, qcalls[-1:]
     peak_bytes = torch.cuda.max_memory_allocated()
 
     if launches1["ffd_scan"] < 1 or launches2["ffd_scan"] < 1:
@@ -396,12 +471,14 @@ def main() -> int:
     world_results, world_ops, world_launches, world_docs = {}, {}, {}, {}
     for name, fn in worlds_of(sched_solver, world_results).items():
         pods_w, route, needed = world_spec[name]
-        with recording(ka, kb) as rec:
+        with recording(ka, kb) as rec, calls_of(price_bound, "fractional_price_bound") as qcalls:
             ka.launches = kb.launches = 0
+            sched_solver.last_quality = None
             result = fn()
             torch.cuda.synchronize()
             world_launches[name] = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
         world_results[name], world_ops[name] = result, rec
+        quality_docs[name], bound_calls[name] = sched_solver.last_quality, qcalls
         if sched_solver.last_route["path"] != route:
             raise AssertionError(f"world {name} took route {sched_solver.last_route}, not {route}")
         missing = [k for k in needed if world_launches[name][k] < 1]
@@ -431,6 +508,165 @@ def main() -> int:
     if three["k_pad"] != 1920 or (G_MAX == 1024 and three["layout"] != "scratch"):
         raise AssertionError(f"the three-pool world did not run kernel A at K=1920 in the "
                              f"scratch layout: {three}")
+
+    # -- quality: the fractional price bound behind every device solve ----------------
+    def cpu_inputs(inp):
+        return ffd.SolveInputs(*(t.cpu() for t in inp))
+
+    def bound_against_cpu(call):
+        """(equal at rel=1e-6, max relative difference) of the [R] totals
+        the card computed against the same function on a CPU copy."""
+        (inp, placed), kw, totals = call
+        got = totals.cpu().double()
+        want = price_bound.fractional_price_bound(cpu_inputs(inp), placed.cpu(), **kw).double()
+        diff = (got - want).abs()
+        rel = float((diff / want.abs()).nan_to_num(nan=0.0, posinf=math.inf).max())
+        return bool(torch.all(diff <= 1e-6 * want.abs())), rel
+
+    q_docs = {}
+    for name, doc in quality_docs.items():
+        calls = bound_calls[name]
+        if doc is None or len(calls) != 1:
+            raise AssertionError(f"{name}: no quality document or not one bound call ({len(calls)})")
+        if doc.get("optimality_gap", 0.0) < 1.0:
+            raise AssertionError(f"{name}: optimality gap below 1 under tier ffd: {doc}")
+        equal, rel = bound_against_cpu(calls[0])
+        if not equal:
+            raise AssertionError(f"{name}: the bound on the card differs from the CPU copy ({rel})")
+        bound_h, r_star = price_bound.fetch_bound(calls[0][2])
+        q_docs[name] = {"optimality_gap": doc["optimality_gap"], "bound_per_h": doc["bound_per_h"],
+                        "realized_per_h": doc["realized_per_h"],
+                        "binding_resource": doc["binding_resource"], "groups": doc["groups"],
+                        "bound_fetched": bound_h, "bound_max_rel_diff_vs_cpu": rel}
+    # the bound's cost alone on tick 1's inputs: dispatch and fetch
+    (inp_q, placed_q), kw_q, _ = bound_calls["tick 1"][0]
+    placed_q = placed_q.cpu().numpy()
+
+    def bound_once():
+        return price_bound.fetch_bound(solver._dispatch_bound(
+            inp_q, placed_q, kw_q["word_offsets"], kw_q["words"]))
+
+    for _ in range(3):
+        bound_once()
+    cost = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        bound_once()
+        cost.append((time.perf_counter() - t0) * 1e3)
+    bound_cost_ms = statistics.median(cost)
+    placed_dev = bound_calls["tick 1"][0][0][1]
+    bound_dev_ms = graph_device_ms(
+        lambda: price_bound.fractional_price_bound(inp_q, placed_dev, **kw_q), reps=20)
+    _, warm_tick1_ms = wall_ms(lambda: solver.solve(pool, items, pods1), reps=3)
+    bound_share = bound_cost_ms / warm_tick1_ms
+    emit({"phase": "quality", "ticks": q_docs,
+          "bound_cost_ms_median_of_30": bound_cost_ms, "warm_tick1_ms_median_of_3": warm_tick1_ms,
+          "bound_share_of_warm_tick": bound_share, "bound_budget_under_1pct_met": bound_share < 0.01,
+          "bound_device_ms_graph_replay": bound_dev_ms, **tag})
+
+    # -- convex: TorchSolver(tier="convex") on three worlds --------------------------
+    shapes_adv = (("1100m", "2200Mi"), ("700m", "1400Mi"), ("1700m", "3400Mi"))
+    # world -> (pods, the winner it must have)
+    convex_spec = {
+        "a: tick 1": (pods1, "ffd"),
+        # bench.py's convex stage at 2,000 pods (--convex-only, BENCH_N_PODS=2000)
+        "b: bench 2k": (workload.synth_pods(np.random.default_rng(42), workload.ZONES, 2_000,
+                                            salt=99_000), "convex"),
+        # tests/test_convex.py adversarial_pods(30)
+        "c: adversarial": ([Pod(f"adv{i}", requests=Resources(
+            {"cpu": shapes_adv[i % 3][0], "memory": shapes_adv[i % 3][1]})) for i in range(30)],
+            "convex"),
+    }
+    cx_solver = TorchSolver(g_max=G_MAX, device=dev, tier="convex")
+    cx_cpu = TorchSolver(g_max=G_MAX, device="cpu", tier="convex")
+    ffd_solver = TorchSolver(g_max=G_MAX, device=dev)
+    convex_docs, convex_ops, convex_launches = {}, {}, {}
+    for name, (pods_w, want_winner) in convex_spec.items():
+        with recording(ka, kb) as rec, calls_of(relax, "convex_relax") as rcalls, \
+                calls_of(price_bound, "fractional_price_bound") as qcalls:
+            ka.launches = kb.launches = 0
+            cx_solver.last_convex = cx_solver.last_quality = None
+            result = cx_solver.solve(pool, items, pods_w)
+            torch.cuda.synchronize()
+            convex_launches[name] = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+        convex_ops[name] = rec
+        lc, q = cx_solver.last_convex, cx_solver.last_quality
+        if convex_launches[name]["ffd_scan"] < 1 or len(rcalls) != 1 or len(qcalls) != 1:
+            raise AssertionError(f"convex {name}: kernel A, the relaxation or the bound did not "
+                                 f"run once: {convex_launches[name]} {len(rcalls)} {len(qcalls)}")
+        if lc is None or q is None:
+            raise AssertionError(f"convex {name}: no last_convex or last_quality")
+        chosen = lc["price_convex"] if lc["winner"] == "convex" else lc["price_ffd"]
+        if not chosen <= lc["price_ffd"]:
+            raise AssertionError(f"convex {name}: the chosen price is above FFD's: {lc}")
+        if not 1 <= lc["iterations"] <= relax.DEFAULT_ITERS:
+            raise AssertionError(f"convex {name}: iterations out of range: {lc}")
+        if want_winner is not None and lc["winner"] != want_winner:
+            raise AssertionError(f"convex {name}: winner {lc['winner']}, not {want_winner}: {lc}")
+        # the same solver on the CPU (the plain versions), and the
+        # relaxation on a CPU copy of the card's inputs
+        cpu_result = cx_cpu.solve(pool, items, pods_w)
+        lc_cpu = cx_cpu.last_convex
+        same_decisions = sig(cpu_result) == sig(result)
+        same_convex = all(lc[k] == lc_cpu[k] for k in ("winner", "price_ffd", "price_convex",
+                                                       "iterations"))
+        (inp_x,), kw_x, out_x = rcalls[0]
+        x_card, lower_card, trace_card = relax.fetch_relax(out_x)
+        x_cpu, lower_cpu, trace_cpu = relax.fetch_relax(relax.convex_relax(cpu_inputs(inp_x), **kw_x))
+        x_err = float(np.abs(x_card - x_cpu).max())
+        lower_err = abs(lower_card - lower_cpu)
+        trace_err = float(np.abs(trace_card - trace_cpu).max())
+        bound_equal, bound_rel = bound_against_cpu(qcalls[0])
+        convex_docs[name] = {
+            "pods": len(pods_w), "c_pad": int(inp_x.req.shape[0]), "k_pad": int(inp_x.cap.shape[0]),
+            "iters": kw_x["iters"], "last_convex": lc, "last_convex_cpu": lc_cpu,
+            "chosen_price": chosen, "optimality_gap": q.get("optimality_gap"),
+            "bound_per_h": q.get("bound_per_h"), "realized_per_h": q.get("realized_per_h"),
+            "launches": convex_launches[name], "decisions_equal_cpu": same_decisions,
+            "last_convex_equal_cpu": same_convex, "x_max_abs_diff_vs_cpu": x_err,
+            "lower_abs_diff_vs_cpu": lower_err, "trace_max_abs_diff_vs_cpu": trace_err,
+            "bound_max_rel_diff_vs_cpu": bound_rel, **accounted(result, pods_w)}
+        if not (same_decisions and same_convex):
+            raise AssertionError(f"convex {name}: the card decided differently from the CPU: "
+                                 f"{lc} {lc_cpu}")
+        if x_err > 5e-5 or lower_err > 5e-5 * max(lower_cpu, 1.0) or not bound_equal:
+            raise AssertionError(f"convex {name}: x, lower or the bound off the CPU's: "
+                                 f"{x_err} {lower_err} {bound_rel}")
+        # times: the convex tick against the FFD tick (bench.py's
+        # convex_tick_overhead), and the convex stages of a warm tick
+        reps = 3 if len(pods_w) > 10_000 else 5
+        _, ffd_ms = wall_ms(lambda: ffd_solver.solve(pool, items, pods_w), reps=reps)
+        _, cx_ms = wall_ms(lambda: cx_solver.solve(pool, items, pods_w), reps=reps)
+        stage_runs = []
+        for _ in range(3):
+            with fn_timer([(relax, "convex_relax", "relax_enqueue"),
+                           (relax, "fetch_relax", "relax_fetch"),
+                           (rounding, "round_solution", "rounding"),
+                           (convex_tier, "choose", "choose"),
+                           (price_bound, "fractional_price_bound", "bound_enqueue"),
+                           (price_bound, "fetch_bound", "bound_fetch")]) as t:
+                cx_solver.solve(pool, items, pods_w)
+                torch.cuda.synchronize()
+            stage_runs.append(t)
+        relax_dev = graph_device_ms(lambda: relax.convex_relax(inp_x, **kw_x), reps=10)
+        _, ffd_busy = device_busy_ms(lambda: ffd_solver.solve(pool, items, pods_w))
+        _, cx_busy = device_busy_ms(lambda: cx_solver.solve(pool, items, pods_w))
+        convex_docs[name]["times"] = {
+            "ffd_tick_ms_median": ffd_ms, "convex_tick_ms_median": cx_ms,
+            "convex_tick_overhead": cx_ms / ffd_ms,
+            "stages_ms_median_of_3": {k: statistics.median(r[k] for r in stage_runs)
+                                      for k in stage_runs[0]},
+            "relax_device_ms_graph_replay": relax_dev,
+            "ffd_tick_device_busy_ms": ffd_busy, "convex_tick_device_busy_ms": cx_busy,
+            "ffd_tick_device_idle_share": None if ffd_busy is None else 1 - ffd_busy / ffd_ms,
+            "convex_tick_device_idle_share": None if cx_busy is None else 1 - cx_busy / cx_ms}
+    emit({"phase": "convex", "entry": "TorchSolver(tier='convex').solve", "g_max": G_MAX,
+          "worlds": convex_docs,
+          "stages_note": "host clock, median of 3 warm ticks; relax_fetch waits for the device; "
+                         "relax_device_ms_graph_replay: CUDA events around a replay of the "
+                         "relaxation captured in a CUDA graph, median of 10; device busy: "
+                         "kernels and copies torch.profiler records over a warm tick, median "
+                         "of 3, idle share against the unprofiled median wall", **tag})
 
     # -- consolidate: DisruptEngine.evaluate on four sweeps --------------------------
     bench_spec = workload.bench_sweep_spec()
@@ -669,6 +905,9 @@ def main() -> int:
         ops = world_ops[name]["ffd_scan"][0]
         check_scan(f"{name} scan C={ops[0].shape[0]} K={ops[9].shape[0]} "
                    f"({world_docs[name]['layout']} layout)", ops, "price")
+    for name in convex_spec:
+        ops = convex_ops[name]["ffd_scan"][0]
+        check_scan(f"convex {name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
     check_repack("spread tick 2 pre-pass, zone-pinned rows",
                  world_ops["spread tick 2"]["disrupt_repack"][0])
     # each sweep's own repack: one block per candidate set
@@ -833,6 +1072,8 @@ def main() -> int:
                               world_launches[name]["disrupt_repack"])
     for name in sweeps:
         shapes_b[name] = (sweep_ops[name]["disrupt_repack"][0], sweep_launches[name]["disrupt_repack"])
+    for name in convex_spec:
+        shapes_a[f"convex {name}"] = (convex_ops[name]["ffd_scan"][0], convex_launches[name]["ffd_scan"])
     shape_rows = {"ffd_scan": [], "disrupt_repack": []}
     for name, (ops, n) in shapes_a.items():
         if name == "tick 1":
@@ -955,7 +1196,8 @@ def main() -> int:
     def launches_on_paths(kernel):
         return (launches1[kernel] + launches2[kernel]
                 + sum(n[kernel] for n in world_launches.values())
-                + sum(n[kernel] for n in sweep_launches.values()))
+                + sum(n[kernel] for n in sweep_launches.values())
+                + sum(n[kernel] for n in convex_launches.values()))
 
     kernels = [
         {"name": "ffd_scan", "route": "cuda", "source": "karpenter_tpu_torch/csrc/ffd_scan.cu",

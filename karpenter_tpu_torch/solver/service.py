@@ -23,14 +23,26 @@ device solve places and which go to the pure-Python oracle `Scheduler`
                                            onto existing nodes
     host    encode_classes                 classes -> dense arrays
     device  ffd.ffd_solve_fused            prologue, kernel A, fused buffer
-    host    one fetch, expand_fused, _decode -> NewNodeGroups
+    device  convex_relax (tier="convex")   the LP relaxation, enqueued
+                                           behind the FFD solve
+    host    one fetch, expand_fused        the FFD decision
+    host    rounding, choose (convex)      the never-worse placement
+    device  fractional_price_bound         enqueued before decode
+    host    _decode -> NewNodeGroups
+    host    fetch_bound, solve_quality     -> last_quality
 
 The catalog is staged on the device once per catalog list. Each tick
 fetches one fused buffer; the dense refetch runs only when the sparse
 take overflows its budget.
 
-Not here (later slices): the wire sidecar, the mesh, the convex tier, the
-quality bound, AOT, metrics and tracing.
+Unlike the JAX package, a failure of the bound's or the relaxation's
+device work raises: the port has no metrics or failpoints yet to count
+a quiet fallback. The convex tier's decision rungs (rounding returns
+None, a tie, a dearer candidate, more pods left behind) keep the FFD
+placement, as there.
+
+Not here (later slices): the wire sidecar, the mesh, AOT, metrics and
+tracing.
 """
 from __future__ import annotations
 
@@ -45,7 +57,10 @@ from karpenter_tpu_torch.scheduling import (
     Operator, Requirement, Requirements, Resources, tolerates_all,
 )
 from karpenter_tpu_torch.scheduling import resources as res
-from karpenter_tpu_torch.solver import encode, ffd, multipool, spread
+from karpenter_tpu_torch.obs import quality
+from karpenter_tpu_torch.solver import bound, encode, ffd, multipool, spread
+from karpenter_tpu_torch.solver.convex import relax, rounding
+from karpenter_tpu_torch.solver.convex import tier as convex_tier
 from karpenter_tpu_torch.solver.disrupt import engine as disrupt_engine
 from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
 from karpenter_tpu_torch.solver.encode import CatalogTensors
@@ -116,18 +131,34 @@ class _PendingSolve:
     and decodes. A ticket with nothing in flight carries its result."""
 
     __slots__ = ("done", "pool", "entry", "class_set", "result", "placed_existing",
-                 "nodepool_usage", "buf", "inp", "nnz_max")
+                 "nodepool_usage", "buf", "inp", "nnz_max", "cx")
 
     def __init__(self, done: Optional[SchedulingResult] = None):
         self.done = done
+        # the convex tier's in-flight RelaxOutputs (None on the FFD tier)
+        self.cx = None
 
 
 class TorchSolver:
     def __init__(self, g_max: int = 1024, objective: str = "price", device=None,
-                 incremental: bool = True):
+                 incremental: bool = True, tier: str = "ffd"):
         if objective not in ("price", "fit"):
             raise ValueError(f"objective must be 'price' or 'fit', got {objective!r}")
+        # the solve tier: "convex" enqueues the LP relaxation next to the
+        # FFD solve, rounds it at the finish barrier and takes the rounded
+        # placement only when it is strictly cheaper without leaving more
+        # pods of any class behind (solver/convex/tier.py)
+        if tier not in ("ffd", "convex"):
+            raise ValueError(f"tier must be 'ffd' or 'convex', got {tier!r}")
         self.device = resolve_device(device)
+        self.tier = tier
+        # the last convex differential: {"winner", "price_ffd",
+        # "price_convex", "lower", "iterations"}
+        self.last_convex: Optional[dict] = None
+        # the last device solve's quality document (obs/quality.py):
+        # optimality gap against the fractional bound, waste attribution,
+        # price decomposition; observe-only
+        self.last_quality: Optional[dict] = None
         # g_max sized for the price objective at 50k pods: cost-optimal
         # packing opens ~1.6x the groups max-fit does
         self.g_max = g_max
@@ -792,7 +823,52 @@ class TorchSolver:
             inp, g_max=self.g_max, nnz_max=nnz_max, word_offsets=entry.offsets,
             words=entry.words, objective=self.objective,
         )
+        if self.tier == "convex":
+            # the LP relaxation, enqueued right behind the FFD solve so the
+            # two are in flight together
+            pending.cx = relax.convex_relax(
+                inp, iters=relax.DEFAULT_ITERS, word_offsets=entry.offsets, words=entry.words)
         return pending
+
+    # -- the convex tier and the quality bound --------------------------------
+    def _finish_convex(self, pending: _PendingSolve, dense_ffd) -> Tuple[tuple, float]:
+        """Fetch the relaxation, round it, and judge the never-worse
+        differential against the FFD decision. Returns (chosen dense
+        tuple, the relaxation's certified lower bound)."""
+        entry, class_set = pending.entry, pending.class_set
+        x, lower, trace = relax.fetch_relax(pending.cx)
+        dense_cx = rounding.round_solution(x, entry.tensors, class_set, g_max=self.g_max)
+        winner, dense, p_ffd, p_cx = convex_tier.choose(dense_ffd, dense_cx, entry.tensors.price)
+        self.last_convex = {
+            "winner": winner, "price_ffd": p_ffd, "price_convex": p_cx,
+            "lower": lower, "iterations": relax.iterations_to_convergence(trace),
+        }
+        return dense, lower
+
+    def _dispatch_bound(self, inp: ffd.SolveInputs, placed: np.ndarray, offsets, words) -> torch.Tensor:
+        """The fractional price bound on the device; the [R] totals stay
+        there until fetch_bound."""
+        placed_t = torch.from_numpy(placed).to(inp.req.device)
+        return bound.fractional_price_bound(inp, placed_t, word_offsets=offsets, words=words)
+
+    def _begin_quality(self, pending: _PendingSolve, dense) -> torch.Tensor:
+        """Enqueue the bound for the decision just chosen, before decode,
+        so the device computes it while the host decodes. `placed` is the
+        take-row sum: the pods the solve placed on new groups (billing
+        requested counts would break gap >= 1 when pods go unplaced)."""
+        placed = np.asarray(dense[0]).sum(axis=1).astype(np.float32)
+        return self._dispatch_bound(pending.inp, placed, pending.entry.offsets, pending.entry.words)
+
+    def _finish_quality(self, result: SchedulingResult, totals: torch.Tensor,
+                        lb_convex: Optional[float] = None) -> None:
+        """Fetch the bound after decode and publish last_quality. The
+        convex tier's certified lower bound often tightens the fractional
+        bound but is not pointwise dominant, so the gap's denominator is
+        the max of the two."""
+        bound_h, r_star = bound.fetch_bound(totals)
+        if lb_convex is not None:
+            bound_h = max(bound_h, lb_convex)
+        self.last_quality = quality.solve_quality(result, bound_h, r_star)
 
     def _split_spread(self, pool, instance_types, classes, zones, spread_seeds,
                       overhead_vec, result: SchedulingResult) -> list:
@@ -885,7 +961,9 @@ class TorchSolver:
 
     def solve_finish(self, pending: _PendingSolve) -> SchedulingResult:
         """The barrier: ONE fetch of the fused buffer, expand, decode; a
-        sparse-budget overflow refetches the dense decision."""
+        sparse-budget overflow refetches the dense decision. Around the
+        decode, in TPUSolver's order: the convex differential, the bound's
+        dispatch, decode, then the bound's fetch and last_quality."""
         if pending.done is not None:
             return pending.done
         entry, class_set = pending.entry, pending.class_set
@@ -898,10 +976,18 @@ class TorchSolver:
                 pending.inp, g_max=self.g_max, word_offsets=entry.offsets,
                 words=entry.words, objective=self.objective,
             )
-        return self._decode(
+        # convex tier: round and judge before decode, so the decoded
+        # groups are the chosen placement (and the bound bills its takes)
+        cx_lower = None
+        if pending.cx is not None:
+            dense, cx_lower = self._finish_convex(pending, dense)
+        qtotals = self._begin_quality(pending, dense)
+        out = self._decode(
             pending.pool, entry, class_set, dense, pending.nodepool_usage,
             result=pending.result, class_offset=pending.placed_existing,
         )
+        self._finish_quality(out, qtotals, lb_convex=cx_lower)
+        return out
 
     def _repack_operands(self, classes, existing_nodes) -> Tuple[torch.Tensor, ...]:
         """Kernel B's operands for packing `classes` onto `existing_nodes`:

@@ -369,3 +369,59 @@ class TestConsolidationOnTheCard:
         if keep == 1.0:
             assert disrupt_kernel.replace_calls > calls
             assert any(v.replace_type is not None for v in cpu)
+
+
+class TestQualityAndConvexOnTheCard:
+    """The quality bound and the convex tier's relaxation are torch code
+    on the device (no kernel of their own): on the card they give what
+    the CPU gives -- the bound at rel=1e-6, x and the lower bound within
+    5e-5, the decisions exactly."""
+
+    def test_bound_matches_the_cpu(self, cuda, items):
+        from karpenter_tpu_torch.solver import bound
+
+        got_in, offsets, words = scan_inputs(items, cuda, 8_000, seed=1)
+        want_in, _, _ = scan_inputs(items, "cpu", 8_000, seed=1)
+        placed = want_in.count.to(torch.float32)
+        got = bound.fractional_price_bound(got_in, placed.to(cuda), word_offsets=offsets, words=words)
+        want = bound.fractional_price_bound(want_in, placed, word_offsets=offsets, words=words)
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0.0)
+        assert bound.fetch_bound(got)[1] == bound.fetch_bound(want)[1]
+        assert float(want.max()) > 0.0
+
+    def test_convex_tier_matches_the_cpu(self, cuda, items):
+        from karpenter_tpu_torch.apis import Pod
+        from karpenter_tpu_torch.scheduling import Resources
+        from karpenter_tpu_torch.solver.convex import relax
+
+        shapes = (("1100m", "2200Mi"), ("700m", "1400Mi"), ("1700m", "3400Mi"))
+        pods = [Pod(f"adv{i}", requests=Resources({"cpu": shapes[i % 3][0],
+                                                   "memory": shapes[i % 3][1]}))
+                for i in range(30)]
+        pool = NodePool("default")
+        gpu = TorchSolver(g_max=64, tier="convex")
+        cpu = TorchSolver(device="cpu", g_max=64, tier="convex")
+        a, b = gpu.solve(pool, items, pods), cpu.solve(pool, items, pods)
+        assert sorted((tuple(p.metadata.name for p in g.pods), g.instance_types[0].name)
+                      for g in a.new_groups) == \
+            sorted((tuple(p.metadata.name for p in g.pods), g.instance_types[0].name)
+                   for g in b.new_groups)
+        assert gpu.last_convex["winner"] == cpu.last_convex["winner"] == "convex"
+        for key in ("price_ffd", "price_convex", "iterations"):
+            assert gpu.last_convex[key] == cpu.last_convex[key], key
+        assert abs(gpu.last_convex["lower"] - cpu.last_convex["lower"]) <= 5e-5
+        for key, value in cpu.last_quality.items():
+            if key in ("bound_per_h", "optimality_gap"):
+                assert gpu.last_quality[key] == pytest.approx(value, rel=1e-6, abs=1e-6)
+            else:
+                assert gpu.last_quality[key] == value, key
+        # the relaxation itself on the same inputs
+        got_in, offsets, words = scan_inputs(items, cuda, 8_000, seed=2)
+        want_in, _, _ = scan_inputs(items, "cpu", 8_000, seed=2)
+        kw = dict(iters=relax.DEFAULT_ITERS, word_offsets=offsets, words=words)
+        gx, glower, gtrace = relax.fetch_relax(relax.convex_relax(got_in, **kw))
+        wx, wlower, wtrace = relax.fetch_relax(relax.convex_relax(want_in, **kw))
+        np.testing.assert_allclose(gx, wx, atol=5e-5, rtol=0)
+        np.testing.assert_allclose(gtrace, wtrace, atol=5e-5 * max(abs(wtrace).max(), 1.0), rtol=0)
+        assert abs(glower - wlower) <= 5e-5 * max(wlower, 1.0)

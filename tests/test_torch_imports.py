@@ -52,7 +52,14 @@ class TestNoJaxImports:
         assert {"karpenter_tpu_torch/solver/disrupt/engine.py",
                 "karpenter_tpu_torch/solver/disrupt/kernel.py",
                 "karpenter_tpu_torch/solver/disrupt/__init__.py",
-                "karpenter_tpu_torch/solver/consolidate.py"} <= rel
+                "karpenter_tpu_torch/solver/consolidate.py",
+                "karpenter_tpu_torch/seeding.py",
+                "karpenter_tpu_torch/obs/quality.py",
+                "karpenter_tpu_torch/solver/bound.py",
+                "karpenter_tpu_torch/solver/convex/__init__.py",
+                "karpenter_tpu_torch/solver/convex/relax.py",
+                "karpenter_tpu_torch/solver/convex/rounding.py",
+                "karpenter_tpu_torch/solver/convex/tier.py"} <= rel
 
     @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
     def test_no_forbidden_import(self, path):
@@ -60,8 +67,8 @@ class TestNoJaxImports:
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
     def test_solve_in_fresh_interpreter_loads_neither(self):
-        """A solve and a consolidation sweep, on the CPU, in a fresh
-        interpreter."""
+        """A solve on each tier (the quality bound behind both) and a
+        consolidation sweep, on the CPU, in a fresh interpreter."""
         code = (
             "import sys\n"
             "import numpy as np\n"
@@ -72,6 +79,9 @@ class TestNoJaxImports:
             "pods = workload.synth_pods(np.random.default_rng(0), workload.ZONES, 200, 0, 8)\n"
             "r = TorchSolver(device='cpu', g_max=32).solve(NodePool('default'), items, pods)\n"
             "assert r.new_groups\n"
+            "s = TorchSolver(device='cpu', g_max=32, tier='convex')\n"
+            "assert s.solve(NodePool('default'), items, pods[:60]).new_groups\n"
+            "assert s.last_convex and s.last_quality\n"
             "from karpenter_tpu_torch.solver.consolidate import ConsolidationEvaluator\n"
             "spec = workload.rampdown_sweep_spec(r, np.random.default_rng(1), n_cand=4)\n"
             "nodes, sets = workload.sweep_world(spec)\n"
