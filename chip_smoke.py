@@ -55,6 +55,22 @@ one JSON line each:
               verdicts by action (delete / replace-cheaper / blocked,
               against the candidates' own prices); every verdict must be
               well formed
+  observe     the no-fallback witness over every phase above (no convex
+              fallback but rounding's organic None, no quality-bound error,
+              the solver's kernel-dispatch counter equal to every counted
+              run's launches, no plain run outside the convex phase's CPU
+              copy); drills on worlds (a) and (c): `convex.rounding` and
+              `rpc.convex.dispatch` armed to raise once, and a quality
+              bound that raises, each tick the FFD tick, its counter and
+              the failpoint's fires moved by one, the next tick as before;
+              `hbm.poll()` against `torch.cuda`'s figures after tick 1;
+              warm tick 1 with tracing and the observatory on against off
+              (median of 5 each, in turns; printed, not gated) and one
+              flight record per traced tick with its stages; a
+              `torch.profiler` capture of two warm ticks naming kernel A,
+              then three warm ticks with it stopped; the sync witness's
+              sanctioned fetches and unsanctioned sites over warm ticks 1
+              and 2 and a sweep
   kernels     each kernel against its plain torch version on the card, on
               the main path's own inputs (tick 1's scan; tick 2's scan,
               whose C=128 holds 63 padded rows; tick 2's repack; the
@@ -92,9 +108,11 @@ import collections
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -166,6 +184,17 @@ def max_abs_diff(got, want) -> float:
 
 def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# SOLVER_KERNEL_DISPATCHES entry of each kernel's call on the main path
+DISPATCH_ENTRIES = {"ffd_scan": "ffd_solve_fused", "disrupt_repack": "disrupt_repack"}
+QUALITY_SITES = ("solver.quality_dispatch", "solver.quality_finish")
+
+
+def dispatch_counts(metrics) -> dict:
+    """karpenter_solver_kernel_dispatches_total by "kernel/impl"."""
+    return {f"{k}/{impl}": metrics.SOLVER_KERNEL_DISPATCHES.value(entry=entry, impl=impl)
+            for k, entry in DISPATCH_ENTRIES.items() for impl in ("cuda", "plain")}
 
 
 def bound(bytes_moved: float, ops: float):
@@ -322,8 +351,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
         return 2
-    from karpenter_tpu_torch import workload
+    from karpenter_tpu_torch import failpoints, metrics, tracing, workload
+    from karpenter_tpu_torch.analysis import sync_witness
     from karpenter_tpu_torch.apis import NodePool, Pod, labels as wk
+    from karpenter_tpu_torch.obs import flight, hbm, profiler
     from karpenter_tpu_torch.scheduling import Requirement, Resources
     from karpenter_tpu_torch.solver import bound as price_bound
     from karpenter_tpu_torch.solver import encode, ffd, packing
@@ -356,6 +387,32 @@ def main() -> int:
           "sources": {name: build.BUILD_LOG.get(name, {"seconds": 0.0, "ptxas": ["cached"]})
                       for name in build.SOURCES}, **tag})
 
+    # every counted run of the main path: its launch counts and the solver's
+    # kernel-dispatch counter over the same run (phase `observe` holds the
+    # two against each other)
+    counted_runs = []
+
+    def start_count() -> dict:
+        ka.launches = kb.launches = 0
+        return dispatch_counts(metrics)
+
+    def end_count(path: str, launches: dict, before: dict) -> None:
+        after = dispatch_counts(metrics)
+        counted_runs.append({"path": path, "launches": dict(launches),
+                             "dispatches": {k: after[k] - before[k] for k in after}})
+
+    # every rounding that returned None: the convex tier's organic FFD rung
+    # (any other convex fallback is a failure, phase `observe`)
+    rounding_none = [0]
+    round_solution = rounding.round_solution
+
+    def round_counted(*a, **k):
+        out = round_solution(*a, **k)
+        rounding_none[0] += out is None
+        return out
+
+    rounding.round_solution = round_counted
+
     # -- main path --------------------------------------------------------------
     items = workload.build_catalog_items()
     pool = NodePool("default")
@@ -367,23 +424,25 @@ def main() -> int:
     # each tick's quality document and its bound's call (phase `quality`)
     quality_docs, bound_calls = {}, {}
     with calls_of(price_bound, "fractional_price_bound") as qcalls:
-        ka.launches = kb.launches = 0
+        d0 = start_count()
         solver.last_quality = None
         t0 = time.perf_counter()
         tick1 = solver.solve(pool, items, pods1)
         torch.cuda.synchronize()
         wall1_cold = (time.perf_counter() - t0) * 1e3
         launches1 = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+        end_count("tick 1", launches1, d0)
         quality_docs["tick 1"], bound_calls["tick 1"] = solver.last_quality, qcalls[-1:]
         nodes = workload.nodes_from_result(tick1)
 
-        ka.launches = kb.launches = 0
+        d0 = start_count()
         solver.last_quality = None
         t0 = time.perf_counter()
         tick2 = solver.solve(pool, items, pods2, existing_nodes=nodes)
         torch.cuda.synchronize()
         wall2_cold = (time.perf_counter() - t0) * 1e3
         launches2 = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+        end_count("tick 2", launches2, d0)
         quality_docs["tick 2"], bound_calls["tick 2"] = solver.last_quality, qcalls[-1:]
     peak_bytes = torch.cuda.max_memory_allocated()
 
@@ -472,11 +531,12 @@ def main() -> int:
     for name, fn in worlds_of(sched_solver, world_results).items():
         pods_w, route, needed = world_spec[name]
         with recording(ka, kb) as rec, calls_of(price_bound, "fractional_price_bound") as qcalls:
-            ka.launches = kb.launches = 0
+            d0 = start_count()
             sched_solver.last_quality = None
             result = fn()
             torch.cuda.synchronize()
             world_launches[name] = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+            end_count(name, world_launches[name], d0)
         world_results[name], world_ops[name] = result, rec
         quality_docs[name], bound_calls[name] = sched_solver.last_quality, qcalls
         if sched_solver.last_route["path"] != route:
@@ -581,14 +641,16 @@ def main() -> int:
     cx_cpu = TorchSolver(g_max=G_MAX, device="cpu", tier="convex")
     ffd_solver = TorchSolver(g_max=G_MAX, device=dev)
     convex_docs, convex_ops, convex_launches = {}, {}, {}
+    cpu_solves = [0]                   # the CPU copy's solves: plain by design
     for name, (pods_w, want_winner) in convex_spec.items():
         with recording(ka, kb) as rec, calls_of(relax, "convex_relax") as rcalls, \
                 calls_of(price_bound, "fractional_price_bound") as qcalls:
-            ka.launches = kb.launches = 0
+            d0 = start_count()
             cx_solver.last_convex = cx_solver.last_quality = None
             result = cx_solver.solve(pool, items, pods_w)
             torch.cuda.synchronize()
             convex_launches[name] = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+            end_count(f"convex {name}", convex_launches[name], d0)
         convex_ops[name] = rec
         lc, q = cx_solver.last_convex, cx_solver.last_quality
         if convex_launches[name]["ffd_scan"] < 1 or len(rcalls) != 1 or len(qcalls) != 1:
@@ -606,6 +668,7 @@ def main() -> int:
         # the same solver on the CPU (the plain versions), and the
         # relaxation on a CPU copy of the card's inputs
         cpu_result = cx_cpu.solve(pool, items, pods_w)
+        cpu_solves[0] += 1
         lc_cpu = cx_cpu.last_convex
         same_decisions = sig(cpu_result) == sig(result)
         same_convex = all(lc[k] == lc_cpu[k] for k in ("winner", "price_ffd", "price_convex",
@@ -719,11 +782,13 @@ def main() -> int:
     sweep_results, sweep_ops, sweep_launches, sweep_docs = {}, {}, {}, {}
     for name, sw in sweeps.items():
         with recording(ka, kb) as rec:
-            ka.launches = kb.launches = dk.replace_calls = 0
+            d0 = start_count()
+            dk.replace_calls = 0
             verdicts = engine.evaluate(sw["nodes"], sw["sets"], **sw["kw"])
             torch.cuda.synchronize()
             sweep_launches[name] = {"disrupt_repack": kb.launches, "ffd_scan": ka.launches,
                                     "disrupt_replace": dk.replace_calls}
+            end_count(name, sweep_launches[name], d0)
         sweep_results[name], sweep_ops[name] = verdicts, rec
         if kb.launches != 1 or len(rec["disrupt_repack"]) != 1:
             raise AssertionError(f"sweep {name} did not launch kernel B once: {sweep_launches[name]}")
@@ -751,6 +816,196 @@ def main() -> int:
         }
     emit({"phase": "consolidate", "entry": "DisruptEngine(solver=TorchSolver).evaluate",
           "sweeps": sweep_docs, **tag})
+
+    # -- observe: metrics, failpoints, tracing and the observatory ---------------------
+    # the no-fallback witness over every phase above: no device failure took
+    # a degrade rung, and the dispatch counter agrees with the launch counts
+    impl = "cuda" if dev.type == "cuda" else "plain"
+    other = "plain" if impl == "cuda" else "cuda"
+    runs_off = [r["path"] for r in counted_runs if any(
+        r["dispatches"][f"{k}/{impl}"] != r["launches"][k] or r["dispatches"][f"{k}/{other}"]
+        for k in DISPATCH_ENTRIES)]
+    dispatches = dispatch_counts(metrics)
+    witness = {
+        "convex_fallbacks": {r: metrics.CONVEX_FALLBACKS.value(reason=r)
+                             for r in ("dispatch", "rounding")},
+        "rounding_returned_none": rounding_none[0],
+        "handled_errors": {s: metrics.HANDLED_ERRORS.value(site=s) for s in QUALITY_SITES},
+        "kernel_dispatches": dispatches,
+        "counted_runs": len(counted_runs),
+        "counted_launches": {k: sum(r["launches"][k] for r in counted_runs) for k in DISPATCH_ENTRIES},
+        "counted_dispatches": {f"{k}/{i}": sum(r["dispatches"][f"{k}/{i}"] for r in counted_runs)
+                               for k in DISPATCH_ENTRIES for i in ("cuda", "plain")},
+        "cpu_copy_solves": cpu_solves[0], "runs_off": runs_off}
+    # on the card the only plain runs are the convex phase's CPU copy
+    plain_ok = impl == "plain" or (dispatches["ffd_scan/plain"] == cpu_solves[0]
+                                   and dispatches["disrupt_repack/plain"] == 0)
+    witness_ok = (
+        witness["convex_fallbacks"]["dispatch"] == 0
+        and witness["convex_fallbacks"]["rounding"] == rounding_none[0]
+        and not any(witness["handled_errors"].values()) and not runs_off and plain_ok)
+
+    # drills on the card: each drilled tick is the FFD tick, its counter
+    # moves by exactly one, and the next, disarmed tick decides as before
+    real_bound = price_bound.fractional_price_bound
+
+    def broken_bound(*a, **k):
+        raise RuntimeError("drill: the quality bound raises")
+
+    def counter(kind, label) -> float:
+        if kind == "fallback":
+            return metrics.CONVEX_FALLBACKS.value(reason=label)
+        return metrics.HANDLED_ERRORS.value(site=label)
+
+    # drill -> (failpoint spec or None for the patched bound, counter, solver)
+    drill_spec = {
+        "convex.rounding": ("convex.rounding=error(RuntimeError):times=1",
+                            ("fallback", "rounding"), cx_solver),
+        "rpc.convex.dispatch": ("rpc.convex.dispatch=error(RuntimeError):times=1",
+                                ("fallback", "dispatch"), cx_solver),
+        "bound raises": (None, ("handled", "solver.quality_dispatch"), ffd_solver),
+    }
+    drills, drills_ok = {}, True
+    for world_name in ("a: tick 1", "c: adversarial"):
+        pods_w = convex_spec[world_name][0]
+        ffd_sig = sig(ffd_solver.solve(pool, items, pods_w))
+        ref_sig = sig(cx_solver.solve(pool, items, pods_w))
+        ref_lc = dict(cx_solver.last_convex)
+        organic_none = math.isinf(ref_lc["price_convex"])
+        for drill, (spec, (kind, label), drill_solver) in drill_spec.items():
+            site = spec.split("=")[0] if spec else None
+            c0 = counter(kind, label)
+            f0 = metrics.FAILPOINT_FIRES.value(site=site, action="error") if site else 0.0
+            if spec:
+                failpoints.FAILPOINTS.arm_spec(spec)
+            else:
+                price_bound.fractional_price_bound = broken_bound
+            try:
+                drilled = drill_solver.solve(pool, items, pods_w)
+                torch.cuda.synchronize()
+            finally:
+                failpoints.FAILPOINTS.reset()
+                price_bound.fractional_price_bound = real_bound
+            moved = counter(kind, label) - c0
+            fired = (metrics.FAILPOINT_FIRES.value(site=site, action="error") - f0) if site else 0.0
+            q_drilled = dict(drill_solver.last_quality or {})
+            c1 = counter(kind, label)
+            again = drill_solver.solve(pool, items, pods_w)
+            torch.cuda.synchronize()
+            moved_again = counter(kind, label) - c1
+            organic = int(organic_none) if drill == "convex.rounding" else 0
+            if drill_solver is cx_solver:
+                next_ok = sig(again) == ref_sig and cx_solver.last_convex["winner"] == ref_lc["winner"]
+            else:
+                next_ok = sig(again) == ffd_sig and "optimality_gap" in drill_solver.last_quality
+            doc = {"drilled_equals_ffd_tick": sig(drilled) == ffd_sig, "counter_moved": moved,
+                   "failpoint_fires": fired, "next_tick_as_before": next_ok,
+                   "counter_moved_next_tick": moved_again, "organic_next_tick": organic,
+                   "gap_in_drilled_tick": q_drilled.get("optimality_gap")}
+            drills[f"{world_name} / {drill}"] = doc
+            drills_ok &= (doc["drilled_equals_ffd_tick"] and moved == 1
+                          and fired == (1 if site else 0) and next_ok and moved_again == organic)
+
+    # hbm: the observatory's poll against torch.cuda's own figures, read at
+    # the same point after tick 1
+    solver.solve(pool, items, pods1)
+    torch.cuda.synchronize()
+    snap = hbm.poll(max_age_s=0)
+    cuda_figures = {"memory_allocated": torch.cuda.memory_allocated(0),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(0),
+                    "mem_get_info_total": torch.cuda.mem_get_info(0)[1]}
+    dev_snap = snap["devices"].get("cuda:0", {})
+    hbm_doc = {"poll": snap, "torch_cuda": cuda_figures,
+               "staged_bytes_by_kind": solver.staged_bytes_by_kind(),
+               "equal": (dev_snap.get("bytes_in_use") == cuda_figures["memory_allocated"]
+                         and dev_snap.get("peak_bytes") == cuda_figures["max_memory_allocated"]
+                         and dev_snap.get("bytes_limit") == cuda_figures["mem_get_info_total"])}
+
+    with tempfile.TemporaryDirectory(prefix="karpenter-observe-") as tmp:
+        # flight and cost: warm tick-1 walls with tracing and the observatory
+        # on (a traced tick, the idle profiler's bracket, the flight record
+        # with its hbm poll) against off, in turns
+        prof = profiler.PROFILER
+        flight.RECORDER.clear()
+        tracing.TRACER.configure(enabled=True, sample=1.0)
+
+        def observed_tick():
+            t_mono = time.monotonic()
+            prof.on_tick_start()
+            with tracing.trace("tick") as root:
+                solver.solve(pool, items, pods1)
+            prof.on_tick_end()
+            flight.record(flight.build_tick_record(root, t_mono, solver=solver))
+
+        walls = {"on": [], "off": []}
+        for turn in ("off", "on", "on", "off", "off", "on", "on", "off", "off", "on"):
+            t0 = time.perf_counter()
+            observed_tick() if turn == "on" else solver.solve(pool, items, pods1)
+            torch.cuda.synchronize()
+            walls[turn].append((time.perf_counter() - t0) * 1e3)
+        tracing.TRACER.configure(enabled=False)
+        records = flight.RECORDER.dump()["records"]
+        box = flight.flush_blackbox("manual", path=os.path.join(tmp, "flightdata.jsonl"))
+        with open(box) as f:
+            box_lines = sum(1 for _ in f)
+        flight_doc = {"records": len(records), "blackbox_lines": box_lines,
+                      "stages_ms": [r.get("stages_ms") for r in records],
+                      "last": {k: v for k, v in records[-1].items() if k != "stages_ms"}}
+
+        # profiler: a capture armed for two warm ticks, then three warm
+        # ticks with it stopped
+        prof.request(2, out_dir=tmp)
+        for _ in range(2):
+            prof.on_tick_start()
+            solver.solve(pool, items, pods1)
+            torch.cuda.synchronize()
+            prof.on_tick_end()
+        _, after_capture_ms = wall_ms(lambda: solver.solve(pool, items, pods1), reps=3)
+        prof_state = prof.describe()
+        trace_path = os.path.join(prof_state["last_trace_dir"] or tmp, profiler.TRACE_FILE)
+        with open(trace_path) as f:
+            events = json.load(f).get("traceEvents", [])
+        kernel_names = collections.Counter(
+            e.get("name", "") for e in events if e.get("cat") == "kernel")
+        prof_doc = {"captures": prof_state["captures"], "errors": prof_state["errors"],
+                    "trace_bytes": os.path.getsize(trace_path), "events": len(events),
+                    "kernel_events": sum(kernel_names.values()),
+                    "kernel_a_events": sum(n for name, n in kernel_names.items()
+                                           if "ffd_scan_kernel" in name),
+                    "tick1_wall_ms_median_of_3_after_capture": after_capture_ms}
+    flight_ok = (len(records) == 5 and box_lines == 6 and all(
+        {"encode", "device", "decode"} <= set(r.get("stages_ms", {})) for r in records))
+    cost = {"tick1_wall_ms_median_on": statistics.median(walls["on"]),
+            "tick1_wall_ms_median_off": statistics.median(walls["off"]),
+            "walls_ms": walls}
+    cost["overhead"] = cost["tick1_wall_ms_median_on"] / cost["tick1_wall_ms_median_off"] - 1
+
+    # the sync witness on warm ticks 1 and 2 and one sweep
+    sweep_w = sweeps["rampdown-sweep spot-od"]
+    sync_witness.reset()
+    with sync_witness.hot("warm ticks 1, 2 and a sweep"):
+        solver.solve(pool, items, pods1)
+        solver.solve(pool, items, pods2, existing_nodes=nodes)
+        engine.evaluate(sweep_w["nodes"], sweep_w["sets"], **sweep_w["kw"])
+        torch.cuda.synchronize()
+    sync = sync_witness.stats()
+
+    emit({"phase": "observe", "no_fallback_witness": witness, "witness_ok": witness_ok,
+          "drills": drills, "hbm": hbm_doc, "profiler": prof_doc, "flight": flight_doc,
+          "cost": cost, "sync_witness": sync,
+          "kernel_dispatches_after": dispatch_counts(metrics), **tag})
+    if not witness_ok:
+        raise AssertionError(f"a degrade rung or a plain run on the main path: {witness}")
+    if not drills_ok:
+        raise AssertionError(f"a drill did not take its rung, count once and recover: {drills}")
+    if not hbm_doc["equal"]:
+        raise AssertionError(f"hbm.poll differs from torch.cuda's figures: {hbm_doc}")
+    if prof_doc["captures"] != 1 or not prof_doc["trace_bytes"] or not prof_doc["kernel_a_events"]:
+        raise AssertionError(f"the profiler capture missed kernel A: {prof_doc}")
+    if not flight_ok:
+        raise AssertionError(f"not one flight record with stages per tick: {flight_doc}")
+    if sync["sanctioned_fetches"] < 1:
+        raise AssertionError(f"the sync witness saw no sanctioned fetch: {sync}")
 
     # the main path's own kernel inputs: tick 1's scan, tick 2's repack
     classes1 = encode.group_pods(pods1, extra_requirements=pool.requirements())

@@ -6,10 +6,9 @@ fractional lower bound on hourly fleet price on the device;
 turns the decode outputs into the quality document: realized price,
 stranded CPU/memory fractions, the fragmentation index, price by pool
 and capacity type, and the optimality gap = realized / bound. The
-document is key for key the JAX package's.
-
-Left out until the port has a metrics registry: the JAX module's
-Prometheus gauges (``karpenter_quality_*``). Observe-only: nothing
+document is key for key the JAX package's, and its headline numbers go
+to the JAX module's four ``karpenter_quality_*`` gauges in the port's
+registry (karpenter_tpu_torch/metrics.py). Observe-only: nothing
 downstream of a scheduling decision reads any of it.
 """
 from __future__ import annotations
@@ -18,11 +17,38 @@ import json
 import threading
 from typing import Any, Dict, List, Optional
 
+from karpenter_tpu_torch import metrics
 from karpenter_tpu_torch.scheduling import resources as res
 
+QUALITY_GAP = metrics.REGISTRY.gauge(
+    "karpenter_quality_optimality_gap",
+    "Realized hourly fleet price of the last solve's new groups divided "
+    "by the fractional lower bound (solver/bound.py) -- 1.0 is a "
+    "certificate of fractional optimality; a rising value means the "
+    "packer is leaving money on the table (observe-only)",
+)
+QUALITY_BOUND = metrics.REGISTRY.gauge(
+    "karpenter_quality_bound_price_per_hour",
+    "The fractional lower bound on the hourly price of hosting the last "
+    "solve's placed pods (solver/bound.py fractional_price_bound)",
+)
+QUALITY_STRANDED = metrics.REGISTRY.gauge(
+    "karpenter_quality_stranded_fraction",
+    "Fraction of bought allocatable capacity the last solve's packing "
+    "left unusable (stranded), by resource axis -- the binpack residue "
+    "waste attribution charges the solver with",
+    labels=("resource",),
+)
+QUALITY_FRAGMENTATION = metrics.REGISTRY.gauge(
+    "karpenter_quality_fragmentation_index",
+    "Fleet fragmentation index in [0, 1]: 1 - (largest single-node free "
+    "CPU / total free CPU). 0 = all free capacity on one node (usable); "
+    "near 1 = free capacity scattered too thin to host anything",
+)
+
 # last computed quality document, process-wide: solve_quality records
-# here, readers (the JAX package's /debug/quality and flight recorder)
-# take it without plumbing
+# here, readers (obs/flight.py reads the solver's last_quality; a debug
+# endpoint would read this) take it without plumbing
 _LOCK = threading.Lock()
 _LAST: Dict[str, Any] = {}
 
@@ -54,9 +80,10 @@ def solve_quality(
     """One solve's quality document from the DECODE outputs: realized
     price (sum of each new group's cheapest surviving type -- exactly
     what the launch pays), waste attribution against those same chosen
-    types, and the optimality gap against the device bound. Records the
-    doc (the solver also keeps it on ``last_quality``). Pure dict/object
-    reads -- no device values anywhere near this."""
+    types, and the optimality gap against the device bound. Sets the
+    gauges and records the doc (the solver also keeps it on
+    ``last_quality``). Pure dict/object reads -- no device values
+    anywhere near this."""
     realized = 0.0
     by_pool: Dict[str, float] = {}
     by_captype: Dict[str, float] = {}
@@ -97,8 +124,19 @@ def solve_quality(
         q["optimality_gap"] = round(realized / bound_per_h, 6)
         if binding_resource is not None:
             q["binding_resource"] = res.RESOURCE_AXES[binding_resource]
+    _set_gauges(q)
     record(q)
     return q
+
+
+def _set_gauges(q: Dict[str, Any]) -> None:
+    if "optimality_gap" in q:
+        QUALITY_GAP.set(float(q["optimality_gap"]))
+    if "bound_per_h" in q:
+        QUALITY_BOUND.set(float(q["bound_per_h"]))
+    QUALITY_STRANDED.set(float(q["stranded_cpu_fraction"]), resource="cpu")
+    QUALITY_STRANDED.set(float(q["stranded_memory_fraction"]), resource="memory")
+    QUALITY_FRAGMENTATION.set(float(q["fragmentation_index"]))
 
 
 def stranded_fraction(alloc_total: float, used_total: float) -> float:

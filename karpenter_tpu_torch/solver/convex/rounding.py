@@ -1,8 +1,8 @@
 """Deterministic rounding of the LP relaxation to an integral placement.
 
-Copy of karpenter_tpu/solver/convex/rounding.py (numpy, host-side). The
-JAX package's chaos failpoint (``convex.rounding``) is left out: the port
-has no failpoints yet. Bit-deterministic: no clock, no ambient RNG -- the
+Copy of karpenter_tpu/solver/convex/rounding.py (numpy, host-side), with
+its chaos failpoint ``convex.rounding`` (karpenter_tpu_torch/
+failpoints.py). Bit-deterministic: no clock, no ambient RNG -- the
 only tie-break draws a type permutation from the port's
 ``seeding.convex_rng()``, the same stream as the JAX package's.
 
@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from karpenter_tpu_torch import seeding
+from karpenter_tpu_torch import failpoints, seeding
 from karpenter_tpu_torch.solver.convex import relax
 
 
@@ -103,6 +103,9 @@ def round_arrays(
     gzone [G, Z] bool, gcap [G, CT] bool), or None when rounding cannot
     produce a valid placement inside the g_max group budget (the FFD
     fallback rung)."""
+    # chaos: a mid-solve rounding fault must land the tick on the FFD
+    # rung exactly like an organic infeasibility
+    failpoints.eval("convex.rounding")
     feas = np.asarray(feas, dtype=bool)
     C, K = feas.shape
     cap_eff = np.asarray(cap_eff, dtype=np.float64)

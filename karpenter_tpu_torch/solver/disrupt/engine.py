@@ -9,9 +9,13 @@ assemble per-set verdicts.
 
 With no sidecar client the JAX engine takes exactly this route (its
 ``evaluate``: ``verdicts = self._evaluate_local(enc, ctxs)``), so the
-verdicts are the same decision function. Not here (later slices): the
-``solve_disrupt`` wire route, the mesh-sharded repack and the
-``metrics.*`` counters.
+verdicts are the same decision function, and it counts what the JAX
+engine counts on that route: ``karpenter_disruption_device_dispatches_total
+{path="local"}`` and the sweep's wall in
+``karpenter_disruption_device_sweep_seconds``, plus kernel B's dispatch
+in ``karpenter_solver_kernel_dispatches_total{entry="disrupt_repack"}``.
+Not here (later slices): the ``solve_disrupt`` wire route and the
+mesh-sharded repack.
 
 Scope: candidate sets whose pods carry stateful constraints (hard
 topology spread, affinity terms, multi-term node affinity) are routed to
@@ -31,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import metrics
 from karpenter_tpu_torch.apis import NodePool, Pod, labels as wk
 from karpenter_tpu_torch.scheduling import Resources, tolerates_all
 from karpenter_tpu_torch.solver import encode
@@ -309,7 +314,9 @@ class DisruptEngine:
             if pools and catalogs else []
         )
         verdicts = self._evaluate_local(enc, ctxs)
+        metrics.DISRUPTION_DEVICE_DISPATCHES.inc(path="local")
         ms = (time.perf_counter() - t0) * 1e3
+        metrics.DISRUPTION_DEVICE_SWEEP_SECONDS.observe(ms / 1e3)
         self.last_dispatch = {"path": "local", "sets": len(sets), "ms": round(ms, 3)}
         return verdicts
 
@@ -357,8 +364,11 @@ class DisruptEngine:
         """[n_sets] leftover totals from kernel B (its plain version on the
         CPU); the [S, C] leftover stays on the device for the replacement
         passes."""
-        leftover, _ = kernel.disrupt_repack(*kernel.repack_from_numpy(
-            enc.headroom, enc.feas, enc.req, enc.member, enc.excl, self.device))
+        ops = kernel.repack_from_numpy(
+            enc.headroom, enc.feas, enc.req, enc.member, enc.excl, self.device)
+        leftover, _ = kernel.disrupt_repack(*ops)
+        metrics.SOLVER_KERNEL_DISPATCHES.inc(
+            entry="disrupt_repack", impl="cuda" if ops[0].is_cuda else "plain")
         self._leftover = leftover
         return leftover.sum(dim=1).cpu().numpy()
 

@@ -35,14 +35,22 @@ The catalog is staged on the device once per catalog list. Each tick
 fetches one fused buffer; the dense refetch runs only when the sparse
 take overflows its budget.
 
-Unlike the JAX package, a failure of the bound's or the relaxation's
-device work raises: the port has no metrics or failpoints yet to count
-a quiet fallback. The convex tier's decision rungs (rounding returns
-None, a tie, a dearer candidate, more pods left behind) keep the FFD
-placement, as there.
+Degrade rungs, as TPUSolver's (`_dispatch_convex`, `_finish_convex`,
+`_begin_quality`, `_finish_quality`): a failure of the relaxation's
+dispatch or fetch makes the tick the FFD tick bit for bit
+(`karpenter_convex_fallbacks_total{reason="dispatch"}`); a rounding
+exception or a rounding that returns None leaves `choose` the FFD
+placement (`{reason="rounding"}`); a failure of the observe-only bound
+costs the tick its quality document only
+(`karpenter_handled_errors_total{site="solver.quality_dispatch"|
+"solver.quality_finish"}`). Each rung counts and logs once per change
+of its exception type; `failpoints.OperatorCrashed`, a BaseException,
+escapes every one. The failpoint sites `solver.solve_begin`,
+`solver.solve_finish`, `rpc.convex.dispatch` and `convex.rounding`
+(solver/convex/rounding.py) drill them; the tick's spans carry the JAX
+package's names (tracing.py).
 
-Not here (later slices): the wire sidecar, the mesh, AOT, metrics and
-tracing.
+Not here (later slices): the wire sidecar, the mesh and AOT.
 """
 from __future__ import annotations
 
@@ -52,12 +60,14 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import failpoints, metrics, tracing
 from karpenter_tpu_torch.apis import NodePool, Pod, labels as wk
+from karpenter_tpu_torch.logging import ChangeMonitor, get_logger
 from karpenter_tpu_torch.scheduling import (
     Operator, Requirement, Requirements, Resources, tolerates_all,
 )
 from karpenter_tpu_torch.scheduling import resources as res
-from karpenter_tpu_torch.obs import quality
+from karpenter_tpu_torch.obs import hbm, quality
 from karpenter_tpu_torch.solver import bound, encode, ffd, multipool, spread
 from karpenter_tpu_torch.solver.convex import relax, rounding
 from karpenter_tpu_torch.solver.convex import tier as convex_tier
@@ -83,6 +93,12 @@ def resolve_device(device=None) -> torch.device:
                 "pass device='cpu' to run the plain torch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def _impl(t: torch.Tensor) -> str:
+    """The SOLVER_KERNEL_DISPATCHES impl of a kernel call on `t`: a CUDA
+    tensor launches the kernel, a CPU tensor runs its plain version."""
+    return "cuda" if t.is_cuda else "plain"
 
 
 def _spread_keys(classes) -> set:
@@ -140,6 +156,8 @@ class _PendingSolve:
 
 
 class TorchSolver:
+    log = get_logger("solver")
+
     def __init__(self, g_max: int = 1024, objective: str = "price", device=None,
                  incremental: bool = True, tier: str = "ffd"):
         if objective not in ("price", "fit"):
@@ -178,6 +196,14 @@ class TorchSolver:
         # merged multi-pool catalog lists, keyed by (per-pool catalog ids,
         # per-pool requirement hashes, overheads, taints); bounded
         self._merged_cache: Dict[tuple, tuple] = {}
+        # device-memory attribution (obs/hbm.py): bytes of the last
+        # solve's input tensors and of its open/join masks (packed, and
+        # the full-width bool form they stand for)
+        self._last_solve_bytes = 0
+        self._last_mask_bytes = 0
+        self._last_mask_full_bytes = 0
+        # degrade rungs log once per change (logging.ChangeMonitor)
+        self._route_monitor = ChangeMonitor()
         self._lock = threading.Lock()
 
     # -- catalog staging ----------------------------------------------------
@@ -189,22 +215,58 @@ class TorchSolver:
         key = id(instance_types)
         with self._lock:
             entry = self._catalog_cache.pop(key, None)
-            if entry is None or entry.catalog_list is not instance_types:
-                tensors = encode.encode_catalog(instance_types)
-                staged, offsets, words = ffd.stage_catalog(tensors, self.device)
-                # decode acceleration: type objects pre-sorted by cheapest
-                # price so a group's survivors are one boolean fancy-index
-                prices = np.array([it.cheapest_price() for it in instance_types])
-                order = np.argsort(prices, kind="stable")
-                entry = _CatalogEntry(
-                    tensors=tensors, staged=staged, offsets=offsets, words=words,
-                    types_by_price=np.array(list(instance_types), dtype=object)[order],
-                    order=order, catalog_list=instance_types, row_cache={},
-                )
-            self._catalog_cache[key] = entry   # LRU touch
+            if entry is not None and entry.catalog_list is instance_types:
+                self._catalog_cache[key] = entry   # LRU touch
+                return entry
+            tensors = encode.encode_catalog(instance_types)
+            staged, offsets, words = ffd.stage_catalog(tensors, self.device)
+            # decode acceleration: type objects pre-sorted by cheapest
+            # price so a group's survivors are one boolean fancy-index
+            prices = np.array([it.cheapest_price() for it in instance_types])
+            order = np.argsort(prices, kind="stable")
+            entry = _CatalogEntry(
+                tensors=tensors, staged=staged, offsets=offsets, words=words,
+                types_by_price=np.array(list(instance_types), dtype=object)[order],
+                order=order, catalog_list=instance_types, row_cache={},
+            )
+            self._catalog_cache[key] = entry
             while len(self._catalog_cache) > self._catalog_cache_cap:
                 self._catalog_cache.pop(next(iter(self._catalog_cache)))
+            # memory-pressure eviction (obs/hbm.py): with the card's
+            # headroom below the evict threshold, shrink to the entry just
+            # staged; dropping the references frees its device tensors.
+            # No ledger (the CPU, or CUDA not initialized) = capacity only
+            if len(self._catalog_cache) > 1 and hbm.under_pressure():
+                while len(self._catalog_cache) > 1:
+                    self._catalog_cache.pop(next(iter(self._catalog_cache)))
+                    metrics.SOLVER_STAGED_PRESSURE_EVICTIONS.inc(kind="catalog")
             return entry
+
+    def staged_bytes_by_kind(self) -> Dict[str, int]:
+        """Staged tensor bytes by owner (TPUSolver.staged_bytes_by_kind):
+        ``catalog`` = every LRU entry's host encoding and device-staged
+        tensors, ``class_masks`` / ``class_masks_full_equiv`` = the last
+        solve's open/join masks as staged (packed) and in full-width
+        bool, ``solve_temporaries`` = the last solve's input tensors.
+        Metadata reads only (nbytes), mirrored into
+        karpenter_solver_staged_bytes{kind}."""
+        with self._lock:
+            entries = list(self._catalog_cache.values())
+            temporaries = self._last_solve_bytes
+            mask_bytes = self._last_mask_bytes
+            mask_full = self._last_mask_full_bytes
+        catalog = sum(hbm.sum_nbytes(e.tensors) + hbm.sum_nbytes(e.staged) for e in entries)
+        metrics.SOLVER_STAGED_BYTES.set(float(catalog), kind="catalog")
+        metrics.SOLVER_STAGED_BYTES.set(float(mask_bytes), kind="class_masks")
+        metrics.SOLVER_STAGED_BYTES.set(float(temporaries), kind="solve_temporaries")
+        metrics.SOLVER_PACKED_MASK_BYTES.set(float(mask_bytes), form="packed")
+        metrics.SOLVER_PACKED_MASK_BYTES.set(float(mask_full), form="full_equiv")
+        return {
+            "catalog": int(catalog),
+            "class_masks": int(mask_bytes),
+            "class_masks_full_equiv": int(mask_full),
+            "solve_temporaries": int(temporaries),
+        }
 
     # -- routing ------------------------------------------------------------
     @staticmethod
@@ -440,7 +502,15 @@ class TorchSolver:
         if not self.incremental:
             return encode.group_pods(pods)
         classes = self._grouper.group(pods)
-        self.last_group_stats = self._grouper.last_stats
+        st = self._grouper.last_stats
+        self.last_group_stats = st
+        if not st.get("full_rebuild"):
+            metrics.DELTA_DIRTY_FRACTION.observe(st["dirty_fraction"])
+        tracing.annotate(
+            group_classes=st["classes"],
+            group_dirty=st["dirty_classes"],
+            group_dirty_fraction=round(st["dirty_fraction"], 4),
+        )
         return classes
 
     # -- entry point (Provisioner contract) ---------------------------------
@@ -739,6 +809,9 @@ class TorchSolver:
         classes: Optional[List] = None,
         daemon_overhead: Optional[Resources] = None,
     ) -> _PendingSolve:
+        # chaos site for the dispatch half of the tick (latency = a slow
+        # host stage; error = a dispatch-time crash)
+        failpoints.eval("solver.solve_begin")
         pool_reqs = pool.requirements()
         # per-fresh-node daemonset reserve, scaled to the solver's exact
         # small-int float32 vector; None/zero = no reserve
@@ -785,8 +858,9 @@ class TorchSolver:
             or spread.soft_zone_tsc(pc.pods[0]) is not None
             for pc in classes
         ):
-            classes = self._split_spread(
-                pool, instance_types, classes, zones, spread_seeds, overhead_vec, result)
+            with tracing.span("spread"):
+                classes = self._split_spread(
+                    pool, instance_types, classes, zones, spread_seeds, overhead_vec, result)
             if not classes:
                 return _PendingSolve(done=result)
 
@@ -794,7 +868,8 @@ class TorchSolver:
         # the oracle tries existing nodes before opening groups
         placed_existing = np.zeros((len(classes),), dtype=np.int64)
         if existing_nodes:
-            placed_existing = self._pack_existing(classes, existing_nodes, result)
+            with tracing.span("pack_existing", nodes=len(existing_nodes)):
+                placed_existing = self._pack_existing(classes, existing_nodes, result)
         remaining = int(sum(len(pc.pods) for pc in classes) - placed_existing.sum())
         if remaining == 0:
             return _PendingSolve(done=result)
@@ -805,11 +880,10 @@ class TorchSolver:
             return _PendingSolve(done=result)
 
         # phase 2 (device): batched FFD over the leftovers
-        entry = self._catalog(instance_types)
-        class_set = self._encode(pool, entry, classes, placed_existing, overhead_vec)
-        # the open/join masks travel bit-packed (the form kernel A reads)
-        inp = ffd.make_inputs_staged(entry.staged, class_set, packed_masks=True)
-        nnz_max = ffd.nnz_budget(class_set.c_pad, self.g_max)
+        with tracing.span("encode", classes=len(classes)) as enc_sp:
+            entry = self._catalog(instance_types)
+            class_set = self._encode(pool, entry, classes, placed_existing, overhead_vec)
+            enc_sp.set(c_pad=class_set.c_pad)
         pending = _PendingSolve()
         pending.pool = pool
         pending.entry = entry
@@ -817,31 +891,96 @@ class TorchSolver:
         pending.result = result
         pending.placed_existing = placed_existing
         pending.nodepool_usage = nodepool_usage
+        with tracing.span("dispatch_device"):
+            # the open/join masks travel bit-packed (the form kernel A reads)
+            inp = ffd.make_inputs_staged(entry.staged, class_set, packed_masks=True)
+            nnz_max = ffd.nnz_budget(class_set.c_pad, self.g_max)
+            # attribution: nbytes is tensor metadata, not a sync
+            self._last_solve_bytes = hbm.sum_nbytes(inp)
+            self._last_mask_bytes = inp.open_allowed.nbytes + inp.join_allowed.nbytes
+            self._last_mask_full_bytes = 2 * class_set.c_pad * entry.tensors.k_pad
+            pending.buf = self._dispatch_fused(inp, nnz_max, entry.offsets, entry.words)
+            # convex tier: the LP relaxation, enqueued right behind the FFD
+            # solve so the two are in flight together
+            pending.cx = self._dispatch_convex(inp, entry.offsets, entry.words)
         pending.inp = inp
         pending.nnz_max = nnz_max
-        pending.buf = ffd.ffd_solve_fused(
-            inp, g_max=self.g_max, nnz_max=nnz_max, word_offsets=entry.offsets,
-            words=entry.words, objective=self.objective,
-        )
-        if self.tier == "convex":
-            # the LP relaxation, enqueued right behind the FFD solve so the
-            # two are in flight together
-            pending.cx = relax.convex_relax(
-                inp, iters=relax.DEFAULT_ITERS, word_offsets=entry.offsets, words=entry.words)
         return pending
 
+    def _dispatch_fused(self, inp: ffd.SolveInputs, nnz_max: int, offsets, words) -> torch.Tensor:
+        """The fused FFD solve (prologue, kernel A, epilogue), counted by
+        the implementation that runs."""
+        buf = ffd.ffd_solve_fused(
+            inp, g_max=self.g_max, nnz_max=nnz_max, word_offsets=offsets,
+            words=words, objective=self.objective,
+        )
+        metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="ffd_solve_fused", impl=_impl(inp.req))
+        return buf
+
     # -- the convex tier and the quality bound --------------------------------
-    def _finish_convex(self, pending: _PendingSolve, dense_ffd) -> Tuple[tuple, float]:
+    def _dispatch_convex(self, inp: ffd.SolveInputs, offsets, words) -> Optional[relax.RelaxOutputs]:
+        """The LP relaxation for the convex tier, enqueued right behind the
+        fused FFD solve; None on the FFD tier and on any dispatch failure
+        -- the tick then IS the FFD tick, bit for bit (the dispatch rung)."""
+        if self.tier != "convex":
+            return None
+        try:
+            # chaos site: a dispatch fault must cost the tick ONLY the
+            # convex candidate
+            failpoints.eval("rpc.convex.dispatch")
+            with tracing.span("dispatch_convex"):
+                return relax.convex_relax(
+                    inp, iters=relax.DEFAULT_ITERS, word_offsets=offsets, words=words)
+        except Exception as e:  # noqa: BLE001 -- counted; the FFD rung owns
+            # the tick (OperatorCrashed is a BaseException and flies)
+            metrics.CONVEX_FALLBACKS.inc(reason="dispatch")
+            if self._route_monitor.has_changed("convex_dispatch", type(e).__name__):
+                self.log.warning(
+                    "convex relaxation dispatch failed; tick stays on FFD",
+                    error=f"{type(e).__name__}: {e}"[:200],
+                )
+            return None
+
+    def _finish_convex(self, pending: _PendingSolve, dense_ffd) -> Tuple[tuple, Optional[float]]:
         """Fetch the relaxation, round it, and judge the never-worse
         differential against the FFD decision. Returns (chosen dense
-        tuple, the relaxation's certified lower bound)."""
+        tuple, the relaxation's certified lower bound or None). A failed
+        fetch keeps the FFD tuple; a rounding exception or None leaves
+        `choose` the FFD tuple; the lower bound still tightens the gap
+        whenever the fetch succeeded."""
         entry, class_set = pending.entry, pending.class_set
-        x, lower, trace = relax.fetch_relax(pending.cx)
-        dense_cx = rounding.round_solution(x, entry.tensors, class_set, g_max=self.g_max)
+        try:
+            with tracing.span("convex_fetch"):
+                x, lower, trace = relax.fetch_relax(pending.cx)
+        except Exception as e:  # noqa: BLE001 -- counted; the FFD rung
+            metrics.CONVEX_FALLBACKS.inc(reason="dispatch")
+            if self._route_monitor.has_changed("convex_fetch", type(e).__name__):
+                self.log.warning(
+                    "convex relaxation fetch failed; tick stays on FFD",
+                    error=f"{type(e).__name__}: {e}"[:200],
+                )
+            return dense_ffd, None
+        try:
+            with tracing.span("convex_round"):
+                dense_cx = rounding.round_solution(x, entry.tensors, class_set, g_max=self.g_max)
+        except Exception as e:  # noqa: BLE001 -- counted below; the FFD rung
+            # (the convex.rounding chaos site raises through here)
+            dense_cx = None
+            if self._route_monitor.has_changed("convex_round", type(e).__name__):
+                self.log.warning(
+                    "convex rounding failed; tick stays on FFD",
+                    error=f"{type(e).__name__}: {e}"[:200],
+                )
+        if dense_cx is None:
+            metrics.CONVEX_FALLBACKS.inc(reason="rounding")
         winner, dense, p_ffd, p_cx = convex_tier.choose(dense_ffd, dense_cx, entry.tensors.price)
+        iters = relax.iterations_to_convergence(trace)
+        metrics.CONVEX_SOLVES.inc(winner=winner)
+        metrics.CONVEX_ITERATIONS.set(iters)
+        tracing.annotate(convex_winner=winner)
         self.last_convex = {
             "winner": winner, "price_ffd": p_ffd, "price_convex": p_cx,
-            "lower": lower, "iterations": relax.iterations_to_convergence(trace),
+            "lower": lower, "iterations": iters,
         }
         return dense, lower
 
@@ -851,24 +990,48 @@ class TorchSolver:
         placed_t = torch.from_numpy(placed).to(inp.req.device)
         return bound.fractional_price_bound(inp, placed_t, word_offsets=offsets, words=words)
 
-    def _begin_quality(self, pending: _PendingSolve, dense) -> torch.Tensor:
+    def _begin_quality(self, pending: _PendingSolve, dense) -> Optional[torch.Tensor]:
         """Enqueue the bound for the decision just chosen, before decode,
         so the device computes it while the host decodes. `placed` is the
         take-row sum: the pods the solve placed on new groups (billing
-        requested counts would break gap >= 1 when pods go unplaced)."""
-        placed = np.asarray(dense[0]).sum(axis=1).astype(np.float32)
-        return self._dispatch_bound(pending.inp, placed, pending.entry.offsets, pending.entry.words)
+        requested counts would break gap >= 1 when pods go unplaced).
+        Observe-only: a failure is counted and the tick goes on."""
+        try:
+            placed = np.asarray(dense[0]).sum(axis=1).astype(np.float32)
+            return self._dispatch_bound(
+                pending.inp, placed, pending.entry.offsets, pending.entry.words)
+        except Exception as e:  # noqa: BLE001 -- quality must never fail a tick
+            metrics.HANDLED_ERRORS.inc(site="solver.quality_dispatch")
+            if self._route_monitor.has_changed("quality_dispatch", type(e).__name__):
+                self.log.warning(
+                    "quality bound dispatch failed; tick goes on without it",
+                    error=f"{type(e).__name__}: {e}"[:200],
+                )
+            return None
 
-    def _finish_quality(self, result: SchedulingResult, totals: torch.Tensor,
+    def _finish_quality(self, result: SchedulingResult, totals: Optional[torch.Tensor],
                         lb_convex: Optional[float] = None) -> None:
         """Fetch the bound after decode and publish last_quality. The
         convex tier's certified lower bound often tightens the fractional
         bound but is not pointwise dominant, so the gap's denominator is
-        the max of the two."""
-        bound_h, r_star = bound.fetch_bound(totals)
-        if lb_convex is not None:
-            bound_h = max(bound_h, lb_convex)
-        self.last_quality = quality.solve_quality(result, bound_h, r_star)
+        the max of the two, and the tighten ratio is published either
+        way. Observe-only: never raises into the tick."""
+        try:
+            bound_h, r_star = bound.fetch_bound(totals) if totals is not None else (None, None)
+            if lb_convex is not None and lb_convex > 0.0:
+                if bound_h is not None and bound_h > 0.0:
+                    metrics.CONVEX_TIGHTEN.set(lb_convex / bound_h)
+                    bound_h = max(bound_h, lb_convex)
+                else:
+                    bound_h = lb_convex
+            self.last_quality = quality.solve_quality(result, bound_h, r_star)
+        except Exception as e:  # noqa: BLE001 -- quality must never fail a tick
+            metrics.HANDLED_ERRORS.inc(site="solver.quality_finish")
+            if self._route_monitor.has_changed("quality_finish", type(e).__name__):
+                self.log.warning(
+                    "quality bound fetch failed; tick goes on without it",
+                    error=f"{type(e).__name__}: {e}"[:200],
+                )
 
     def _split_spread(self, pool, instance_types, classes, zones, spread_seeds,
                       overhead_vec, result: SchedulingResult) -> list:
@@ -966,26 +1129,34 @@ class TorchSolver:
         dispatch, decode, then the bound's fetch and last_quality."""
         if pending.done is not None:
             return pending.done
+        # chaos site for the barrier half (latency = a slow claim)
+        failpoints.eval("solver.solve_finish")
         entry, class_set = pending.entry, pending.class_set
+        with tracing.span("device"):
+            # THE host barrier of the tick (sync_witness SANCTIONED_FETCH)
+            host_buf = ffd.fetch_fused(pending.buf)
         dense = ffd.expand_fused(
-            ffd.fetch_fused(pending.buf), class_set.c_pad, self.g_max,
+            host_buf, class_set.c_pad, self.g_max,
             entry.tensors.k_pad, encode.Z_PAD, encode.CT, pending.nnz_max,
         )
         if dense is None:
-            dense = ffd.solve_dense_tuple(
-                pending.inp, g_max=self.g_max, word_offsets=entry.offsets,
-                words=entry.words, objective=self.objective,
-            )
+            # sparse budget overflow: refetch the dense decision
+            with tracing.span("device", refetch="dense"):
+                dense = ffd.solve_dense_tuple(
+                    pending.inp, g_max=self.g_max, word_offsets=entry.offsets,
+                    words=entry.words, objective=self.objective,
+                )
         # convex tier: round and judge before decode, so the decoded
         # groups are the chosen placement (and the bound bills its takes)
         cx_lower = None
         if pending.cx is not None:
             dense, cx_lower = self._finish_convex(pending, dense)
         qtotals = self._begin_quality(pending, dense)
-        out = self._decode(
-            pending.pool, entry, class_set, dense, pending.nodepool_usage,
-            result=pending.result, class_offset=pending.placed_existing,
-        )
+        with tracing.span("decode"):
+            out = self._decode(
+                pending.pool, entry, class_set, dense, pending.nodepool_usage,
+                result=pending.result, class_offset=pending.placed_existing,
+            )
         self._finish_quality(out, qtotals, lb_convex=cx_lower)
         return out
 
@@ -1012,7 +1183,9 @@ class TorchSolver:
     def _pack_existing(self, classes, existing_nodes, result: SchedulingResult) -> np.ndarray:
         """First-fit pods onto live/in-flight nodes with kernel B; fills
         result.existing_assignments and returns per-class placed counts."""
-        _, takes = disrupt_kernel.disrupt_repack(*self._repack_operands(classes, existing_nodes))
+        ops = self._repack_operands(classes, existing_nodes)
+        _, takes = disrupt_kernel.disrupt_repack(*ops)
+        metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="disrupt_repack", impl=_impl(ops[0]))
         takes = takes[0].cpu().numpy()                     # [C, N]
         placed = np.zeros((len(classes),), dtype=np.int64)
         for c, pc in enumerate(classes):

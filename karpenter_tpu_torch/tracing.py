@@ -1,0 +1,332 @@
+"""Tick tracing: span trees and the slow-tick flight recorder.
+
+Copy of karpenter_tpu/tracing.py without its wire half: ``Span``,
+``Tracer`` (with the thread-local current span, tail-biased sampling and
+per-span-name stats), ``trace``/``span``/``annotate`` and the slow-tick
+``FlightRecorder``. Left out until the port has a sidecar: ``WireTrace``
+and the tracer's ``inject``/``graft`` trace-context propagation; and
+until it has an operator: the brownout throttle, the launch fan-out's
+``attach`` and the ``/debug/traces`` dump.
+
+TorchSolver, the incremental grouper and DisruptEngine open spans at the
+JAX package's call sites and under its names -- ``spread``,
+``pack_existing``, ``encode``, ``dispatch_device``, ``dispatch_convex``,
+``device``, ``convex_fetch``, ``convex_round``, ``decode`` -- so a tick's
+tree reads the same in both packages and the flight recorder
+(obs/flight.py) keys the same stages.
+
+Zero-cost-when-disabled: ``span()``/``trace()`` return a shared no-op
+singleton after one attribute check; nothing allocates, nothing locks.
+The clock is injectable for tests.
+"""
+from __future__ import annotations
+
+import itertools
+import random
+import threading
+import time
+import uuid
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+
+class Span:
+    """One timed operation in a trace tree. Use as a context manager; the
+    tree is linked at start (parent.children), timed at exit. Attributes
+    set via `set(**attrs)` become JSON fields in dumps."""
+
+    __slots__ = (
+        "name", "trace_id", "span_id", "parent_id", "start", "end",
+        "attributes", "children", "sampled", "_tracer", "_prev",
+    )
+
+    def __init__(self, name: str, trace_id: str, span_id: str,
+                 parent_id: Optional[str], start: float, tracer: "Tracer",
+                 sampled: bool = True):
+        self.name = name
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.start = start
+        self.end: Optional[float] = None
+        self.attributes: Dict[str, Any] = {}
+        self.children: List[Span] = []
+        # sampled-out trees still BUILD (so the flight recorder can catch
+        # a slow tick regardless of the sample rate) but do not feed the
+        # per-span stats/metrics volume -- see Tracer.trace()
+        self.sampled = sampled
+        self._tracer = tracer
+        self._prev: Optional[Span] = None
+
+    def set(self, **attrs) -> "Span":
+        self.attributes.update(attrs)
+        return self
+
+    @property
+    def duration_s(self) -> float:
+        return ((self.end if self.end is not None else self._tracer._clock())
+                - self.start)
+
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc is not None:
+            self.attributes["error"] = f"{type(exc).__name__}: {exc}"[:200]
+        self._tracer._finish(self)
+
+    def to_dict(self, t0: Optional[float] = None) -> dict:
+        """JSON-ready tree, times in ms relative to the root's start."""
+        if t0 is None:
+            t0 = self.start
+        end = self.end if self.end is not None else self.start
+        return {
+            "name": self.name,
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "start_ms": round((self.start - t0) * 1e3, 3),
+            "duration_ms": round((end - self.start) * 1e3, 3),
+            "attributes": self.attributes,
+            "children": [c.to_dict(t0) for c in self.children],
+        }
+
+
+class _NoopSpan:
+    """Shared do-nothing span: the disabled/unsampled path allocates
+    nothing and every method is a constant-time no-op."""
+
+    __slots__ = ()
+    name = ""
+    attributes: Dict[str, Any] = {}
+    duration_s = 0.0
+
+    def set(self, **attrs) -> "_NoopSpan":
+        return self
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
+
+    def to_dict(self, t0=None) -> dict:
+        return {}
+
+
+NOOP = _NoopSpan()
+
+
+class FlightRecorder:
+    """Ring buffer of the last `capacity` complete span trees whose root
+    exceeded `slow_ms` -- plus ALWAYS the worst-ever tree, threshold or
+    not. Trees are serialized to dicts at record time so a concurrent
+    dump never reads a mutating tree."""
+
+    def __init__(self, capacity: int = 32, slow_ms: float = 1000.0):
+        self.capacity = capacity
+        self.slow_ms = slow_ms
+        self._lock = threading.Lock()
+        self._slow: deque = deque(maxlen=capacity)
+        self._worst: Optional[dict] = None
+        self._worst_ms = -1.0
+
+    def record(self, root: Span) -> None:
+        dur_ms = root.duration_s * 1e3
+        slow = dur_ms >= self.slow_ms
+        if not slow and dur_ms <= self._worst_ms:
+            return  # fast tick, not a new worst: nothing to serialize
+        doc = root.to_dict()
+        with self._lock:
+            if dur_ms > self._worst_ms:
+                self._worst, self._worst_ms = doc, dur_ms
+            if slow:
+                self._slow.append(doc)
+                from karpenter_tpu_torch import metrics
+
+                metrics.TRACE_SLOW_TICKS.inc()
+
+    def dump(self) -> dict:
+        with self._lock:
+            return {
+                "threshold_ms": self.slow_ms,
+                "capacity": self.capacity,
+                "worst": self._worst,
+                "slow": list(self._slow),
+            }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._slow.clear()
+            self._worst, self._worst_ms = None, -1.0
+
+
+class Tracer:
+    """Process-wide tracer (the module-level TRACER is the analogue of
+    metrics.REGISTRY). `trace()` starts a root (sampling decided here);
+    `span()` attaches a child to the thread-local current span and is a
+    no-op when no trace is active -- so library code can instrument
+    unconditionally and only pays when a root sampled in."""
+
+    def __init__(self, enabled: bool = False, sample: float = 1.0,
+                 clock=time.monotonic, rng=random.random,
+                 slow_ms: float = 1000.0, capacity: int = 32):
+        self.enabled = enabled
+        self.sample = sample
+        self._clock = clock
+        self._rng = rng
+        self.recorder = FlightRecorder(capacity=capacity, slow_ms=slow_ms)
+        self._local = threading.local()
+        # per-process random prefix: span ids must not collide across the
+        # controller and sidecar processes when grafted into one tree
+        self._id_prefix = uuid.uuid4().hex[:8]
+        self._ids = itertools.count(1)
+        # per-span-name duration samples (seconds), bounded like the
+        # metrics Histogram reservoir
+        self._stats: Dict[str, List[float]] = {}
+        self._stats_lock = threading.Lock()
+
+    # -- configuration -------------------------------------------------------
+    def configure(self, enabled: Optional[bool] = None,
+                  sample: Optional[float] = None,
+                  slow_ms: Optional[float] = None,
+                  capacity: Optional[int] = None,
+                  clock=None, rng=None) -> "Tracer":
+        if enabled is not None:
+            self.enabled = enabled
+        if sample is not None:
+            self.sample = sample
+        if slow_ms is not None:
+            self.recorder.slow_ms = slow_ms
+        if capacity is not None:
+            self.recorder.capacity = capacity
+            with self.recorder._lock:
+                self.recorder._slow = deque(
+                    self.recorder._slow, maxlen=capacity
+                )
+        if clock is not None:
+            self._clock = clock
+        if rng is not None:
+            self._rng = rng
+        return self
+
+    def reset(self) -> None:
+        """Drop stats + recorder state (tests, measurement segments)."""
+        with self._stats_lock:
+            self._stats.clear()
+        self.recorder.clear()
+        self._local.cur = None
+
+    # -- span creation -------------------------------------------------------
+    def current(self) -> Optional[Span]:
+        return getattr(self._local, "cur", None)
+
+    def trace(self, name: str, force: bool = False, **attrs):
+        """Start a ROOT span (or a child, when a trace is already active
+        on this thread). Sampling is TAIL-BIASED: with tracing enabled
+        the tree always builds (measured ~0.1 ms per full tick tree, so a
+        slow tick is NEVER invisible to the flight recorder -- head-based
+        sampling would miss 1-sample of them), and the sample rate gates
+        only the per-span stats/metrics volume. Disabled tracing returns
+        the no-op singleton and costs one attribute check."""
+        cur = getattr(self._local, "cur", None)
+        if cur is not None:
+            return self._start(name, cur, attrs)
+        if not (force or self.enabled):
+            return NOOP
+        return self._start(
+            name, None, attrs, sampled=force or self._rng() < self.sample
+        )
+
+    def span(self, name: str, **attrs):
+        """A child of the thread-local current span; no-op outside any
+        active trace (the zero-cost-when-disabled path: one getattr)."""
+        cur = getattr(self._local, "cur", None)
+        if cur is None:
+            return NOOP
+        return self._start(name, cur, attrs)
+
+    def annotate(self, **attrs) -> None:
+        """Set attributes on the current span, if any (used by fallback
+        ladders to stamp the reason on the span already covering them)."""
+        cur = getattr(self._local, "cur", None)
+        if cur is not None:
+            cur.attributes.update(attrs)
+
+    def _start(self, name: str, parent: Optional[Span], attrs: dict,
+               sampled: Optional[bool] = None) -> Span:
+        sid = f"{self._id_prefix}-{next(self._ids):x}"
+        if parent is None:
+            trace_id, parent_id = sid, None
+        else:
+            trace_id, parent_id = parent.trace_id, parent.span_id
+        sp = Span(
+            name, trace_id, sid, parent_id, self._clock(), self,
+            sampled=parent.sampled if sampled is None else sampled,
+        )
+        if attrs:
+            sp.attributes.update(attrs)
+        if parent is not None:
+            parent.children.append(sp)
+        sp._prev = parent
+        self._local.cur = sp
+        return sp
+
+    def _finish(self, sp: Span) -> None:
+        sp.end = self._clock()
+        self._local.cur = sp._prev
+        if sp.sampled:
+            self._observe(sp.name, sp.end - sp.start)
+            from karpenter_tpu_torch import metrics
+
+            metrics.TRACE_SPANS.inc(name=sp.name)
+        # the recorder sees EVERY root, sampled or not: its own slow/worst
+        # thresholds decide retention, so a slow tick cannot hide behind
+        # an unlucky sample draw
+        if sp.parent_id is None:
+            self.recorder.record(sp)
+
+    # -- stats ---------------------------------------------------------------
+    def _observe(self, name: str, seconds: float) -> None:
+        with self._stats_lock:
+            samples = self._stats.setdefault(name, [])
+            samples.append(seconds)
+            if len(samples) > 4096:
+                del samples[: len(samples) // 2]
+
+    def stats(self) -> Dict[str, dict]:
+        """Per-span-name {p50_ms, p99_ms, count} over everything observed
+        since the last reset() -- a stage breakdown of the traced ticks."""
+        with self._stats_lock:
+            snapshot = {k: list(v) for k, v in self._stats.items()}
+        out: Dict[str, dict] = {}
+        for name, samples in snapshot.items():
+            samples.sort()
+            n = len(samples)
+
+            def q(p: float) -> float:
+                idx = min(n - 1, max(0, int(p / 100.0 * n + 0.999999) - 1))
+                return samples[idx] * 1e3
+
+            out[name] = {
+                "p50_ms": round(q(50), 3),
+                "p99_ms": round(q(99), 3),
+                "count": n,
+            }
+        return out
+
+
+# process-global tracer. Disabled until a caller (chip_smoke.py, a test)
+# configures it -- library imports must not start sampling on their own.
+TRACER = Tracer()
+
+
+def trace(name: str, force: bool = False, **attrs):
+    return TRACER.trace(name, force=force, **attrs)
+
+
+def span(name: str, **attrs):
+    return TRACER.span(name, **attrs)
+
+
+def annotate(**attrs) -> None:
+    TRACER.annotate(**attrs)

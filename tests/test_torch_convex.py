@@ -15,7 +15,16 @@
   iteration count exactly; `lower` (a float32 iterate) within 5e-5.
   Rounding reads `x` only to break ties between equal amortized prices,
   so the decision is exact although `x` is not.
+- The degrade rungs, drilled in both packages alike: `convex.rounding`
+  and `rpc.convex.dispatch` armed to raise, and rounding that returns
+  None. Each tick decides as the `tier="ffd"` tick (decision_sig) and as
+  `TPUSolver` under the same drill, `karpenter_convex_fallbacks_total`
+  moves by one in each package, the rung logs once per change of its
+  exception type, the next disarmed tick is convex again, and
+  `OperatorCrashed` escapes every rung.
 """
+import logging
+
 import numpy as np
 import pytest
 
@@ -23,6 +32,7 @@ import jax  # noqa: F401  -- both frameworks in one process; data crosses as num
 import torch
 
 import bench
+from karpenter_tpu import metrics as jmetrics
 from karpenter_tpu import seeding as jseeding
 from karpenter_tpu.apis import NodePool as JNodePool
 from karpenter_tpu.apis import Pod as JPod
@@ -33,6 +43,8 @@ from karpenter_tpu.solver.convex import relax as jrelax
 from karpenter_tpu.solver.convex import rounding as jrounding
 from karpenter_tpu.solver.convex import tier as jtier
 from karpenter_tpu.solver.service import TPUSolver
+from karpenter_tpu_torch import failpoints as tfailpoints
+from karpenter_tpu_torch import metrics as tmetrics
 from karpenter_tpu_torch import seeding as tseeding
 from karpenter_tpu_torch import workload
 from karpenter_tpu_torch.apis import NodePool as TNodePool
@@ -323,3 +335,89 @@ class TestTier:
             TorchSolver(device="cpu", tier="simplex")
         assert TorchSolver(device="cpu").tier == "ffd"
         assert TorchSolver(device="cpu", tier="convex").last_convex is None
+
+
+@pytest.fixture
+def drills(failpoints):
+    """(the JAX registry, the port's), both disarmed after the test."""
+    tfailpoints.FAILPOINTS.reset()
+    yield failpoints, tfailpoints.FAILPOINTS
+    tfailpoints.FAILPOINTS.reset()
+
+
+def fallbacks(reason):
+    return (tmetrics.CONVEX_FALLBACKS.value(reason=reason),
+            jmetrics.CONVEX_FALLBACKS.value(reason=reason))
+
+
+@pytest.fixture
+def solver_log():
+    """The warning records the port's solver logs (its logger does not
+    propagate to the root, so caplog does not see it)."""
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("karpenter.solver")
+    logger.addHandler(handler)
+    yield records
+    logger.removeHandler(handler)
+
+
+class TestRungs:
+    @pytest.mark.parametrize("site,reason", [("convex.rounding", "rounding"),
+                                             ("rpc.convex.dispatch", "dispatch")])
+    def test_failpoint_rung_is_the_ffd_tick(self, drills, site, reason):
+        before = fallbacks(reason)
+        for registry in drills:
+            registry.arm(site, "error", "RuntimeError", times=1)
+        jp, tp = world("adversarial")
+        js, ts = TPUSolver(g_max=G, tier="convex"), TorchSolver(device="cpu", g_max=G, tier="convex")
+        jr = js.solve(JNodePool("default"), catalog_items_cache["jax"], jp)
+        tr = ts.solve(TNodePool("default"), catalog_items_cache["torch"], tp)
+        assert [registry.fires(site) for registry in drills] == [1, 1]
+        _, _, _, fr, _ = solve_both("ffd", "adversarial")
+        assert decision_sig(tr) == decision_sig(fr) == decision_sig(jr)
+        assert [a - b for a, b in zip(fallbacks(reason), before)] == [1.0, 1.0]
+        if reason == "dispatch":
+            # the relaxation never ran: no differential to publish
+            assert ts.last_convex is None and js.last_convex is None
+        else:
+            assert_convex_equal(ts.last_convex, js.last_convex)
+            assert ts.last_convex["winner"] == "ffd" and ts.last_convex["price_convex"] == float("inf")
+        assert_quality_equal(ts.last_quality, js.last_quality)
+        # the next, disarmed tick is convex again, the counter flat
+        ts.solve(TNodePool("default"), catalog_items_cache["torch"], tp)
+        assert ts.last_convex["winner"] == "convex"
+        assert fallbacks(reason)[0] - before[0] == 1.0
+
+    def test_rounding_none_rung(self):
+        """A group budget rounding cannot meet: None, counted, FFD's placement."""
+        before = fallbacks("rounding")
+        js, ts, jr, tr, _ = solve_both("convex", "random-0", g_max=4)
+        _, _, _, fr, _ = solve_both("ffd", "random-0", g_max=4)
+        assert decision_sig(tr) == decision_sig(fr) == decision_sig(jr)
+        assert [a - b for a, b in zip(fallbacks("rounding"), before)] == [1.0, 1.0]
+        assert_convex_equal(ts.last_convex, js.last_convex)
+
+    def test_rungs_log_once_per_change(self, drills, solver_log):
+        ts = TorchSolver(device="cpu", g_max=G, tier="convex")
+        _, tp = world("adversarial")
+        for site, exc in (("convex.rounding", "RuntimeError"), ("convex.rounding", "RuntimeError"),
+                          ("convex.rounding", "ValueError"), ("rpc.convex.dispatch", "RuntimeError")):
+            drills[1].arm(site, "error", exc, times=1)
+            ts.solve(TNodePool("default"), catalog_items_cache["torch"], tp)
+            drills[1].reset()
+        msgs = [r.getMessage() for r in solver_log]
+        assert msgs == ["convex rounding failed; tick stays on FFD"] * 2 + [
+            "convex relaxation dispatch failed; tick stays on FFD"]
+        assert [r.error.split(":")[0] for r in solver_log] == ["RuntimeError", "ValueError",
+                                                               "RuntimeError"]
+
+    @pytest.mark.parametrize("site", ["convex.rounding", "rpc.convex.dispatch",
+                                      "solver.solve_begin", "solver.solve_finish"])
+    def test_operator_crashed_escapes(self, drills, site):
+        drills[1].arm(site, "crash")
+        ts = TorchSolver(device="cpu", g_max=G, tier="convex")
+        with pytest.raises(tfailpoints.OperatorCrashed):
+            ts.solve(TNodePool("default"), catalog_items_cache["torch"], world("adversarial")[1])
+        assert drills[1].fires(site) == 1

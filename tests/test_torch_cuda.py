@@ -425,3 +425,111 @@ class TestQualityAndConvexOnTheCard:
         np.testing.assert_allclose(gx, wx, atol=5e-5, rtol=0)
         np.testing.assert_allclose(gtrace, wtrace, atol=5e-5 * max(abs(wtrace).max(), 1.0), rtol=0)
         assert abs(glower - wlower) <= 5e-5 * max(wlower, 1.0)
+
+
+def adversarial(n=30):
+    from karpenter_tpu_torch.apis import Pod
+    from karpenter_tpu_torch.scheduling import Resources
+
+    shapes = (("1100m", "2200Mi"), ("700m", "1400Mi"), ("1700m", "3400Mi"))
+    return [Pod(f"adv{i}", requests=Resources({"cpu": shapes[i % 3][0], "memory": shapes[i % 3][1]}))
+            for i in range(n)]
+
+
+def decision(result):
+    return (sorted((tuple(sorted(p.metadata.name for p in g.pods)), g.instance_types[0].name)
+                   for g in result.new_groups),
+            sorted(result.existing_assignments.items()), sorted(result.unschedulable.items()))
+
+
+class TestObservabilityOnTheCard:
+    """The degrade rungs, the device-memory ledger, the profiler and the
+    dispatch counter with the kernels on the card."""
+
+    @pytest.mark.parametrize("drill", ["convex.rounding", "rpc.convex.dispatch", "bound"])
+    def test_drills_take_the_ffd_rung(self, cuda, items, drill, monkeypatch):
+        from karpenter_tpu_torch import failpoints, metrics
+        from karpenter_tpu_torch.solver import bound
+
+        pool, pods = NodePool("default"), adversarial()
+        ffd_tick = decision(TorchSolver(g_max=64).solve(pool, items, pods))
+        solver = TorchSolver(g_max=64, tier="convex" if drill != "bound" else "ffd")
+        if drill == "bound":
+            read = lambda: metrics.HANDLED_ERRORS.value(site="solver.quality_dispatch")  # noqa: E731
+
+            def broken(*a, **k):
+                raise RuntimeError("drill: the quality bound raises")
+
+            monkeypatch.setattr(bound, "fractional_price_bound", broken)
+        else:
+            reason = "rounding" if drill == "convex.rounding" else "dispatch"
+            read = lambda: metrics.CONVEX_FALLBACKS.value(reason=reason)  # noqa: E731
+            failpoints.FAILPOINTS.arm(drill, "error", "RuntimeError", times=1)
+        before = read()
+        try:
+            got = decision(solver.solve(pool, items, pods))
+        finally:
+            failpoints.FAILPOINTS.reset()
+            monkeypatch.undo()
+        assert got == ffd_tick and read() == before + 1
+        again = solver.solve(pool, items, pods)
+        assert read() == before + 1
+        if drill != "bound":
+            assert solver.last_convex["winner"] == "convex" and decision(again) != ffd_tick
+        else:
+            assert "optimality_gap" in solver.last_quality
+
+    def test_hbm_poll_is_torch_cuda(self, cuda, items):
+        from karpenter_tpu_torch.obs import hbm
+
+        solver = TorchSolver(g_max=64)
+        solver.solve(NodePool("default"), items, adversarial())
+        torch.cuda.synchronize()
+        snap = hbm.poll(max_age_s=0)
+        dev = snap["devices"]["cuda:0"]
+        assert dev["bytes_in_use"] == torch.cuda.memory_allocated(0) > 0
+        assert dev["peak_bytes"] >= torch.cuda.max_memory_allocated(0)
+        assert dev["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
+        assert snap["headroom_fraction"] == pytest.approx(1 - dev["bytes_in_use"] / dev["bytes_limit"])
+        assert solver.staged_bytes_by_kind()["catalog"] > 0
+
+    def test_profiler_capture_names_kernel_a(self, cuda, items, tmp_path):
+        import json
+
+        from karpenter_tpu_torch.obs import profiler
+
+        prof = profiler.ProfilerCapture()
+        solver = TorchSolver(g_max=64)
+        pods = workload.synth_pods(np.random.default_rng(2), workload.ZONES, 2_000, 2)
+        solver.solve(NodePool("default"), items, pods)
+        prof.request(2, out_dir=str(tmp_path))
+        for _ in range(2):
+            prof.on_tick_start()
+            solver.solve(NodePool("default"), items, pods)
+            prof.on_tick_end()
+        assert prof.describe()["captures"] == 1
+        with open(tmp_path / "capture-1" / profiler.TRACE_FILE) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        assert sum("ffd_scan_kernel" in name for name in kernels) == 2
+
+    def test_dispatch_counter_counts_the_card(self, cuda, items):
+        from karpenter_tpu_torch import metrics
+        from karpenter_tpu_torch.solver.disrupt import DisruptEngine
+
+        def counts():
+            return {(e, i): metrics.SOLVER_KERNEL_DISPATCHES.value(entry=e, impl=i)
+                    for e in ("ffd_solve_fused", "disrupt_repack") for i in ("cuda", "plain")}
+
+        solver = TorchSolver(g_max=128)
+        pods = workload.synth_pods(np.random.default_rng(5), workload.ZONES, 3_000, 5, 40)
+        before, a0, b0 = counts(), ffd_scan.launches, repack.launches
+        tick = solver.solve(NodePool("default"), items, pods)
+        spec = workload.rampdown_sweep_spec(tick, np.random.default_rng(11), n_cand=32)
+        nodes, sets = workload.sweep_world(spec)
+        DisruptEngine(solver=solver).evaluate(nodes, sets)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in counts().items()}
+        assert moved == {("ffd_solve_fused", "cuda"): 1, ("ffd_solve_fused", "plain"): 0,
+                         ("disrupt_repack", "cuda"): 1, ("disrupt_repack", "plain"): 0}
+        assert (ffd_scan.launches - a0, repack.launches - b0) == (1, 1)

@@ -59,7 +59,15 @@ class TestNoJaxImports:
                 "karpenter_tpu_torch/solver/convex/__init__.py",
                 "karpenter_tpu_torch/solver/convex/relax.py",
                 "karpenter_tpu_torch/solver/convex/rounding.py",
-                "karpenter_tpu_torch/solver/convex/tier.py"} <= rel
+                "karpenter_tpu_torch/solver/convex/tier.py",
+                "karpenter_tpu_torch/metrics.py",
+                "karpenter_tpu_torch/failpoints.py",
+                "karpenter_tpu_torch/tracing.py",
+                "karpenter_tpu_torch/logging.py",
+                "karpenter_tpu_torch/obs/hbm.py",
+                "karpenter_tpu_torch/obs/profiler.py",
+                "karpenter_tpu_torch/obs/flight.py",
+                "karpenter_tpu_torch/analysis/sync_witness.py"} <= rel
 
     @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
     def test_no_forbidden_import(self, path):
@@ -94,6 +102,34 @@ class TestNoJaxImports:
             "sys.exit(1 if bad else 0)\n"
         )
         env = dict(os.environ, PYTHONPATH=str(REPO))
+        r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert r.returncode == 0, r.stdout + r.stderr
+
+
+    def test_observability_modules_load_neither(self):
+        """metrics, failpoints (armed from the environment), tracing,
+        logging, the observatory and the sync witness, imported and used in
+        a fresh interpreter."""
+        code = (
+            "import sys\n"
+            "import karpenter_tpu_torch.metrics, karpenter_tpu_torch.tracing\n"
+            "import karpenter_tpu_torch.logging\n"
+            "from karpenter_tpu_torch import failpoints\n"
+            "from karpenter_tpu_torch.obs import flight, hbm, profiler, quality\n"
+            "from karpenter_tpu_torch.analysis import sync_witness\n"
+            "assert failpoints.FAILPOINTS.get('convex.rounding').times == 1\n"
+            "assert hbm.poll(max_age_s=0)['devices'] == {}\n"
+            "flight.record(flight.build_tick_record(None, 0.0))\n"
+            "with sync_witness.hot('x'):\n"
+            "    pass\n"
+            "print(karpenter_tpu_torch.metrics.REGISTRY.expose()[:0])\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
+            "print('LOADED', bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(REPO),
+                   KARPENTER_TPU_FAILPOINTS="convex.rounding=error(RuntimeError):times=1")
         r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                            capture_output=True, text=True, timeout=240)
         assert r.returncode == 0, r.stdout + r.stderr

@@ -15,7 +15,14 @@
   both to 6 decimals, so they are compared at rel=1e-6 with one unit of
   the 6th decimal allowed. Every other key is host arithmetic on an exact
   decode and must be equal.
-- `obs/quality.py`'s host helpers against the JAX module's.
+- `obs/quality.py`'s host helpers against the JAX module's, and its four
+  `karpenter_quality_*` gauges against the JAX module's after the same
+  solve.
+- The bound's degrade rung: a bound whose dispatch or fetch raises costs
+  the tick its certificate only. The decision is the unpatched tick's,
+  `karpenter_handled_errors_total{site="solver.quality_dispatch"|
+  "solver.quality_finish"}` moves by one in each package, and both publish
+  the same document without a gap.
 """
 import numpy as np
 import pytest
@@ -23,6 +30,7 @@ import pytest
 import jax  # noqa: F401  -- both frameworks in one process; data crosses as numpy
 import torch
 
+from karpenter_tpu import metrics as jmetrics
 from karpenter_tpu.apis import NodePool as JNodePool
 from karpenter_tpu.apis import Pod as JPod
 from karpenter_tpu.obs import quality as jquality
@@ -31,6 +39,7 @@ from karpenter_tpu.solver import bound as jbound
 from karpenter_tpu.solver import encode as jencode
 from karpenter_tpu.solver import ffd as jffd
 from karpenter_tpu.solver.service import TPUSolver
+from karpenter_tpu_torch import metrics as tmetrics
 from karpenter_tpu_torch import workload
 from karpenter_tpu_torch.apis import NodePool as TNodePool
 from karpenter_tpu_torch.apis import Pod as TPod
@@ -40,7 +49,7 @@ from karpenter_tpu_torch.solver import bound as tbound
 from karpenter_tpu_torch.solver.service import TorchSolver
 from tests.test_packing import _masked_inputs, catalog_items, churn_pods  # noqa: F401
 from tests.test_torch_catalog import (  # noqa: F401
-    jax_nodes, node_specs, port_items, port_nodes,
+    decision_sig, jax_nodes, node_specs, port_items, port_nodes,
 )
 from tests.test_torch_ffd import port_inputs
 from tests.test_torch_oracle import build, fuzz_spec, small_items  # noqa: F401
@@ -286,3 +295,52 @@ class TestQualityModule:
         dec = tquality.fleet_price_decomposition(live, lambda n: 1.0)
         assert sum(dec["price_by_pool"].values()) == len(live)
         assert dec["price_by_pool"] == {"default": float(len(live))}
+
+
+class TestGauges:
+    @pytest.mark.parametrize("seed", [0, 42])
+    def test_gauges_match_jax(self, catalog_items, port_items, seed):  # noqa: F811
+        jp, tp = both_pods(seed)
+        TPUSolver(g_max=G).solve(JNodePool("default"), catalog_items, jp)
+        gauges = lambda mod: (  # noqa: E731
+            mod.QUALITY_GAP.value(), mod.QUALITY_BOUND.value(),
+            mod.QUALITY_STRANDED.value(resource="cpu"),
+            mod.QUALITY_STRANDED.value(resource="memory"), mod.QUALITY_FRAGMENTATION.value())
+        want = gauges(jquality)
+        ts = TorchSolver(device="cpu", g_max=G)
+        ts.solve(TNodePool("default"), port_items, tp)
+        got = gauges(tquality)
+        assert got == pytest.approx(want, rel=1e-6, abs=1e-6)
+        assert got[0] == ts.last_quality["optimality_gap"]
+
+
+def handled(site):
+    return (tmetrics.HANDLED_ERRORS.value(site=site), jmetrics.HANDLED_ERRORS.value(site=site))
+
+
+class TestBoundRung:
+    @pytest.mark.parametrize("stage,site", [("fractional_price_bound", "solver.quality_dispatch"),
+                                            ("fetch_bound", "solver.quality_finish")])
+    def test_a_failing_bound_costs_only_the_certificate(
+            self, catalog_items, port_items, monkeypatch, stage, site):  # noqa: F811
+        jp, tp = both_pods(5)
+        clean = decision_sig(TorchSolver(device="cpu", g_max=G).solve(
+            TNodePool("default"), port_items, tp))
+
+        def broken(*a, **k):
+            raise RuntimeError("injected bound failure")
+
+        monkeypatch.setattr(tbound, stage, broken)
+        monkeypatch.setattr(jbound, stage, broken)
+        before = handled(site)
+        js, ts = TPUSolver(g_max=G), TorchSolver(device="cpu", g_max=G)
+        jr = js.solve(JNodePool("default"), catalog_items, jp)
+        tr = ts.solve(TNodePool("default"), port_items, tp)
+        assert decision_sig(tr) == decision_sig(jr) == clean
+        assert [a - b for a, b in zip(handled(site), before)] == [1.0, 1.0]
+        if stage == "fetch_bound":
+            # the finish rung drops the whole document, as TPUSolver does
+            assert ts.last_quality is None and js.last_quality is None
+        else:
+            assert_quality_equal(ts.last_quality, js.last_quality)
+            assert "optimality_gap" not in ts.last_quality
