@@ -71,6 +71,25 @@ one JSON line each:
               then three warm ticks with it stopped; the sync witness's
               sanctioned fetches and unsanctioned sites over warm ticks 1
               and 2 and a sweep
+  wire        the solver sidecar: `python -m karpenter_tpu_torch.
+              solver.rpc` started as a subprocess answers ping, then tick 1
+              and tick 2 through the port's SolverClient, equal to the
+              in-process ticks (bytes each way per tick, staged bytes, the
+              transport); a server thread in this script, over the shm
+              ring and over the socket: tick 1, tick 1 with 5 % of its pods
+              replaced (shipped as solve_delta), tick 2, the merged world
+              and a tainted merged world (the join_allowed feature check),
+              convex world (a), the spot / on-demand ramp-down sweep
+              through solve_disrupt -- each counted, each equal to the
+              in-process result (decisions, last_route, last_convex,
+              verdict reprs); ping round trips, wire against in-process
+              walls, the server's echoed device and fetch stages; no
+              breaker transition in the clean runs; then the breaker
+              drill: the subprocess killed, two ticks behind the failed
+              ladder (the second opens the breaker), one breaker-open
+              tick, each in process on the card and counted once; the
+              sidecar restarted, the probe promotes and the next tick
+              rides the wire
   kernels     each kernel against its plain torch version on the card, on
               the main path's own inputs (tick 1's scan; tick 2's scan,
               whose C=128 holds 63 padded rows; tick 2's repack; the
@@ -81,7 +100,8 @@ one JSON line each:
               open groups could join, all-zero-request classes whose int32
               prefix sums wrap, a C=256 world, kernel B at 64 candidate
               sets, and the layouts each kernel takes when shared memory is
-              short, run at shapes the others fit too; equality is exact
+              short, run at shapes the others fit too; the sidecar's own
+              calls in phase `wire`; equality is exact
   plain       the same ticks, worlds and sweeps with both kernels swapped
               for their plain versions: the decisions must be identical
   times       each kernel and its plain version at every main-path shape
@@ -106,9 +126,12 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
+import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -355,7 +378,7 @@ def main() -> int:
     from karpenter_tpu_torch.analysis import sync_witness
     from karpenter_tpu_torch.apis import NodePool, Pod, labels as wk
     from karpenter_tpu_torch.obs import flight, hbm, profiler
-    from karpenter_tpu_torch.scheduling import Requirement, Resources
+    from karpenter_tpu_torch.scheduling import Requirement, Resources, Taint
     from karpenter_tpu_torch.solver import bound as price_bound
     from karpenter_tpu_torch.solver import encode, ffd, packing
     from karpenter_tpu_torch.solver.convex import relax, rounding
@@ -1007,6 +1030,286 @@ def main() -> int:
     if sync["sanctioned_fetches"] < 1:
         raise AssertionError(f"the sync witness saw no sanctioned fetch: {sync}")
 
+    # -- wire: the solver sidecar ---------------------------------------------------
+    # the real entry point in a subprocess (tick 1, the byte and staging
+    # figures, the breaker drill) and a server thread inside this script
+    # (its launches counted here and its kernels' operands recorded), the
+    # latter over the shm ring and over the socket
+    from karpenter_tpu_torch.solver import rpc
+    from karpenter_tpu_torch.solver.breaker import CircuitBreaker
+
+    wire_dir = tempfile.mkdtemp(prefix="kt-")
+    sub_sock = os.path.join(wire_dir, "sub.sock")
+    sub_log = os.path.join(wire_dir, "sub.log")
+    procs = []
+
+    def start_sidecar():
+        log = open(sub_log, "ab")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "karpenter_tpu_torch.solver.rpc", "--socket", sub_sock,
+             "--device", DEVICE],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log, stderr=log)
+        log.close()
+        procs.append(proc)
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                with open(sub_log) as f:
+                    raise AssertionError(f"the sidecar exited {proc.returncode}: {f.read()[-2000:]}")
+            probe = rpc.SolverClient(path=sub_sock, timeout=5.0, connect_timeout=1.0, shm=False,
+                                     track_transport=False)
+            try:
+                if probe.ping():
+                    return proc, time.perf_counter() - t0
+            except OSError:
+                pass
+            finally:
+                probe.close()
+            if time.perf_counter() - t0 > 180:
+                raise AssertionError("the sidecar did not answer ping within 180 s")
+            time.sleep(0.2)
+
+    def ping_ms(client, n=50):
+        client.ping()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            client.ping()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def norm_convex(lc):
+        """last_convex on the keys both forms carry (a wire tick's also
+        has `fallback`; its price_convex is None where in process it is
+        inf)."""
+        pc = lc["price_convex"]
+        return {"winner": lc["winner"], "iterations": lc["iterations"],
+                "price_ffd": lc["price_ffd"],
+                "price_convex": math.inf if pc is None else pc, "lower": lc["lower"]}
+
+    def wire_counts():
+        return {"to_open": metrics.BREAKER_TRANSITIONS.value(to="open"),
+                "short_circuits": metrics.BREAKER_SHORT_CIRCUITS.value(),
+                "wire_down": metrics.HANDLED_ERRORS.value(site="solver.wire_down"),
+                "breaker_open": metrics.HANDLED_ERRORS.value(site="solver.breaker_open"),
+                "rpc_down": metrics.SOLVER_PIPELINE_FALLBACKS.value(reason="rpc-down")}
+
+    def wire_bytes():
+        return {f"{d}/{t}": metrics.WIRE_BYTES.value(direction=d, transport=t)
+                for d in ("sent", "received") for t in ("shm", "tcp")}
+
+    def server_stages(solver_w, fn):
+        """The server's echoed stages of one traced tick (the `device` and
+        `fetch` spans grafted under the client's `wire` span)."""
+        tracing.TRACER.configure(enabled=True, sample=1.0)
+        try:
+            with tracing.trace("tick") as root:
+                fn()
+        finally:
+            tracing.TRACER.configure(enabled=False)
+        wire_sp = [c for c in root.children if c.name == "wire"]
+        if not wire_sp:
+            raise AssertionError("no wire span in a wire tick")
+        return {g.name: g.attributes["server_dur_ms"] for g in wire_sp[0].children
+                if g.attributes.get("remote")}
+
+    clean0 = wire_counts()
+    # in-process references not computed above (uncounted)
+    tainted_pools = [
+        NodePool(name, weight=weight,
+                 requirements=[Requirement(wk.CAPACITY_TYPE_LABEL, "In", [name])])
+        for name, weight in ((wk.CAPACITY_TYPE_SPOT, 100), (wk.CAPACITY_TYPE_ON_DEMAND, 10))
+    ]
+    tainted_pools[1].template.taints = [Taint("dedicated", "NoSchedule", "")]
+    ref_solver = TorchSolver(g_max=G_MAX, device=dev)
+    ref_tainted = ref_solver.schedule(sched(tainted_pools), pods1)
+    ref_tainted_route = dict(ref_solver.last_route)
+    ref_merged_route = world_docs["merged"]["route"]
+    ref_cx = cx_solver.solve(pool, items, pods1)
+    ref_cx_lc = norm_convex(cx_solver.last_convex)
+    # tick 1 with ~5 % of its pods replaced: the same classes with a few
+    # counts moved, which ships as solve_delta
+    by_class = sorted(encode.group_pods(pods1), key=lambda pc: -len(pc.pods))
+    n_rep = len(pods1) // 20
+    drop = {id(p) for pc in by_class[:2] for p in pc.pods[: n_rep // 2]}
+    extra = []
+    for i in range(len(drop)):
+        src = by_class[2].pods[i % len(by_class[2].pods)]
+        q = copy.copy(src)
+        q.metadata = dataclasses.replace(src.metadata, name=f"{src.metadata.name}-r{i}")
+        extra.append(q)
+    pods_delta = [p for p in pods1 if id(p) not in drop] + extra
+    ref_delta = solver.solve(pool, items, pods_delta)
+    wire_sweep = sweeps["rampdown-sweep spot-od"]
+    ref_sweep = [repr(v) for v in sweep_results["rampdown-sweep spot-od"]]
+
+    # 1. the real entry point: python -m karpenter_tpu_torch.solver.rpc
+    proc, sub_start_s = start_sidecar()
+    sub_client = rpc.SolverClient(path=sub_sock, timeout=120.0)
+    sub_breaker = CircuitBreaker(failure_threshold=2, backoff_base=1000.0,
+                                 rng=np.random.default_rng(SEED).random)
+    sub_solver = TorchSolver(g_max=G_MAX, device=dev, client=sub_client, breaker=sub_breaker)
+    b0 = wire_bytes()
+    sub_tick1 = sub_solver.solve(pool, items, pods1)
+    b1 = wire_bytes()
+    if sig(sub_tick1) != sig(tick1):
+        raise AssertionError("the sidecar subprocess decided tick 1 unlike the in-process tick")
+    sub_tick2 = sub_solver.solve(pool, items, pods2, existing_nodes=nodes)
+    b2 = wire_bytes()
+    if sig(sub_tick2) != sig(tick2):
+        raise AssertionError("the sidecar subprocess decided tick 2 unlike the in-process tick")
+    sub_debug = sub_client.debug_info()
+    sub_doc = {
+        "start_to_ping_s": sub_start_s, "transport": "shm" if sub_client._ring is not None else "tcp",
+        "ping_ms_median_of_50": ping_ms(sub_client),
+        "bytes_tick1": {k: b1[k] - b0[k] for k in b0}, "bytes_tick2": {k: b2[k] - b1[k] for k in b1},
+        "last_reply_tick2": dict(sub_client.last_reply), "last_delta_tick2": dict(sub_client.last_delta),
+        "server_staged_bytes": sub_debug["staged_bytes"], "tick1_equal": True, "tick2_equal": True}
+
+    # 2. a server thread inside the script, over the ring and the socket
+    thr_sock = os.path.join(wire_dir, "thr.sock")
+    thr = rpc.SolverServer(path=thr_sock, device=dev).start()
+    wire_docs, wire_launches, wire_ops = {}, {}, {}
+    for transport in ("shm", "tcp"):
+        client = rpc.SolverClient(path=thr_sock, timeout=120.0, shm=transport == "shm")
+        brk = CircuitBreaker(failure_threshold=2, backoff_base=1000.0,
+                             rng=np.random.default_rng(SEED).random)
+        w_solver = TorchSolver(g_max=G_MAX, device=dev, client=client, breaker=brk)
+        w_cx = TorchSolver(g_max=G_MAX, device=dev, tier="convex", client=client, breaker=False)
+        w_engine = DisruptEngine(solver=w_solver)
+
+        def counted(name, fn, needed):
+            with recording(ka, kb) as rec:
+                ka.launches = kb.launches = 0
+                out = fn()
+                torch.cuda.synchronize()
+                launches = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+            missing = [k for k in needed if launches[k] < 1]
+            if missing:
+                raise AssertionError(f"wire {transport} {name} did not launch {missing}: {launches}")
+            wire_launches[f"{transport} {name}"] = launches
+            wire_ops[f"{transport} {name}"] = rec
+            return out
+
+        checks_w = {}
+        r = counted("tick 1", lambda: w_solver.solve(pool, items, pods1), ("ffd_scan",))
+        checks_w["tick 1"] = sig(r) == sig(tick1)
+        # right behind tick 1, whose class epoch it patches
+        r = counted("delta tick", lambda: w_solver.solve(pool, items, pods_delta), ("ffd_scan",))
+        delta_doc = dict(client.last_delta)
+        checks_w["delta tick"] = sig(r) == sig(ref_delta) and delta_doc["mode"] == "delta"
+        r = counted("tick 2", lambda: w_solver.solve(pool, items, pods2, existing_nodes=nodes),
+                    ("ffd_scan", "disrupt_repack"))
+        checks_w["tick 2"] = sig(r) == sig(tick2)
+        r = counted("merged", lambda: w_solver.schedule(sched(spot_od), pods1), ("ffd_scan",))
+        checks_w["merged"] = (sig(r) == sig(world_results["merged"])
+                              and w_solver.last_route == ref_merged_route)
+        r = counted("merged tainted", lambda: w_solver.schedule(sched(tainted_pools), pods1),
+                    ("ffd_scan",))
+        checks_w["merged tainted (join_allowed)"] = (
+            sig(r) == sig(ref_tainted) and w_solver.last_route == ref_tainted_route
+            and "join_allowed" in client.features())
+        r = counted("convex a: tick 1", lambda: w_cx.solve(pool, items, pods1), ("ffd_scan",))
+        lc_w = dict(w_cx.last_convex)
+        checks_w["convex a: tick 1"] = sig(r) == sig(ref_cx) and norm_convex(lc_w) == ref_cx_lc
+        r = counted("rampdown-sweep spot-od", lambda: w_engine.evaluate(
+            wire_sweep["nodes"], wire_sweep["sets"], **wire_sweep["kw"]), ("disrupt_repack",))
+        checks_w["rampdown-sweep spot-od"] = ([repr(v) for v in r] == ref_sweep
+                                              and w_engine.last_dispatch["path"] == "wire")
+        if not all(checks_w.values()):
+            raise AssertionError(f"wire {transport}: a result differs from in process: {checks_w}")
+        # times: warm tick walls over the wire against in process (median
+        # of 3 each), the server's echoed stages, the sweep wire vs local
+        walls = {}
+        for tname, fn_w, fn_l in (
+            ("tick 1", lambda: w_solver.solve(pool, items, pods1),
+             lambda: solver.solve(pool, items, pods1)),
+            ("tick 2", lambda: w_solver.solve(pool, items, pods2, existing_nodes=nodes),
+             lambda: solver.solve(pool, items, pods2, existing_nodes=nodes)),
+            ("sweep", lambda: w_engine.evaluate(wire_sweep["nodes"], wire_sweep["sets"],
+                                                **wire_sweep["kw"]),
+             lambda: engine.evaluate(wire_sweep["nodes"], wire_sweep["sets"],
+                                     **wire_sweep["kw"])),
+        ):
+            _, wire_med = wall_ms(fn_w, reps=3)
+            _, local_med = wall_ms(fn_l, reps=3)
+            walls[tname] = {"wire_ms_median_of_3": wire_med, "in_process_ms_median_of_3": local_med}
+        stages = {
+            "tick 1": server_stages(w_solver, lambda: w_solver.solve(pool, items, pods1)),
+            "tick 2": server_stages(w_solver, lambda: w_solver.solve(
+                pool, items, pods2, existing_nodes=nodes)),
+        }
+        wire_docs[transport] = {
+            "transport_in_use": "shm" if client._ring is not None else "tcp",
+            "checks": checks_w, "ping_ms_median_of_50": ping_ms(client),
+            "walls": walls, "server_stages_ms": stages, "delta": delta_doc,
+            "last_convex": lc_w, "launches": {k: v for k, v in wire_launches.items()
+                                              if k.startswith(transport)},
+            "describe_wire": {k: v for k, v in w_solver.describe_wire().items()
+                              if k in ("transport", "last_delta", "last_reply", "server")}}
+        if wire_docs[transport]["transport_in_use"] != transport:
+            raise AssertionError(f"the {transport} client negotiated "
+                                 f"{wire_docs[transport]['transport_in_use']}")
+        client.close()
+    clean_moved = {k: v - clean0[k] for k, v in wire_counts().items()}
+    if any(clean_moved.values()) or sub_breaker.trips:
+        raise AssertionError(f"a breaker transition or a rung in the clean wire runs: {clean_moved}")
+
+    # 3. the breaker drill on the subprocess sidecar
+    proc.kill()
+    proc.wait(timeout=30)
+    drill_ticks = []
+    for expect in ("rpc-down", "rpc-down", "breaker-open"):
+        c0 = wire_counts()
+        ka.launches = 0
+        r = sub_solver.solve(pool, items, pods1)
+        torch.cuda.synchronize()
+        moved = {k: v - c0[k] for k, v in wire_counts().items()}
+        drill_ticks.append({"expect": expect, "equal": sig(r) == sig(tick1), "moved": moved,
+                            "state": sub_breaker.state, "kernel_a_launches": ka.launches})
+    proc, restart_s = start_sidecar()
+    promoted = sub_breaker.probe_now()
+    c0 = wire_counts()
+    ka.launches = 0
+    r = sub_solver.solve(pool, items, pods1)
+    moved = {k: v - c0[k] for k, v in wire_counts().items()}
+    back_on_wire = bool(sub_client.debug_info()["staged_seqnums"])
+    drill_ticks.append({"expect": "wire", "equal": sig(r) == sig(tick1), "moved": moved,
+                        "state": sub_breaker.state, "kernel_a_launches_here": ka.launches})
+    want_moves = [
+        {"to_open": 0, "short_circuits": 0, "wire_down": 1, "breaker_open": 0, "rpc_down": 1},
+        {"to_open": 1, "short_circuits": 0, "wire_down": 1, "breaker_open": 0, "rpc_down": 1},
+        {"to_open": 0, "short_circuits": 1, "wire_down": 0, "breaker_open": 1, "rpc_down": 0},
+        {"to_open": 0, "short_circuits": 0, "wire_down": 0, "breaker_open": 0, "rpc_down": 0},
+    ]
+    drill_ok = (promoted and back_on_wire and all(t["equal"] for t in drill_ticks)
+                and [t["moved"] for t in drill_ticks] == want_moves
+                and [t["state"] for t in drill_ticks] == ["closed", "open", "open", "closed"]
+                and all(t["kernel_a_launches"] == 1 for t in drill_ticks[:3])
+                and drill_ticks[3]["kernel_a_launches_here"] == 0)
+    sub_client.close()
+    thr.stop()
+    thr._thread.join(timeout=30)
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+    shutil.rmtree(wire_dir, ignore_errors=True)
+    emit({"phase": "wire", "entry": "python -m karpenter_tpu_torch.solver.rpc; "
+          "TorchSolver(client=SolverClient); DisruptEngine over solve_disrupt",
+          "subprocess": sub_doc, "thread_server": wire_docs, "clean_runs_moved": clean_moved,
+          "breaker_drill": {"ticks": drill_ticks, "promoted": promoted,
+                            "restart_to_ping_s": restart_s, "ok": drill_ok},
+          "stages_note": "walls: host clock ending in a sync; server_stages_ms: the sidecar's "
+                         "device and fetch stages of one traced tick, echoed in the reply",
+          **tag})
+    if not drill_ok:
+        raise AssertionError(f"the breaker drill: {drill_ticks}")
+
     # the main path's own kernel inputs: tick 1's scan, tick 2's repack
     classes1 = encode.group_pods(pods1, extra_requirements=pool.requirements())
     classes2 = encode.group_pods(pods2, extra_requirements=pool.requirements())
@@ -1169,6 +1472,14 @@ def main() -> int:
     for name in sweeps:
         ops = sweep_ops[name]["disrupt_repack"][0]
         check_repack(f"{name} S={ops[4].shape[0]} C={ops[2].shape[0]} N={ops[4].shape[1]}", ops)
+    # the sidecar's own launches in phase `wire`: kernel A behind the ops
+    # solve_delta (ticks) and solve_convex, kernel B behind solve_disrupt
+    for name in ("shm tick 1", "shm delta tick", "tcp merged tainted", "shm convex a: tick 1"):
+        ops = wire_ops[name]["ffd_scan"][0]
+        check_scan(f"wire {name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
+    ops = wire_ops["shm rampdown-sweep spot-od"]["disrupt_repack"][0]
+    check_repack(f"wire rampdown-sweep spot-od S={ops[4].shape[0]} C={ops[2].shape[0]} "
+                 f"N={ops[4].shape[1]}", ops)
     emit({"phase": "kernels", "checks": checks, **tag})
 
     # -- the same two ticks through the plain versions, on the card --------------
@@ -1329,6 +1640,17 @@ def main() -> int:
         shapes_b[name] = (sweep_ops[name]["disrupt_repack"][0], sweep_launches[name]["disrupt_repack"])
     for name in convex_spec:
         shapes_a[f"convex {name}"] = (convex_ops[name]["ffd_scan"][0], convex_launches[name]["ffd_scan"])
+    # the sidecar's launches in phase `wire`, per op, over both transports
+    for name, op in (("tick 1", "solve_delta (tick 1, full ship)"),
+                     ("delta tick", "solve_delta (5 % replaced)"),
+                     ("tick 2", "solve_delta (tick 2)"),
+                     ("merged tainted", "solve_delta (merged, tainted on-demand)"),
+                     ("convex a: tick 1", "solve_convex (a)")):
+        shapes_a[f"wire {op}"] = (wire_ops[f"shm {name}"]["ffd_scan"][-1], sum(
+            wire_launches[f"{t} {name}"]["ffd_scan"] for t in ("shm", "tcp")))
+    shapes_b["wire solve_disrupt (rampdown-sweep spot-od)"] = (
+        wire_ops["shm rampdown-sweep spot-od"]["disrupt_repack"][0],
+        sum(wire_launches[f"{t} rampdown-sweep spot-od"]["disrupt_repack"] for t in ("shm", "tcp")))
     shape_rows = {"ffd_scan": [], "disrupt_repack": []}
     for name, (ops, n) in shapes_a.items():
         if name == "tick 1":
@@ -1452,7 +1774,8 @@ def main() -> int:
         return (launches1[kernel] + launches2[kernel]
                 + sum(n[kernel] for n in world_launches.values())
                 + sum(n[kernel] for n in sweep_launches.values())
-                + sum(n[kernel] for n in convex_launches.values()))
+                + sum(n[kernel] for n in convex_launches.values())
+                + sum(n[kernel] for n in wire_launches.values()))
 
     kernels = [
         {"name": "ffd_scan", "route": "cuda", "source": "karpenter_tpu_torch/csrc/ffd_scan.cu",

@@ -14,7 +14,12 @@ environment variables so one runbook drills both packages:
 The port's sites: ``solver.solve_begin`` / ``solver.solve_finish`` (the
 two halves of a tick), ``rpc.convex.dispatch`` (the relaxation's
 dispatch) and ``convex.rounding`` (the rounding); an armed fault there
-costs the tick only its convex candidate (TorchSolver's FFD rung).
+costs the tick only its convex candidate (TorchSolver's FFD rung). The
+wire's (solver/rpc.py, solver/shm.py), where the JAX package fires
+them: ``rpc.client.connect``, ``rpc.send``, ``rpc.recv``, the byte-
+stream sites ``rpc.frame.corrupt`` and ``rpc.shm.corrupt``,
+``rpc.server.conn``, ``rpc.server.dispatch``, ``rpc.shm.attach`` and
+``rpc.disrupt.dispatch``.
 
 Actions:
 

@@ -2,7 +2,8 @@
 
 Copy of karpenter_tpu/metrics.py: the same `Counter`, `Gauge`,
 `Histogram`, `Registry` and text exposition, with only the families the
-port's modules reach. Each family keeps the JAX package's name, type and
+port's modules reach (the solver wire's among them: transport, delta
+shipping, the sidecar's staging LRUs, the breaker). Each family keeps the JAX package's name, type and
 label names (tests/test_torch_obs.py holds every family here against the
 JAX registry), so one dashboard and one runbook serve both packages. No
 external client library.
@@ -176,10 +177,9 @@ def _labels_str(names, values) -> str:
 # process-global registry
 REGISTRY = Registry()
 
-# device consolidation engine (solver/disrupt/engine.py): its local route
-# records these two; the JAX package's _SETS (counted by the disruption
-# controller) and _FALLBACKS (the wire route) wait for the port's
-# controllers and sidecar
+# device consolidation engine (solver/disrupt/engine.py): both routes
+# record these; the JAX package's _SETS (counted by the disruption
+# controller) waits for the port's controllers
 DISRUPTION_DEVICE_DISPATCHES = REGISTRY.counter(
     "karpenter_disruption_device_dispatches_total",
     "Batched consolidation evaluations by dispatch route (wire = the "
@@ -187,10 +187,42 @@ DISRUPTION_DEVICE_DISPATCHES = REGISTRY.counter(
     "process -- also the breaker-open / wire-dead fallback route)",
     labels=("path",),  # wire | local
 )
+DISRUPTION_DEVICE_FALLBACKS = REGISTRY.counter(
+    "karpenter_disruption_device_fallbacks_total",
+    "Consolidation evaluations that fell off the wire route to the "
+    "in-process kernels, by reason (decisions stay bit-identical; "
+    "rpc-down failures also count toward the shared circuit breaker)",
+    labels=("reason",),  # rpc-down | breaker-open | feature-missing
+)
 DISRUPTION_DEVICE_SWEEP_SECONDS = REGISTRY.histogram(
     "karpenter_disruption_device_sweep_seconds",
     "Wall time of one batched candidate-set evaluation (encode + "
     "dispatch + verdict assembly, every set in one device pass)",
+)
+# the wire solve's mid-flight fallbacks (solver/service.py)
+SOLVER_PIPELINE_FALLBACKS = REGISTRY.counter(
+    "karpenter_scheduler_pipeline_fallbacks_total",
+    "Pipelined solves that fell back to the synchronous path mid-flight",
+    labels=("reason",),  # catalog-changed | stale-seqnum | stale-epoch | rpc-degraded | rpc-down
+)
+# solver-wire circuit breaker (solver/breaker.py)
+BREAKER_STATE = REGISTRY.gauge(
+    "karpenter_scheduler_breaker_state",
+    "Solver wire circuit-breaker state (1 on the active state's series)",
+    labels=("state",),  # closed | open | half-open
+)
+BREAKER_TRANSITIONS = REGISTRY.counter(
+    "karpenter_scheduler_breaker_transitions_total",
+    "Solver wire circuit-breaker state transitions", labels=("to",),
+)
+BREAKER_SHORT_CIRCUITS = REGISTRY.counter(
+    "karpenter_scheduler_breaker_short_circuits_total",
+    "Solves that skipped the solver wire because the breaker was open "
+    "(served by the in-process host backend with no connect stall)",
+)
+BREAKER_PROBES = REGISTRY.counter(
+    "karpenter_scheduler_breaker_probes_total",
+    "Half-open sidecar probes by outcome", labels=("outcome",),  # success | failure
 )
 # tracing (karpenter_tpu_torch/tracing.py)
 TRACE_SPANS = REGISTRY.counter(
@@ -215,7 +247,38 @@ HANDLED_ERRORS = REGISTRY.counter(
     "must be observable)",
     labels=("site",),
 )
-# the incremental grouper (solver/encode.IncrementalGrouper)
+# the incremental delta-solve engine: the grouper
+# (solver/encode.IncrementalGrouper) and delta class shipping over the
+# wire (solver/rpc.py solve_delta)
+DELTA_SOLVES = REGISTRY.counter(
+    "karpenter_scheduler_delta_solves_total",
+    "Wire solves by class-tensor shipping mode (delta = dirty rows only "
+    "against a staged class epoch; full = whole tensor set establishing a "
+    "new epoch; bypass = delta path not applicable)",
+    labels=("mode",),  # delta | full | bypass
+)
+DELTA_ROWS_SHIPPED = REGISTRY.counter(
+    "karpenter_scheduler_delta_rows_shipped_total",
+    "Dirty class-tensor rows shipped by delta solves (full solves ship "
+    "every row and are not counted here)",
+)
+DELTA_EPOCH_RESTAGES = REGISTRY.counter(
+    "karpenter_scheduler_delta_epoch_restages_total",
+    "Delta solves that fell back to a full class-tensor restage because "
+    "the sidecar no longer knew the base class epoch (restart or eviction)",
+)
+DELTA_PAYLOAD_BYTES = REGISTRY.histogram(
+    "karpenter_scheduler_delta_payload_bytes",
+    "Class-tensor payload bytes shipped per wire solve, by shipping mode",
+    labels=("mode",),  # delta | full | bypass
+    buckets=(1024, 4096, 16384, 65536, 262144, 1048576, 4194304),
+)
+SOLVER_STAGED_EVICTIONS = REGISTRY.counter(
+    "karpenter_solver_staged_evictions_total",
+    "Sidecar staging-LRU evictions by kind (catalog seqnums, class-tensor "
+    "epochs); an eviction costs the next referencing solve a full restage",
+    labels=("kind",),  # catalog | class_epoch
+)
 DELTA_DIRTY_FRACTION = REGISTRY.histogram(
     "karpenter_scheduler_delta_dirty_fraction",
     "Fraction of pod classes dirty (appeared, vanished, or changed count) "
@@ -257,7 +320,42 @@ SOLVER_STAGED_PRESSURE_EVICTIONS = REGISTRY.counter(
     "below the evict threshold ($KARPENTER_TPU_HBM_EVICT_HEADROOM, "
     "default 0.10) -- memory pressure shrinking the LRUs to their floor "
     "ahead of their fixed capacity",
-    labels=("kind",),  # catalog
+    labels=("kind",),  # catalog | class_epoch
+)
+# wire transport v2 (solver/rpc.py zero-copy framing, solver/shm.py ring)
+WIRE_BYTES = REGISTRY.counter(
+    "karpenter_wire_bytes_total",
+    "Solver wire bytes moved by the framing layer, by direction and "
+    "transport (shm = the shared-memory ring of the colocated sidecar; "
+    "tcp = the socket transport, TCP or UNIX-domain)",
+    labels=("direction", "transport"),  # sent | received x shm | tcp
+)
+WIRE_PAYLOAD_COPIES = REGISTRY.counter(
+    "karpenter_wire_payload_copies_total",
+    "Intermediate payload copies made by the wire framing beyond the "
+    "transport read/write itself (encode = send-side buffer copies before "
+    "the scatter-gather send; decode = receive-side copies past the "
+    "direct-into-tensor read, e.g. the epoch store's copy-on-first-write). "
+    "Zero on the warm delta path by construction -- test-asserted",
+    labels=("side",),  # encode | decode
+)
+WIRE_TRANSPORT = REGISTRY.gauge(
+    "karpenter_wire_transport_in_use",
+    "Active solver wire transport for this client (1 on the active "
+    "transport's series; shm degrades to tcp on attach/corruption failures)",
+    labels=("transport",),  # shm | tcp
+)
+WIRE_SHM_RING_FULL = REGISTRY.counter(
+    "karpenter_wire_shm_ring_full_total",
+    "Shared-memory ring send stalls: a frame waited for the reader to "
+    "free ring space (backpressure events, not errors; a sustained rate "
+    "means the segment is undersized -- see docs/operations.md)",
+)
+WIRE_SHM_SEND_TIMEOUTS = REGISTRY.counter(
+    "karpenter_wire_shm_send_timeouts_total",
+    "Shared-memory ring sends abandoned because the peer reader never "
+    "freed ring space within the send deadline (a wedged reader; "
+    "surfaces as a ConnectionError feeding the shm->tcp degrade ladder)",
 )
 # the convex tier (solver/convex/): LP relaxation + rounding
 CONVEX_SOLVES = REGISTRY.counter(

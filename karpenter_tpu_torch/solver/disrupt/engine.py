@@ -1,21 +1,27 @@
 """DisruptEngine: batched candidate-set consolidation in one dispatch.
 
-Copy of karpenter_tpu/solver/disrupt/engine.py, local route only. Host
-side of the consolidation solve: encode the candidate sets once ([S, C]
-membership, [S, N] exclusions, [C, N] feasibility, [N, R] headroom), run
-the repack (kernel B, one block per candidate set) and the per-pool
-replacement search (solver/disrupt/kernel.py) on the engine's device, and
-assemble per-set verdicts.
+Copy of karpenter_tpu/solver/disrupt/engine.py without the mesh-sharded
+repack. Host side of the consolidation solve: encode the candidate sets
+once ([S, C] membership, [S, N] exclusions, [C, N] feasibility, [N, R]
+headroom), run the repack (kernel B, one block per candidate set) and the
+per-pool replacement search (solver/disrupt/kernel.py), and assemble
+per-set verdicts. Two routes, chosen as the JAX engine chooses them:
 
-With no sidecar client the JAX engine takes exactly this route (its
-``evaluate``: ``verdicts = self._evaluate_local(enc, ctxs)``), so the
-verdicts are the same decision function, and it counts what the JAX
-engine counts on that route: ``karpenter_disruption_device_dispatches_total
-{path="local"}`` and the sweep's wall in
-``karpenter_disruption_device_sweep_seconds``, plus kernel B's dispatch
-in ``karpenter_solver_kernel_dispatches_total{entry="disrupt_repack"}``.
-Not here (later slices): the ``solve_disrupt`` wire route and the
-mesh-sharded repack.
+- wire: the engine's solver has a sidecar client, its breaker is closed
+  and the sidecar advertises ``solve_disrupt`` -- the repack ships once
+  (the leftover stays staged under a disrupt epoch), each pool's
+  replacement pass ships only the class-side masks, and the catalog
+  tensors never ship (the op names the seqnum the provisioning path
+  staged). A wire failure counts toward the breaker and the sweep re-runs
+  locally (``karpenter_disruption_device_fallbacks_total{reason=
+  "rpc-down"}``); an open breaker or a sidecar without the op go local
+  at once (``breaker-open``, ``feature-missing``);
+- local: kernel B and the replacement search on the engine's device.
+
+Both count ``karpenter_disruption_device_dispatches_total{path}`` and the
+sweep's wall in ``karpenter_disruption_device_sweep_seconds``; the local
+route also kernel B's dispatch in
+``karpenter_solver_kernel_dispatches_total{entry="disrupt_repack"}``.
 
 Scope: candidate sets whose pods carry stateful constraints (hard
 topology spread, affinity terms, multi-term node affinity) are routed to
@@ -154,11 +160,12 @@ class _Encoded:
 
 
 class _PoolCtx:
-    """One pool's replacement context: the catalog snapshot with its
-    capacity and price tensors on the engine's device, the pool-merged
+    """One pool's replacement context: the catalog snapshot (in wire mode
+    with its staged seqnum; its capacity and price tensors on the
+    engine's device once the local route needs them), the pool-merged
     class tensors, and the class-type compatibility masks."""
 
-    __slots__ = ("pool", "catalog", "cap", "price", "cs", "compat", "ovh")
+    __slots__ = ("pool", "catalog", "seqnum", "entry", "cap", "price", "cs", "compat", "ovh")
 
 
 class DisruptEngine:
@@ -188,13 +195,17 @@ class DisruptEngine:
         self.last_dispatch = {"path": "none", "sets": 0, "ms": 0.0}
 
     # -- catalog snapshots ----------------------------------------------------
-    def _catalog_for(self, items: list) -> Tuple[CatalogTensors, torch.Tensor, torch.Tensor]:
-        """(catalog tensors, cap and price on the device). With a solver,
-        the PROVISIONING path's catalog cache supplies all three, staged
-        once for both paths."""
+    def _catalog_for(self, items: list):
+        """(catalog tensors, staged seqnum or None, the solver's catalog
+        entry or None, cap and price on the device or None). With a
+        solver, the PROVISIONING path's catalog cache supplies the
+        snapshot and the seqnum the wire op references; a remote solver's
+        entry stages on the device only when the local route runs."""
         if self.solver is not None:
             entry = self.solver._catalog(items)
-            return entry.tensors, entry.staged.cap, entry.staged.price
+            if entry.staged is None:
+                return entry.tensors, entry.seqnum, entry, None, None
+            return entry.tensors, entry.seqnum, entry, entry.staged.cap, entry.staged.price
         key = id(items)
         hit = self._catalog_cache.get(key)
         if hit is None:
@@ -204,7 +215,7 @@ class DisruptEngine:
             hit = self._catalog_cache[key] = (
                 items, tensors, torch.from_numpy(tensors.cap).to(self.device),
                 torch.from_numpy(tensors.price).to(self.device))
-        return hit[1], hit[2], hit[3]
+        return hit[1], None, None, hit[2], hit[3]
 
     # -- encoding -------------------------------------------------------------
     def _encode_sets(
@@ -268,7 +279,7 @@ class DisruptEngine:
                 continue
             ctx = _PoolCtx()
             ctx.pool = pool
-            ctx.catalog, ctx.cap, ctx.price = self._catalog_for(items)
+            ctx.catalog, ctx.seqnum, ctx.entry, ctx.cap, ctx.price = self._catalog_for(items)
             ctx.cs = encode.encode_classes(
                 _with_pool_requirements(enc.classes, pool), ctx.catalog,
                 # template.taints ONLY: startup taints lift before pods land,
@@ -313,11 +324,42 @@ class DisruptEngine:
             self._pool_contexts(enc, pools, catalogs, daemon_overhead)
             if pools and catalogs else []
         )
-        verdicts = self._evaluate_local(enc, ctxs)
-        metrics.DISRUPTION_DEVICE_DISPATCHES.inc(path="local")
+        path = "local"
+        client = self.solver.client if self.solver is not None else None
+        if client is not None:
+            if self.solver.wire_healthy():
+                try:
+                    if "solve_disrupt" in client.features():
+                        verdicts = self._evaluate_wire(enc, ctxs, client)
+                        if self.solver.breaker is not None:
+                            self.solver.breaker.record_success()
+                        path = "wire"
+                    else:
+                        # older sidecar: the op does not exist; the local
+                        # kernels are the same decision function
+                        metrics.DISRUPTION_DEVICE_FALLBACKS.inc(reason="feature-missing")
+                        verdicts = self._evaluate_local(enc, ctxs)
+                except (ConnectionError, OSError, RuntimeError) as e:
+                    # the provisioning solve's ladder: the failure counts
+                    # toward opening the breaker and the sweep re-runs on
+                    # the local kernels -- the same decisions
+                    if self.solver.breaker is not None:
+                        self.solver.breaker.record_failure()
+                    metrics.DISRUPTION_DEVICE_FALLBACKS.inc(reason="rpc-down")
+                    from karpenter_tpu_torch import tracing
+
+                    tracing.annotate(disrupt_fallback=f"{type(e).__name__}")
+                    verdicts = self._evaluate_local(enc, ctxs)
+            else:
+                # breaker open (or half-open): local at once, counted
+                metrics.DISRUPTION_DEVICE_FALLBACKS.inc(reason="breaker-open")
+                verdicts = self._evaluate_local(enc, ctxs)
+        else:
+            verdicts = self._evaluate_local(enc, ctxs)
+        metrics.DISRUPTION_DEVICE_DISPATCHES.inc(path=path)
         ms = (time.perf_counter() - t0) * 1e3
         metrics.DISRUPTION_DEVICE_SWEEP_SECONDS.observe(ms / 1e3)
-        self.last_dispatch = {"path": "local", "sets": len(sets), "ms": round(ms, 3)}
+        self.last_dispatch = {"path": path, "sets": len(sets), "ms": round(ms, 3)}
         return verdicts
 
     def _assemble(
@@ -380,6 +422,10 @@ class DisruptEngine:
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
         def replace(ctx: _PoolCtx):
+            if ctx.cap is None:
+                # a remote solver's snapshot, staged here on first local use
+                staged = self.solver._local_staged(ctx.entry).staged
+                ctx.cap, ctx.price = staged.cap, staged.price
             out = kernel.disrupt_replace(
                 self._leftover, put(ctx.cs.req), put(ctx.compat), put(ctx.cs.azone),
                 put(ctx.cs.acap), ctx.cap, put(ctx.ovh), ctx.price, od_col=od_col,
@@ -388,5 +434,46 @@ class DisruptEngine:
             best, best_od, best_k = torch.cat(
                 [out[0], out[1], out[2].to(torch.float32)]).cpu().numpy().reshape(3, -1)
             return best, best_od, best_k.astype(np.int32)
+
+        return self._assemble(enc, ctxs, left_total, replace)
+
+    # -- wire route -----------------------------------------------------------
+    def _evaluate_wire(self, enc: _Encoded, ctxs: List[_PoolCtx], client) -> List[SetVerdict]:
+        """One sweep over the sidecar: the repack ships once (the leftover
+        stays staged under a disrupt epoch), each pool's replacement pass
+        ships only the class-side masks, and the catalog tensors never
+        ship at all. Raises on any wire failure the client's retry ladder
+        cannot absorb; the caller falls back to the local route."""
+        def replace_tensors(ctx: _PoolCtx) -> Dict[str, np.ndarray]:
+            return {
+                "creq": ctx.cs.req, "compat": ctx.compat,
+                "azone": ctx.cs.azone, "acap": ctx.cs.acap, "ovh": ctx.ovh,
+            }
+
+        first = ctxs[0] if ctxs else None
+        depoch, out = client.solve_disrupt_repack(
+            {
+                "headroom": enc.headroom, "feas": enc.feas, "req": enc.req,
+                "member": enc.member, "excl": enc.excl,
+            },
+            seqnum=first.seqnum if first is not None else None,
+            catalog=first.catalog if first is not None else None,
+            replace=replace_tensors(first) if first is not None else None,
+        )
+        leftover = np.asarray(out["leftover"])
+        left_total = leftover.sum(axis=1)
+        first_result = (
+            (np.asarray(out["best"]), np.asarray(out["best_od"]), np.asarray(out["best_k"]))
+            if "best" in out else None
+        )
+
+        def replace(ctx: _PoolCtx):
+            if ctx is first and first_result is not None:
+                return first_result
+            r = client.solve_disrupt_replace(
+                depoch, seqnum=ctx.seqnum, catalog=ctx.catalog,
+                replace=replace_tensors(ctx), leftover=leftover,
+            )
+            return np.asarray(r["best"]), np.asarray(r["best_od"]), np.asarray(r["best_k"])
 
         return self._assemble(enc, ctxs, left_total, replace)

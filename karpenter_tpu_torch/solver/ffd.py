@@ -13,6 +13,13 @@ Counterpart of karpenter_tpu/solver/ffd.py and of the Pallas entry
   the layout of the JAX package's `ffd_solve_fused`, so the host fetches
   one array per tick.
 
+The solver sidecar's ops (solver/rpc.py) read the same scan through the
+JAX package's other two entries: `ffd_solve` (the dense `SolveOutputs`
+of the `solve` op) and `ffd_solve_compact` (the `CompactDecision` of
+`solve_compact` and `solve_delta`), expanded on the client by
+`expand_compact`. Both launch kernel A once; neither has a plain path
+on the card.
+
 All resource values are small exact integers in float32 (encode.py
 scaling), so the fit arithmetic is exact and the buffer is byte-equal to
 the JAX package's on the same encoded inputs. Packed words travel in
@@ -58,6 +65,35 @@ class SolveInputs(NamedTuple):
     join_allowed: torch.Tensor  # [C, K] bool or [C, KW] i32 lanes (packed)
 
 
+class SolveOutputs(NamedTuple):
+    """The dense decision (the JAX package's ffd.SolveOutputs)."""
+
+    take: torch.Tensor          # [C, G] i32: pods of class c placed on group g
+    unplaced: torch.Tensor      # [C] i32
+    n_open: torch.Tensor        # [] i32
+    accum: torch.Tensor         # [G, R] f32 summed requests per group
+    gmask: torch.Tensor         # [G, K] bool surviving types
+    gzone: torch.Tensor         # [G, Z] bool
+    gcap: torch.Tensor          # [G, CT] bool
+    compat: torch.Tensor        # [C, K] bool (join mask applied)
+
+
+class CompactDecision(NamedTuple):
+    """The decision compacted for one small fetch (the JAX package's
+    ffd.CompactDecision): sparse take (flat row-major [C, G] indices,
+    -1 pads; `nnz` the true count, past idx's length the caller refetches
+    densely), survivor masks packed 32 types per uint32 lane, zones and
+    captypes in the packed gzc lane."""
+
+    idx: torch.Tensor           # [NNZ] i32
+    val: torch.Tensor           # [NNZ] i32
+    nnz: torch.Tensor           # [] i32
+    unplaced: torch.Tensor      # [C] i32
+    n_open: torch.Tensor        # [] i32
+    gmask_bits: torch.Tensor    # [G, K/32] i32 lanes of the u32 words
+    gzc: torch.Tensor           # [G] i32 lanes of the u32 zone|captype bits
+
+
 class StagedCatalog(NamedTuple):
     """Catalog tensors resident on the device, uploaded once per catalog."""
 
@@ -73,6 +109,10 @@ class StagedCatalog(NamedTuple):
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
     """numpy -> torch on `device`; uint32 words become int32 lanes."""
     a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        # a received wire frame's read-only view: torch.from_numpy needs
+        # a writable buffer
+        a = a.copy()
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     return torch.from_numpy(a).to(device)
@@ -308,6 +348,77 @@ def ffd_solve_fused(inp: SolveInputs, *, g_max: int, nnz_max: int, word_offsets,
     ])
 
 
+def _unpack_zc(gzc: torch.Tensor, Z: int, CTn: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    dev = gzc.device
+    gzone = ((gzc[:, None] >> torch.arange(Z, dtype=torch.int32, device=dev)) & 1) != 0
+    cshift = torch.arange(_CT_SHIFT, _CT_SHIFT + CTn, dtype=torch.int32, device=dev)
+    gcap = ((gzc[:, None] >> cshift) & 1) != 0
+    return gzone, gcap
+
+
+def ffd_solve(inp: SolveInputs, *, g_max: int, word_offsets, words, objective: str = "price") -> SolveOutputs:
+    """The dense decision on the device (the sidecar's `solve` op).
+    `accum` is the per-group sum of take x req, accumulated in float64
+    and rounded once: every partial sum of the JAX scan's float32 carry is
+    an exact small integer (encode.py scaling), so the two are equal."""
+    take, unplaced, n_open, gmask_bits, gzc = solve_scan(
+        inp, g_max=g_max, word_offsets=word_offsets, words=words, objective=objective)
+    K = inp.cap.shape[0]
+    compat = _device_compat(inp, word_offsets, words) & packing.as_bool_mask(inp.join_allowed, K)
+    accum = torch.matmul(take.T.to(torch.float64), inp.req.to(torch.float64)).to(torch.float32)
+    gzone, gcap = _unpack_zc(gzc, inp.tzone.shape[1], inp.tcap.shape[1])
+    return SolveOutputs(
+        take=take, unplaced=unplaced, n_open=n_open.reshape(()).to(torch.int32), accum=accum,
+        gmask=packing.unpack_rows(gmask_bits, K), gzone=gzone, gcap=gcap, compat=compat,
+    )
+
+
+def ffd_solve_compact(inp: SolveInputs, *, g_max: int, nnz_max: int, word_offsets, words,
+                      objective: str = "price") -> CompactDecision:
+    """The compact decision on the device (the sidecar's `solve_compact`
+    and `solve_delta` ops): kernel A's outputs with the take sparsified."""
+    take, unplaced, n_open, gmask_bits, gzc = solve_scan(
+        inp, g_max=g_max, word_offsets=word_offsets, words=words, objective=objective)
+    idx, val, nnz_true = _sparse_take(take, nnz_max)
+    return CompactDecision(
+        idx=idx, val=val, nnz=nnz_true.reshape(()).to(torch.int32), unplaced=unplaced,
+        n_open=n_open.reshape(()).to(torch.int32), gmask_bits=gmask_bits, gzc=gzc,
+    )
+
+
+def fetch_compact(dec: CompactDecision) -> Dict[str, np.ndarray]:
+    """The compact decision on the host by field name, packed lanes as
+    uint32 (the JAX package's dtypes): one fused copy off the device."""
+    lanes = torch.cat([t.reshape(-1).to(torch.int32) for t in dec]).cpu().numpy()
+    out, off = {}, 0
+    for name, t in zip(CompactDecision._fields, dec):
+        n = t.numel()
+        a = lanes[off: off + n].reshape(tuple(t.shape))
+        out[name] = a.view(np.uint32) if name in ("gmask_bits", "gzc") else a
+        off += n
+    return out
+
+
+def expand_compact(dec, C: int, G: int, K: int, Z: int, CTn: int):
+    """Host-side (numpy) expansion of a fetched CompactDecision into the
+    dense (take, unplaced, n_open, gmask, gzone, gcap) decode inputs
+    (copy of the JAX package's). Returns None when nnz overflowed the
+    static budget (dense refetch)."""
+    idx = np.asarray(dec.idx)
+    if int(dec.nnz) > idx.shape[0]:
+        return None
+    take = np.zeros((C * G,), dtype=np.int32)
+    valid = idx >= 0
+    take[idx[valid]] = np.asarray(dec.val)[valid]
+    take = take.reshape(C, G)
+    bits = np.asarray(dec.gmask_bits)                             # [G, K/32]
+    gmask = (
+        (bits[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    ).astype(bool).reshape(G, K)
+    gzone, gcap = _unpack_zc_np(np.asarray(dec.gzc), Z, CTn)
+    return take, np.asarray(dec.unplaced), int(dec.n_open), gmask, gzone, gcap
+
+
 def fetch_fused(buf: torch.Tensor) -> np.ndarray:
     """The one device->host copy of a tick: the fused lanes as uint32."""
     return buf.cpu().numpy().view(np.uint32)
@@ -347,17 +458,21 @@ def expand_fused(buf: np.ndarray, C: int, G: int, K: int, Z: int, CTn: int, nnz_
             packing.unpack_mask(gmask_bits, K), gzone, gcap)
 
 
-def solve_dense_tuple(inp: SolveInputs, *, g_max: int, word_offsets, words, objective: str = "price"):
-    """The dense decision fetched to the host as the decode tuple -- the
-    refetch when the fused buffer's sparse budget overflowed. Runs the
-    scan again (a second kernel launch) and fetches its outputs whole."""
-    take, unplaced, n_open, gmask_bits, gzc = solve_scan(
-        inp, g_max=g_max, word_offsets=word_offsets, words=words, objective=objective)
-    K = inp.cap.shape[0]
-    gzone, gcap = _unpack_zc_np(
-        gzc.cpu().numpy().view(np.uint32), inp.tzone.shape[1], inp.tcap.shape[1])
+def dense_tuple(scan, K: int, Z: int, CTn: int):
+    """Kernel A's outputs (solve_scan) fetched to the host as the dense
+    decode tuple (take, unplaced, n_open, gmask, gzone, gcap)."""
+    take, unplaced, n_open, gmask_bits, gzc = scan
+    gzone, gcap = _unpack_zc_np(gzc.cpu().numpy().view(np.uint32), Z, CTn)
     return (
         take.cpu().numpy(), unplaced.cpu().numpy(), int(n_open),
         packing.unpack_mask(gmask_bits.cpu().numpy().view(np.uint32), K), gzone, gcap,
     )
+
+
+def solve_dense_tuple(inp: SolveInputs, *, g_max: int, word_offsets, words, objective: str = "price"):
+    """The dense decision fetched to the host as the decode tuple -- the
+    refetch when the fused buffer's sparse budget overflowed. Runs the
+    scan again (a second kernel launch) and fetches its outputs whole."""
+    scan = solve_scan(inp, g_max=g_max, word_offsets=word_offsets, words=words, objective=objective)
+    return dense_tuple(scan, inp.cap.shape[0], inp.tzone.shape[1], inp.tcap.shape[1])
 

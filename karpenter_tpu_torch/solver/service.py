@@ -50,7 +50,33 @@ escapes every one. The failpoint sites `solver.solve_begin`,
 (solver/convex/rounding.py) drill them; the tick's spans carry the JAX
 package's names (tracing.py).
 
-Not here (later slices): the wire sidecar, the mesh and AOT.
+The wire (`client=`, solver/rpc.py): with a `SolverClient` the tensor
+half of every solve goes to the sidecar -- `python -m
+karpenter_tpu_torch.solver.rpc` on the card, or the JAX package's
+sidecar -- exactly as in TPUSolver: the catalog stages once per seqnum,
+`solve_begin` streams a compact (or delta) solve frame with
+`begin_solve_compact` and `solve_finish` claims it (`_finish_remote_wire`:
+the pipelined reply, then the synchronous compact op, then the dense op);
+the convex tier sends one `solve_convex` op at the barrier. Grouping,
+encode, the existing-node pre-pass (kernel B on this solver's device)
+and decode stay in process. Wire ticks publish `last_quality` without the
+fractional bound, as TPUSolver's do (nothing is staged locally to bound
+against; a convex wire tick's document carries the sidecar's lower
+bound), and `last_convex` is the sidecar's certificate (`winner`,
+`lower`, `iterations`, `fallback`, `price_ffd`, `price_convex`).
+
+The breaker (`breaker=`, solver/breaker.py; a self-probing one by
+default when a client is given): a whole failed wire ladder solves the
+tick in process (`fallback="rpc-down"`) and counts toward opening the
+breaker; while it is open, `solve_begin` skips the wire before any socket
+work and solves in process (`fallback="breaker-open"`). The in-process
+rung runs on this solver's device -- the card unless device="cpu" -- and
+decides exactly as the wire does. Each rung tick counts once in
+`karpenter_handled_errors_total{site="solver.breaker_open"|
+"solver.wire_down"}` (next to the JAX package's own counters for the
+same events) and logs once per change.
+
+Not here (later slices): the mesh and AOT.
 """
 from __future__ import annotations
 
@@ -68,7 +94,8 @@ from karpenter_tpu_torch.scheduling import (
 )
 from karpenter_tpu_torch.scheduling import resources as res
 from karpenter_tpu_torch.obs import hbm, quality
-from karpenter_tpu_torch.solver import bound, encode, ffd, multipool, spread
+from karpenter_tpu_torch.solver import bound, encode, ffd, multipool, rpc, spread
+from karpenter_tpu_torch.solver.breaker import CircuitBreaker
 from karpenter_tpu_torch.solver.convex import relax, rounding
 from karpenter_tpu_torch.solver.convex import tier as convex_tier
 from karpenter_tpu_torch.solver.disrupt import engine as disrupt_engine
@@ -123,6 +150,8 @@ class _CatalogEntry(NamedTuple):
     order: np.ndarray                  # argsort indices into the catalog list
     catalog_list: Sequence             # strong ref: keeps the id() key sound
     row_cache: dict                    # encode_classes row memo for this encoding
+    # the wire seqnum this snapshot stages under on the sidecar
+    seqnum: str = ""
     # merged multi-pool solves only (solver/multipool.py): pool index per
     # real column, the pool objects (weight order), and the ORIGINAL type
     # objects in types_by_price order for decode emission
@@ -147,19 +176,25 @@ class _PendingSolve:
     and decodes. A ticket with nothing in flight carries its result."""
 
     __slots__ = ("done", "pool", "entry", "class_set", "result", "placed_existing",
-                 "nodepool_usage", "buf", "inp", "nnz_max", "cx")
+                 "nodepool_usage", "buf", "inp", "nnz_max", "cx", "rpc_handle")
 
     def __init__(self, done: Optional[SchedulingResult] = None):
         self.done = done
+        # the in-process dispatch's fused buffer and inputs (None on the wire)
+        self.buf = None
+        self.inp = None
         # the convex tier's in-flight RelaxOutputs (None on the FFD tier)
         self.cx = None
+        # the pipelined wire solve's reply slot (None: the barrier runs
+        # the synchronous wire ladder)
+        self.rpc_handle = None
 
 
 class TorchSolver:
     log = get_logger("solver")
 
     def __init__(self, g_max: int = 1024, objective: str = "price", device=None,
-                 incremental: bool = True, tier: str = "ffd"):
+                 incremental: bool = True, tier: str = "ffd", client=None, breaker=None):
         if objective not in ("price", "fit"):
             raise ValueError(f"objective must be 'price' or 'fit', got {objective!r}")
         # the solve tier: "convex" enqueues the LP relaxation next to the
@@ -205,6 +240,27 @@ class TorchSolver:
         # degrade rungs log once per change (logging.ChangeMonitor)
         self._route_monitor = ChangeMonitor()
         self._lock = threading.Lock()
+        # the sidecar (solver/rpc.SolverClient, or anything speaking its
+        # surface): the tensor half of each solve goes over the wire
+        self.client = client
+        # wire seqnums: a per-solver random prefix plus a counter bumped on
+        # every encode (id() is unsound across catalog lifetimes, and two
+        # controllers must never collide on a shared sidecar)
+        import uuid
+
+        self._seq_prefix = uuid.uuid4().hex[:12]
+        self._seq_counter = 0
+        # the wire's circuit breaker: default-on with a client, self-probing
+        # (auto_probe) so an embedder that never calls maybe_probe()
+        # recovers; breaker=False disables it
+        if breaker is None and client is not None:
+            breaker = CircuitBreaker(auto_probe=True)
+        self.breaker = breaker if breaker else None
+        if self.breaker is not None:
+            if self.breaker._probe is None:
+                self.breaker._probe = self._probe_sidecar
+            if self.breaker._on_promote is None:
+                self.breaker._on_promote = self._on_wire_restored
 
     # -- catalog staging ----------------------------------------------------
     def _catalog(self, instance_types: Sequence) -> _CatalogEntry:
@@ -219,15 +275,22 @@ class TorchSolver:
                 self._catalog_cache[key] = entry   # LRU touch
                 return entry
             tensors = encode.encode_catalog(instance_types)
-            staged, offsets, words = ffd.stage_catalog(tensors, self.device)
+            if self.client is not None:
+                # remote mode: the sidecar stages on ITS device; the
+                # in-process rungs stage locally on first use
+                staged, offsets, words = None, (), ()
+            else:
+                staged, offsets, words = ffd.stage_catalog(tensors, self.device)
             # decode acceleration: type objects pre-sorted by cheapest
             # price so a group's survivors are one boolean fancy-index
             prices = np.array([it.cheapest_price() for it in instance_types])
             order = np.argsort(prices, kind="stable")
+            self._seq_counter += 1
             entry = _CatalogEntry(
                 tensors=tensors, staged=staged, offsets=offsets, words=words,
                 types_by_price=np.array(list(instance_types), dtype=object)[order],
                 order=order, catalog_list=instance_types, row_cache={},
+                seqnum=f"{self._seq_prefix}-{self._seq_counter}",
             )
             self._catalog_cache[key] = entry
             while len(self._catalog_cache) > self._catalog_cache_cap:
@@ -241,6 +304,108 @@ class TorchSolver:
                     self._catalog_cache.pop(next(iter(self._catalog_cache)))
                     metrics.SOLVER_STAGED_PRESSURE_EVICTIONS.inc(kind="catalog")
             return entry
+
+    def _local_staged(self, entry: _CatalogEntry) -> _CatalogEntry:
+        """The entry with tensors staged on this solver's device: remote
+        entries stage on the sidecar only, but the breaker-open and
+        wire-dead rungs solve in process against the SAME snapshot.
+        Memoized back into the cache under the same seqnum."""
+        if entry.staged is not None:
+            return entry
+        staged, offsets, words = ffd.stage_catalog(entry.tensors, self.device)
+        entry2 = entry._replace(staged=staged, offsets=offsets, words=words)
+        with self._lock:
+            cur = self._catalog_cache.get(id(entry.catalog_list))
+            if (
+                cur is not None
+                and cur.catalog_list is entry.catalog_list
+                and cur.seqnum == entry.seqnum
+            ):
+                self._catalog_cache[id(entry.catalog_list)] = entry2
+        return entry2
+
+    # -- wire health (solver/breaker.py) -------------------------------------
+    def wire_healthy(self) -> bool:
+        """True while the solve path needs no degraded handling: no wire,
+        or the breaker is closed. The JAX provisioner gates its
+        double-buffered tick on this."""
+        return self.client is None or self.breaker is None or self.breaker.allow()
+
+    def _probe_sidecar(self) -> bool:
+        """The breaker's half-open probe: one bounded ping on a THROWAWAY
+        connection (no ring, no transport gauge), so a wedged sidecar
+        fails the probe fast and the probe stays off the real client's
+        lock."""
+        if self.client is None:
+            return False
+        c = self.client
+        probe = None
+        try:
+            probe = rpc.SolverClient(
+                c.addr[0] if c.addr else None, c.addr[1] if c.addr else None,
+                timeout=max(2.0, 2.0 * c.connect_timeout), path=c.path,
+                token=c.token, ssl_context=c._ssl_context,
+                server_hostname=c._server_hostname,
+                connect_timeout=c.connect_timeout,
+                shm=False, track_transport=False,
+            )
+            return bool(probe.ping())
+        except Exception:  # noqa: BLE001 -- any wire failure = not recovered
+            return False
+        finally:
+            if probe is not None:
+                probe.close()
+
+    def _on_wire_restored(self) -> None:
+        """Re-promotion gate: drop the stale connection so the first
+        post-promotion solve reconnects, re-auths and RE-STAGES the
+        catalog (close() clears the per-connection staged seqnums)."""
+        try:
+            self.client.close()
+        except Exception:  # noqa: BLE001 -- closing a dead socket is best-effort
+            metrics.HANDLED_ERRORS.inc(site="solver.wire_restored_close")
+
+    def describe_wire(self) -> dict:
+        """Delta/staging state document for /debug/solver: the grouping
+        churn stats, the last solve's shipping mode, staged bytes by
+        owner, the client's staged seqnums and epoch bases, and
+        (best-effort) the sidecar's own staging/eviction counters via the
+        debug op. The JAX package's per-jit-entry table has no
+        counterpart here (no jit)."""
+        doc = {
+            "incremental": self.incremental,
+            "group_stats": dict(self.last_group_stats),
+            "wire": self.client is not None,
+            "staged_bytes": self.staged_bytes_by_kind(),
+        }
+        c = self.client
+        if c is None:
+            return doc
+        doc["delta_enabled"] = c.delta
+        doc["last_delta"] = dict(c.last_delta)
+        doc["transport"] = "shm" if c._ring is not None else "tcp"
+        doc["shm_enabled"] = c.shm
+        doc["shm_failures"] = c._shm_failures
+        doc["last_reply"] = dict(c.last_reply)
+        with c._lock:
+            doc["staged_seqnums"] = sorted(c._staged_seqnums)
+            doc["epoch_bases"] = {sn: e for sn, (e, _) in c._epoch_bases.items()}
+            pending = len(c._pending)
+        doc["replies_in_flight"] = pending
+        # the debug op is a synchronous roundtrip under the client lock:
+        # skip it while a pipelined reply is in flight
+        if self.wire_healthy() and pending == 0:
+            try:
+                server = c.debug_info()
+                doc["server"] = {
+                    k: server[k]
+                    for k in ("staged_seqnums", "class_epochs",
+                              "disrupt_epochs", "evictions", "staged_bytes")
+                    if k in server
+                }
+            except Exception:  # noqa: BLE001 -- debug output must never fail a probe
+                metrics.HANDLED_ERRORS.inc(site="solver.describe_wire")
+        return doc
 
     def staged_bytes_by_kind(self) -> Dict[str, int]:
         """Staged tensor bytes by owner (TPUSolver.staged_bytes_by_kind):
@@ -766,6 +931,22 @@ class TorchSolver:
         if merged is None:
             return None
         merged_items, _ = merged
+        if any(p.template.taints for p in pools) and self.client is not None:
+            # the taint gate rides SolveInputs.join_allowed, which an older
+            # sidecar drops silently: taint-carrying merged batches need
+            # the server to advertise the feature, else oracle. With the
+            # breaker open the wire is not touched (the cached feature set
+            # decides; unknown -> oracle)
+            if self.wire_healthy():
+                try:
+                    if "join_allowed" not in self.client.features():
+                        return None
+                except (ConnectionError, OSError):
+                    return None
+            else:
+                cached = getattr(self.client, "_features", None)
+                if cached is None or "join_allowed" not in cached:
+                    return None
         # the virtual pool carries NO taints and NO overhead: toleration
         # gates per column via join_allowed, and each column's allocatable
         # already carries its pool's daemonset reserve (build_merged)
@@ -884,6 +1065,21 @@ class TorchSolver:
             entry = self._catalog(instance_types)
             class_set = self._encode(pool, entry, classes, placed_existing, overhead_vec)
             enc_sp.set(c_pad=class_set.c_pad)
+        wire = self.client is not None
+        if wire and self.breaker is not None and not self.breaker.allow():
+            # breaker OPEN (or half-open): skip the wire BEFORE any socket
+            # work and solve in process on the same catalog snapshot
+            wire = False
+            metrics.BREAKER_SHORT_CIRCUITS.inc()
+            metrics.HANDLED_ERRORS.inc(site="solver.breaker_open")
+            tracing.annotate(fallback="breaker-open")
+            if self._route_monitor.has_changed("breaker_open", entry.seqnum):
+                self.log.warning(
+                    "solver wire breaker open; solving in process",
+                    seqnum=entry.seqnum, breaker=self.breaker.state,
+                    device=str(self.device),
+                )
+            entry = self._local_staged(entry)
         pending = _PendingSolve()
         pending.pool = pool
         pending.entry = entry
@@ -891,6 +1087,30 @@ class TorchSolver:
         pending.result = result
         pending.placed_existing = placed_existing
         pending.nodepool_usage = nodepool_usage
+        if wire:
+            # the convex tier sends one synchronous solve_convex op at the
+            # barrier (the sidecar runs the relaxation next to its FFD
+            # solve), so nothing is dispatched here
+            if self.tier == "convex":
+                return pending
+            # async wire dispatch: the frame streams now and the reply is
+            # claimed at the barrier; a dispatch-time failure leaves
+            # rpc_handle None and the barrier runs the synchronous ladder
+            with tracing.span("wire_dispatch") as wd_sp:
+                try:
+                    pending.rpc_handle = self.client.begin_solve_compact(
+                        entry.seqnum, entry.tensors, class_set, g_max=self.g_max,
+                        objective=self.objective,
+                    )
+                    ld = self.client.last_delta
+                    wd_sp.set(
+                        delta_mode=ld["mode"], delta_rows=ld["rows"],
+                        delta_bytes=ld["payload_bytes"], full_bytes=ld["full_bytes"],
+                    )
+                except (ConnectionError, OSError, RuntimeError) as e:
+                    wd_sp.set(dispatch_error=f"{type(e).__name__}: {e}"[:200])
+                    pending.rpc_handle = None
+            return pending
         with tracing.span("dispatch_device"):
             # the open/join masks travel bit-packed (the form kernel A reads)
             inp = ffd.make_inputs_staged(entry.staged, class_set, packed_masks=True)
@@ -995,7 +1215,11 @@ class TorchSolver:
         so the device computes it while the host decodes. `placed` is the
         take-row sum: the pods the solve placed on new groups (billing
         requested counts would break gap >= 1 when pods go unplaced).
-        Observe-only: a failure is counted and the tick goes on."""
+        Observe-only: a failure is counted and the tick goes on. Wire
+        ticks stage nothing locally, so they carry no bound (as in
+        TPUSolver)."""
+        if pending.inp is None:
+            return None
         try:
             placed = np.asarray(dense[0]).sum(axis=1).astype(np.float32)
             return self._dispatch_bound(
@@ -1132,23 +1356,33 @@ class TorchSolver:
         # chaos site for the barrier half (latency = a slow claim)
         failpoints.eval("solver.solve_finish")
         entry, class_set = pending.entry, pending.class_set
-        with tracing.span("device"):
-            # THE host barrier of the tick (sync_witness SANCTIONED_FETCH)
-            host_buf = ffd.fetch_fused(pending.buf)
-        dense = ffd.expand_fused(
-            host_buf, class_set.c_pad, self.g_max,
-            entry.tensors.k_pad, encode.Z_PAD, encode.CT, pending.nnz_max,
-        )
-        if dense is None:
-            # sparse budget overflow: refetch the dense decision
-            with tracing.span("device", refetch="dense"):
-                dense = ffd.solve_dense_tuple(
-                    pending.inp, g_max=self.g_max, word_offsets=entry.offsets,
-                    words=entry.words, objective=self.objective,
-                )
+        cx_lower = None
+        if self.client is not None and pending.buf is None:
+            # the wire: a pipelined reply to claim or the synchronous
+            # ladder (a breaker-open dispatch set pending.buf in process)
+            with tracing.span("wire"):
+                # the echoed server stages graft under this span
+                if self.tier == "convex":
+                    dense, cx_lower = self._finish_remote_convex(pending)
+                else:
+                    dense = self._finish_remote(pending)
+        else:
+            with tracing.span("device"):
+                # THE host barrier of the tick (sync_witness SANCTIONED_FETCH)
+                host_buf = ffd.fetch_fused(pending.buf)
+            dense = ffd.expand_fused(
+                host_buf, class_set.c_pad, self.g_max,
+                entry.tensors.k_pad, encode.Z_PAD, encode.CT, pending.nnz_max,
+            )
+            if dense is None:
+                # sparse budget overflow: refetch the dense decision
+                with tracing.span("device", refetch="dense"):
+                    dense = ffd.solve_dense_tuple(
+                        pending.inp, g_max=self.g_max, word_offsets=entry.offsets,
+                        words=entry.words, objective=self.objective,
+                    )
         # convex tier: round and judge before decode, so the decoded
         # groups are the chosen placement (and the bound bills its takes)
-        cx_lower = None
         if pending.cx is not None:
             dense, cx_lower = self._finish_convex(pending, dense)
         qtotals = self._begin_quality(pending, dense)
@@ -1159,6 +1393,142 @@ class TorchSolver:
             )
         self._finish_quality(out, qtotals, lb_convex=cx_lower)
         return out
+
+    # -- the wire barrier ------------------------------------------------------
+    def _wire_down(self, e: BaseException, what: str) -> None:
+        """Account one failed wire ladder: toward opening the breaker, in
+        the JAX package's fallback counter and in HANDLED_ERRORS, logged
+        once per change of exception type."""
+        if self.breaker is not None:
+            self.breaker.record_failure()
+        metrics.SOLVER_PIPELINE_FALLBACKS.inc(reason="rpc-down")
+        metrics.HANDLED_ERRORS.inc(site="solver.wire_down")
+        tracing.annotate(fallback="rpc-down")
+        if self._route_monitor.has_changed("wire_down", type(e).__name__):
+            self.log.warning(
+                f"{what}; solving in process",
+                error=f"{type(e).__name__}: {e}"[:200], device=str(self.device),
+                breaker=self.breaker.state if self.breaker is not None else "none",
+            )
+
+    def _finish_remote(self, pending: _PendingSolve):
+        """Claim (or re-run) the wire solve with circuit-breaker
+        accounting. When the WHOLE ladder fails the solve re-runs in
+        process on the same snapshot (identical decision) and the failure
+        counts toward opening the breaker -- per finish, not per rung."""
+        try:
+            dense = self._finish_remote_wire(pending)
+        except (ConnectionError, OSError, RuntimeError) as e:
+            self._wire_down(e, "solver wire ladder failed")
+            with tracing.span("device", fallback="rpc-down"):
+                dense = self._solve_local_dense(pending)
+        else:
+            if self.breaker is not None:
+                self.breaker.record_success()
+        return dense
+
+    def _finish_remote_convex(self, pending: _PendingSolve):
+        """The convex tier's wire barrier: one synchronous solve_convex op
+        (FFD scan, relaxation, rounding and the never-worse differential
+        on the sidecar), returning (chosen dense tuple, the relaxation's
+        lower bound or None). A sidecar without the feature takes the
+        plain wire ladder; a dead wire the in-process dense solve -- an
+        FFD tick either way."""
+        entry, class_set = pending.entry, pending.class_set
+        try:
+            if "convex" not in self.client.features():
+                metrics.CONVEX_FALLBACKS.inc(reason="wire")
+                if self._route_monitor.has_changed("convex_feature", entry.seqnum):
+                    self.log.info("sidecar lacks the convex feature; ticks stay on FFD")
+                return self._finish_remote(pending), None
+            with tracing.span("wire_convex"):
+                dense, info = self.client.solve_convex(
+                    entry.seqnum, entry.tensors, class_set,
+                    g_max=self.g_max, objective=self.objective,
+                )
+        except (ConnectionError, OSError, RuntimeError) as e:
+            metrics.CONVEX_FALLBACKS.inc(reason="wire")
+            self._wire_down(e, "solve_convex wire op failed")
+            with tracing.span("device", fallback="rpc-down"):
+                return self._solve_local_dense(pending), None
+        if self.breaker is not None:
+            self.breaker.record_success()
+        metrics.CONVEX_SOLVES.inc(winner=info["winner"])
+        metrics.CONVEX_ITERATIONS.set(int(info["iterations"]))
+        if info.get("fallback"):
+            metrics.CONVEX_FALLBACKS.inc(reason="rounding")
+        tracing.annotate(convex_winner=info["winner"])
+        self.last_convex = dict(info)
+        lower = float(info.get("lower") or 0.0)
+        return dense, (lower if lower > 0.0 else None)
+
+    def _solve_local_dense(self, pending: _PendingSolve):
+        """The wire-dead rung's compute: the dense solve on locally staged
+        tensors of the SAME snapshot the wire dispatch encoded against."""
+        entry = self._local_staged(pending.entry)
+        pending.entry = entry
+        inp = ffd.make_inputs_staged(entry.staged, pending.class_set, packed_masks=True)
+        return ffd.solve_dense_tuple(
+            inp, g_max=self.g_max, word_offsets=entry.offsets,
+            words=entry.words, objective=self.objective,
+        )
+
+    def _finish_remote_wire(self, pending: _PendingSolve):
+        """The wire degrade ladder, in order: the pipelined reply; the
+        synchronous compact op (reconnects, restages on unknown-seqnum);
+        the dense op (old sidecars without solve_compact, and
+        sparse-budget overflow)."""
+        entry, class_set = pending.entry, pending.class_set
+        catalog, seqnum = entry.tensors, entry.seqnum
+        dec = None
+        if pending.rpc_handle is not None:
+            try:
+                dec = self.client.finish_solve_compact(pending.rpc_handle)
+            except rpc.StaleEpochError:
+                # the sidecar lost the class epoch the delta patched; the
+                # client dropped its base, so the op below ships full
+                metrics.SOLVER_PIPELINE_FALLBACKS.inc(reason="stale-epoch")
+                tracing.annotate(fallback="stale-epoch")
+            except rpc.StaleSeqnumError:
+                # restarted / evicted mid-flight: the synchronous op
+                # restages and retries
+                metrics.SOLVER_PIPELINE_FALLBACKS.inc(reason="stale-seqnum")
+                tracing.annotate(fallback="stale-seqnum")
+            except (ConnectionError, OSError):
+                metrics.SOLVER_PIPELINE_FALLBACKS.inc(reason="rpc-degraded")
+                tracing.annotate(fallback="rpc-degraded")
+            except RuntimeError as e:
+                if "unknown op" not in str(e):
+                    raise
+                metrics.SOLVER_PIPELINE_FALLBACKS.inc(reason="rpc-degraded")
+                tracing.annotate(fallback="rpc-degraded")
+        dense = None
+        overflow = False
+        if dec is not None:
+            dense = ffd.expand_compact(
+                dec, class_set.c_pad, self.g_max, catalog.k_pad, encode.Z_PAD, encode.CT)
+            overflow = dense is None
+        if dense is None and not overflow:
+            try:
+                dec = self.client.solve_classes_compact(
+                    seqnum, catalog, class_set, g_max=self.g_max, objective=self.objective,
+                )
+                dense = ffd.expand_compact(
+                    dec, class_set.c_pad, self.g_max, catalog.k_pad, encode.Z_PAD, encode.CT)
+            except RuntimeError as e:
+                if "unknown op" not in str(e):
+                    raise
+                dense = None
+        if dense is None:
+            # sparse budget overflow / no compact op: dense refetch
+            tracing.annotate(wire_path="dense")
+            out = self.client.solve_classes(
+                seqnum, catalog, class_set, g_max=self.g_max, objective=self.objective)
+            dense = (
+                np.asarray(out.take), np.asarray(out.unplaced), int(out.n_open),
+                np.asarray(out.gmask), np.asarray(out.gzone), np.asarray(out.gcap),
+            )
+        return dense
 
     def _repack_operands(self, classes, existing_nodes) -> Tuple[torch.Tensor, ...]:
         """Kernel B's operands for packing `classes` onto `existing_nodes`:

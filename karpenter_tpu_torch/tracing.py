@@ -1,11 +1,13 @@
 """Tick tracing: span trees and the slow-tick flight recorder.
 
-Copy of karpenter_tpu/tracing.py without its wire half: ``Span``,
-``Tracer`` (with the thread-local current span, tail-biased sampling and
-per-span-name stats), ``trace``/``span``/``annotate`` and the slow-tick
-``FlightRecorder``. Left out until the port has a sidecar: ``WireTrace``
-and the tracer's ``inject``/``graft`` trace-context propagation; and
-until it has an operator: the brownout throttle, the launch fan-out's
+Copy of karpenter_tpu/tracing.py: ``Span``, ``Tracer`` (with the
+thread-local current span, tail-biased sampling and per-span-name
+stats), ``trace``/``span``/``annotate``, the slow-tick
+``FlightRecorder``, and the wire half -- ``WireTrace`` (the sidecar's
+per-request stage recorder, echoed in the reply header) and the
+tracer's ``inject``/``graft`` (the client ships its trace context and
+grafts the echoed server stages under its ``wire`` span). Left out until
+the port has an operator: the brownout throttle, the launch fan-out's
 ``attach`` and the ``/debug/traces`` dump.
 
 TorchSolver, the incremental grouper and DisruptEngine open spans at the
@@ -27,6 +29,7 @@ import threading
 import time
 import uuid
 from collections import deque
+from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
 
@@ -285,6 +288,65 @@ class Tracer:
         if sp.parent_id is None:
             self.recorder.record(sp)
 
+    # -- wire propagation ----------------------------------------------------
+    def inject(self) -> Optional[dict]:
+        """The trace context to ship in an RPC request header, or None
+        when no trace is active (the server then skips stage timing and
+        the reply carries no echo)."""
+        cur = getattr(self._local, "cur", None)
+        if cur is None:
+            return None
+        return {"trace_id": cur.trace_id, "span_id": cur.span_id}
+
+    def graft(self, header: dict) -> None:
+        """Attach a reply header's echoed server-side stage spans under
+        the current span. Server times are relative to its own op start;
+        they are anchored at the current span's start (the clocks are not
+        shared -- the raw server-relative offsets stay in the attributes).
+        When the echoed trace context names a DIFFERENT trace than the
+        current one -- a pipelined reply claimed a tick after its dispatch
+        -- the grafted spans carry `origin_trace_id`/`origin_span_id` as
+        the explicit link."""
+        spans = header.get("spans")
+        cur = getattr(self._local, "cur", None)
+        if not spans or cur is None:
+            return
+        ctx = header.get("trace") or {}
+        link = {}
+        if ctx.get("trace_id") and ctx["trace_id"] != cur.trace_id:
+            link["origin_trace_id"] = ctx["trace_id"]
+            if ctx.get("span_id"):
+                link["origin_span_id"] = ctx["span_id"]
+        for s in spans:
+            try:
+                name = str(s["name"])
+                start_ms = float(s.get("start_ms", 0.0))
+                dur_ms = float(s.get("dur_ms", 0.0))
+            except (KeyError, TypeError, ValueError):
+                continue  # a malformed echo must never break the solve
+            sid = f"{self._id_prefix}-{next(self._ids):x}"
+            sp = Span(name, cur.trace_id, sid, cur.span_id,
+                      cur.start + start_ms / 1e3, self)
+            sp.end = sp.start + dur_ms / 1e3
+            sp.attributes = {
+                "remote": True,
+                "server_start_ms": start_ms,
+                "server_dur_ms": dur_ms,
+                **link,
+            }
+            extra = s.get("attrs")
+            if isinstance(extra, dict):
+                sp.attributes.update(extra)
+            sp.sampled = cur.sampled
+            cur.children.append(sp)
+            if cur.sampled:
+                # grafted remote stages count exactly like locally finished
+                # spans: stats AND the per-name span counter
+                self._observe(name, dur_ms / 1e3)
+                from karpenter_tpu_torch import metrics
+
+                metrics.TRACE_SPANS.inc(name=name)
+
     # -- stats ---------------------------------------------------------------
     def _observe(self, name: str, seconds: float) -> None:
         with self._stats_lock:
@@ -313,6 +375,45 @@ class Tracer:
                 "count": n,
             }
         return out
+
+
+class WireTrace:
+    """Server-side (sidecar) per-request stage recorder. Built from the
+    request header's trace context; `stage()` times a named server stage;
+    `echo()` is splatted into the OK reply header so the client can graft
+    the stages under its wire span. With no context (untraced request)
+    every method is a no-op and the reply carries nothing."""
+
+    __slots__ = ("ctx", "spans", "_clock", "_t0")
+
+    def __init__(self, ctx: Optional[dict], clock=time.monotonic):
+        self.ctx = ctx if isinstance(ctx, dict) else None
+        self.spans: List[dict] = []
+        self._clock = clock
+        self._t0 = clock() if self.ctx is not None else 0.0
+
+    @contextmanager
+    def stage(self, name: str, **attrs):
+        if self.ctx is None:
+            yield
+            return
+        t0 = self._clock()
+        try:
+            yield
+        finally:
+            rec = {
+                "name": name,
+                "start_ms": round((t0 - self._t0) * 1e3, 3),
+                "dur_ms": round((self._clock() - t0) * 1e3, 3),
+            }
+            if attrs:
+                rec["attrs"] = attrs
+            self.spans.append(rec)
+
+    def echo(self) -> dict:
+        if self.ctx is None:
+            return {}
+        return {"trace": self.ctx, "spans": self.spans}
 
 
 # process-global tracer. Disabled until a caller (chip_smoke.py, a test)

@@ -533,3 +533,73 @@ class TestObservabilityOnTheCard:
         assert moved == {("ffd_solve_fused", "cuda"): 1, ("ffd_solve_fused", "plain"): 0,
                          ("disrupt_repack", "cuda"): 1, ("disrupt_repack", "plain"): 0}
         assert (ffd_scan.launches - a0, repack.launches - b0) == (1, 1)
+
+
+class TestSidecarOnTheCard:
+    """The port's sidecar serving from the card: its kernels launch behind
+    the wire ops, and its decisions equal the in-process card solver's and
+    a CPU sidecar's."""
+
+    @pytest.fixture
+    def sidecars(self, cuda, tmp_path_factory):
+        import tempfile
+
+        from karpenter_tpu_torch.solver import rpc
+
+        d = tempfile.mkdtemp(prefix="kt-")
+        out = {"cuda": rpc.SolverServer(path=f"{d}/g.sock").start(),
+               "cpu": rpc.SolverServer(path=f"{d}/c.sock", device="cpu").start()}
+        assert out["cuda"].device.type == "cuda"
+        yield out
+        for srv in out.values():
+            srv.stop()
+            srv._thread.join(timeout=10)
+
+    def test_wire_ticks_equal_in_process(self, sidecars, items):
+        from karpenter_tpu_torch.solver import rpc
+        from karpenter_tpu_torch.solver.disrupt import DisruptEngine
+
+        pool = NodePool("default")
+        pods = workload.synth_pods(np.random.default_rng(5), workload.ZONES, 3_000, 5, 40)
+        local = TorchSolver(g_max=128)
+        want = decision(local.solve(pool, items, pods))
+        out = {}
+        for kind, srv in sidecars.items():
+            client = rpc.SolverClient(path=srv.path, timeout=120.0)
+            try:
+                solver = TorchSolver(g_max=128, client=client, breaker=False)
+                a0, b0 = ffd_scan.launches, repack.launches
+                tick = solver.solve(pool, items, pods)
+                spec = workload.rampdown_sweep_spec(tick, np.random.default_rng(11), n_cand=16)
+                nodes, sets = workload.sweep_world(spec)
+                engine = DisruptEngine(solver=solver)
+                verdicts = [repr(v) for v in engine.evaluate(nodes, sets)]
+                torch.cuda.synchronize()
+                out[kind] = (decision(tick), verdicts, engine.last_dispatch["path"],
+                             ffd_scan.launches - a0, repack.launches - b0)
+            finally:
+                client.close()
+        assert out["cuda"][0] == want
+        assert out["cuda"][:3] == out["cpu"][:3]
+        assert out["cuda"][2] == "wire"
+        # the card sidecar launched kernel A for the tick and kernel B for
+        # the sweep; the CPU sidecar launched neither
+        assert out["cuda"][3:] == (1, 1) and out["cpu"][3:] == (0, 0)
+
+    def test_kernel_error_crosses_as_an_error_frame(self, sidecars, items, monkeypatch):
+        from karpenter_tpu_torch.solver import rpc
+
+        def boom(*a, **k):
+            raise RuntimeError("launch failed")
+
+        monkeypatch.setattr(ffd_scan, "_launch", boom)
+        client = rpc.SolverClient(path=sidecars["cuda"].path, timeout=120.0)
+        try:
+            catalog = encode.encode_catalog(items)
+            pods = workload.synth_pods(np.random.default_rng(5), workload.ZONES, 500, 5, 20)
+            classes = encode.group_pods(pods, extra_requirements=NodePool("default").requirements())
+            cs = encode.encode_classes(classes, catalog, c_pad=encode.bucket(len(classes), 16))
+            with pytest.raises(RuntimeError, match="launch failed"):
+                client.solve_classes_compact("boom", catalog, cs, g_max=128)
+        finally:
+            client.close()

@@ -67,7 +67,11 @@ class TestNoJaxImports:
                 "karpenter_tpu_torch/obs/hbm.py",
                 "karpenter_tpu_torch/obs/profiler.py",
                 "karpenter_tpu_torch/obs/flight.py",
-                "karpenter_tpu_torch/analysis/sync_witness.py"} <= rel
+                "karpenter_tpu_torch/analysis/sync_witness.py",
+                "karpenter_tpu_torch/overload.py",
+                "karpenter_tpu_torch/solver/rpc.py",
+                "karpenter_tpu_torch/solver/shm.py",
+                "karpenter_tpu_torch/solver/breaker.py"} <= rel
 
     @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
     def test_no_forbidden_import(self, path):
@@ -135,6 +139,36 @@ class TestNoJaxImports:
         assert r.returncode == 0, r.stdout + r.stderr
 
 
+    def test_wire_modules_load_neither(self):
+        """The sidecar, its client, the ring, the breaker and the overload
+        budget, driven end to end on the CPU in a fresh interpreter."""
+        code = (
+            "import sys, tempfile\n"
+            "import numpy as np\n"
+            "from karpenter_tpu_torch import overload, workload\n"
+            "from karpenter_tpu_torch.apis import NodePool\n"
+            "from karpenter_tpu_torch.solver import breaker, rpc, shm\n"
+            "from karpenter_tpu_torch.solver.service import TorchSolver\n"
+            "d = tempfile.mkdtemp(prefix='kt-')\n"
+            "srv = rpc.SolverServer(path=d + '/s.sock', device='cpu').start()\n"
+            "c = rpc.SolverClient(path=d + '/s.sock', timeout=60.0)\n"
+            "items = workload.build_catalog_items()\n"
+            "pods = workload.synth_pods(np.random.default_rng(0), workload.ZONES, 200, 0, 8)\n"
+            "s = TorchSolver(device='cpu', g_max=32, client=c, breaker=breaker.CircuitBreaker())\n"
+            "with overload.active(overload.TickBudget(30.0)):\n"
+            "    assert s.solve(NodePool('default'), items, pods).new_groups\n"
+            "assert c._ring is not None and not overload.sheds_delta()\n"
+            "c.close(); srv.stop()\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
+            "print('LOADED', bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert r.returncode == 0, r.stdout + r.stderr
+
+
 class TestNoFallback:
     def test_solver_without_cuda_raises(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -148,6 +182,23 @@ class TestNoFallback:
                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+    def test_sidecar_without_a_card_exits_nonzero(self, tmp_path):
+        r = subprocess.run(
+            [sys.executable, "-m", "karpenter_tpu_torch.solver.rpc", "--socket",
+             str(tmp_path / "s.sock")],
+            cwd=str(REPO), capture_output=True, text=True, timeout=240,
+            env=dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES=""))
+        assert r.returncode != 0
+        assert "no CUDA device" in r.stderr and "listening" not in r.stdout
+        assert not (tmp_path / "s.sock").exists()
+
+    def test_server_without_a_card_raises(self, monkeypatch, tmp_path):
+        from karpenter_tpu_torch.solver import rpc
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rpc.SolverServer(path=str(tmp_path / "s.sock"))
 
     def test_wrappers_refuse_other_devices(self):
         meta = torch.empty((2, 9), device="meta")

@@ -92,6 +92,17 @@ PORT_FAMILIES = {
     "karpenter_device_hbm_peak_bytes", "karpenter_device_hbm_headroom_fraction",
     "karpenter_profiler_captures_total", "karpenter_profiler_armed_ticks",
     "karpenter_flightdata_records_total", "karpenter_flightdata_flushes_total",
+    # the wire (solver/rpc.py, solver/shm.py), delta shipping, the sidecar's
+    # staging LRUs, the breaker and the wire's fallback counters
+    "karpenter_wire_bytes_total", "karpenter_wire_transport_in_use",
+    "karpenter_wire_payload_copies_total", "karpenter_wire_shm_ring_full_total",
+    "karpenter_wire_shm_send_timeouts_total",
+    "karpenter_scheduler_delta_solves_total", "karpenter_scheduler_delta_rows_shipped_total",
+    "karpenter_scheduler_delta_payload_bytes", "karpenter_scheduler_delta_epoch_restages_total",
+    "karpenter_solver_staged_evictions_total",
+    "karpenter_scheduler_breaker_state", "karpenter_scheduler_breaker_transitions_total",
+    "karpenter_scheduler_breaker_probes_total", "karpenter_scheduler_breaker_short_circuits_total",
+    "karpenter_scheduler_pipeline_fallbacks_total", "karpenter_disruption_device_fallbacks_total",
 }
 
 
@@ -353,6 +364,37 @@ class TestSpans:
             assert troot.attributes["convex_winner"] == jroot.attributes["convex_winner"] == "convex"
         if case == "existing nodes":
             assert "pack_existing" in names
+
+    def test_wire_span_tree_equals_jax(self, catalog_items, port_items, tmp_path):  # noqa: F811
+        """A traced wire solve: the server's echoed "device" and "fetch"
+        stages graft under the client's "wire" span in both packages."""
+        import tempfile
+
+        from karpenter_tpu.solver import rpc as jrpc
+        from karpenter_tpu_torch.solver import rpc as trpc
+
+        d = tempfile.mkdtemp(prefix="kt-")
+        servers = [jrpc.SolverServer(path=f"{d}/j.sock").start(),
+                   trpc.SolverServer(path=f"{d}/t.sock", device="cpu").start()]
+        clients = [jrpc.SolverClient(path=f"{d}/j.sock", timeout=60.0),
+                   trpc.SolverClient(path=f"{d}/t.sock", timeout=60.0)]
+        try:
+            js = TPUSolver(g_max=G, client=clients[0], breaker=False)
+            ts = TorchSolver(device="cpu", g_max=G, client=clients[1], breaker=False)
+            jp, tp = both_pods(3)
+            jroot = traced(jtracing, lambda: js.solve(JNodePool("default"), catalog_items, jp))
+            troot = traced(ttracing, lambda: ts.solve(TNodePool("default"), port_items, tp))
+        finally:
+            for c in clients:
+                c.close()
+            for srv in servers:
+                srv.stop()
+                srv._thread.join(timeout=10)
+        assert tree(troot) == tree(jroot)
+        wire = [c for c in troot.children if c.name == "wire"]
+        assert wire and [g.name for g in wire[0].children] == ["device", "fetch"]
+        assert all(g.attributes["remote"] for g in wire[0].children)
+        assert {"wire_dispatch", "encode", "decode"} <= {name for _, name in tree(troot)}
 
     def test_disabled_tracing_builds_nothing(self, port_items):  # noqa: F811
         assert not ttracing.TRACER.enabled

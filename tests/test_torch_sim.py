@@ -24,6 +24,15 @@ so the port's staged-catalog caches hit as the JAX solver's do.
 
 `diurnal-small` and `diurnal-consolidation` run in tier-1 (as in
 `tests/test_sim.py`); the other seven are marked `slow`.
+
+The same two scenarios replay on the `wire` backend, whose digest must
+equal the host golden (the host == wire contract, `replay.py`), in two
+ways: the port's `SolverServer(device="cpu")` behind the JAX operator,
+TPUSolver, DisruptEngine and `SolverClient` (the name `build` imports,
+`karpenter_tpu.solver.rpc.SolverServer`, patched); and the whole port
+behind the JAX operator -- the adapter's TorchSolver with the port's
+`SolverClient` and `CircuitBreaker` (built with the JAX breaker's
+settings) over the port's server.
 """
 import dataclasses
 import json
@@ -39,12 +48,15 @@ from karpenter_tpu.scheduling.requirements import Requirement as JRequirement
 from karpenter_tpu.sim.replay import replay
 from karpenter_tpu.sim.trace import read_trace
 from karpenter_tpu.solver import disrupt as jdisrupt
+from karpenter_tpu.solver import rpc as jrpc
 from karpenter_tpu.solver import service as jservice
 from karpenter_tpu.solver.disrupt import SetVerdict as JVerdict
 from karpenter_tpu.solver.oracle import NewNodeGroup as JGroup
 from karpenter_tpu.solver.oracle import Scheduler as JScheduler
 from karpenter_tpu.solver.oracle import SchedulingResult as JResult
 from karpenter_tpu_torch import metrics as tmetrics
+from karpenter_tpu_torch.solver import breaker as tbreaker
+from karpenter_tpu_torch.solver import rpc as trpc
 from karpenter_tpu_torch.solver.disrupt import DisruptEngine as TEngine
 from karpenter_tpu_torch.solver.oracle import Scheduler as TScheduler
 from karpenter_tpu_torch.solver.service import TorchSolver
@@ -150,26 +162,43 @@ class _Ticket:
 
 
 class PortSolver:
-    """What the JAX operator reads of a TPUSolver, over TorchSolver on the CPU."""
+    """What the JAX operator reads of a TPUSolver, over TorchSolver on the
+    CPU. Given the replay's JAX client and breaker, the TorchSolver gets
+    the port's own: a `SolverClient` on the same socket and a
+    `CircuitBreaker` with the same settings and rng."""
 
-    client = None
-    breaker = None
     mesh_engine = None
 
-    def __init__(self, g_max=1024, tier="ffd", **unsupported):
+    def __init__(self, g_max=1024, tier="ffd", client=None, breaker=None, **unsupported):
         if unsupported:
             raise TypeError(f"the port adapter takes no {sorted(unsupported)}")
-        self.inner = TorchSolver(g_max=g_max, device="cpu", tier=tier)
+        tclient = tbrk = None
+        if client is not None:
+            tclient = trpc.SolverClient(path=client.path, timeout=client.timeout,
+                                        connect_timeout=client.connect_timeout,
+                                        delta=client.delta, shm=client.shm)
+            tbrk = tbreaker.CircuitBreaker(
+                failure_threshold=breaker.failure_threshold, backoff_base=breaker.backoff_base,
+                backoff_max=breaker.backoff_max, rng=breaker._rng)
+        self.inner = TorchSolver(g_max=g_max, device="cpu", tier=tier, client=tclient,
+                                 breaker=tbrk)
         self.tier = tier
         self.conv = Converter()
         self.calls = 0
 
     def __getattr__(self, name):
-        # last_route, last_group_stats, last_quality, last_convex, staged_bytes_by_kind
+        # last_route, last_group_stats, last_quality, last_convex,
+        # staged_bytes_by_kind, and the wire: client, breaker, wire_healthy
         if name in ("last_route", "last_group_stats", "last_quality", "last_convex",
-                    "staged_bytes_by_kind"):
+                    "staged_bytes_by_kind", "client", "breaker", "wire_healthy"):
             return getattr(self.inner, name)
         raise AttributeError(name)
+
+    def close(self):
+        if self.inner.breaker is not None:
+            self.inner.breaker.stop()
+        if self.inner.client is not None:
+            self.inner.client.close()
 
     def _call(self, fn, scheduler, pods):
         self.calls += 1
@@ -238,6 +267,27 @@ def port_engines(monkeypatch):
     monkeypatch.setattr(jdisrupt, "DisruptEngine", engine)
     monkeypatch.setattr(jprovisioner, "Scheduler", RecordingScheduler)
     yield built
+    for s in built["solvers"]:
+        s.close()
+
+
+@pytest.fixture
+def port_server(monkeypatch):
+    """The wire backend's sidecar swapped for the port's server on the CPU;
+    yields the servers the replay started."""
+    started = []
+
+    def server(path=None, **kw):
+        srv = trpc.SolverServer(path=path, device="cpu", **kw)
+        started.append(srv)
+        return srv
+
+    monkeypatch.setattr(jrpc, "SolverServer", server)
+    yield started
+    for srv in started:
+        if srv._thread is not None:
+            srv._thread.join(timeout=10)
+            assert not srv._thread.is_alive()
 
 
 def trace_seed(events) -> int:
@@ -282,6 +332,41 @@ def test_golden_digest_through_port(key, port_engines):
         assert plain_dispatches("disrupt_repack") > repacks
     if key.startswith("convex:"):
         assert solver.last_convex is not None
+
+
+def replay_wire(name):
+    events = read_trace(os.path.join(GOLDEN_DIR, f"{name}.jsonl"))
+    return replay(events, backend="wire", seed=trace_seed(events))
+
+
+def served_bytes() -> float:
+    return sum(tmetrics.WIRE_BYTES.value(direction="received", transport=t)
+               for t in ("shm", "tcp"))
+
+
+@pytest.mark.parametrize("name", TIER1)
+def test_wire_digest_port_server(name, port_server):
+    """The JAX operator, TPUSolver, DisruptEngine and SolverClient against
+    the port's sidecar: the host golden digest."""
+    before = served_bytes()
+    res = replay_wire(name)
+    assert res.digest == GOLDEN[name], f"{name}: the port's server drifted from the golden digest"
+    assert len(port_server) == 1 and served_bytes() > before
+
+
+@pytest.mark.parametrize("name", TIER1)
+def test_wire_digest_port_solver_and_client(name, port_engines, port_server):
+    """The adapter's TorchSolver with the port's client and breaker over
+    the port's server: the host golden digest, every tick on the wire."""
+    before = tmetrics.HANDLED_ERRORS.value(site="solver.wire_down")
+    res = replay_wire(name)
+    assert res.digest == GOLDEN[name], f"{name}: the port's wire replay drifted from the golden digest"
+    (solver,), (engine,) = port_engines["solvers"], port_engines["engines"]
+    assert solver.calls > 0 and isinstance(solver.inner.client, trpc.SolverClient)
+    assert solver.inner.breaker.state == "closed" and solver.inner.breaker.trips == 0
+    assert tmetrics.HANDLED_ERRORS.value(site="solver.wire_down") == before
+    if name == "diurnal-consolidation":
+        assert engine.calls > 0 and engine.last_dispatch["path"] == "wire"
 
 
 def test_corpus_is_the_nine_digests():
