@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's provisioning solve, its convex tier and the consolidation engine on one GPU.
+"""Drive the port's provisioning solve, its convex tier, the consolidation engine and the operator on one GPU.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
@@ -90,6 +90,22 @@ one JSON line each:
               tick, each in process on the card and counted once; the
               sidecar restarted, the probe promotes and the next tick
               rides the wire
+  operator    the system's own entry points: `python -m karpenter_tpu_torch
+              --max-ticks 5 --tick-interval 0.1 --seed 1 --health-port P
+              --metrics-dump` as a subprocess (exit 0, its CUDA probe names
+              the card, /readyz 200 after the first sweep), and the same
+              command without a card (CUDA_VISIBLE_DEVICES="": exit
+              non-zero, no tick); the full-width `Operator` world --
+              TorchSolver(g_max=1024) and ConsolidationEvaluator on the
+              kwok catalog, 50,000 pods, a 10,000-pod wave, then 75 % of
+              the pods deleted and up to 6 ramp-down ticks -- equal tick by
+              tick (the NodeClaims and pod bindings) to the same world with
+              device="cpu", with tick walls, the dispatch counter's launches
+              per tick, nodes launched and disrupted and the flight record's
+              operator fields; every golden corpus digest through the port's
+              own replay on the card (the 8 host ones, the convex one, and
+              the two tier-1 scenarios over the port's sidecar), with each
+              replay's wall and launches
   kernels     each kernel against its plain torch version on the card, on
               the main path's own inputs (tick 1's scan; tick 2's scan,
               whose C=128 holds 63 padded rows; tick 2's repack; the
@@ -368,6 +384,306 @@ def sweep_stage_timer(engine, functions):
     the calls inside the block (a nested stage counts in its parent too)."""
     return fn_timer([(engine, name, label) for name, label in ENGINE_STAGES.items()]
                     + list(functions))
+
+
+# phase `operator`: the ramp-down after 75 % of the pods leave is ticked
+# until the disruption controller goes quiet, at most this many ticks (it
+# retires about one node a tick; the depth of the world is cut, never its
+# width)
+OPERATOR_RAMP_TICKS = 6
+OPERATOR_SETTLE_TICKS = 12
+OPERATOR_STEP_S = 3.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_binary(repo: str, extra_env: dict, args=()) -> dict:
+    """`python -m karpenter_tpu_torch --max-ticks 5 ...` as a subprocess,
+    polling its /readyz until it exits: exit code, seconds to the first
+    200, the tail of both streams."""
+    import urllib.error
+    import urllib.request
+
+    port = free_port()
+    cmd = [sys.executable, "-m", "karpenter_tpu_torch", "--max-ticks", "5",
+           "--tick-interval", "0.1", "--seed", "1", "--health-port", str(port),
+           "--metrics-dump", *args]
+    with tempfile.TemporaryDirectory(prefix="karpenter-binary-") as tmp:
+        out_path, err_path = os.path.join(tmp, "out"), os.path.join(tmp, "err")
+        with open(out_path, "wb") as out, open(err_path, "wb") as err:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=repo, stdout=out, stderr=err,
+                                    env=dict(os.environ, **extra_env))
+            ready_s, statuses = None, set()
+            try:
+                while proc.poll() is None:
+                    if time.perf_counter() - t0 > 300:
+                        raise AssertionError(f"the binary ran past 300 s: {cmd}")
+                    try:
+                        with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz",
+                                                    timeout=1) as resp:
+                            statuses.add(resp.status)
+                            if resp.status == 200 and ready_s is None:
+                                ready_s = time.perf_counter() - t0
+                    except urllib.error.HTTPError as e:
+                        statuses.add(e.code)
+                    except OSError:
+                        pass
+                    time.sleep(0.02)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait(timeout=60)
+            wall_s = time.perf_counter() - t0
+        with open(out_path) as f:
+            stdout = f.read()
+        with open(err_path) as f:
+            stderr = f.read()
+    return {"cmd": " ".join(cmd[1:]), "rc": proc.returncode, "wall_s": wall_s,
+            "start_to_ready_s": ready_s, "readyz_statuses": sorted(statuses),
+            "stdout": stdout, "stderr": stderr}
+
+
+def phase_operator(dev, tag: dict, metrics, ka, kb) -> dict:
+    """The binary, the full-width operator world on the card against the
+    same world with device="cpu", and the golden corpus through the port's
+    own replay; returns the kernel launches each counted run made."""
+    import hashlib
+
+    from karpenter_tpu_torch import overload, seeding, workload
+    from karpenter_tpu_torch.apis import Node, NodeClaim, NodePool, Pod, TPUNodeClass
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.cache.ttl import FakeClock
+    from karpenter_tpu_torch.controllers.disruption import MIN_NODE_LIFETIME
+    from karpenter_tpu_torch.obs import flight
+    from karpenter_tpu_torch.operator import Operator, Options
+    from karpenter_tpu_torch.sim.replay import replay
+    from karpenter_tpu_torch.sim.trace import read_trace
+    from karpenter_tpu_torch.solver.consolidate import ConsolidationEvaluator
+    from karpenter_tpu_torch.solver.service import TorchSolver
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    launches = {}
+
+    # 1. the binary on the card, then refusing to start without one
+    dev_args = ("--device", "cpu") if DEVICE == "cpu" else ()
+    on_card = run_binary(repo, {}, dev_args)
+    no_card = run_binary(repo, {"CUDA_VISIBLE_DEVICES": ""})
+    probe = [line for line in on_card["stderr"].splitlines() if '"CUDA probe"' in line]
+    binary_ok = {
+        "exit_0": on_card["rc"] == 0,
+        "probe_names_the_card": DEVICE == "cpu" or bool(probe and tag["card"] in probe[0]),
+        "readyz_200_after_a_sweep": on_card["start_to_ready_s"] is not None,
+        "metrics_dumped": "karpenter_nodes_ready_count" in on_card["stdout"],
+        "no_card_exit_nonzero": no_card["rc"] != 0,
+        "no_card_names_device_cpu": "--device cpu" in no_card["stderr"],
+        "no_card_no_tick": ("nodeclass readiness" not in no_card["stderr"]
+                            and 200 not in no_card["readyz_statuses"]),
+    }
+    binary_doc = {
+        "on_card": {k: on_card[k] for k in ("cmd", "rc", "wall_s", "start_to_ready_s",
+                                             "readyz_statuses")},
+        "probe_line": probe[0] if probe else None,
+        "no_card": {k: no_card[k] for k in ("rc", "wall_s", "readyz_statuses")},
+        "no_card_stderr": no_card["stderr"].strip().splitlines()[-1:],
+        "checks": binary_ok,
+    }
+    if not all(binary_ok.values()):
+        raise AssertionError(f"the binary: {binary_ok}: {on_card['stderr'][-2000:]}")
+
+    # 2. the full-width operator world: 50,000 pending pods, a 10,000-pod
+    # wave, then 75 % of the pods deleted, on the card and with device="cpu"
+    def world(device) -> dict:
+        saved = seeding.snapshot()
+        solver = TorchSolver(g_max=G_MAX, device=device)
+        op = Operator(
+            clock=FakeClock(100_000.0), solver=solver,
+            consolidation_evaluator=ConsolidationEvaluator(solver=solver),
+            # a deadline no tick comes near: the brownout ladder observes
+            # every tick (rung 0 in the flight record) and nothing sheds
+            options=Options(seed=SEED, tracing=False, tick_deadline=3600.0),
+        )
+        op.cluster.create(TPUNodeClass("default"))
+        op.cluster.create(NodePool("default"))
+        ticks = []
+        prev_nodes = set()
+        on_card = torch.device(device).type == "cuda"
+
+        def tick(stage):
+            nonlocal prev_nodes
+            before = dispatch_counts(metrics)
+            # the first tick of the wave and of the ramp-down on the card
+            # runs under torch.profiler: the device's busy time in the tick
+            profiled = on_card and stage != "50k" and not any(t["stage"] == stage for t in ticks)
+            busy = None
+            t0 = time.perf_counter()
+            if profiled:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    op.tick()
+                    torch.cuda.synchronize()
+                busy = sum(getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0)
+                           for e in prof.key_averages() if "CUDA" in str(e.device_type)) / 1e3
+            else:
+                op.tick()
+                if on_card:
+                    torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            after = dispatch_counts(metrics)
+            claims = sorted(
+                (c.metadata.name, c.metadata.labels.get(wk.NODEPOOL_LABEL, ""),
+                 c.metadata.labels.get(wk.INSTANCE_TYPE_LABEL, ""),
+                 c.metadata.labels.get(wk.ZONE_LABEL, ""),
+                 c.metadata.labels.get(wk.CAPACITY_TYPE_LABEL, ""), c.deleting)
+                for c in op.cluster.list(NodeClaim))
+            bindings = sorted((p.metadata.name, p.node_name or "") for p in op.cluster.list(Pod))
+            nodes_now = {n.metadata.name for n in op.cluster.list(Node)}
+            rec = flight.RECORDER.last() or {}
+            ticks.append({
+                "stage": stage, "wall_ms": wall, "profiled": profiled,
+                "device_busy_ms": busy,
+                "device_idle_share": None if busy is None else 1.0 - busy / wall,
+                "digest": hashlib.sha256(json.dumps([claims, bindings]).encode()).hexdigest(),
+                "claims": len(claims), "bound": sum(1 for _, n in bindings if n),
+                "pending": len(op.cluster.pending_pods()),
+                "nodes_launched": len(nodes_now - prev_nodes),
+                "nodes_disrupted": len(prev_nodes - nodes_now),
+                "dispatches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
+                "flight": {k: rec.get(k) for k in (
+                    "brownout_level", "breaker", "deferred_pods", "shed_total", "nodes_ready",
+                    "pods_bound_total", "consolidation_ms", "consolidation_mode",
+                    "consolidation_sets")},
+            })
+            prev_nodes = nodes_now
+            op.clock.step(OPERATOR_STEP_S)
+
+        def settle(stage):
+            for _ in range(OPERATOR_SETTLE_TICKS):
+                tick(stage)
+                if not op.cluster.pending_pods() and op.provisioner._inflight is None:
+                    return
+            raise AssertionError(f"operator world ({device}): {stage} did not settle in "
+                                 f"{OPERATOR_SETTLE_TICKS} ticks")
+
+        t_world = time.perf_counter()
+        try:
+            for p in workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS,
+                                         salt=1):
+                op.cluster.create(p)
+            settle("50k")
+            for p in workload.synth_pods(np.random.default_rng(SEED + 1), workload.ZONES,
+                                         N_WAVE, salt=2):
+                op.cluster.create(p)
+            settle("10k wave")
+            names = sorted(p.metadata.name for p in op.cluster.list(Pod))
+            for i, name in enumerate(names):
+                if i % 4:
+                    op.cluster.delete(Pod, name)
+            op.clock.step(MIN_NODE_LIFETIME + 60)
+            quiet = False
+            for _ in range(OPERATOR_RAMP_TICKS):
+                decided = metrics.DISRUPTION_DECISIONS._values.copy()
+                tick("ramp-down")
+                moved = metrics.DISRUPTION_DECISIONS._values != decided
+                if (not moved and not op.cluster.pending_pods()
+                        and not any(c.deleting for c in op.cluster.list(NodeClaim))):
+                    quiet = True
+                    break
+        finally:
+            seeding.restore(saved)
+        return {"ticks": ticks, "seconds": time.perf_counter() - t_world, "quiet": quiet}
+
+    ka.launches = kb.launches = 0
+    plain0 = {k: v for k, v in dispatch_counts(metrics).items() if k.endswith("/plain")}
+    with recording(ka, kb) as rec:
+        card = world(dev)
+    launches["operator world"] = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+    # the operator path's own kernel operands (phases `kernels` and `times`):
+    # kernel A at the 50k tick and at the wave, kernel B as the provisioner's
+    # pre-pass (one candidate set) and as the widest disruption sweep
+    # (each with its launches in the world: per stage, or per kind of call)
+    repacks = rec["disrupt_repack"]
+
+    def stage_launches(stage):
+        return int(sum(t["dispatches"].get("ffd_scan/cuda", 0) + t["dispatches"].get(
+            "ffd_scan/plain", 0) for t in card["ticks"] if t["stage"] == stage))
+
+    prepass = [o for o in repacks if o[4].shape[0] == 1]
+    sweeps_b = [o for o in repacks if o[4].shape[0] > 1]
+    operands = {
+        "ffd_scan": {"operator 50k tick": (rec["ffd_scan"][0], stage_launches("50k")),
+                     "operator 10k wave": (rec["ffd_scan"][-1], stage_launches("10k wave"))},
+        "disrupt_repack": {
+            "operator pre-pass": (prepass[0], len(prepass)),
+            "operator sweep (widest)": (max(sweeps_b, key=lambda o: o[4].shape[0]), len(sweeps_b)),
+        },
+    }
+    plain1 = {k: v for k, v in dispatch_counts(metrics).items() if k.endswith("/plain")}
+    if DEVICE != "cpu" and plain1 != plain0:
+        raise AssertionError(f"the card's operator world ran a plain version: {plain0} -> {plain1}")
+    missing = [k for k, n in launches["operator world"].items() if n < 1]
+    if missing:
+        raise AssertionError(f"the operator world did not launch {missing}")
+    twin = world("cpu")
+    same = [a["digest"] == b["digest"] for a, b in zip(card["ticks"], twin["ticks"])]
+    world_ok = len(card["ticks"]) == len(twin["ticks"]) and all(same)
+    flight_ok = all(t["flight"]["brownout_level"] == 0 and isinstance(t["flight"]["nodes_ready"], int)
+                    and isinstance(t["flight"]["pods_bound_total"], int) for t in card["ticks"])
+    last = card["ticks"][-1]
+    world_doc = {
+        "pods": [N_PODS, N_WAVE], "deleted_fraction": 0.75, "g_max": G_MAX,
+        "ticks": [{k: v for k, v in t.items() if k != "digest"} for t in card["ticks"]],
+        "card_seconds": card["seconds"], "cpu_twin_seconds": twin["seconds"],
+        "ticks_equal_to_cpu": same, "quiet_within_ramp_ticks": card["quiet"],
+        "launches": launches["operator world"], "flight_fields_filled": flight_ok,
+        "final": {"claims": last["claims"], "bound": last["bound"], "pending": last["pending"]},
+        "wall_note": "host clock around Operator.tick() ending in a sync; dispatches: "
+                     "karpenter_solver_kernel_dispatches_total moved in the tick",
+    }
+    if not world_ok:
+        raise AssertionError(f"the operator world on the card differs from device='cpu': {same}")
+    if not flight_ok:
+        raise AssertionError("a flight record lacks the operator's fields")
+    del card, twin
+
+    # 3. the golden corpus through the port's own replay on the card
+    golden_dir = os.path.join(repo, "tests", "golden", "scenarios")
+    with open(os.path.join(golden_dir, "digests.json")) as f:
+        golden = json.load(f)
+
+    def replay_counted(key, backend, name):
+        events = read_trace(os.path.join(golden_dir, f"{name}.jsonl"))
+        seed = next((int(e["seed"]) for e in events if e.get("ev") == "header" and "seed" in e), 0)
+        ka.launches = kb.launches = 0
+        t0 = time.perf_counter()
+        res = replay(events, backend=backend, seed=seed, device=DEVICE)
+        wall = time.perf_counter() - t0
+        launches[f"replay {key}"] = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+        return {"digest_equal": res.digest == golden[key if backend != "wire" else name],
+                "wall_s": wall, "ticks": res.ticks, "launches": launches[f"replay {key}"]}
+
+    corpus = {}
+    for key in sorted(golden):
+        backend, _, name = key.rpartition(":")
+        corpus[key] = replay_counted(key, backend or "host", name)
+    for name in ("diurnal-small", "diurnal-consolidation"):
+        corpus[f"wire:{name}"] = replay_counted(f"wire:{name}", "wire", name)
+    corpus_ok = all(d["digest_equal"] for d in corpus.values())
+    overload.install_brownout(None)
+    emit({"phase": "operator", "binary": binary_doc, "world": world_doc, "corpus": corpus,
+          "corpus_ok": corpus_ok, **tag})
+    if not corpus_ok:
+        raise AssertionError(f"a corpus digest differs: "
+                             f"{[k for k, d in corpus.items() if not d['digest_equal']]}")
+    return launches, operands
 
 
 def main() -> int:
@@ -1090,8 +1406,8 @@ def main() -> int:
     def wire_counts():
         return {"to_open": metrics.BREAKER_TRANSITIONS.value(to="open"),
                 "short_circuits": metrics.BREAKER_SHORT_CIRCUITS.value(),
-                "wire_down": metrics.HANDLED_ERRORS.value(site="solver.wire_down"),
-                "breaker_open": metrics.HANDLED_ERRORS.value(site="solver.breaker_open"),
+                "handled_errors": (metrics.HANDLED_ERRORS.value(site="solver.wire_down")
+                                   + metrics.HANDLED_ERRORS.value(site="solver.breaker_open")),
                 "rpc_down": metrics.SOLVER_PIPELINE_FALLBACKS.value(reason="rpc-down")}
 
     def wire_bytes():
@@ -1276,11 +1592,13 @@ def main() -> int:
     back_on_wire = bool(sub_client.debug_info()["staged_seqnums"])
     drill_ticks.append({"expect": "wire", "equal": sig(r) == sig(tick1), "moved": moved,
                         "state": sub_breaker.state, "kernel_a_launches_here": ka.launches})
+    # each rung tick counts once, in the JAX package's families only
+    # (karpenter_handled_errors_total has no rung site, as in the JAX package)
     want_moves = [
-        {"to_open": 0, "short_circuits": 0, "wire_down": 1, "breaker_open": 0, "rpc_down": 1},
-        {"to_open": 1, "short_circuits": 0, "wire_down": 1, "breaker_open": 0, "rpc_down": 1},
-        {"to_open": 0, "short_circuits": 1, "wire_down": 0, "breaker_open": 1, "rpc_down": 0},
-        {"to_open": 0, "short_circuits": 0, "wire_down": 0, "breaker_open": 0, "rpc_down": 0},
+        {"to_open": 0, "short_circuits": 0, "handled_errors": 0, "rpc_down": 1},
+        {"to_open": 1, "short_circuits": 0, "handled_errors": 0, "rpc_down": 1},
+        {"to_open": 0, "short_circuits": 1, "handled_errors": 0, "rpc_down": 0},
+        {"to_open": 0, "short_circuits": 0, "handled_errors": 0, "rpc_down": 0},
     ]
     drill_ok = (promoted and back_on_wire and all(t["equal"] for t in drill_ticks)
                 and [t["moved"] for t in drill_ticks] == want_moves
@@ -1309,6 +1627,9 @@ def main() -> int:
           **tag})
     if not drill_ok:
         raise AssertionError(f"the breaker drill: {drill_ticks}")
+
+    # -- the operator: the binary, the full-width world, the corpus ---------------
+    operator_launches, operator_ops = phase_operator(dev, tag, metrics, ka, kb)
 
     # the main path's own kernel inputs: tick 1's scan, tick 2's repack
     classes1 = encode.group_pods(pods1, extra_requirements=pool.requirements())
@@ -1480,6 +1801,11 @@ def main() -> int:
     ops = wire_ops["shm rampdown-sweep spot-od"]["disrupt_repack"][0]
     check_repack(f"wire rampdown-sweep spot-od S={ops[4].shape[0]} C={ops[2].shape[0]} "
                  f"N={ops[4].shape[1]}", ops)
+    # the operator's own calls in phase `operator`
+    for name, (ops, _) in operator_ops["ffd_scan"].items():
+        check_scan(f"{name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
+    for name, (ops, _) in operator_ops["disrupt_repack"].items():
+        check_repack(f"{name} S={ops[4].shape[0]} C={ops[2].shape[0]} N={ops[4].shape[1]}", ops)
     emit({"phase": "kernels", "checks": checks, **tag})
 
     # -- the same two ticks through the plain versions, on the card --------------
@@ -1648,6 +1974,8 @@ def main() -> int:
                      ("convex a: tick 1", "solve_convex (a)")):
         shapes_a[f"wire {op}"] = (wire_ops[f"shm {name}"]["ffd_scan"][-1], sum(
             wire_launches[f"{t} {name}"]["ffd_scan"] for t in ("shm", "tcp")))
+    shapes_a.update(operator_ops["ffd_scan"])
+    shapes_b.update(operator_ops["disrupt_repack"])
     shapes_b["wire solve_disrupt (rampdown-sweep spot-od)"] = (
         wire_ops["shm rampdown-sweep spot-od"]["disrupt_repack"][0],
         sum(wire_launches[f"{t} rampdown-sweep spot-od"]["disrupt_repack"] for t in ("shm", "tcp")))
@@ -1775,7 +2103,8 @@ def main() -> int:
                 + sum(n[kernel] for n in world_launches.values())
                 + sum(n[kernel] for n in sweep_launches.values())
                 + sum(n[kernel] for n in convex_launches.values())
-                + sum(n[kernel] for n in wire_launches.values()))
+                + sum(n[kernel] for n in wire_launches.values())
+                + sum(n[kernel] for n in operator_launches.values()))
 
     kernels = [
         {"name": "ffd_scan", "route": "cuda", "source": "karpenter_tpu_torch/csrc/ffd_scan.cu",

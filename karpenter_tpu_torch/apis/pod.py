@@ -1,13 +1,12 @@
 """Pod and Node object model for the in-memory cluster.
 
-Trimmed copy of karpenter_tpu/apis/pod.py (the disruption helpers --
-deletion cost, do-not-disrupt -- belong to the consolidation slice).
-
 The reference consumes real corev1.Pod/Node through the core scheduler; this
 framework carries the subset of those objects the scheduling and disruption
 paths actually read: requests, node selector / required node affinity,
-tolerations, topology spread, (anti-)affinity, priority, ownership, and
-node binding.
+tolerations, topology spread, (anti-)affinity, priority, deletion cost,
+ownership, and node binding.
+
+Copy of karpenter_tpu/apis/pod.py, imports rewritten to the port's.
 """
 from __future__ import annotations
 
@@ -16,6 +15,9 @@ from typing import Dict, List, Mapping, Optional, Sequence
 
 from karpenter_tpu_torch.apis.objects import APIObject
 from karpenter_tpu_torch.scheduling import Requirement, Requirements, Resources, Taint, Toleration
+
+DO_NOT_DISRUPT_ANNOTATION = "karpenter.sh/do-not-disrupt"
+POD_DELETION_COST_ANNOTATION = "controller.kubernetes.io/pod-deletion-cost"
 
 
 @dataclass
@@ -255,6 +257,19 @@ class Pod(APIObject):
     def schedulable(self) -> bool:
         return self.pending and not self.scheduling_gates and not self.deleting
 
+    def deletion_cost(self) -> float:
+        try:
+            return float(self.metadata.annotations.get(POD_DELETION_COST_ANNOTATION, "0"))
+        except ValueError:
+            return 0.0
+
+    def do_not_disrupt(self) -> bool:
+        return self.metadata.annotations.get(DO_NOT_DISRUPT_ANNOTATION) == "true"
+
+    def reschedulable(self) -> bool:
+        """Can this pod be evicted and rescheduled during disruption?
+        (reference: designs/consolidation.md 'Pods that Prevent Consolidation')"""
+        return bool(self.owner_kind) and not self.do_not_disrupt() and self.owner_kind != "Node"
 
 
 class Node(APIObject):
@@ -281,3 +296,7 @@ class Node(APIObject):
     @property
     def zone(self) -> Optional[str]:
         return self.metadata.labels.get("topology.kubernetes.io/zone")
+
+    @property
+    def instance_type(self) -> Optional[str]:
+        return self.metadata.labels.get("node.kubernetes.io/instance-type")

@@ -23,10 +23,9 @@ stream sites ``rpc.frame.corrupt`` and ``rpc.shm.corrupt``,
 
 Actions:
 
-- ``error(ExceptionName)`` -- raise (default ``ConnectionError``); the
-  names are the builtin exceptions below (the port has no cloud-error
-  taxonomy yet, so the JAX package's ``karpenter_tpu.errors`` names are
-  refused loudly rather than resolved).
+- ``error(ExceptionName)`` -- raise (default ``ConnectionError``); cloud
+  error types (``InsufficientCapacityError``, ...) resolve lazily from
+  the port's ``karpenter_tpu_torch.errors``.
 - ``latency(seconds)``     -- sleep before proceeding.
 - ``corrupt``              -- flip one deterministic byte of a frame at a
   ``corrupt()`` site.
@@ -84,6 +83,12 @@ def _exception_class(name: Optional[str]):
         return ConnectionError
     if name in _BUILTIN_EXC:
         return _BUILTIN_EXC[name]
+    # cloud error taxonomy resolves lazily (no import cycle with errors/)
+    from karpenter_tpu_torch import errors
+
+    cls = getattr(errors, name, None)
+    if isinstance(cls, type) and issubclass(cls, BaseException):
+        return cls
     raise ValueError(f"unknown failpoint exception type {name!r}")
 
 

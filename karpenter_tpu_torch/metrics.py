@@ -2,8 +2,10 @@
 
 Copy of karpenter_tpu/metrics.py: the same `Counter`, `Gauge`,
 `Histogram`, `Registry` and text exposition, with only the families the
-port's modules reach (the solver wire's among them: transport, delta
-shipping, the sidecar's staging LRUs, the breaker). Each family keeps the JAX package's name, type and
+port's modules reach: the solver's, the wire's (transport, delta
+shipping, the sidecar's staging LRUs, the breaker), and the operator's
+(its controllers, the kwok batchers, the journal and fencing, overload
+control, the replay). Each family keeps the JAX package's name, type and
 label names (tests/test_torch_obs.py holds every family here against the
 JAX registry), so one dashboard and one runbook serve both packages. No
 external client library.
@@ -16,6 +18,7 @@ when its plain torch version ran (tensors on the CPU).
 """
 from __future__ import annotations
 
+import math
 import threading
 from typing import Dict, Iterable, List, Tuple
 
@@ -67,6 +70,15 @@ class Gauge(_Metric):
         key = tuple(labels.get(l, "") for l in self.label_names)
         return self._values.get(key, 0.0)
 
+    def remove(self, **labels) -> None:
+        """Delete a label series entirely (DeletePartialMatch in the
+        reference's prometheus usage) -- churn-heavy controllers must
+        remove series for gone objects, not zero them, or cardinality
+        grows without bound."""
+        key = tuple(labels.get(l, "") for l in self.label_names)
+        with self._lock:
+            self._values.pop(key, None)
+
     def collect(self):
         with self._lock:
             items = list(self._values.items())
@@ -81,6 +93,7 @@ class Histogram(_Metric):
         self._counts: Dict[tuple, List[int]] = {}
         self._sums: Dict[tuple, float] = {}
         self._totals: Dict[tuple, int] = {}
+        self._samples: Dict[tuple, List[float]] = {}
 
     def observe(self, value: float, **labels) -> None:
         key = tuple(labels.get(l, "") for l in self.label_names)
@@ -91,6 +104,25 @@ class Histogram(_Metric):
                     counts[i] += 1
             self._sums[key] = self._sums.get(key, 0.0) + value
             self._totals[key] = self._totals.get(key, 0) + 1
+            samples = self._samples.setdefault(key, [])
+            samples.append(value)
+            if len(samples) > 10_000:
+                del samples[: len(samples) // 2]
+
+    def percentile(self, q: float, **labels) -> float:
+        key = tuple(labels.get(l, "") for l in self.label_names)
+        # snapshot under the metric lock: observe() appends to and HALVES
+        # this list from controller threads while a scrape-side caller
+        # computes percentiles -- the same scrape-vs-mutate hazard the
+        # collect()/expose() snapshots guard against (sorting the live
+        # list could read a mid-halving state and misreport the tail)
+        with self._lock:
+            samples = list(self._samples.get(key, ()))
+        if not samples:
+            return math.nan
+        samples.sort()
+        idx = min(len(samples) - 1, max(0, math.ceil(q / 100.0 * len(samples)) - 1))
+        return samples[idx]
 
     def collect(self):
         with self._lock:
@@ -391,4 +423,188 @@ CONVEX_TIGHTEN = REGISTRY.gauge(
     "< 1.0 means the fixed-iteration certificate came out looser "
     "than the closed-form bound on this instance (the gap always "
     "uses the MAX of the two, so it never loosens either way)",
+)
+
+
+# -- the controllers' families (controllers/, operator/, kwok/, batcher/,
+# journal.py, fencing.py, overload.py, sim/): copied from the JAX
+# package's metrics.py in its order, names, help and labels unchanged
+# well-known metrics (names mirror the reference's metric families)
+SCHEDULING_DURATION = REGISTRY.histogram(
+    "karpenter_scheduler_scheduling_duration_seconds",
+    "Duration of one scheduling simulation",
+)
+BATCH_SIZE = REGISTRY.histogram(
+    "karpenter_cloud_batcher_batch_size", "Items per coalesced cloud call", labels=("api",),
+    buckets=(1, 2, 5, 10, 25, 50, 100, 250, 500, 1000),
+)
+BATCH_WINDOW = REGISTRY.histogram(
+    "karpenter_cloud_batcher_batch_time_seconds", "Batch window duration", labels=("api",),
+)
+INTERRUPTION_RECEIVED = REGISTRY.counter(
+    "karpenter_interruption_received_messages_total", "Interruption messages by kind", labels=("kind",),
+)
+INTERRUPTION_DELETED = REGISTRY.counter(
+    "karpenter_interruption_deleted_messages_total", "Interruption messages deleted",
+)
+NODECLAIMS_CREATED = REGISTRY.counter(
+    "karpenter_nodeclaims_created_total", "NodeClaims created", labels=("nodepool",),
+)
+NODECLAIMS_TERMINATED = REGISTRY.counter(
+    "karpenter_nodeclaims_terminated_total", "NodeClaims terminated", labels=("nodepool", "reason"),
+)
+INSTANCE_TYPE_COUNT = REGISTRY.gauge(
+    "karpenter_cloudprovider_instance_type_offering_available",
+    "Catalog size by nodeclass", labels=("nodeclass",),
+)
+IGNORED_PODS = REGISTRY.gauge("karpenter_ignored_pod_count", "Pods the scheduler cannot place")
+DISRUPTION_DECISIONS = REGISTRY.counter(
+    "karpenter_voluntary_disruption_decisions_total",
+    "Disruption decisions by reason", labels=("reason",),
+)
+DISRUPTION_EVAL_DURATION = REGISTRY.histogram(
+    "karpenter_voluntary_disruption_decision_evaluation_duration_seconds",
+    "Duration of one disruption evaluation pass",
+)
+# device-resident consolidation engine (solver/disrupt/)
+DISRUPTION_DEVICE_SETS = REGISTRY.counter(
+    "karpenter_disruption_device_sets_total",
+    "Consolidation candidate sets judged by the batched device evaluator, "
+    "by enumeration kind (singleton = one node; prefix = the k cheapest-"
+    "to-disrupt nodes together; pair = an underutilized pair outside the "
+    "prefix order)",
+    labels=("kind",),  # singleton | prefix | pair
+)
+DISRUPTION_DEVICE_BOUNDED_SWEEPS = REGISTRY.counter(
+    "karpenter_disruption_device_bounded_sweeps_total",
+    "Brownout rung-1 disruption sweeps that ran the bounded singleton-"
+    "only device path instead of standing down entirely (the pre-device "
+    "rung-1 behavior, still taken when no device evaluator is wired)",
+)
+GARBAGE_COLLECTED = REGISTRY.counter(
+    "karpenter_garbage_collected_instances_total",
+    "Orphaned cloud instances terminated by garbage collection",
+)
+PODS_BOUND = REGISTRY.counter(
+    "karpenter_pods_bound_total", "Pods bound to nodes by the kwok binder",
+)
+SOLVER_PIPELINE_TICKS = REGISTRY.counter(
+    "karpenter_scheduler_pipeline_ticks_total",
+    "Scheduling decisions by execution mode of the provisioner tick",
+    labels=("mode",),  # pipelined | synchronous
+)
+NODES_READY = REGISTRY.gauge(
+    "karpenter_nodes_ready_count", "Ready nodes in the cluster",
+)
+PIPELINE_OVERLAP = REGISTRY.histogram(
+    "karpenter_scheduler_pipeline_overlap_fraction",
+    "Fraction of a pipelined solve's device+wire round trip hidden under "
+    "the controller sweep (1.0 = fully overlapped)",
+    buckets=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 1.0),
+)
+# crash-consistency layer: write-ahead intent journal (karpenter_tpu/
+# journal.py), restart recovery sweep (controllers/recovery.py), and
+# leadership fencing (karpenter_tpu/fencing.py)
+JOURNAL_WRITES = REGISTRY.counter(
+    "karpenter_journal_writes_total",
+    "Intent-journal records by operation and lifecycle event (begin = "
+    "durable write-ahead record created; committed/adopted/... = resolved "
+    "with that outcome)",
+    labels=("op", "event"),  # op: launch | terminate
+)
+JOURNAL_OPEN = REGISTRY.gauge(
+    "karpenter_journal_open_intents",
+    "Open (unresolved) provisioning intents on the coordination bus; "
+    "nonzero at steady state means launches/terminations are in flight, "
+    "nonzero after a restart is the recovery sweep's work list",
+)
+RECOVERY_SWEEP_DURATION = REGISTRY.histogram(
+    "karpenter_recovery_sweep_duration_seconds",
+    "Duration of one restart recovery sweep (runs on every election win)",
+)
+RECOVERY_SWEEP_INTENTS = REGISTRY.counter(
+    "karpenter_recovery_sweep_intents_total",
+    "Open intents replayed by the recovery sweep, by outcome (adopted = "
+    "launched instance reflected into its uncommitted claim; "
+    "terminated_half_launch = instance without a live claim terminated "
+    "immediately; resumed_termination = interrupted terminate re-issued; "
+    "orphan_terminated = terminate intent without a claim finished; "
+    "already_committed / dropped = no cloud work needed)",
+    labels=("outcome",),
+)
+FENCING_REJECTED = REGISTRY.counter(
+    "karpenter_fencing_rejected_total",
+    "Cloud mutations refused at the cloud seam because the issuer's "
+    "fencing epoch trailed the lease's (a deposed leader failing closed)",
+    labels=("op",),  # create_fleet | terminate_instances | create_tags
+)
+# overload control (karpenter_tpu/overload.py): tick deadline budgets,
+# priority-aware shedding, the brownout ladder, the stuck-tick watchdog
+OVERLOAD_SHED = REGISTRY.counter(
+    "karpenter_overload_shed_total",
+    "Pending pods deferred to a later tick by bounded admission (the "
+    "overload tentpole): admission-cap = the explicit per-tick intake "
+    "bound; deadline = the tick-deadline budget could not afford the "
+    "whole pending set; launch-bound = whole decision groups past the "
+    "launch fan-out bound. Deferred pods stay pending and re-admit in "
+    "priority/age order -- nothing is lost, only delayed",
+    labels=("reason",),  # admission-cap | deadline | launch-bound
+)
+OVERLOAD_DEFERRED = REGISTRY.gauge(
+    "karpenter_overload_deferred_pods",
+    "Pending pods the LAST provisioner tick deferred past its admission "
+    "bound (0 = the whole pending set was admitted)",
+)
+OVERLOAD_BROWNOUT_LEVEL = REGISTRY.gauge(
+    "karpenter_overload_brownout_level",
+    "Brownout ladder level (0 normal, 1 disruption sweeps shed, 2 + "
+    "trace sampling shed, 3 + delta-epoch staging shed); recovers "
+    "hysteretically -- see docs/operations.md overload runbook",
+)
+OVERLOAD_BROWNOUT_TRANSITIONS = REGISTRY.counter(
+    "karpenter_overload_brownout_transitions_total",
+    "Brownout ladder transitions by destination level name",
+    labels=("to",),  # normal | shed-disruption | shed-tracing | shed-delta
+)
+OVERLOAD_SKIPPED_SWEEPS = REGISTRY.counter(
+    "karpenter_overload_skipped_sweeps_total",
+    "Optional controller sweeps stood down by the brownout ladder",
+    labels=("stage",),  # disruption
+)
+OVERLOAD_WATCHDOG = REGISTRY.counter(
+    "karpenter_overload_watchdog_escalations_total",
+    "Stuck-tick watchdog escalations by ladder stage (cancel = solver "
+    "wire closed under the wedged tick; breaker-open = breaker forced "
+    "open; crash = OperatorCrashed async-raised so the restart recovery "
+    "sweep takes over)",
+    labels=("stage",),  # cancel | breaker-open | crash
+)
+OVERLOAD_TICK_OVERRUN = REGISTRY.histogram(
+    "karpenter_overload_tick_overrun_ratio",
+    "Tick duration over the configured tick deadline (1.0 = exactly on "
+    "budget; the brownout ladder's EWMA input)",
+    buckets=(0.1, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 5.0, 10.0),
+)
+# bounded interruption intake (controllers/interruption.py)
+INTERRUPTION_DEFERRED = REGISTRY.counter(
+    "karpenter_interruption_deferred_total",
+    "Interruption sweeps whose per-sweep intake bound left messages for "
+    "the next sweep, counted when that sweep finds messages waiting "
+    "(bounded batch growth under an interruption storm; a bound landing "
+    "exactly on the last queued message counts nothing unless fresh "
+    "messages arrive in the gap)",
+)
+# scenario simulation & trace replay (karpenter_tpu/sim/)
+SIM_EVENTS = REGISTRY.counter(
+    "karpenter_sim_replay_events_total",
+    "Trace events applied by the replay engine, by event kind", labels=("ev",),
+)
+SIM_TICKS = REGISTRY.counter(
+    "karpenter_sim_replay_ticks_total",
+    "Operator sweeps driven by the replay engine, by backend", labels=("backend",),
+)
+SIM_DIVERGENCES = REGISTRY.counter(
+    "karpenter_sim_divergences_total",
+    "Differential-replay divergences (placements/digest mismatches or "
+    "invariant violations)", labels=("kind",),
 )

@@ -13,10 +13,10 @@ tick:
 times (the same ``STAGE_NAMES`` as the JAX package: a port tick names
 ``encode``, ``device`` and ``decode``), polls obs/hbm.py, and reads the
 solver's ``last_group_stats``, ``staged_bytes_by_kind`` and
-``last_quality``. The fields the JAX Operator fills -- brownout rung,
-breaker state, shed counts, consolidation sweep, fleet counters -- come
-from controllers the port does not have yet: they are
-recorded as ``None``.
+``last_quality``. The operator's fields -- brownout rung, breaker state,
+the disruption sweep, shed and deferred counts, ready nodes and bound
+pods -- come from the port's Operator (``Operator._observe_tick``) and
+its metrics registry, as in the JAX package.
 
 ``flush_blackbox(reason)`` writes the ring to a JSONL file (header line
 first, then one record per line, write-then-rename so a crashing process
@@ -59,8 +59,9 @@ log = get_logger("flightdata")
 
 class FlightDataRecorder:
     """Bounded ring of per-tick records. ``record`` is the per-tick hot
-    call: one lock, one deque append. The lock is a leaf (nothing is
-    called while holding it), so the recorder composes with every
+    call: one lock, one deque append -- microseconds, measured into
+    ``observatory_overhead_pct`` by bench. The lock is a leaf (nothing
+    is called while holding it), so the recorder composes with every
     caller's locks."""
 
     def __init__(self, capacity: int = CAPACITY_DEFAULT):
@@ -69,6 +70,16 @@ class FlightDataRecorder:
         self._seq = 0
         self.flushes = 0
         self._last_flush_path: Optional[str] = None
+
+    @property
+    def capacity(self) -> int:
+        return self._ring.maxlen or 0
+
+    def configure(self, capacity: Optional[int] = None) -> "FlightDataRecorder":
+        if capacity is not None and capacity != self._ring.maxlen:
+            with self._lock:
+                self._ring = deque(self._ring, maxlen=max(1, int(capacity)))
+        return self
 
     def record(self, rec: Dict[str, Any]) -> int:
         """Append one tick's record; returns its seq. The record dict is
@@ -106,8 +117,9 @@ class FlightDataRecorder:
     def flush_blackbox(self, reason: str, path: Optional[str] = None) -> Optional[str]:
         """Write the ring to a JSONL black box: one header line
         ``{"flight_data": ..., "reason": ...}`` then one record per
-        line, oldest first. Write-then-rename: the crash that triggered
-        the flush must never leave a torn file. Returns the path, or None when the ring is empty or
+        line, oldest first. Write-then-rename (the PR-5 side-file
+        pattern): the crash that triggered the flush must never leave a
+        torn file. Returns the path, or None when the ring is empty or
         the write failed (a flush must never turn a crash into a
         different crash)."""
         with self._lock:
@@ -146,8 +158,8 @@ class FlightDataRecorder:
 
 
 # process-wide recorder, the same shape as tracing.TRACER and
-# metrics.REGISTRY: the tick's caller feeds it, the crash paths read it
-# without any plumbing
+# metrics.REGISTRY: the operator feeds it per tick, /debug/flightdata
+# and the crash paths read it without any plumbing
 RECORDER = FlightDataRecorder()
 
 
@@ -159,27 +171,33 @@ def flush_blackbox(reason: str, path: Optional[str] = None) -> Optional[str]:
     return RECORDER.flush_blackbox(reason, path=path)
 
 
-# the record fields the JAX package's Operator fills from its brownout
-# ladder, breaker, disruption controller and fleet counters
-OPERATOR_FIELDS = ("brownout_level", "breaker", "deferred_pods", "shed_total",
-                   "nodes_ready", "pods_bound_total")
+def dump_json(indent: Optional[int] = None) -> str:
+    return json.dumps(RECORDER.dump(), indent=indent, default=repr)
 
-# span names whose durations the per-tick record keys on: the JAX
-# package's span vocabulary -- stable identifiers
+
+# span names whose durations the per-tick record keys on: the PR-2 span
+# vocabulary (docs/observability.md tree) -- stable identifiers, same
+# contract as bench's trace_stages_ms
 STAGE_NAMES = (
     "snapshot", "dispatch", "drain", "launch", "bind", "disruption",
     "encode", "wire", "wire_dispatch", "device", "decode", "fetch",
 )
 
 
-def build_tick_record(root_sp, t0: float, *, solver=None, crashed: bool = False,
+def build_tick_record(root_sp, t0: float, *, solver=None, brownout=None,
+                      breaker=None, disruption=None, crashed: bool = False,
                       clock=None) -> Dict[str, Any]:
-    """ONE tick's flight record: stage ms from the finished span tree,
-    the rate-limited device-memory poll, and the solver's grouping,
-    staging and quality state (plain attribute and dict reads). The
-    operator-owned fields stay None until the port has its controllers."""
+    """ONE tick's flight record, the single source of what a record
+    contains: the operator's per-tick path (Operator._observe_tick) and
+    bench's observatory-overhead measurement both call THIS, so the <1%
+    overhead contract is measured on exactly the work production pays --
+    a field added here is automatically in both. Stage ms from the
+    finished span tree, the rate-limited HBM poll, the solver's
+    churn/staging state, and the overload/fleet gauges (plain dict
+    reads)."""
     import time
 
+    from karpenter_tpu_torch import metrics
     from karpenter_tpu_torch.obs import hbm
 
     now = (clock or time.monotonic)()
@@ -203,7 +221,10 @@ def build_tick_record(root_sp, t0: float, *, solver=None, crashed: bool = False,
         staged = getattr(solver, "staged_bytes_by_kind", None)
         if callable(staged):
             rec["staged_bytes"] = staged()
-        # the last solve's gap + waste attribution headline fields
+        # solution-quality observatory (obs/quality.py): the last solve's
+        # gap + waste attribution headline fields -- cheap dict reads of
+        # the document solve_finish already built, so the black box shows
+        # answer quality next to where the time went
         q = getattr(solver, "last_quality", None)
         if q:
             if "optimality_gap" in q:
@@ -215,9 +236,42 @@ def build_tick_record(root_sp, t0: float, *, solver=None, crashed: bool = False,
                           "fragmentation_index")
                 if k in q
             }
-    # the JAX Operator's fields: no port controller feeds them yet
-    for key in OPERATOR_FIELDS:
-        rec[key] = None
+        # mesh fault tolerance: stamp the tick with the live topology
+        # document (epoch, healthy/quarantined devices, ladder mode) so a
+        # post-incident trace shows which device set each decision ran
+        # under -- plain dict reads, same <1% overhead discipline
+        engine = getattr(solver, "mesh_engine", None)
+        topo = getattr(engine, "topology", None)
+        if topo is not None:
+            rec["topology"] = topo.describe()
+            rec["topology"]["mode"] = topo.mode()
+        if breaker is None:
+            breaker = getattr(solver, "breaker", None)
+    if breaker is not None:
+        rec["breaker"] = breaker.state
+    if brownout is not None:
+        rec["brownout_level"] = brownout.level
+    if disruption is not None:
+        # device-consolidation sweep (controllers/disruption.py
+        # last_sweep_stats): sweep mode + wall ms + candidate-set counts
+        # by enumeration kind -- the black box must show whether the
+        # rung-1 bounded sweep kept running through a brownout
+        st = getattr(disruption, "last_sweep_stats", None)
+        if st and "consolidation_ms" in st:
+            rec["consolidation_ms"] = st["consolidation_ms"]
+            rec["consolidation_mode"] = st.get("mode", "full")
+            sets = st.get("sets") or {}
+            if sets:
+                rec["consolidation_sets"] = dict(sets)
+    rec["deferred_pods"] = int(metrics.OVERLOAD_DEFERRED.value())
+    shed = {
+        reason: int(metrics.OVERLOAD_SHED.value(reason=reason))
+        for reason in ("admission-cap", "deadline", "launch-bound")
+    }
+    if any(shed.values()):
+        rec["shed_total"] = shed
+    rec["nodes_ready"] = int(metrics.NODES_READY.value())
+    rec["pods_bound_total"] = int(metrics.PODS_BOUND.value())
     if crashed:
         rec["crashed"] = True
     return rec

@@ -3,11 +3,10 @@
 Copy of karpenter_tpu/obs/profiler.py on ``torch.profiler.profile`` in
 place of ``jax.profiler``: ``request(ticks)`` arms a capture of the next
 N ticks, and the caller brackets every tick with ``on_tick_start`` /
-``on_tick_end`` (the JAX Operator does this for its solver; the port has
-no operator yet, so chip_smoke.py and the tests bracket the ticks they
-drive). Both are a lock-protected int check when nothing is armed.
-The JAX module's brownout throttle has no counterpart until the port has
-an operator.
+``on_tick_end`` (the port's Operator brackets every sweep; chip_smoke.py
+and the tests bracket the solves they drive alone). Both are a
+lock-protected int check when nothing is armed. Brownout rung 2
+(``set_throttled``) defers an armed capture, as in the JAX module.
 
 A capture records the host (CPU) and, on a card, the device (CUDA)
 activity -- every kernel the process launches, the hand-written ones
@@ -55,6 +54,7 @@ class ProfilerCapture:
         self._lock = threading.Lock()
         self._armed = 0          # ticks still to capture (0 = idle)
         self._active = False     # a profile is live
+        self._throttled = False  # brownout rung 2: defer, keep armed
         self._out_dir: Optional[str] = None
         self._capture_seq = 0
         self._prof = None
@@ -78,10 +78,18 @@ class ProfilerCapture:
         self.log.info("profiler capture armed", ticks=ticks, dir=self._out_dir)
         return self.describe()
 
-    # -- tick bracketing ----------------------------------------------------------
+    def set_throttled(self, throttled: bool) -> None:
+        """Brownout ladder rung 2 (karpenter_tpu_torch/overload.py): while
+        throttled, an armed capture waits and a live one stops at the
+        current tick boundary -- same edge semantics as the tracer's
+        sample throttle."""
+        with self._lock:
+            self._throttled = throttled
+
+    # -- tick bracketing (Operator.tick) -------------------------------------
     def on_tick_start(self) -> None:
         with self._lock:
-            if self._armed <= 0 or self._active:
+            if self._armed <= 0 or self._active or self._throttled:
                 return
             out_dir = self._out_dir
             self._active = True
@@ -110,7 +118,7 @@ class ProfilerCapture:
             if not self._active:
                 return
             self._armed -= 1
-            finish = self._armed <= 0
+            finish = self._armed <= 0 or self._throttled
             if not finish:
                 PROFILER_ARMED.set(float(self._armed))
                 return

@@ -1,23 +1,28 @@
 """InstanceType model and Resolver.
 
-Copy of karpenter_tpu/providers/instancetype/types.py: Offering,
-InstanceType and the Resolver's capacity, overhead and requirement math.
-The node-class inputs the Resolver reads (kubelet settings and the root
-volume) are a small `NodeClassConfig` here; its defaults are those of
-karpenter_tpu/apis/nodeclass.py `TPUNodeClass("default")`.
+Rebuilds the reference's conversion from raw cloud instance-type info into
+scheduler-consumable InstanceTypes:
 
-- ~30 scheduling requirements per type
+- ~30 scheduling requirements per type (reference: computeRequirements,
+  pkg/providers/instancetype/types.go:158-292, incl. GPU/accelerator labels
+  :252-273)
 - capacity with VM-overhead-adjusted memory, ENI- or kubelet-limited pod
-  density, local-NVMe ephemeral storage
+  density, local-NVMe ephemeral storage (computeCapacity types.go:313-331,
+  ENI math :461-475)
 - overhead = kube-reserved + system-reserved + eviction threshold
+  (kube-reserved model types.go:492-522)
 - offerings per (zone x capacity type) with price and availability
+  (offering/offering.go:101-187)
+
+Copy of karpenter_tpu/providers/instancetype/types.py, imports rewritten to the port's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from karpenter_tpu_torch.apis import labels as wk
+from karpenter_tpu_torch.apis.nodeclass import TPUNodeClass
 from karpenter_tpu_torch.cloud.types import InstanceTypeInfo
 from karpenter_tpu_torch.scheduling import Operator, Requirement, Requirements, Resources
 from karpenter_tpu_torch.scheduling import resources as res
@@ -25,25 +30,7 @@ from karpenter_tpu_torch.scheduling import resources as res
 GIB = 1024  # MiB
 MIB = 2**20  # bytes
 
-DEFAULT_VM_MEMORY_OVERHEAD_PERCENT = 0.075
-
-
-@dataclass
-class KubeletConfiguration:
-    max_pods: Optional[int] = None
-    pods_per_core: Optional[int] = None
-    system_reserved: Dict[str, str] = field(default_factory=dict)
-    kube_reserved: Dict[str, str] = field(default_factory=dict)
-    eviction_hard: Dict[str, str] = field(default_factory=dict)
-    eviction_soft: Dict[str, str] = field(default_factory=dict)
-
-
-@dataclass
-class NodeClassConfig:
-    """What the Resolver reads of a node class."""
-
-    kubelet: KubeletConfiguration = field(default_factory=KubeletConfiguration)
-    root_volume_gib: int = 20
+DEFAULT_VM_MEMORY_OVERHEAD_PERCENT = 0.075  # reference: options.go vm-memory-overhead-percent
 
 
 @dataclass
@@ -83,8 +70,9 @@ class InstanceType:
         default=None, init=False, repr=False, compare=False)
 
     def allocatable(self) -> Resources:
-        # memoized: capacity/overhead are immutable once the Resolver
-        # builds the type
+        # memoized: the oracle's fit checks call this per (pod, node try)
+        # -- thousands of times per tick -- and capacity/overhead are
+        # immutable once the Resolver builds the type
         a = self._alloc_cache
         if a is None:
             a = self._alloc_cache = self.capacity - self.overhead
@@ -97,10 +85,13 @@ class InstanceType:
         prices = [o.price for o in self.available_offerings()]
         return min(prices) if prices else float("inf")
 
+    def compatible_offerings(self, reqs: Requirements) -> List[Offering]:
+        return [o for o in self.offerings if reqs.compatible(o.requirements())]
+
 
 def kube_reserved_cpu_milli(vcpu: int) -> float:
     """Tiered CPU reservation: 6% of first core, 1% of second, 0.5% of the
-    next two, 0.25% of the rest."""
+    next two, 0.25% of the rest (the managed-node model the reference uses)."""
     milli = vcpu * 1000
     reserved = 0.0
     tiers = [(1000, 0.06), (1000, 0.01), (2000, 0.005), (float("inf"), 0.0025)]
@@ -119,9 +110,9 @@ def kube_reserved_memory_bytes(max_pods: int) -> float:
     return (255 + 11 * max_pods) * MIB
 
 
-def pods_limit(info: InstanceTypeInfo, nodeclass: NodeClassConfig, reserved_nics: int = 0) -> int:
+def pods_limit(info: InstanceTypeInfo, nodeclass: TPUNodeClass, reserved_nics: int = 0) -> int:
     """Pod density: kubelet maxPods wins, else pods-per-core cap, else the
-    ENI-style limit."""
+    ENI-style limit (reference: types.go:461-490)."""
     kubelet = nodeclass.kubelet
     if kubelet.max_pods is not None:
         limit = kubelet.max_pods
@@ -133,26 +124,34 @@ def pods_limit(info: InstanceTypeInfo, nodeclass: NodeClassConfig, reserved_nics
 
 
 def volume_attach_limit(info: InstanceTypeInfo) -> int:
-    """Per-instance data-volume attach budget: a fixed slot count shared
-    between NICs and data volumes, with the root volume carved out."""
+    """Per-instance data-volume attach budget.
+
+    Models the EBS-style shared attachment ceiling: a fixed per-instance
+    slot count shared between NICs and data volumes (so NIC-rich types
+    attach fewer volumes), with the root volume already carved out.
+    Deterministic from catalog fields, like the NIC-derived pod density
+    above (reference: the core's CSI volume-limit scheduling; AWS's
+    per-instance EBS attachment ceiling).
+    """
     slots = 28 if info.vcpu <= 64 else 40
     return max(8, slots - info.max_network_interfaces - 1)
 
 
-OfferingFn = Callable[[InstanceTypeInfo], List[Offering]]
-
-
 class Resolver:
-    """Converts raw InstanceTypeInfo + node-class config into InstanceTypes."""
+    """Converts raw InstanceTypeInfo + nodeclass config into InstanceTypes.
+
+    The reference's Resolver (types.go:58-121) caches per (info hash x
+    nodeclass hash); caching lives in InstanceTypeProvider here.
+    """
 
     def __init__(self, region: str, vm_memory_overhead_percent: float = DEFAULT_VM_MEMORY_OVERHEAD_PERCENT):
         self.region = region
         self.vm_memory_overhead_percent = vm_memory_overhead_percent
 
     # -- capacity -----------------------------------------------------------
-    def compute_capacity(self, info: InstanceTypeInfo, nodeclass: NodeClassConfig) -> Resources:
+    def compute_capacity(self, info: InstanceTypeInfo, nodeclass: TPUNodeClass) -> Resources:
         mem_bytes = info.memory_mib * MIB * (1 - self.vm_memory_overhead_percent)
-        storage_gib = info.local_nvme_gib or nodeclass.root_volume_gib
+        storage_gib = info.local_nvme_gib or sum(b.volume_size_gib for b in nodeclass.block_device_mappings)
         vals = {
             res.CPU: float(info.vcpu * 1000),
             res.MEMORY: float(int(mem_bytes)),
@@ -169,7 +168,7 @@ class Resolver:
             vals[res.NIC] = float(info.nic_count)
         return Resources.from_base_units(vals)
 
-    def compute_overhead(self, info: InstanceTypeInfo, nodeclass: NodeClassConfig) -> Resources:
+    def compute_overhead(self, info: InstanceTypeInfo, nodeclass: TPUNodeClass) -> Resources:
         max_pods = pods_limit(info, nodeclass)
         kr = nodeclass.kubelet.kube_reserved
         sr = nodeclass.kubelet.system_reserved
@@ -178,8 +177,12 @@ class Resolver:
         cpu += float(res.parse_quantity(sr["cpu"], res.CPU)) if "cpu" in sr else 0.0
         mem += float(res.parse_quantity(sr["memory"], res.MEMORY)) if "memory" in sr else 100 * MIB
         # kubelet applies the LARGER of the hard and soft memory
-        # thresholds; each is an absolute quantity or a percentage of the
-        # vm-overhead-adjusted node memory
+        # thresholds for scheduling purposes (reference merges both signal
+        # maps via MaxResources); each takes an absolute quantity ("100Mi")
+        # or a percentage ("5%") of node memory -- resolved against the
+        # vm-overhead-adjusted capacity compute_capacity reports, which is
+        # what kubelet sees. Admission validates the value forms
+        # (apis/validation.py), so parsing here is strict.
         node_mem = info.memory_mib * MIB * (1 - self.vm_memory_overhead_percent)
 
         def threshold_bytes(value: str) -> float:
@@ -238,8 +241,8 @@ class Resolver:
     def resolve(
         self,
         infos: Sequence[InstanceTypeInfo],
-        nodeclass: NodeClassConfig,
-        offerings_for: OfferingFn,
+        nodeclass: TPUNodeClass,
+        offerings_for: "OfferingFn",
     ) -> List[InstanceType]:
         out = []
         for info in infos:
@@ -268,3 +271,8 @@ class Resolver:
                 it.requirements.add(Requirement(wk.LABEL_CAPACITY_RESERVATION_ID, Operator.IN, rids))
             out.append(it)
         return out
+
+
+from typing import Callable  # noqa: E402
+
+OfferingFn = Callable[[InstanceTypeInfo], List[Offering]]

@@ -33,6 +33,10 @@ Every sum (the load product, the objective, the certificate, the step
 norms, the projection's prefix sums) is accumulated in float64 and
 rounded to float32 once: the exact sum, the same on the CPU and on the
 card, within the last bit of any float32 order.
+
+`reference_relax` is the JAX module's numpy float64 reference, copied
+whole: the repack oracle (solver/convex/repack.py, the disruption
+controller's stage 6 under a convex solver) relaxes on the host with it.
 """
 from __future__ import annotations
 
@@ -183,3 +187,53 @@ def host_feasibility(catalog, classes):
             n = np.floor(cap_eff[None, :, r] / np.where(need > 0, need, 1.0))
         fits &= np.where(need > 0, n >= 1.0, True)
     return compat & np.isfinite(price_ck) & fits, price_ck, cap_eff
+
+
+def reference_relax(catalog, classes, iters: int = DEFAULT_ITERS):
+    """Host/numpy float64 reference of the projected-subgradient solve
+    over the UNstaged tensors (encode.CatalogTensors + PodClassSet) --
+    the oracle the device entry is differentially pinned against
+    (tests/test_convex.py). Same formulation, same iteration schedule,
+    float64 accumulation. Returns (x [C, K], lower_bound, trace)."""
+    feas, price_ck, cap_eff = host_feasibility(catalog, classes)
+    C, K = feas.shape
+    req = classes.req.astype(np.float64)                               # [C, R]
+    row_ok = feas.any(axis=-1)
+    a = np.where(row_ok, np.asarray(classes.count, dtype=np.float64), 0.0)
+    price_m = np.where(feas, price_ck, 0.0)
+    with np.errstate(divide="ignore"):
+        inv_cap = np.where(cap_eff > 0.0, 1.0 / np.maximum(cap_eff, 1e-300), 0.0)
+    nfeas = np.maximum(feas.sum(axis=-1).astype(np.float64), 1.0)
+    x = np.where(feas, (a / nfeas)[:, None], 0.0)
+
+    def obj_grad(x):
+        load = ((x * price_m).T @ req) * inv_cap                       # [K, R]
+        m = load.max(axis=-1)
+        r_star = load.argmax(axis=-1)
+        g = price_m * req[:, r_star] * inv_cap[np.arange(K), r_star][None, :]
+        return float(m.sum()), g
+
+    def project(v):
+        v = np.where(feas, v, -1e300)
+        u = -np.sort(-v, axis=-1)
+        j = np.arange(1, K + 1, dtype=np.float64)[None, :]
+        cssv = np.cumsum(u, axis=-1) - a[:, None]
+        cond = u - cssv / j > 0.0
+        rho = np.maximum(cond.sum(axis=-1), 1)
+        theta = cssv[np.arange(C), rho - 1] / rho
+        out = np.maximum(v - theta[:, None], 0.0)
+        live = feas & (a[:, None] > 0.0) & row_ok[:, None]
+        return np.where(live, out, 0.0)
+
+    best_lb = 0.0
+    trace = np.zeros((iters,), dtype=np.float64)
+    for t in range(iters):
+        f, g = obj_grad(x)
+        g_lb = np.where(feas, g, np.inf)
+        lb = float((a * np.where(row_ok, g_lb.min(axis=-1), 0.0)).sum())
+        best_lb = max(best_lb, lb)
+        trace[t] = f
+        gnorm = np.sqrt((np.where(feas, g, 0.0) ** 2).sum(axis=-1)) + 1e-12
+        eta = (a + 1.0) / (gnorm * np.sqrt(t + 1.0))
+        x = project(x - eta[:, None] * g)
+    return x, best_lb, trace

@@ -71,10 +71,11 @@ tick in process (`fallback="rpc-down"`) and counts toward opening the
 breaker; while it is open, `solve_begin` skips the wire before any socket
 work and solves in process (`fallback="breaker-open"`). The in-process
 rung runs on this solver's device -- the card unless device="cpu" -- and
-decides exactly as the wire does. Each rung tick counts once in
-`karpenter_handled_errors_total{site="solver.breaker_open"|
-"solver.wire_down"}` (next to the JAX package's own counters for the
-same events) and logs once per change.
+decides exactly as the wire does. Each rung tick counts where the JAX
+package counts it -- `karpenter_scheduler_pipeline_fallbacks_total{
+reason="rpc-down"}` or `karpenter_scheduler_breaker_short_circuits_total`
+-- and nowhere else, so both registries read alike after the same run;
+each rung logs once per change.
 
 Not here (later slices): the mesh and AOT.
 """
@@ -188,6 +189,10 @@ class _PendingSolve:
         # the pipelined wire solve's reply slot (None: the barrier runs
         # the synchronous wire ladder)
         self.rpc_handle = None
+
+    @property
+    def completed(self) -> bool:
+        return self.done is not None
 
 
 class TorchSolver:
@@ -1071,7 +1076,6 @@ class TorchSolver:
             # work and solve in process on the same catalog snapshot
             wire = False
             metrics.BREAKER_SHORT_CIRCUITS.inc()
-            metrics.HANDLED_ERRORS.inc(site="solver.breaker_open")
             tracing.annotate(fallback="breaker-open")
             if self._route_monitor.has_changed("breaker_open", entry.seqnum):
                 self.log.warning(
@@ -1396,13 +1400,12 @@ class TorchSolver:
 
     # -- the wire barrier ------------------------------------------------------
     def _wire_down(self, e: BaseException, what: str) -> None:
-        """Account one failed wire ladder: toward opening the breaker, in
-        the JAX package's fallback counter and in HANDLED_ERRORS, logged
-        once per change of exception type."""
+        """Account one failed wire ladder: toward opening the breaker and
+        in the JAX package's fallback counter, logged once per change of
+        exception type."""
         if self.breaker is not None:
             self.breaker.record_failure()
         metrics.SOLVER_PIPELINE_FALLBACKS.inc(reason="rpc-down")
-        metrics.HANDLED_ERRORS.inc(site="solver.wire_down")
         tracing.annotate(fallback="rpc-down")
         if self._route_monitor.has_changed("wire_down", type(e).__name__):
             self.log.warning(

@@ -6,9 +6,9 @@ stats), ``trace``/``span``/``annotate``, the slow-tick
 ``FlightRecorder``, and the wire half -- ``WireTrace`` (the sidecar's
 per-request stage recorder, echoed in the reply header) and the
 tracer's ``inject``/``graft`` (the client ships its trace context and
-grafts the echoed server stages under its ``wire`` span). Left out until
-the port has an operator: the brownout throttle, the launch fan-out's
-``attach`` and the ``/debug/traces`` dump.
+grafts the echoed server stages under its ``wire`` span), the brownout
+throttle (``set_throttled``), the launch fan-out's ``attach`` and the
+``/debug/traces`` dump (``dump_json``).
 
 TorchSolver, the incremental grouper and DisruptEngine open spans at the
 JAX package's call sites and under its names -- ``spread``,
@@ -24,6 +24,7 @@ The clock is injectable for tests.
 from __future__ import annotations
 
 import itertools
+import json
 import random
 import threading
 import time
@@ -123,7 +124,7 @@ class FlightRecorder:
     """Ring buffer of the last `capacity` complete span trees whose root
     exceeded `slow_ms` -- plus ALWAYS the worst-ever tree, threshold or
     not. Trees are serialized to dicts at record time so a concurrent
-    dump never reads a mutating tree."""
+    dump (the /debug/traces handler thread) never reads a mutating tree."""
 
     def __init__(self, capacity: int = 32, slow_ms: float = 1000.0):
         self.capacity = capacity
@@ -175,6 +176,11 @@ class Tracer:
                  slow_ms: float = 1000.0, capacity: int = 32):
         self.enabled = enabled
         self.sample = sample
+        # brownout throttle (karpenter_tpu_torch/overload.py ladder rung 2):
+        # while throttled the sample rate reads 0 but the CONFIGURED rate
+        # is remembered for the hysteretic recovery
+        self._throttled = False
+        self._base_sample = sample
         self._clock = clock
         self._rng = rng
         self.recorder = FlightRecorder(capacity=capacity, slow_ms=slow_ms)
@@ -197,7 +203,12 @@ class Tracer:
         if enabled is not None:
             self.enabled = enabled
         if sample is not None:
-            self.sample = sample
+            if self._throttled:
+                # the configured rate updates UNDER the throttle: it is
+                # what set_throttled(False) will restore
+                self._base_sample = sample
+            else:
+                self.sample = sample
         if slow_ms is not None:
             self.recorder.slow_ms = slow_ms
         if capacity is not None:
@@ -212,8 +223,22 @@ class Tracer:
             self._rng = rng
         return self
 
+    def set_throttled(self, throttled: bool) -> None:
+        """Brownout ladder rung 2 (karpenter_tpu_torch/overload.py): stop the
+        per-span stats/metrics volume without forgetting the configured
+        sample rate. Throttled tracing still BUILDS trees -- the flight
+        recorder must keep catching the slow ticks that caused the
+        brownout; only the sampled-in volume stops."""
+        if throttled == self._throttled:
+            return
+        self._throttled = throttled
+        if throttled:
+            self._base_sample, self.sample = self.sample, 0.0
+        else:
+            self.sample = self._base_sample
+
     def reset(self) -> None:
-        """Drop stats + recorder state (tests, measurement segments)."""
+        """Drop stats + recorder state (tests, bench segments)."""
         with self._stats_lock:
             self._stats.clear()
         self.recorder.clear()
@@ -247,6 +272,24 @@ class Tracer:
         if cur is None:
             return NOOP
         return self._start(name, cur, attrs)
+
+    @contextmanager
+    def attach(self, parent):
+        """Adopt `parent` as the current span on THIS thread (fan-out
+        workers inherit the dispatching thread's context: the launch
+        pool's cloud calls and their batcher spans land under the tick's
+        `launch` span). Safe concurrently: children appends are GIL-atomic
+        and the parent outlives the workers (the fan-out joins before the
+        parent span exits). No-op for None/no-op parents."""
+        if parent is None or isinstance(parent, _NoopSpan):
+            yield
+            return
+        prev = getattr(self._local, "cur", None)
+        self._local.cur = parent
+        try:
+            yield
+        finally:
+            self._local.cur = prev
 
     def annotate(self, **attrs) -> None:
         """Set attributes on the current span, if any (used by fallback
@@ -306,7 +349,8 @@ class Tracer:
         When the echoed trace context names a DIFFERENT trace than the
         current one -- a pipelined reply claimed a tick after its dispatch
         -- the grafted spans carry `origin_trace_id`/`origin_span_id` as
-        the explicit link."""
+        the explicit link, so neither tick ends up with an orphaned
+        half-trace."""
         spans = header.get("spans")
         cur = getattr(self._local, "cur", None)
         if not spans or cur is None:
@@ -357,7 +401,7 @@ class Tracer:
 
     def stats(self) -> Dict[str, dict]:
         """Per-span-name {p50_ms, p99_ms, count} over everything observed
-        since the last reset() -- a stage breakdown of the traced ticks."""
+        since the last reset() -- the bench artifact's stage breakdown."""
         with self._stats_lock:
             snapshot = {k: list(v) for k, v in self._stats.items()}
         out: Dict[str, dict] = {}
@@ -416,8 +460,9 @@ class WireTrace:
         return {"trace": self.ctx, "spans": self.spans}
 
 
-# process-global tracer. Disabled until a caller (chip_smoke.py, a test)
-# configures it -- library imports must not start sampling on their own.
+# process-global tracer. Disabled until the operator (Options.tracing,
+# default on with sampling), bench, or a test configures it -- library
+# imports must not start sampling on their own.
 TRACER = Tracer()
 
 
@@ -431,3 +476,9 @@ def span(name: str, **attrs):
 
 def annotate(**attrs) -> None:
     TRACER.annotate(**attrs)
+
+
+def dump_json(indent: Optional[int] = None) -> str:
+    """The flight recorder as a JSON document (shared by /debug/traces
+    and --trace-dump)."""
+    return json.dumps(TRACER.recorder.dump(), indent=indent, default=repr)

@@ -27,10 +27,10 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from karpenter_tpu_torch.apis import Pod, PodAffinityTerm, TopologySpreadConstraint, labels as wk
+from karpenter_tpu_torch.apis import Pod, PodAffinityTerm, TPUNodeClass, TopologySpreadConstraint, labels as wk
 from karpenter_tpu_torch.providers.instancetype import gen_catalog
 from karpenter_tpu_torch.providers.instancetype.types import (
-    InstanceType, NodeClassConfig, Offering, Resolver,
+    InstanceType, Offering, Resolver,
 )
 from karpenter_tpu_torch.scheduling import Resources, Taint, Toleration
 from karpenter_tpu_torch.scheduling import resources as res
@@ -61,7 +61,7 @@ def build_catalog_items() -> List[InstanceType]:
         return out
 
     return Resolver(gen_catalog.REGION).resolve(
-        gen_catalog.generate_instance_types(), NodeClassConfig(), offerings_for)
+        gen_catalog.generate_instance_types(), TPUNodeClass("default"), offerings_for)
 
 
 def synth_pods(rng: np.random.Generator, zones, n_pods: int, salt: int,

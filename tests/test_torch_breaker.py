@@ -149,10 +149,12 @@ def wire_counters(metrics):
         "to_open": metrics.BREAKER_TRANSITIONS.value(to="open"),
         "to_closed": metrics.BREAKER_TRANSITIONS.value(to="closed"),
     }
-    if metrics is tmetrics:
-        out["handled_wire_down"] = metrics.HANDLED_ERRORS.value(site="solver.wire_down")
-        out["handled_breaker_open"] = metrics.HANDLED_ERRORS.value(site="solver.breaker_open")
     return out
+
+
+def handled_errors(metrics):
+    """Every `karpenter_handled_errors_total` sample, by site."""
+    return {key[0]: v for key, v in list(metrics.HANDLED_ERRORS._values.items())}
 
 
 def start(which, path):
@@ -185,16 +187,19 @@ def drill(which, small_items):  # noqa: F811
     try:
         def tick():
             w = build(which, spec, small_items)
-            before = wire_counters(metrics)
+            before, handled_before = wire_counters(metrics), handled_errors(metrics)
             with tracer.trace("tick", force=True) as root:
                 sig = result_sig(solver.schedule(w.scheduler("price"), list(w.pods)))
-            after = wire_counters(metrics)
+            after, handled_after = wire_counters(metrics), handled_errors(metrics)
+            handled = {site: handled_after[site] - handled_before.get(site, 0.0)
+                       for site in handled_after
+                       if handled_after[site] != handled_before.get(site, 0.0)}
             fallback = root.attributes.get("fallback")
             if fallback is None:
                 fallback = next((c.attributes.get("fallback") for c in root.children
                                  if c.attributes.get("fallback")), None)
             ticks.append((sig, fallback, {k: after[k] - before[k] for k in after},
-                          brk.state, solver.wire_healthy()))
+                          brk.state, solver.wire_healthy(), handled))
 
         tick()                      # the wire
         stop(srv)                   # the sidecar dies
@@ -213,10 +218,21 @@ def drill(which, small_items):  # noqa: F811
     return ticks
 
 
+_DRILLS = {}
+
+
+def drills(small_items):  # noqa: F811
+    """The drill through the JAX package, then through the port (run once
+    per test process, shared by the tests below)."""
+    if not _DRILLS:
+        _DRILLS["jax"] = drill("jax", small_items)
+        _DRILLS["torch"] = drill("torch", small_items)
+    return _DRILLS["jax"], _DRILLS["torch"]
+
+
 class TestDrill:
     def test_dead_sidecar_ticks_equal_wire_ticks_counted_once(self, small_items):  # noqa: F811
-        want = drill("jax", small_items)
-        got = drill("torch", small_items)
+        want, got = drills(small_items)
         sig0 = got[0][0]
         assert sig0[0][0], "the wire tick opened no groups"
         assert all(t[0] == sig0 for t in got), "an in-process tick decided differently"
@@ -229,7 +245,18 @@ class TestDrill:
         # the JAX package's counters move alike in both registries
         shared = ("short_circuits", "rpc_down", "to_open", "to_closed")
         assert [{k: t[2][k] for k in shared} for t in got] == [t[2] for t in want]
-        # each in-process tick counted once in HANDLED_ERRORS by its rung
-        assert [(t[2]["handled_wire_down"], t[2]["handled_breaker_open"]) for t in got] == [
+        # each in-process tick counted once by its rung, in the JAX
+        # package's counters only
+        assert [(t[2]["rpc_down"], t[2]["short_circuits"]) for t in got] == [
             (0, 0), (1, 0), (1, 0), (0, 1), (0, 0)]
         assert [t[2]["to_open"] for t in got] == [0, 0, 1, 0, 0]
+
+    def test_handled_errors_samples_equal_jax(self, small_items):  # noqa: F811
+        """The drill moves `karpenter_handled_errors_total` alike in both
+        registries, tick by tick: the rungs count only in the fallback and
+        short-circuit families, never under a port-only site."""
+        want, got = drills(small_items)
+        assert [t[5] for t in got] == [t[5] for t in want]
+        for t in got:
+            assert not {"solver.wire_down", "solver.breaker_open"} & set(t[5])
+

@@ -40,6 +40,7 @@ from karpenter_tpu.scheduling import Resources as JResources
 from karpenter_tpu.solver import encode as jencode
 from karpenter_tpu.solver import ffd as jffd
 from karpenter_tpu.solver.convex import relax as jrelax
+from karpenter_tpu.solver.convex import repack as jrepack
 from karpenter_tpu.solver.convex import rounding as jrounding
 from karpenter_tpu.solver.convex import tier as jtier
 from karpenter_tpu.solver.service import TPUSolver
@@ -52,6 +53,7 @@ from karpenter_tpu_torch.apis import Pod as TPod
 from karpenter_tpu_torch.scheduling import Resources as TResources
 from karpenter_tpu_torch.solver import encode as tencode
 from karpenter_tpu_torch.solver.convex import relax as trelax
+from karpenter_tpu_torch.solver.convex import repack as trepack
 from karpenter_tpu_torch.solver.convex import rounding as trounding
 from karpenter_tpu_torch.solver.convex import tier as ttier
 from karpenter_tpu_torch.solver.service import TorchSolver
@@ -134,6 +136,34 @@ class TestRelax:
         # every class's fractional mass sums to its pod count
         np.testing.assert_allclose(tx.sum(axis=-1), np.asarray(cs.count, np.float64), atol=1e-3)
         assert trelax.iterations_to_convergence(ttrace) == jrelax.iterations_to_convergence(jtrace)
+
+    @pytest.mark.parametrize("seed", [0, 3])
+    def test_reference_relax_equal(self, catalog, seed):
+        """The host float64 reference the repack oracle runs: the same
+        numpy operations in both packages, so equal to the last bit."""
+        cs, _ = relax_world(catalog, seed)
+        (tx, tlower, ttrace), (jx, jlower, jtrace) = (
+            trelax.reference_relax(catalog, cs), jrelax.reference_relax(catalog, cs))
+        np.testing.assert_array_equal(tx, jx)
+        np.testing.assert_array_equal(ttrace, jtrace)
+        assert tlower == jlower
+
+    def test_repack_oracle_proposes_as_jax(self, catalog_items, port_items):  # noqa: F811
+        """The disruption controller's stage 6 under a convex solver:
+        tests/test_convex.py's regret world, the same nominations, regrets
+        and lower bound in both packages (exact: one numpy float64 path)."""
+        def candidates(pkg):
+            pod_t, res_t = (JPod, JResources) if pkg == "jax" else (TPod, TResources)
+            return [type("Candidate", (), {"pods": [pod_t(f"r{i}", requests=res_t(
+                {"cpu": cpu, "memory": "256Mi"}))], "price": price})()
+                for i, (cpu, price) in enumerate((("200m", 0.001), ("300m", 40.0), ("250m", 5.0)))]
+
+        jo, to = jrepack.RepackOracle(), trepack.RepackOracle()
+        want = jo.propose(candidates("jax"), [JNodePool("default")], {"default": catalog_items})
+        got = to.propose(candidates("torch"), [TNodePool("default")], {"default": port_items})
+        assert want and got == want
+        np.testing.assert_array_equal(to.last_regret, jo.last_regret)
+        assert to.last_lower == jo.last_lower > 0.0
 
     def test_host_feasibility_equal(self, catalog):
         cs, _ = relax_world(catalog, 1)

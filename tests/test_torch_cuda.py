@@ -603,3 +603,73 @@ class TestSidecarOnTheCard:
                 client.solve_classes_compact("boom", catalog, cs, g_max=128)
         finally:
             client.close()
+
+
+class TestOperatorOnTheCard:
+    """The port's Operator and replay with the engines on the card: tick by
+    tick equal to the same world with device="cpu"; a corpus digest equal
+    to the golden one. Exact."""
+
+    @staticmethod
+    def world(device):
+        from karpenter_tpu_torch import seeding
+        from karpenter_tpu_torch.apis import NodeClaim, Pod, TPUNodeClass
+        from karpenter_tpu_torch.cache.ttl import FakeClock
+        from karpenter_tpu_torch.controllers.disruption import MIN_NODE_LIFETIME
+        from karpenter_tpu_torch.operator import Operator, Options
+        from karpenter_tpu_torch.solver.consolidate import ConsolidationEvaluator
+
+        saved = seeding.snapshot()
+        solver = TorchSolver(g_max=256, device=device)
+        op = Operator(clock=FakeClock(100_000.0), solver=solver,
+                      consolidation_evaluator=ConsolidationEvaluator(solver=solver),
+                      options=Options(seed=5, tracing=False))
+        op.cluster.create(TPUNodeClass("default"))
+        op.cluster.create(NodePool("default"))
+        ticks = []
+
+        def tick():
+            op.tick()
+            op.clock.step(3.0)
+            ticks.append((
+                sorted((c.metadata.name, c.instance_type, c.deleting)
+                       for c in op.cluster.list(NodeClaim)),
+                sorted((p.metadata.name, p.node_name) for p in op.cluster.list(Pod))))
+
+        try:
+            for p in workload.synth_pods(np.random.default_rng(3), workload.ZONES, 2000, salt=3):
+                op.cluster.create(p)
+            for _ in range(4):
+                tick()
+            for i, name in enumerate(sorted(p.metadata.name for p in op.cluster.list(Pod))):
+                if i % 4:
+                    op.cluster.delete(Pod, name)
+            op.clock.step(MIN_NODE_LIFETIME + 60)
+            for _ in range(3):
+                tick()
+        finally:
+            seeding.restore(saved)
+        return ticks
+
+    def test_operator_ticks_match_the_cpu(self, cuda, items):
+        a0, b0 = ffd_scan.launches, repack.launches
+        got = self.world(cuda)
+        assert ffd_scan.launches > a0 and repack.launches > b0
+        assert got == self.world("cpu")
+
+    def test_corpus_digest_on_the_card(self, cuda):
+        import json
+        import os
+
+        from karpenter_tpu_torch.sim.replay import replay
+        from karpenter_tpu_torch.sim.trace import read_trace
+
+        golden_dir = os.path.join(os.path.dirname(__file__), "golden", "scenarios")
+        with open(os.path.join(golden_dir, "digests.json")) as f:
+            golden = json.load(f)
+        events = read_trace(os.path.join(golden_dir, "diurnal-consolidation.jsonl"))
+        seed = next(int(e["seed"]) for e in events if e.get("ev") == "header")
+        b0 = repack.launches
+        res = replay(events, backend="host", seed=seed)
+        assert res.digest == golden["diurnal-consolidation"]
+        assert repack.launches > b0

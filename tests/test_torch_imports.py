@@ -28,6 +28,87 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "karpenter_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
+# the operator slice's modules (copies of the JAX package's jax-free control
+# plane under the same paths)
+OPERATOR_MODULES = (
+    "karpenter_tpu_torch/__main__.py",
+    "karpenter_tpu_torch/apis/daemonset.py",
+    "karpenter_tpu_torch/apis/nodeclaim.py",
+    "karpenter_tpu_torch/apis/nodeclass.py",
+    "karpenter_tpu_torch/apis/pdb.py",
+    "karpenter_tpu_torch/apis/storage.py",
+    "karpenter_tpu_torch/apis/validation.py",
+    "karpenter_tpu_torch/batcher/__init__.py",
+    "karpenter_tpu_torch/batcher/batcher.py",
+    "karpenter_tpu_torch/batcher/cloud.py",
+    "karpenter_tpu_torch/cache/__init__.py",
+    "karpenter_tpu_torch/cache/ttl.py",
+    "karpenter_tpu_torch/cache/unavailable_offerings.py",
+    "karpenter_tpu_torch/cloud/api.py",
+    "karpenter_tpu_torch/cloudprovider/__init__.py",
+    "karpenter_tpu_torch/cloudprovider/cloudprovider.py",
+    "karpenter_tpu_torch/controllers/__init__.py",
+    "karpenter_tpu_torch/controllers/disruption.py",
+    "karpenter_tpu_torch/controllers/garbagecollection.py",
+    "karpenter_tpu_torch/controllers/interruption.py",
+    "karpenter_tpu_torch/controllers/interruption_messages.py",
+    "karpenter_tpu_torch/controllers/metrics_controller.py",
+    "karpenter_tpu_torch/controllers/nodeclaim_lifecycle.py",
+    "karpenter_tpu_torch/controllers/nodeclass.py",
+    "karpenter_tpu_torch/controllers/pdb_guard.py",
+    "karpenter_tpu_torch/controllers/providers.py",
+    "karpenter_tpu_torch/controllers/provisioner.py",
+    "karpenter_tpu_torch/controllers/recovery.py",
+    "karpenter_tpu_torch/controllers/repair.py",
+    "karpenter_tpu_torch/controllers/tagging.py",
+    "karpenter_tpu_torch/controllers/termination.py",
+    "karpenter_tpu_torch/errors/__init__.py",
+    "karpenter_tpu_torch/errors/errors.py",
+    "karpenter_tpu_torch/events.py",
+    "karpenter_tpu_torch/fencing.py",
+    "karpenter_tpu_torch/journal.py",
+    "karpenter_tpu_torch/kwok/__init__.py",
+    "karpenter_tpu_torch/kwok/cloud.py",
+    "karpenter_tpu_torch/kwok/cluster.py",
+    "karpenter_tpu_torch/kwok/lifecycle.py",
+    "karpenter_tpu_torch/operator/__init__.py",
+    "karpenter_tpu_torch/operator/election.py",
+    "karpenter_tpu_torch/operator/health.py",
+    "karpenter_tpu_torch/operator/operator.py",
+    "karpenter_tpu_torch/providers/capacityreservation/__init__.py",
+    "karpenter_tpu_torch/providers/capacityreservation/provider.py",
+    "karpenter_tpu_torch/providers/image/__init__.py",
+    "karpenter_tpu_torch/providers/image/provider.py",
+    "karpenter_tpu_torch/providers/instance/__init__.py",
+    "karpenter_tpu_torch/providers/instance/filters.py",
+    "karpenter_tpu_torch/providers/instance/provider.py",
+    "karpenter_tpu_torch/providers/instanceprofile/__init__.py",
+    "karpenter_tpu_torch/providers/instanceprofile/provider.py",
+    "karpenter_tpu_torch/providers/instancetype/offerings.py",
+    "karpenter_tpu_torch/providers/instancetype/provider.py",
+    "karpenter_tpu_torch/providers/launchtemplate/__init__.py",
+    "karpenter_tpu_torch/providers/launchtemplate/bootstrap.py",
+    "karpenter_tpu_torch/providers/launchtemplate/provider.py",
+    "karpenter_tpu_torch/providers/params/__init__.py",
+    "karpenter_tpu_torch/providers/params/provider.py",
+    "karpenter_tpu_torch/providers/pricing/__init__.py",
+    "karpenter_tpu_torch/providers/pricing/provider.py",
+    "karpenter_tpu_torch/providers/queue/__init__.py",
+    "karpenter_tpu_torch/providers/queue/provider.py",
+    "karpenter_tpu_torch/providers/securitygroup/__init__.py",
+    "karpenter_tpu_torch/providers/securitygroup/provider.py",
+    "karpenter_tpu_torch/providers/subnet/__init__.py",
+    "karpenter_tpu_torch/providers/subnet/provider.py",
+    "karpenter_tpu_torch/providers/version/__init__.py",
+    "karpenter_tpu_torch/providers/version/provider.py",
+    "karpenter_tpu_torch/sim/__init__.py",
+    "karpenter_tpu_torch/sim/cli.py",
+    "karpenter_tpu_torch/sim/replay.py",
+    "karpenter_tpu_torch/sim/trace.py",
+    "karpenter_tpu_torch/solver/convex/repack.py",
+)
+
+
 def imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -72,6 +153,9 @@ class TestNoJaxImports:
                 "karpenter_tpu_torch/solver/rpc.py",
                 "karpenter_tpu_torch/solver/shm.py",
                 "karpenter_tpu_torch/solver/breaker.py"} <= rel
+        # the operator, its controllers, the kwok world, the providers, the
+        # binary and the replay
+        assert set(OPERATOR_MODULES) <= rel
 
     @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
     def test_no_forbidden_import(self, path):
@@ -167,6 +251,48 @@ class TestNoJaxImports:
         r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                            capture_output=True, text=True, timeout=240)
         assert r.returncode == 0, r.stdout + r.stderr
+
+
+    def test_operator_and_replay_load_neither(self):
+        """Every module of the package imported, then the port's Operator
+        ticked and a corpus trace replayed on the CPU, in a fresh
+        interpreter."""
+        code = (
+            "import importlib, pkgutil, sys\n"
+            "import torch\n"
+            "torch.set_num_threads(1)\n"
+            "import karpenter_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(karpenter_tpu_torch.__path__, 'karpenter_tpu_torch.')\n"
+            "         if not m.name.endswith('__main__')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "import numpy as np\n"
+            "from karpenter_tpu_torch import workload\n"
+            "from karpenter_tpu_torch.apis import NodePool, TPUNodeClass\n"
+            "from karpenter_tpu_torch.cache.ttl import FakeClock\n"
+            "from karpenter_tpu_torch.operator import Operator, Options\n"
+            "from karpenter_tpu_torch.solver.consolidate import ConsolidationEvaluator\n"
+            "from karpenter_tpu_torch.solver.service import TorchSolver\n"
+            "s = TorchSolver(device='cpu', g_max=32)\n"
+            "op = Operator(clock=FakeClock(100000.0), solver=s, options=Options(seed=1, tracing=False),\n"
+            "              consolidation_evaluator=ConsolidationEvaluator(solver=s))\n"
+            "op.cluster.create(TPUNodeClass('default')); op.cluster.create(NodePool('default'))\n"
+            "for p in workload.synth_pods(np.random.default_rng(0), workload.ZONES, 60, 0, 8):\n"
+            "    op.cluster.create(p)\n"
+            "op.settle()\n"
+            "assert not op.cluster.pending_pods()\n"
+            "from karpenter_tpu_torch.sim.replay import replay\n"
+            "from karpenter_tpu_torch.sim.trace import read_trace\n"
+            "r = replay(read_trace('tests/golden/scenarios/diurnal-small.jsonl'), seed=20260803, device='cpu')\n"
+            "assert r.ticks > 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
+            "print('LOADED', len(names), bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert r.returncode == 0, r.stdout + r.stderr[-3000:]
 
 
 class TestNoFallback:
