@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the port's provisioning solve, its convex tier, the consolidation engine and the operator on one GPU.
+"""Drive the port's provisioning solve, its convex tier, the consolidation engine and the operator (in memory and over an apiserver) on one GPU.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
+    python3 chip_smoke.py --rehearse-kube [N_PODS]
+                                   (phase `kube` and its reference alone,
+                                   on the CPU, small)
 
 Runs the karpenter_tpu_torch main path at full width -- the 627-type
 generated catalog, 50,000 pending pods from 160 templates, one NodePool,
@@ -57,12 +60,14 @@ one JSON line each:
               well formed
   observe     the no-fallback witness over every phase above (no convex
               fallback but rounding's organic None, no quality-bound error,
-              the solver's kernel-dispatch counter equal to every counted
-              run's launches, no plain run outside the convex phase's CPU
-              copy); drills on worlds (a) and (c): `convex.rounding` and
-              `rpc.convex.dispatch` armed to raise once, and a quality
-              bound that raises, each tick the FFD tick, its counter and
-              the failpoint's fires moved by one, the next tick as before;
+              the solver's kernel-dispatch counter, with the consolidation
+              engine's local dispatches for kernel B, equal to every
+              counted run's launches, no plain run outside the convex
+              phase's CPU copy); drills on worlds (a) and (c):
+              `convex.rounding` and `rpc.convex.dispatch` armed to raise
+              once, and a quality bound that raises, each tick the FFD
+              tick, its counter and the failpoint's fires moved by one,
+              the next tick as before;
               `hbm.poll()` against `torch.cuda`'s figures after tick 1;
               warm tick 1 with tracing and the observatory on against off
               (median of 5 each, in turns; printed, not gated) and one
@@ -98,28 +103,28 @@ one JSON line each:
               non-zero, no tick); the full-width `Operator` world --
               TorchSolver(g_max=1024) and ConsolidationEvaluator on the
               kwok catalog, 50,000 pods, a 10,000-pod wave, then 75 % of
-              the pods deleted and up to 6 ramp-down ticks -- equal tick by
-              tick (the NodeClaims and pod bindings) to the same world with
-              device="cpu", with tick walls, the dispatch counter's launches
+              the pods deleted and up to 6 ramp-down ticks -- with tick
+              walls, the dispatch counter's launches
               per tick, nodes launched and disrupted and the flight record's
               operator fields; every golden corpus digest through the port's
               own replay on the card (the 8 host ones, the convex one, and
               the two tier-1 scenarios over the port's sidecar), with each
               replay's wall and launches
-  kernels     each kernel against its plain torch version on the card, on
-              the main path's own inputs (tick 1's scan; tick 2's scan,
-              whose C=128 holds 63 padded rows; tick 2's repack; the
-              schedule worlds' scans, K=1920 among them, and the spread
-              wave's repack; each sweep's repack) and on pinned edge cases:
-              tied prices, exact quotients, slot exhaustion, padded or
-              infeasible rows between real classes, a count-0 class that
-              open groups could join, all-zero-request classes whose int32
-              prefix sums wrap, a C=256 world, kernel B at 64 candidate
-              sets, and the layouts each kernel takes when shared memory is
-              short, run at shapes the others fit too; the sidecar's own
-              calls in phase `wire`; equality is exact
-  plain       the same ticks, worlds and sweeps with both kernels swapped
-              for their plain versions: the decisions must be identical
+  kube        the operator over the apiserver bus, tests/fake_apiserver.py
+              started in process: `python -m karpenter_tpu_torch
+              --kubeconfig K --max-ticks 16` as a subprocess against a
+              server that holds the default NodeClass and NodePool and 200
+              pods (exit 0, /readyz 200, every pod bound, no NodePool
+              written, kernel A in its dumped dispatch counter, the time
+              from start to ready), `--in-cluster` without the service
+              account's env (exit non-zero before any tick); the world --
+              the port's Operator over KubeCluster, TorchSolver(g_max=1024)
+              and ConsolidationEvaluator, a FakeClock, 800 pods from the
+              160 templates, a 200-pod wave onto the live nodes, 75 % of
+              the pods deleted, 2 ramp-down ticks -- with tick walls, HTTP
+              requests per tick, kernel launches (A and B both) and the
+              device's idle share in a torch.profiler capture of the
+              binding tick
   times       each kernel and its plain version at every main-path shape
               (kernel A at tick 1, tick 2 and in each world; kernel B at
               tick 2, the spread wave and each sweep; kernel A also on
@@ -133,8 +138,31 @@ one JSON line each:
               warm sweeps) with host stages, each replacement pass in CUDA
               events, and on bench-sweep the candidate nodes judged per
               second
+  kernels     each kernel against its plain torch version on the card, on
+              the main path's own inputs (tick 1's scan; tick 2's scan,
+              whose C=128 holds 63 padded rows; tick 2's repack; the
+              schedule worlds' scans, K=1920 among them, and the spread
+              wave's repack; each sweep's repack) and on pinned edge cases:
+              tied prices, exact quotients, slot exhaustion, padded or
+              infeasible rows between real classes, a count-0 class that
+              open groups could join, all-zero-request classes whose int32
+              prefix sums wrap, a C=256 world, kernel B at 64 candidate
+              sets, and the layouts each kernel takes when shared memory is
+              short, run at shapes the others fit too; the sidecar's own
+              calls in phase `wire`; the operator's calls in phases
+              `operator` and `kube`; equality is exact
+  plain       the same ticks, worlds and sweeps with both kernels swapped
+              for their plain versions: the decisions must be identical
+  references  the operator world and the kube world with device="cpu",
+              each in a second process, both started once phase `times`,
+              the last timed section, has ended (phases `kernels` and
+              `plain`, which print no time, run beside them): each card
+              world equal to its reference tick by tick (the NodeClaims
+              and pod bindings)
 
-Then the nvidia-smi line, the kernels line and, last, the result line.
+Every phase line carries `script_s`, the seconds from the script's start
+to the phase's end. Then the nvidia-smi line, the kernels line and, last,
+the result line.
 Any failed phase raises: the script exits non-zero and prints no result.
 JAX and the JAX package are not imported.
 """
@@ -168,7 +196,13 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 peak outside the tensor cores
 
 
+T_START = time.perf_counter()
+
+
 def emit(doc: dict) -> None:
+    if "phase" in doc:
+        # when the phase ended, in seconds from the script's start
+        doc = {**doc, "script_s": time.perf_counter() - T_START}
     print(json.dumps(doc), flush=True)
 
 
@@ -231,9 +265,14 @@ QUALITY_SITES = ("solver.quality_dispatch", "solver.quality_finish")
 
 
 def dispatch_counts(metrics) -> dict:
-    """karpenter_solver_kernel_dispatches_total by "kernel/impl"."""
-    return {f"{k}/{impl}": metrics.SOLVER_KERNEL_DISPATCHES.value(entry=entry, impl=impl)
-            for k, entry in DISPATCH_ENTRIES.items() for impl in ("cuda", "plain")}
+    """karpenter_solver_kernel_dispatches_total by "kernel/impl" (the
+    solver's own launches), and as "disrupt_repack/engine" the
+    consolidation engine's kernel B runs: karpenter_disruption_device_
+    dispatches_total{path="local"}, one per local evaluate."""
+    out = {f"{k}/{impl}": metrics.SOLVER_KERNEL_DISPATCHES.value(entry=entry, impl=impl)
+           for k, entry in DISPATCH_ENTRIES.items() for impl in ("cuda", "plain")}
+    out["disrupt_repack/engine"] = metrics.DISRUPTION_DEVICE_DISPATCHES.value(path="local")
+    return out
 
 
 def bound(bytes_moved: float, ops: float):
@@ -403,10 +442,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_binary(repo: str, extra_env: dict, args=()) -> dict:
-    """`python -m karpenter_tpu_torch --max-ticks 5 ...` as a subprocess,
-    polling its /readyz until it exits: exit code, seconds to the first
-    200, the tail of both streams."""
+def run_binary(repo: str, extra_env: dict, args=(), drop_env=()) -> dict:
+    """`python -m karpenter_tpu_torch --max-ticks 5 ...` as a subprocess
+    (`args` come last, so they override those flags), polling its /readyz
+    until it exits: exit code, seconds to the first 200, the tail of both
+    streams. `drop_env` names variables the child does not inherit."""
     import urllib.error
     import urllib.request
 
@@ -418,8 +458,9 @@ def run_binary(repo: str, extra_env: dict, args=()) -> dict:
         out_path, err_path = os.path.join(tmp, "out"), os.path.join(tmp, "err")
         with open(out_path, "wb") as out, open(err_path, "wb") as err:
             t0 = time.perf_counter()
+            env = {k: v for k, v in os.environ.items() if k not in drop_env}
             proc = subprocess.Popen(cmd, cwd=repo, stdout=out, stderr=err,
-                                    env=dict(os.environ, **extra_env))
+                                    env=dict(env, **extra_env))
             ready_s, statuses = None, set()
             try:
                 while proc.poll() is None:
@@ -450,23 +491,135 @@ def run_binary(repo: str, extra_env: dict, args=()) -> dict:
             "stdout": stdout, "stderr": stderr}
 
 
-def phase_operator(dev, tag: dict, metrics, ka, kb) -> dict:
-    """The binary, the full-width operator world on the card against the
-    same world with device="cpu", and the golden corpus through the port's
-    own replay; returns the kernel launches each counted run made."""
+def operator_world(device) -> dict:
+    """Phase `operator`'s full-width world: the port's Operator
+    (TorchSolver(g_max=G_MAX) and its consolidation engine on `device`)
+    on the in-memory kwok cluster, N_PODS pending pods, an N_WAVE-pod wave,
+    then 75 % of the pods deleted and the ramp-down; per tick its wall,
+    dispatches, flight record and a digest of its decisions."""
     import hashlib
 
-    from karpenter_tpu_torch import overload, seeding, workload
+    from karpenter_tpu_torch import metrics, seeding, workload
     from karpenter_tpu_torch.apis import Node, NodeClaim, NodePool, Pod, TPUNodeClass
     from karpenter_tpu_torch.apis import labels as wk
     from karpenter_tpu_torch.cache.ttl import FakeClock
     from karpenter_tpu_torch.controllers.disruption import MIN_NODE_LIFETIME
     from karpenter_tpu_torch.obs import flight
     from karpenter_tpu_torch.operator import Operator, Options
-    from karpenter_tpu_torch.sim.replay import replay
-    from karpenter_tpu_torch.sim.trace import read_trace
     from karpenter_tpu_torch.solver.consolidate import ConsolidationEvaluator
     from karpenter_tpu_torch.solver.service import TorchSolver
+
+    saved = seeding.snapshot()
+    solver = TorchSolver(g_max=G_MAX, device=device)
+    op = Operator(
+        clock=FakeClock(100_000.0), solver=solver,
+        consolidation_evaluator=ConsolidationEvaluator(solver=solver),
+        # a deadline no tick comes near: the brownout ladder observes
+        # every tick (rung 0 in the flight record) and nothing sheds
+        options=Options(seed=SEED, tracing=False, tick_deadline=3600.0),
+    )
+    op.cluster.create(TPUNodeClass("default"))
+    op.cluster.create(NodePool("default"))
+    ticks = []
+    prev_nodes = set()
+    on_card = torch.device(device).type == "cuda"
+
+    def tick(stage):
+        nonlocal prev_nodes
+        before = dispatch_counts(metrics)
+        # the first tick of the wave and of the ramp-down on the card
+        # runs under torch.profiler: the device's busy time in the tick
+        profiled = on_card and stage != "50k" and not any(t["stage"] == stage for t in ticks)
+        busy = None
+        t0 = time.perf_counter()
+        if profiled:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                op.tick()
+                torch.cuda.synchronize()
+            busy = sum(getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0)
+                       for e in prof.key_averages() if "CUDA" in str(e.device_type)) / 1e3
+        else:
+            op.tick()
+            if on_card:
+                torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        after = dispatch_counts(metrics)
+        claims = sorted(
+            (c.metadata.name, c.metadata.labels.get(wk.NODEPOOL_LABEL, ""),
+             c.metadata.labels.get(wk.INSTANCE_TYPE_LABEL, ""),
+             c.metadata.labels.get(wk.ZONE_LABEL, ""),
+             c.metadata.labels.get(wk.CAPACITY_TYPE_LABEL, ""), c.deleting)
+            for c in op.cluster.list(NodeClaim))
+        bindings = sorted((p.metadata.name, p.node_name or "") for p in op.cluster.list(Pod))
+        nodes_now = {n.metadata.name for n in op.cluster.list(Node)}
+        rec = flight.RECORDER.last() or {}
+        ticks.append({
+            "stage": stage, "wall_ms": wall, "profiled": profiled,
+            "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1.0 - busy / wall,
+            "digest": hashlib.sha256(json.dumps([claims, bindings]).encode()).hexdigest(),
+            "claims": len(claims), "bound": sum(1 for _, n in bindings if n),
+            "pending": len(op.cluster.pending_pods()),
+            "nodes_launched": len(nodes_now - prev_nodes),
+            "nodes_disrupted": len(prev_nodes - nodes_now),
+            "dispatches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
+            "flight": {k: rec.get(k) for k in (
+                "brownout_level", "breaker", "deferred_pods", "shed_total", "nodes_ready",
+                "pods_bound_total", "consolidation_ms", "consolidation_mode",
+                "consolidation_sets")},
+        })
+        prev_nodes = nodes_now
+        op.clock.step(OPERATOR_STEP_S)
+
+    def settle(stage):
+        for _ in range(OPERATOR_SETTLE_TICKS):
+            tick(stage)
+            if not op.cluster.pending_pods() and op.provisioner._inflight is None:
+                return
+        raise AssertionError(f"operator world ({device}): {stage} did not settle in "
+                             f"{OPERATOR_SETTLE_TICKS} ticks")
+
+    t_world = time.perf_counter()
+    try:
+        for p in workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS,
+                                     salt=1):
+            op.cluster.create(p)
+        settle("50k")
+        for p in workload.synth_pods(np.random.default_rng(SEED + 1), workload.ZONES,
+                                     N_WAVE, salt=2):
+            op.cluster.create(p)
+        settle("10k wave")
+        names = sorted(p.metadata.name for p in op.cluster.list(Pod))
+        for i, name in enumerate(names):
+            if i % 4:
+                op.cluster.delete(Pod, name)
+        op.clock.step(MIN_NODE_LIFETIME + 60)
+        quiet = False
+        for _ in range(OPERATOR_RAMP_TICKS):
+            decided = metrics.DISRUPTION_DECISIONS._values.copy()
+            tick("ramp-down")
+            moved = metrics.DISRUPTION_DECISIONS._values != decided
+            if (not moved and not op.cluster.pending_pods()
+                    and not any(c.deleting for c in op.cluster.list(NodeClaim))):
+                quiet = True
+                break
+    finally:
+        seeding.restore(saved)
+    return {"ticks": ticks, "seconds": time.perf_counter() - t_world, "quiet": quiet}
+
+
+def phase_operator(dev, tag: dict, metrics, ka, kb):
+    """The binary, the full-width operator world on the card and the golden
+    corpus through the port's own replay; returns the kernel launches each
+    counted run made, the operator path's kernel operands and the card
+    world's per-tick digests (phase `references` holds them against the
+    same world with device="cpu")."""
+    from karpenter_tpu_torch import overload
+    from karpenter_tpu_torch.sim.replay import replay
+    from karpenter_tpu_torch.sim.trace import read_trace
 
     repo = os.path.dirname(os.path.abspath(__file__))
     launches = {}
@@ -497,114 +650,12 @@ def phase_operator(dev, tag: dict, metrics, ka, kb) -> dict:
     if not all(binary_ok.values()):
         raise AssertionError(f"the binary: {binary_ok}: {on_card['stderr'][-2000:]}")
 
-    # 2. the full-width operator world: 50,000 pending pods, a 10,000-pod
-    # wave, then 75 % of the pods deleted, on the card and with device="cpu"
-    def world(device) -> dict:
-        saved = seeding.snapshot()
-        solver = TorchSolver(g_max=G_MAX, device=device)
-        op = Operator(
-            clock=FakeClock(100_000.0), solver=solver,
-            consolidation_evaluator=ConsolidationEvaluator(solver=solver),
-            # a deadline no tick comes near: the brownout ladder observes
-            # every tick (rung 0 in the flight record) and nothing sheds
-            options=Options(seed=SEED, tracing=False, tick_deadline=3600.0),
-        )
-        op.cluster.create(TPUNodeClass("default"))
-        op.cluster.create(NodePool("default"))
-        ticks = []
-        prev_nodes = set()
-        on_card = torch.device(device).type == "cuda"
-
-        def tick(stage):
-            nonlocal prev_nodes
-            before = dispatch_counts(metrics)
-            # the first tick of the wave and of the ramp-down on the card
-            # runs under torch.profiler: the device's busy time in the tick
-            profiled = on_card and stage != "50k" and not any(t["stage"] == stage for t in ticks)
-            busy = None
-            t0 = time.perf_counter()
-            if profiled:
-                from torch.profiler import ProfilerActivity, profile
-
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    op.tick()
-                    torch.cuda.synchronize()
-                busy = sum(getattr(e, "self_device_time_total", None)
-                           or getattr(e, "self_cuda_time_total", 0)
-                           for e in prof.key_averages() if "CUDA" in str(e.device_type)) / 1e3
-            else:
-                op.tick()
-                if on_card:
-                    torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-            after = dispatch_counts(metrics)
-            claims = sorted(
-                (c.metadata.name, c.metadata.labels.get(wk.NODEPOOL_LABEL, ""),
-                 c.metadata.labels.get(wk.INSTANCE_TYPE_LABEL, ""),
-                 c.metadata.labels.get(wk.ZONE_LABEL, ""),
-                 c.metadata.labels.get(wk.CAPACITY_TYPE_LABEL, ""), c.deleting)
-                for c in op.cluster.list(NodeClaim))
-            bindings = sorted((p.metadata.name, p.node_name or "") for p in op.cluster.list(Pod))
-            nodes_now = {n.metadata.name for n in op.cluster.list(Node)}
-            rec = flight.RECORDER.last() or {}
-            ticks.append({
-                "stage": stage, "wall_ms": wall, "profiled": profiled,
-                "device_busy_ms": busy,
-                "device_idle_share": None if busy is None else 1.0 - busy / wall,
-                "digest": hashlib.sha256(json.dumps([claims, bindings]).encode()).hexdigest(),
-                "claims": len(claims), "bound": sum(1 for _, n in bindings if n),
-                "pending": len(op.cluster.pending_pods()),
-                "nodes_launched": len(nodes_now - prev_nodes),
-                "nodes_disrupted": len(prev_nodes - nodes_now),
-                "dispatches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
-                "flight": {k: rec.get(k) for k in (
-                    "brownout_level", "breaker", "deferred_pods", "shed_total", "nodes_ready",
-                    "pods_bound_total", "consolidation_ms", "consolidation_mode",
-                    "consolidation_sets")},
-            })
-            prev_nodes = nodes_now
-            op.clock.step(OPERATOR_STEP_S)
-
-        def settle(stage):
-            for _ in range(OPERATOR_SETTLE_TICKS):
-                tick(stage)
-                if not op.cluster.pending_pods() and op.provisioner._inflight is None:
-                    return
-            raise AssertionError(f"operator world ({device}): {stage} did not settle in "
-                                 f"{OPERATOR_SETTLE_TICKS} ticks")
-
-        t_world = time.perf_counter()
-        try:
-            for p in workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS,
-                                         salt=1):
-                op.cluster.create(p)
-            settle("50k")
-            for p in workload.synth_pods(np.random.default_rng(SEED + 1), workload.ZONES,
-                                         N_WAVE, salt=2):
-                op.cluster.create(p)
-            settle("10k wave")
-            names = sorted(p.metadata.name for p in op.cluster.list(Pod))
-            for i, name in enumerate(names):
-                if i % 4:
-                    op.cluster.delete(Pod, name)
-            op.clock.step(MIN_NODE_LIFETIME + 60)
-            quiet = False
-            for _ in range(OPERATOR_RAMP_TICKS):
-                decided = metrics.DISRUPTION_DECISIONS._values.copy()
-                tick("ramp-down")
-                moved = metrics.DISRUPTION_DECISIONS._values != decided
-                if (not moved and not op.cluster.pending_pods()
-                        and not any(c.deleting for c in op.cluster.list(NodeClaim))):
-                    quiet = True
-                    break
-        finally:
-            seeding.restore(saved)
-        return {"ticks": ticks, "seconds": time.perf_counter() - t_world, "quiet": quiet}
-
+    # 2. the full-width operator world on the card: 50,000 pending pods, a
+    # 10,000-pod wave, then 75 % of the pods deleted
     ka.launches = kb.launches = 0
     plain0 = {k: v for k, v in dispatch_counts(metrics).items() if k.endswith("/plain")}
     with recording(ka, kb) as rec:
-        card = world(dev)
+        card = operator_world(dev)
     launches["operator world"] = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
     # the operator path's own kernel operands (phases `kernels` and `times`):
     # kernel A at the 50k tick and at the wave, kernel B as the provisioner's
@@ -632,27 +683,23 @@ def phase_operator(dev, tag: dict, metrics, ka, kb) -> dict:
     missing = [k for k, n in launches["operator world"].items() if n < 1]
     if missing:
         raise AssertionError(f"the operator world did not launch {missing}")
-    twin = world("cpu")
-    same = [a["digest"] == b["digest"] for a, b in zip(card["ticks"], twin["ticks"])]
-    world_ok = len(card["ticks"]) == len(twin["ticks"]) and all(same)
     flight_ok = all(t["flight"]["brownout_level"] == 0 and isinstance(t["flight"]["nodes_ready"], int)
                     and isinstance(t["flight"]["pods_bound_total"], int) for t in card["ticks"])
     last = card["ticks"][-1]
     world_doc = {
         "pods": [N_PODS, N_WAVE], "deleted_fraction": 0.75, "g_max": G_MAX,
         "ticks": [{k: v for k, v in t.items() if k != "digest"} for t in card["ticks"]],
-        "card_seconds": card["seconds"], "cpu_twin_seconds": twin["seconds"],
-        "ticks_equal_to_cpu": same, "quiet_within_ramp_ticks": card["quiet"],
+        "card_seconds": card["seconds"], "quiet_within_ramp_ticks": card["quiet"],
+        "reference": "the same world with device='cpu': phase references",
         "launches": launches["operator world"], "flight_fields_filled": flight_ok,
         "final": {"claims": last["claims"], "bound": last["bound"], "pending": last["pending"]},
         "wall_note": "host clock around Operator.tick() ending in a sync; dispatches: "
                      "karpenter_solver_kernel_dispatches_total moved in the tick",
     }
-    if not world_ok:
-        raise AssertionError(f"the operator world on the card differs from device='cpu': {same}")
     if not flight_ok:
         raise AssertionError("a flight record lacks the operator's fields")
-    del card, twin
+    digests = [t["digest"] for t in card["ticks"]]
+    del card
 
     # 3. the golden corpus through the port's own replay on the card
     golden_dir = os.path.join(repo, "tests", "golden", "scenarios")
@@ -683,7 +730,429 @@ def phase_operator(dev, tag: dict, metrics, ka, kb) -> dict:
     if not corpus_ok:
         raise AssertionError(f"a corpus digest differs: "
                              f"{[k for k, d in corpus.items() if not d['digest_equal']]}")
-    return launches, operands
+    return launches, operands, digests
+
+
+# phase `kube`: the operator over the apiserver bus. The world's pods are
+# cut from 50,000 by the bus's own quadratic binding (each bind
+# invalidates the pod snapshot and the binder's next check re-LISTs every
+# pod: PERF.md section 4); its catalog and the kernels' widths stay full.
+# Its device="cpu" reference runs after the card's timed work (phase
+# `references`), so the card world and its reference run in turn: to stay
+# inside the script's time limit on a slow host, the ramp-down's ticks
+# were cut (4 to 2) and each stage's settle ticks (5 to 4, the last ones
+# idle) before the pods (1,000 to 800; PERF.md section 4).
+KUBE_PODS = 800
+KUBE_WAVE = 200
+KUBE_BINARY_PODS = 200
+KUBE_STAGE_TICKS = (("pods", 4), ("wave", 4), ("ramp-down", 2))
+# the binding tick: the third of the first stage (the nodes the first
+# launched register on the second and come ready on the third)
+KUBE_BINDING_TICK = ("pods", 2)
+# the world's FakeClock starts after every creationTimestamp the apiserver
+# stamps from the wall clock, so node ages are positive and the sweep can act
+KUBE_CLOCK = 4_000_000_000.0
+SIDE_WORLD_TIMEOUT_S = 700
+
+
+def load_fake_apiserver(repo: str):
+    """tests/fake_apiserver.py by file path: it is stdlib only, while
+    importing `tests` as a package would run its conftest, which imports
+    JAX."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fake_apiserver", os.path.join(repo, "tests", "fake_apiserver.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_kubeconfig(path: str, url: str) -> None:
+    # JSON is YAML: the binary reads it with yaml.safe_load
+    with open(path, "w") as f:
+        json.dump({"apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+                   "contexts": [{"name": "smoke", "context": {"cluster": "smoke",
+                                                              "user": "smoke"}}],
+                   "clusters": [{"name": "smoke", "cluster": {"server": url}}],
+                   "users": [{"name": "smoke", "user": {"token": "smoke"}}]}, f)
+
+
+def kube_world(repo: str, device, profile: bool = False) -> dict:
+    """The port's Operator (TorchSolver(g_max=G_MAX) and its consolidation
+    engine on `device`) over KubeCluster on an in-process fake apiserver,
+    under a FakeClock: KUBE_PODS pods from workload.synth_pods's 160
+    templates, a KUBE_WAVE-pod wave onto the live nodes, 75 % of the pods
+    deleted, the ramp-down. Per tick: host wall, HTTP requests the operator
+    sent, the kernel dispatches it made and a digest of its decisions
+    (NodeClaims and pod bindings by name); with `profile` on the card, the
+    binding tick runs under torch.profiler for the device's busy time."""
+    import hashlib
+
+    from karpenter_tpu_torch import metrics, seeding, workload
+    from karpenter_tpu_torch.apis import Node, NodeClaim, NodePool, Pod, TPUNodeClass
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.cache.ttl import FakeClock
+    from karpenter_tpu_torch.controllers.disruption import MIN_NODE_LIFETIME
+    from karpenter_tpu_torch.kube import KubeClient, KubeConfig, KubeCluster, convert
+    from karpenter_tpu_torch.operator import Operator, Options
+    from karpenter_tpu_torch.solver.consolidate import ConsolidationEvaluator
+    from karpenter_tpu_torch.solver.service import TorchSolver
+
+    srv = load_fake_apiserver(repo).FakeApiServer().start()
+    clock = FakeClock(KUBE_CLOCK)
+    cluster = KubeCluster(KubeClient(KubeConfig(server=srv.url)), clock=clock)
+    user = KubeClient(KubeConfig(server=srv.url))
+    pod_info = convert.REGISTRY[Pod]
+    requests = [0]
+    send = cluster.client.request
+
+    def counted(*a, **k):
+        requests[0] += 1
+        return send(*a, **k)
+
+    cluster.client.request = counted
+    on_card = torch.device(device).type == "cuda"
+    saved = seeding.snapshot()
+    ticks = []
+    prev_nodes = set()
+    t_world = time.perf_counter()
+    try:
+        solver = TorchSolver(g_max=G_MAX, device=device)
+        op = Operator(clock=clock, cluster=cluster, solver=solver,
+                      consolidation_evaluator=ConsolidationEvaluator(solver=solver),
+                      options=Options(seed=SEED, tracing=False))
+        op.cluster.create(TPUNodeClass("default"))
+        op.cluster.create(NodePool("default"))
+
+        def tick(stage, i):
+            nonlocal prev_nodes
+            before, r0 = dispatch_counts(metrics), requests[0]
+            profiled = profile and on_card and (stage, i) == KUBE_BINDING_TICK
+            busy = None
+            t0 = time.perf_counter()
+            if profiled:
+                from torch.profiler import ProfilerActivity, profile as capture
+
+                with capture(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    op.tick()
+                    torch.cuda.synchronize()
+                busy = sum(getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0)
+                           for e in prof.key_averages() if "CUDA" in str(e.device_type)) / 1e3
+            else:
+                op.tick()
+                if on_card:
+                    torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            sent = requests[0] - r0
+            after = dispatch_counts(metrics)
+            claims = sorted(
+                (c.metadata.name, c.metadata.labels.get(wk.NODEPOOL_LABEL, ""),
+                 c.metadata.labels.get(wk.INSTANCE_TYPE_LABEL, ""),
+                 c.metadata.labels.get(wk.ZONE_LABEL, ""),
+                 c.metadata.labels.get(wk.CAPACITY_TYPE_LABEL, ""), c.deleting)
+                for c in op.cluster.list(NodeClaim))
+            bindings = sorted((p.metadata.name, p.node_name or "") for p in op.cluster.list(Pod))
+            nodes_now = {n.metadata.name for n in op.cluster.list(Node)}
+            bound = sum(1 for _, n in bindings if n)
+            ticks.append({
+                "stage": stage, "wall_ms": wall, "http_requests": sent, "profiled": profiled,
+                "device_busy_ms": busy,
+                "device_idle_share": None if busy is None else 1.0 - busy / wall,
+                "digest": hashlib.sha256(json.dumps([claims, bindings]).encode()).hexdigest(),
+                "claims": len(claims), "bound": bound,
+                "newly_bound": bound - (ticks[-1]["bound"] if ticks else 0),
+                "pending": sum(1 for _, n in bindings if not n),
+                "nodes_launched": len(nodes_now - prev_nodes),
+                "nodes_retired": len(prev_nodes - nodes_now),
+                "dispatches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
+            })
+            prev_nodes = nodes_now
+            op.clock.step(OPERATOR_STEP_S)
+
+        rng = np.random.default_rng
+        waves = {"pods": workload.synth_pods(rng(SEED), workload.ZONES, KUBE_PODS, salt=1),
+                 "wave": workload.synth_pods(rng(SEED + 1), workload.ZONES, KUBE_WAVE, salt=2)}
+        setup_s = 0.0
+        for stage, n_ticks in KUBE_STAGE_TICKS:
+            t0 = time.perf_counter()
+            if stage in waves:
+                for p in waves[stage][:KUBE_PODS if stage == "pods" else KUBE_WAVE]:
+                    op.cluster.create(p)
+            else:
+                # the users delete 3 of every 4 pods through their own client
+                # (KubeCluster.delete by name re-LISTs the pods to confirm)
+                pods = sorted((p.metadata.name, p.metadata.namespace)
+                              for p in op.cluster.list(Pod))
+                for i, (name, ns) in enumerate(pods):
+                    if i % 4:
+                        user.delete(f"{pod_info.base_path(ns)}/{name}")
+                op.clock.step(MIN_NODE_LIFETIME + 60)
+            setup_s += time.perf_counter() - t0
+            for i in range(n_ticks):
+                tick(stage, i)
+    finally:
+        seeding.restore(saved)
+        cluster.stop()
+        srv.stop()
+    return {"ticks": ticks, "seconds": time.perf_counter() - t_world, "setup_s": setup_s}
+
+
+class SideWorld:
+    """A reference world in a second process, `python3 chip_smoke.py MODE
+    OUT N_PODS N_WAVE G_MAX` (MODE `--operator-twin` or `--kube-reference`,
+    both with device="cpu"); `result()` waits for it, `stop()` ends it
+    whatever happened."""
+
+    def __init__(self, mode: str, n_pods: int, n_wave: int):
+        self.tmp = tempfile.mkdtemp(prefix="karpenter-side-")
+        self.path = os.path.join(self.tmp, "world.json")
+        self.log_path = os.path.join(self.tmp, "world.log")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "wb") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), mode, self.path,
+                 str(n_pods), str(n_wave), str(G_MAX)],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+                stderr=subprocess.STDOUT)
+
+    def result(self):
+        """(the world's document, seconds from the process's start to its end)."""
+        rc = self.proc.wait(timeout=max(60.0, SIDE_WORLD_TIMEOUT_S
+                                        - (time.perf_counter() - self.t0)))
+        seconds = time.perf_counter() - self.t0
+        if rc != 0:
+            with open(self.log_path) as f:
+                raise AssertionError(f"the side world failed ({rc}): {f.read()[-3000:]}")
+        with open(self.path) as f:
+            return json.load(f), seconds
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def side_world(mode: str, out_path: str) -> int:
+    """The body of a SideWorld's process: the world with device="cpu" on
+    four intra-op threads (the two references share the host's cores), its
+    document written to OUT as JSON."""
+    torch.set_num_threads(4)
+    if mode == "--operator-twin":
+        doc = operator_world("cpu")
+    else:
+        doc = kube_world(os.path.dirname(os.path.abspath(__file__)), "cpu")
+    with open(out_path, "w") as f:
+        json.dump(doc, f)
+    return 0
+
+
+# each card world's reference: the SideWorld mode and its sizes
+REFERENCES = {"operator": lambda: ("--operator-twin", N_PODS, N_WAVE),
+              "kube": lambda: ("--kube-reference", KUBE_PODS, KUBE_WAVE)}
+
+
+def start_references(card_worlds: dict) -> dict:
+    """The device="cpu" reference of each card world (name -> its per-tick
+    digests), each in its own process, all started at once: name ->
+    (the card's digests, its SideWorld). Start them once the card's timed
+    work is done, so that no wall the script prints was taken beside them."""
+    references = {}
+    try:
+        for name, digests in card_worlds.items():
+            references[name] = (digests, SideWorld(*REFERENCES[name]()))
+    except BaseException:
+        stop_references(references)
+        raise
+    return references
+
+
+def stop_references(references: dict) -> None:
+    for _, side in references.values():
+        side.stop()
+
+
+def phase_references(tag: dict, references: dict) -> None:
+    """Waits for each reference of `start_references` and holds its card
+    world against it: equal tick by tick (the NodeClaims and pod
+    bindings), or the phase fails."""
+    doc = {}
+    for name, (digests, side) in references.items():
+        ref, process_s = side.result()
+        doc[name] = {
+            "ticks": len(digests), "reference_ticks": len(ref["ticks"]),
+            "ticks_equal": [a == b["digest"] for a, b in zip(digests, ref["ticks"])],
+            "reference_world_seconds": ref["seconds"], "reference_process_seconds": process_s,
+        }
+    emit({"phase": "references", "reference": "the same world with device='cpu', each in "
+          "a second process, all started after the card's timed work", **doc, **tag})
+    differ = [name for name, d in doc.items()
+              if d["ticks"] != d["reference_ticks"] or not all(d["ticks_equal"])]
+    if differ:
+        raise AssertionError(f"a card world differs from its device='cpu' reference: {differ}")
+
+
+def phase_kube(dev, tag: dict, metrics, ka, kb):
+    """The binary over a fake apiserver and the full-width operator world
+    over KubeCluster on the card; returns the kernel launches and operands
+    of the card's world and its per-tick digests (phase `references` holds
+    them against the same world with device="cpu")."""
+    import re
+
+    from karpenter_tpu_torch import overload, workload
+    from karpenter_tpu_torch.apis import NodePool, Pod, TPUNodeClass
+    from karpenter_tpu_torch.kube import KubeClient, KubeConfig, KubeCluster
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="karpenter-kube-")
+    dev_args = ("--device", "cpu") if DEVICE == "cpu" else ()
+    try:
+        # 1. the binary over a fake apiserver that holds the default class
+        # and pool and KUBE_BINARY_PODS pods
+        fa = load_fake_apiserver(repo)
+        srv = fa.FakeApiServer().start()
+        cl = KubeCluster(KubeClient(KubeConfig(server=srv.url)))
+        reader = KubeCluster(KubeClient(KubeConfig(server=srv.url)), list_cache_ttl=0.0)
+        try:
+            cl.create(TPUNodeClass("default"))
+            cl.create(NodePool("default"))
+            pool_uid = cl.get(NodePool, "default").metadata.uid
+            for p in workload.synth_pods(np.random.default_rng(SEED), workload.ZONES,
+                                         KUBE_BINARY_PODS, salt=3)[:KUBE_BINARY_PODS]:
+                cl.create(p)
+            kubeconfig = os.path.join(tmp, "kubeconfig")
+            write_kubeconfig(kubeconfig, srv.url)
+            # the kwok nodes register 3 s and initialize 2 s after launch
+            # on the wall clock: 16 ticks half a second apart outlast both
+            run = run_binary(repo, {}, ("--kubeconfig", kubeconfig, "--max-ticks", "16",
+                                        "--tick-interval", "0.5", *dev_args))
+            pods = reader.list(Pod)
+            pools = reader.list(NodePool)
+        finally:
+            cl.stop()
+            reader.stop()
+            srv.stop()
+        # then `--in-cluster` without the service account's env: it reaches
+        # no apiserver
+        off_cluster = run_binary(repo, {}, ("--in-cluster", "--max-ticks", "3", *dev_args),
+                                 ("KUBERNETES_SERVICE_HOST", "KUBERNETES_SERVICE_PORT"))
+        impl = "plain" if DEVICE == "cpu" else "cuda"
+        dumped = {}
+        for labels, value in re.findall(
+                r"^karpenter_solver_kernel_dispatches_total\{([^}]*)\} (\S+)$",
+                run["stdout"], re.M):
+            dumped[labels] = float(value)
+        scans = sum(v for k, v in dumped.items()
+                    if 'entry="ffd_solve_fused"' in k and f'impl="{impl}"' in k)
+        binary_ok = {
+            "exit_0": run["rc"] == 0,
+            "readyz_200": run["start_to_ready_s"] is not None,
+            "every_pod_bound": len(pods) == KUBE_BINARY_PODS and all(p.node_name for p in pods),
+            "no_nodepool_written": ([(p.metadata.name, p.metadata.uid) for p in pools]
+                                    == [("default", pool_uid)]),
+            "kernel_a_launched": scans >= 1,
+            "in_cluster_off_cluster_exit_nonzero": off_cluster["rc"] != 0,
+            "in_cluster_names_the_cause": "no KUBERNETES_SERVICE_HOST" in off_cluster["stderr"],
+            "in_cluster_no_tick": ("nodeclass readiness" not in off_cluster["stderr"]
+                                   and 200 not in off_cluster["readyz_statuses"]),
+        }
+        binary_doc = {
+            "pods": KUBE_BINARY_PODS, "cmd": run["cmd"], "rc": run["rc"],
+            "wall_s": run["wall_s"], "start_to_ready_s": run["start_to_ready_s"],
+            "readyz_statuses": run["readyz_statuses"], "bound": sum(1 for p in pods if p.node_name),
+            "kernel_a_dispatches": scans,
+            "in_cluster": {"rc": off_cluster["rc"], "wall_s": off_cluster["wall_s"],
+                           "stderr": off_cluster["stderr"].strip().splitlines()[-1:]},
+            "checks": binary_ok,
+        }
+        if not all(binary_ok.values()):
+            raise AssertionError(f"phase kube, the binary: {binary_ok}: {run['stderr'][-2000:]}"
+                                 f"{off_cluster['stderr'][-1000:]}")
+
+        # 2. the world on the card, counted and recorded
+        ka.launches = kb.launches = 0
+        with recording(ka, kb) as rec:
+            card = kube_world(repo, dev, profile=True)
+        launches = {"kube world": {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}}
+        missing = [k for k, n in launches["kube world"].items() if n < 1]
+        if missing:
+            raise AssertionError(f"the kube world did not launch {missing}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def scans_in(stage):
+        return int(sum(t["dispatches"].get("ffd_scan/cuda", 0)
+                       + t["dispatches"].get("ffd_scan/plain", 0)
+                       for t in card["ticks"] if t["stage"] == stage))
+
+    repacks = rec["disrupt_repack"]
+    prepass = [o for o in repacks if o[4].shape[0] == 1]
+    sweeps_b = [o for o in repacks if o[4].shape[0] > 1]
+    n_pods = scans_in("pods")
+    operands = {"ffd_scan": {"kube pods tick": (rec["ffd_scan"][0], n_pods)},
+                "disrupt_repack": {}}
+    if len(rec["ffd_scan"]) > n_pods:
+        operands["ffd_scan"]["kube wave"] = (rec["ffd_scan"][n_pods], scans_in("wave"))
+    if prepass:
+        operands["disrupt_repack"]["kube pre-pass"] = (prepass[0], len(prepass))
+    if sweeps_b:
+        operands["disrupt_repack"]["kube sweep (widest)"] = (
+            max(sweeps_b, key=lambda o: o[4].shape[0]), len(sweeps_b))
+    binding = next((t for t in card["ticks"] if t["profiled"]), None)
+    world_doc = {
+        "pods": [KUBE_PODS, KUBE_WAVE], "deleted_fraction": 0.75, "g_max": G_MAX,
+        "stage_ticks": dict(KUBE_STAGE_TICKS),
+        "reference": "the kube world with device='cpu': phase references",
+        "ticks": [{k: v for k, v in t.items() if k != "digest"} for t in card["ticks"]],
+        "card_seconds": card["seconds"], "setup_s": card["setup_s"],
+        "launches": launches["kube world"],
+        "binding_tick": None if binding is None else {
+            k: binding[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                    "newly_bound", "http_requests")},
+        "http_requests_per_tick": [t["http_requests"] for t in card["ticks"]],
+        "final": {k: card["ticks"][-1][k] for k in ("claims", "bound", "pending")},
+        "wall_note": "host clock around Operator.tick() ending in a sync; http_requests: "
+                     "KubeClient.request calls the operator made in the tick",
+    }
+    overload.install_brownout(None)
+    emit({"phase": "kube", "binary": binary_doc, "world": world_doc, **tag})
+    if not any(t["nodes_retired"] for t in card["ticks"] if t["stage"] == "ramp-down"):
+        raise AssertionError("the kube world's ramp-down retired no node")
+    return launches, operands, [t["digest"] for t in card["ticks"]]
+
+
+def rehearse_kube(n_pods: int) -> int:
+    """`python3 chip_smoke.py --rehearse-kube [N_PODS]`: phases `kube` and
+    `references` (its world only) on the CPU (DEVICE = "cpu", g_max 256,
+    the wave a quarter of N_PODS, the binary with --device cpu), each
+    kernel wrapper counted as the phase counts launches on the card;
+    prints the phases' lines and the seconds."""
+    global DEVICE, G_MAX, KUBE_PODS, KUBE_WAVE
+    from karpenter_tpu_torch import metrics
+    from karpenter_tpu_torch.solver.kernels import disrupt_repack as kb
+    from karpenter_tpu_torch.solver.kernels import ffd_scan as ka
+
+    torch.set_num_threads(4)
+    DEVICE, G_MAX, KUBE_PODS, KUBE_WAVE = "cpu", 256, n_pods, n_pods // 4
+    for mod, name in ((ka, "fused_scan"), (kb, "disrupt_repack")):
+        def call(*a, _fn=getattr(mod, name), _mod=mod, **k):
+            _mod.launches += 1
+            return _fn(*a, **k)
+        setattr(mod, name, call)
+    tag = {"card": "cpu rehearsal", "power_limit": "n/a"}
+    t0 = time.perf_counter()
+    launches, _, digests = phase_kube(torch.device("cpu"), tag, metrics, ka, kb)
+    card_s = time.perf_counter() - t0
+    references = start_references({"kube": digests})
+    try:
+        phase_references(tag, references)
+    finally:
+        stop_references(references)
+    print(json.dumps({"rehearsal": "kube", "launches": launches, "card_seconds": card_s,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1161,9 +1630,11 @@ def main() -> int:
     # a degrade rung, and the dispatch counter agrees with the launch counts
     impl = "cuda" if dev.type == "cuda" else "plain"
     other = "plain" if impl == "cuda" else "cuda"
+    # kernel B's runs: the solver's count plus the engine's local dispatches
     runs_off = [r["path"] for r in counted_runs if any(
-        r["dispatches"][f"{k}/{impl}"] != r["launches"][k] or r["dispatches"][f"{k}/{other}"]
-        for k in DISPATCH_ENTRIES)]
+        r["dispatches"][f"{k}/{impl}"] + (r["dispatches"]["disrupt_repack/engine"]
+                                          if k == "disrupt_repack" else 0) != r["launches"][k]
+        or r["dispatches"][f"{k}/{other}"] for k in DISPATCH_ENTRIES)]
     dispatches = dispatch_counts(metrics)
     witness = {
         "convex_fallbacks": {r: metrics.CONVEX_FALLBACKS.value(reason=r)
@@ -1173,8 +1644,8 @@ def main() -> int:
         "kernel_dispatches": dispatches,
         "counted_runs": len(counted_runs),
         "counted_launches": {k: sum(r["launches"][k] for r in counted_runs) for k in DISPATCH_ENTRIES},
-        "counted_dispatches": {f"{k}/{i}": sum(r["dispatches"][f"{k}/{i}"] for r in counted_runs)
-                               for k in DISPATCH_ENTRIES for i in ("cuda", "plain")},
+        "counted_dispatches": {key: sum(r["dispatches"][key] for r in counted_runs)
+                               for key in dispatch_counts(metrics)},
         "cpu_copy_solves": cpu_solves[0], "runs_off": runs_off}
     # on the card the only plain runs are the convex phase's CPU copy
     plain_ok = impl == "plain" or (dispatches["ffd_scan/plain"] == cpu_solves[0]
@@ -1629,7 +2100,13 @@ def main() -> int:
         raise AssertionError(f"the breaker drill: {drill_ticks}")
 
     # -- the operator: the binary, the full-width world, the corpus ---------------
-    operator_launches, operator_ops = phase_operator(dev, tag, metrics, ka, kb)
+    operator_launches, operator_ops, operator_digests = phase_operator(
+        dev, tag, metrics, ka, kb)
+    # -- kube: the operator over the apiserver bus --------------------------------
+    kube_launches, kube_ops, kube_digests = phase_kube(dev, tag, metrics, ka, kb)
+    operator_launches.update(kube_launches)
+    for kernel, rows in kube_ops.items():
+        operator_ops[kernel].update(rows)
 
     # the main path's own kernel inputs: tick 1's scan, tick 2's repack
     classes1 = encode.group_pods(pods1, extra_requirements=pool.requirements())
@@ -1653,181 +2130,6 @@ def main() -> int:
     classes3 = encode.group_pods(pods3, extra_requirements=pool.requirements())
     ops_a3 = scan_ops(solver._encode(pool, entry, classes3, np.zeros(len(classes3), dtype=np.int64)),
                       "price", True)
-
-    # -- kernels against their plain versions -----------------------------------
-    checks = []
-    err_a = err_b = 0.0
-
-    def check_scan(label, ops, objective, g_max=G_MAX, layout_name=None):
-        """Kernel A against its plain version; `layout_name` runs a layout
-        the kernel takes when shared memory is short ("lean", "scratch")
-        at a shape where the resident one fits too."""
-        nonlocal err_a
-        if layout_name is not None:
-            got = ka._launch(*ops, g_max=g_max, objective=objective, layout_name=layout_name)
-        else:
-            got = ka.fused_scan(*ops, g_max=g_max, objective=objective)
-        want = ka.fused_scan_reference(*ops, g_max=g_max, objective=objective)
-        torch.cuda.synchronize()
-        err = max_abs_diff(got, want)
-        err_a = max(err_a, err)
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
-        checks.append({"kernel": "ffd_scan", "case": label, "equal": same, "max_abs_err": err})
-        if not same:
-            raise AssertionError(f"kernel A differs from its plain version: {label}")
-        return want
-
-    def check_repack(label, ops, scratch=False):
-        """Kernel B against its plain version; `scratch` runs the layout
-        with the headroom in device memory."""
-        nonlocal err_b
-        got = kb._launch(*ops, resident=False) if scratch else kb.disrupt_repack(*ops)
-        want = kb.repack_reference(*ops)
-        torch.cuda.synchronize()
-        err = max_abs_diff(got, want)
-        err_b = max(err_b, err)
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
-        checks.append({"kernel": "disrupt_repack", "case": label, "equal": same, "max_abs_err": err})
-        if not same:
-            raise AssertionError(f"kernel B differs from its plain version: {label}")
-        return want
-
-    @contextlib.contextmanager
-    def plain_kernels():
-        """Both wrappers swapped for their plain versions (the reference
-        run: not the main path, and not counted)."""
-        saved = ka.fused_scan, kb.disrupt_repack
-        ka.fused_scan = ka.fused_scan_reference
-        kb.disrupt_repack = kb.repack_reference
-        try:
-            yield
-        finally:
-            ka.fused_scan, kb.disrupt_repack = saved
-
-    nnz1 = ffd.nnz_budget(cs1.c_pad, G_MAX)
-    for objective in ("price", "fit"):
-        for packed in (True, False):
-            inp = ffd.make_inputs_staged(entry.staged, cs1, packed_masks=packed)
-            kw = dict(g_max=G_MAX, nnz_max=nnz1, word_offsets=entry.offsets,
-                      words=entry.words, objective=objective)
-            got = ffd.fetch_fused(ffd.ffd_solve_fused(inp, **kw))
-            with plain_kernels():
-                want = ffd.fetch_fused(ffd.ffd_solve_fused(inp, **kw))
-            same = got.tobytes() == want.tobytes()
-            checks.append({"kernel": "ffd_scan", "case": f"tick1 fused buffer {objective} "
-                           f"{'packed' if packed else 'full'}", "equal": same, "lanes": int(got.size)})
-            if not same:
-                raise AssertionError(f"fused buffers differ ({objective}, packed={packed})")
-            check_scan(f"tick1 scan {objective} {'packed' if packed else 'full'}",
-                       scan_ops(cs1, objective, packed), objective)
-    # tied prices: every offering at one price, so the envelope's argmin ties
-    tied = encode.encode_catalog(items)
-    tied.price = np.where(np.isfinite(tied.price), np.float32(1.0), tied.price).astype(np.float32)
-    staged_tied, _, _ = ffd.stage_catalog(tied, dev)
-    check_scan("tied prices", scan_ops(cs1, "price", True, staged_tied), "price")
-    # exact quotients: capacities exact multiples of the requests (6/3 = 2)
-    exact = encode.encode_catalog(items)
-    real = exact.cap[:, 0] > 0
-    exact.cap[real, 0] = 6000.0
-    exact.cap[real, 1] = 8192.0
-    staged_exact, _, _ = ffd.stage_catalog(exact, dev)
-    check_scan("exact quotients", scan_ops(cs1, "price", True, staged_exact), "price")
-    check_scan("slot exhaustion g_max=64", ops_a, "price", g_max=64)
-    check_scan("tick2 scan (63 padded rows)", ops_a2, "price")
-    zeroed = tuple(t.clone() for t in ops_a2)
-    zeroed[6][cases.real_classes(ops_a2)[-1]] = 0
-    check_scan("tick2 scan, a count-0 class open groups could join", zeroed, "price")
-    want = check_scan("padded rows between real classes",
-                      scan_ops(cases.padded_between(cs1), "price", True), "price")
-    if not torch.all(want[1][2::6] == 3):
-        raise AssertionError("the padded rows' pods did not come back as unplaced")
-    last = cs1.c_real - 1
-    for c, n in ((last, None), (last, 0), (cs1.c_real // 3, None)):
-        want = check_scan(f"zero-request class {c} count {n}: the prefix sum wraps",
-                          scan_ops(cases.zero_request(cs1, c, n), "price", True), "price")
-        if int(want[1][c]) >= 0:
-            raise AssertionError("the zero-request case did not wrap the prefix sum")
-    check_scan("C=256 world", ops_a3, "price")
-    for layout_name in ("lean", "scratch"):
-        check_scan(f"{layout_name} layout tick1", ops_a, "price", layout_name=layout_name)
-        check_scan(f"{layout_name} layout tick2", ops_a2, "price", layout_name=layout_name)
-    r8 = list(ops_a)
-    r8[0], r8[9] = ops_a[0][:, :8].contiguous(), ops_a[9][:, :8].contiguous()
-    check_scan("scratch layout tick1, R=8 (run-time R)", tuple(r8), "price", layout_name="scratch")
-
-    check_repack("tick2 pre-pass S=1", ops_b)
-    check_repack("tick2 pre-pass, infeasible rows between real classes S=1", cases.gap_repack(ops_b))
-    check_repack("tick2 pre-pass, scratch layout", ops_b, scratch=True)
-    zr = tuple(t.clone() for t in ops_b)
-    zr[2][3] = 0.0
-    zr[1][3] = True
-    if int(check_repack("zero-request class: the prefix sum wraps", zr)[0][0, 3]) >= 0:
-        raise AssertionError("the zero-request repack case did not wrap the prefix sum")
-    rng = np.random.default_rng(SEED)
-    for s in range(2):
-        s_, c_, n_ = 64, ops_b[2].shape[0], ops_b[0].shape[0]
-        world = (
-            rng.integers(0, 64, (n_, encode.R)).astype(np.float32), rng.random((c_, n_)) < 0.7,
-            rng.integers(0, 5, (c_, encode.R)).astype(np.float32),
-            rng.integers(0, 40, (s_, c_)), rng.random((s_, n_)) < 0.2,
-        )
-        ops = dk.repack_from_numpy(*world, dev)
-        check_repack(f"random world S=64 seed {s}", ops)
-        check_repack(f"random world S=64 seed {s}, infeasible rows between", cases.gap_repack(ops, s))
-    check_repack("exact quotient 6/3", dk.repack_from_numpy(
-        np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
-        np.array([[5]]), np.zeros((1, 2), bool), dev))
-    # the schedule worlds' own operands: the merged catalog (K=1280, the
-    # lean layout), the split pass's zone-pinned sub-classes, the wave's
-    # repack onto zone-pinned rows
-    for name in world_spec:
-        ops = world_ops[name]["ffd_scan"][0]
-        check_scan(f"{name} scan C={ops[0].shape[0]} K={ops[9].shape[0]} "
-                   f"({world_docs[name]['layout']} layout)", ops, "price")
-    for name in convex_spec:
-        ops = convex_ops[name]["ffd_scan"][0]
-        check_scan(f"convex {name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
-    check_repack("spread tick 2 pre-pass, zone-pinned rows",
-                 world_ops["spread tick 2"]["disrupt_repack"][0])
-    # each sweep's own repack: one block per candidate set
-    for name in sweeps:
-        ops = sweep_ops[name]["disrupt_repack"][0]
-        check_repack(f"{name} S={ops[4].shape[0]} C={ops[2].shape[0]} N={ops[4].shape[1]}", ops)
-    # the sidecar's own launches in phase `wire`: kernel A behind the ops
-    # solve_delta (ticks) and solve_convex, kernel B behind solve_disrupt
-    for name in ("shm tick 1", "shm delta tick", "tcp merged tainted", "shm convex a: tick 1"):
-        ops = wire_ops[name]["ffd_scan"][0]
-        check_scan(f"wire {name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
-    ops = wire_ops["shm rampdown-sweep spot-od"]["disrupt_repack"][0]
-    check_repack(f"wire rampdown-sweep spot-od S={ops[4].shape[0]} C={ops[2].shape[0]} "
-                 f"N={ops[4].shape[1]}", ops)
-    # the operator's own calls in phase `operator`
-    for name, (ops, _) in operator_ops["ffd_scan"].items():
-        check_scan(f"{name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
-    for name, (ops, _) in operator_ops["disrupt_repack"].items():
-        check_repack(f"{name} S={ops[4].shape[0]} C={ops[2].shape[0]} N={ops[4].shape[1]}", ops)
-    emit({"phase": "kernels", "checks": checks, **tag})
-
-    # -- the same two ticks through the plain versions, on the card --------------
-    with plain_kernels():
-        ref_solver = TorchSolver(g_max=G_MAX, device=dev)
-        ref1 = ref_solver.solve(pool, items, pods1)
-        ref2 = ref_solver.solve(pool, items, pods2, existing_nodes=workload.nodes_from_result(ref1))
-        ref_worlds = {}
-        for name, fn in worlds_of(TorchSolver(g_max=G_MAX, device=dev), ref_worlds).items():
-            ref_worlds[name] = fn()
-        ref_engine = DisruptEngine(solver=TorchSolver(g_max=G_MAX, device=dev))
-        ref_sweeps = {name: ref_engine.evaluate(sw["nodes"], sw["sets"], **sw["kw"])
-                      for name, sw in sweeps.items()}
-    same1, same2 = sig(ref1) == sig(tick1), sig(ref2) == sig(tick2)
-    same_worlds = {name: sig(ref_worlds[name]) == sig(world_results[name]) for name in world_spec}
-    same_sweeps = {name: [repr(v) for v in ref_sweeps[name]]
-                   == [repr(v) for v in sweep_results[name]] for name in sweeps}
-    emit({"phase": "plain", "tick1_decisions_equal": same1, "tick2_decisions_equal": same2,
-          "schedule_worlds_decisions_equal": same_worlds,
-          "sweep_verdict_reprs_equal": same_sweeps, **tag})
-    if not (same1 and same2 and all(same_worlds.values()) and all(same_sweeps.values())):
-        raise AssertionError("the main path's decisions differ from the plain versions'")
 
     # -- times ----------------------------------------------------------------------
     def scan_ms(ops, g_max=G_MAX, objective="price"):
@@ -2098,6 +2400,190 @@ def main() -> int:
                                      "their enqueue",
           **tag})
 
+    # -- references: each card world against the same world with device="cpu",
+    # each in a second process started after every timed section; the kernel
+    # checks and the plain run, which print no time, run beside them
+    references = start_references({"operator": operator_digests, "kube": kube_digests})
+    try:
+        # -- kernels against their plain versions -----------------------------------
+        checks = []
+        err_a = err_b = 0.0
+
+        def check_scan(label, ops, objective, g_max=G_MAX, layout_name=None):
+            """Kernel A against its plain version; `layout_name` runs a layout
+            the kernel takes when shared memory is short ("lean", "scratch")
+            at a shape where the resident one fits too."""
+            nonlocal err_a
+            if layout_name is not None:
+                got = ka._launch(*ops, g_max=g_max, objective=objective, layout_name=layout_name)
+            else:
+                got = ka.fused_scan(*ops, g_max=g_max, objective=objective)
+            want = ka.fused_scan_reference(*ops, g_max=g_max, objective=objective)
+            torch.cuda.synchronize()
+            err = max_abs_diff(got, want)
+            err_a = max(err_a, err)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            checks.append({"kernel": "ffd_scan", "case": label, "equal": same, "max_abs_err": err})
+            if not same:
+                raise AssertionError(f"kernel A differs from its plain version: {label}")
+            return want
+
+        def check_repack(label, ops, scratch=False):
+            """Kernel B against its plain version; `scratch` runs the layout
+            with the headroom in device memory."""
+            nonlocal err_b
+            got = kb._launch(*ops, resident=False) if scratch else kb.disrupt_repack(*ops)
+            want = kb.repack_reference(*ops)
+            torch.cuda.synchronize()
+            err = max_abs_diff(got, want)
+            err_b = max(err_b, err)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            checks.append({"kernel": "disrupt_repack", "case": label, "equal": same, "max_abs_err": err})
+            if not same:
+                raise AssertionError(f"kernel B differs from its plain version: {label}")
+            return want
+
+        @contextlib.contextmanager
+        def plain_kernels():
+            """Both wrappers swapped for their plain versions (the reference
+            run: not the main path, and not counted)."""
+            saved = ka.fused_scan, kb.disrupt_repack
+            ka.fused_scan = ka.fused_scan_reference
+            kb.disrupt_repack = kb.repack_reference
+            try:
+                yield
+            finally:
+                ka.fused_scan, kb.disrupt_repack = saved
+
+        nnz1 = ffd.nnz_budget(cs1.c_pad, G_MAX)
+        for objective in ("price", "fit"):
+            for packed in (True, False):
+                inp = ffd.make_inputs_staged(entry.staged, cs1, packed_masks=packed)
+                kw = dict(g_max=G_MAX, nnz_max=nnz1, word_offsets=entry.offsets,
+                          words=entry.words, objective=objective)
+                got = ffd.fetch_fused(ffd.ffd_solve_fused(inp, **kw))
+                with plain_kernels():
+                    want = ffd.fetch_fused(ffd.ffd_solve_fused(inp, **kw))
+                same = got.tobytes() == want.tobytes()
+                checks.append({"kernel": "ffd_scan", "case": f"tick1 fused buffer {objective} "
+                               f"{'packed' if packed else 'full'}", "equal": same, "lanes": int(got.size)})
+                if not same:
+                    raise AssertionError(f"fused buffers differ ({objective}, packed={packed})")
+                check_scan(f"tick1 scan {objective} {'packed' if packed else 'full'}",
+                           scan_ops(cs1, objective, packed), objective)
+        # tied prices: every offering at one price, so the envelope's argmin ties
+        tied = encode.encode_catalog(items)
+        tied.price = np.where(np.isfinite(tied.price), np.float32(1.0), tied.price).astype(np.float32)
+        staged_tied, _, _ = ffd.stage_catalog(tied, dev)
+        check_scan("tied prices", scan_ops(cs1, "price", True, staged_tied), "price")
+        # exact quotients: capacities exact multiples of the requests (6/3 = 2)
+        exact = encode.encode_catalog(items)
+        real = exact.cap[:, 0] > 0
+        exact.cap[real, 0] = 6000.0
+        exact.cap[real, 1] = 8192.0
+        staged_exact, _, _ = ffd.stage_catalog(exact, dev)
+        check_scan("exact quotients", scan_ops(cs1, "price", True, staged_exact), "price")
+        check_scan("slot exhaustion g_max=64", ops_a, "price", g_max=64)
+        check_scan("tick2 scan (63 padded rows)", ops_a2, "price")
+        zeroed = tuple(t.clone() for t in ops_a2)
+        zeroed[6][cases.real_classes(ops_a2)[-1]] = 0
+        check_scan("tick2 scan, a count-0 class open groups could join", zeroed, "price")
+        want = check_scan("padded rows between real classes",
+                          scan_ops(cases.padded_between(cs1), "price", True), "price")
+        if not torch.all(want[1][2::6] == 3):
+            raise AssertionError("the padded rows' pods did not come back as unplaced")
+        last = cs1.c_real - 1
+        for c, n in ((last, None), (last, 0), (cs1.c_real // 3, None)):
+            want = check_scan(f"zero-request class {c} count {n}: the prefix sum wraps",
+                              scan_ops(cases.zero_request(cs1, c, n), "price", True), "price")
+            if int(want[1][c]) >= 0:
+                raise AssertionError("the zero-request case did not wrap the prefix sum")
+        check_scan("C=256 world", ops_a3, "price")
+        for layout_name in ("lean", "scratch"):
+            check_scan(f"{layout_name} layout tick1", ops_a, "price", layout_name=layout_name)
+            check_scan(f"{layout_name} layout tick2", ops_a2, "price", layout_name=layout_name)
+        r8 = list(ops_a)
+        r8[0], r8[9] = ops_a[0][:, :8].contiguous(), ops_a[9][:, :8].contiguous()
+        check_scan("scratch layout tick1, R=8 (run-time R)", tuple(r8), "price", layout_name="scratch")
+
+        check_repack("tick2 pre-pass S=1", ops_b)
+        check_repack("tick2 pre-pass, infeasible rows between real classes S=1", cases.gap_repack(ops_b))
+        check_repack("tick2 pre-pass, scratch layout", ops_b, scratch=True)
+        zr = tuple(t.clone() for t in ops_b)
+        zr[2][3] = 0.0
+        zr[1][3] = True
+        if int(check_repack("zero-request class: the prefix sum wraps", zr)[0][0, 3]) >= 0:
+            raise AssertionError("the zero-request repack case did not wrap the prefix sum")
+        rng = np.random.default_rng(SEED)
+        for s in range(2):
+            s_, c_, n_ = 64, ops_b[2].shape[0], ops_b[0].shape[0]
+            world = (
+                rng.integers(0, 64, (n_, encode.R)).astype(np.float32), rng.random((c_, n_)) < 0.7,
+                rng.integers(0, 5, (c_, encode.R)).astype(np.float32),
+                rng.integers(0, 40, (s_, c_)), rng.random((s_, n_)) < 0.2,
+            )
+            ops = dk.repack_from_numpy(*world, dev)
+            check_repack(f"random world S=64 seed {s}", ops)
+            check_repack(f"random world S=64 seed {s}, infeasible rows between", cases.gap_repack(ops, s))
+        check_repack("exact quotient 6/3", dk.repack_from_numpy(
+            np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
+            np.array([[5]]), np.zeros((1, 2), bool), dev))
+        # the schedule worlds' own operands: the merged catalog (K=1280, the
+        # lean layout), the split pass's zone-pinned sub-classes, the wave's
+        # repack onto zone-pinned rows
+        for name in world_spec:
+            ops = world_ops[name]["ffd_scan"][0]
+            check_scan(f"{name} scan C={ops[0].shape[0]} K={ops[9].shape[0]} "
+                       f"({world_docs[name]['layout']} layout)", ops, "price")
+        for name in convex_spec:
+            ops = convex_ops[name]["ffd_scan"][0]
+            check_scan(f"convex {name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
+        check_repack("spread tick 2 pre-pass, zone-pinned rows",
+                     world_ops["spread tick 2"]["disrupt_repack"][0])
+        # each sweep's own repack: one block per candidate set
+        for name in sweeps:
+            ops = sweep_ops[name]["disrupt_repack"][0]
+            check_repack(f"{name} S={ops[4].shape[0]} C={ops[2].shape[0]} N={ops[4].shape[1]}", ops)
+        # the sidecar's own launches in phase `wire`: kernel A behind the ops
+        # solve_delta (ticks) and solve_convex, kernel B behind solve_disrupt
+        for name in ("shm tick 1", "shm delta tick", "tcp merged tainted", "shm convex a: tick 1"):
+            ops = wire_ops[name]["ffd_scan"][0]
+            check_scan(f"wire {name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
+        ops = wire_ops["shm rampdown-sweep spot-od"]["disrupt_repack"][0]
+        check_repack(f"wire rampdown-sweep spot-od S={ops[4].shape[0]} C={ops[2].shape[0]} "
+                     f"N={ops[4].shape[1]}", ops)
+        # the operator's own calls in phase `operator`
+        for name, (ops, _) in operator_ops["ffd_scan"].items():
+            check_scan(f"{name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
+        for name, (ops, _) in operator_ops["disrupt_repack"].items():
+            check_repack(f"{name} S={ops[4].shape[0]} C={ops[2].shape[0]} N={ops[4].shape[1]}", ops)
+        emit({"phase": "kernels", "checks": checks, **tag})
+
+        # -- the same two ticks through the plain versions, on the card --------------
+        with plain_kernels():
+            ref_solver = TorchSolver(g_max=G_MAX, device=dev)
+            ref1 = ref_solver.solve(pool, items, pods1)
+            ref2 = ref_solver.solve(pool, items, pods2, existing_nodes=workload.nodes_from_result(ref1))
+            ref_worlds = {}
+            for name, fn in worlds_of(TorchSolver(g_max=G_MAX, device=dev), ref_worlds).items():
+                ref_worlds[name] = fn()
+            ref_engine = DisruptEngine(solver=TorchSolver(g_max=G_MAX, device=dev))
+            ref_sweeps = {name: ref_engine.evaluate(sw["nodes"], sw["sets"], **sw["kw"])
+                          for name, sw in sweeps.items()}
+        same1, same2 = sig(ref1) == sig(tick1), sig(ref2) == sig(tick2)
+        same_worlds = {name: sig(ref_worlds[name]) == sig(world_results[name]) for name in world_spec}
+        same_sweeps = {name: [repr(v) for v in ref_sweeps[name]]
+                       == [repr(v) for v in sweep_results[name]] for name in sweeps}
+        emit({"phase": "plain", "tick1_decisions_equal": same1, "tick2_decisions_equal": same2,
+              "schedule_worlds_decisions_equal": same_worlds,
+              "sweep_verdict_reprs_equal": same_sweeps, **tag})
+        if not (same1 and same2 and all(same_worlds.values()) and all(same_sweeps.values())):
+            raise AssertionError("the main path's decisions differ from the plain versions'")
+
+        phase_references(tag, references)
+    finally:
+        stop_references(references)
+
     def launches_on_paths(kernel):
         return (launches1[kernel] + launches2[kernel]
                 + sum(n[kernel] for n in world_launches.values())
@@ -2126,4 +2612,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--operator-twin"]:
+        N_PODS, N_WAVE, G_MAX = (int(v) for v in sys.argv[3:6])
+        sys.exit(side_world(sys.argv[1], sys.argv[2]))
+    if sys.argv[1:2] == ["--kube-reference"]:
+        KUBE_PODS, KUBE_WAVE, G_MAX = (int(v) for v in sys.argv[3:6])
+        sys.exit(side_world(sys.argv[1], sys.argv[2]))
+    if sys.argv[1:2] == ["--rehearse-kube"]:
+        sys.exit(rehearse_kube(int(sys.argv[2]) if len(sys.argv) > 2 else 200))
     sys.exit(main())

@@ -5,11 +5,12 @@
 
 Runs `chip_smoke.phase_operator` with DEVICE = "cpu": the binary with
 `--device cpu` (and its refusal without a card), the operator world at
-N_PODS pods and a wave of N_PODS / 5 (g_max 256) against its own
-device="cpu" twin, and the golden corpus through the port's replay. The
+N_PODS pods and a wave of N_PODS / 5 (g_max 256) and the golden corpus
+through the port's replay; then `chip_smoke.phase_references` holds the
+world against its device="cpu" twin in a second process. The
 kernel wrappers run their plain versions on CPU tensors, so each is
 wrapped to count its calls as the phase counts launches on the card.
-Prints the phase's JSON line, the launches and the seconds it took.
+Prints the phases' JSON lines, the launches and the seconds it took.
 """
 import os
 import sys
@@ -44,8 +45,13 @@ def main() -> int:
     counted(ka, "fused_scan")
     counted(kb, "disrupt_repack")
     t0 = time.time()
-    launches, _ = chip_smoke.phase_operator(
-        torch.device("cpu"), {"card": "cpu rehearsal", "power_limit": "n/a"}, metrics, ka, kb)
+    tag = {"card": "cpu rehearsal", "power_limit": "n/a"}
+    launches, _, digests = chip_smoke.phase_operator(torch.device("cpu"), tag, metrics, ka, kb)
+    references = chip_smoke.start_references({"operator": digests})
+    try:
+        chip_smoke.phase_references(tag, references)
+    finally:
+        chip_smoke.stop_references(references)
     print("launches", launches)
     print("seconds", time.time() - t0)
     return 0

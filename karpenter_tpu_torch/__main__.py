@@ -9,6 +9,7 @@ plane -- runs self-contained). Flags mirror pkg/operator/options/options.go.
     python -m karpenter_tpu_torch --help
     python -m karpenter_tpu_torch --max-ticks 50 --tick-interval 0.1
     python -m karpenter_tpu_torch --device cpu --max-ticks 3 --health-port 0
+    python -m karpenter_tpu_torch --kubeconfig ~/.kube/config
     python -m karpenter_tpu_torch --sim-record trace.jsonl --max-ticks 50
     python -m karpenter_tpu_torch sim replay --differential trace.jsonl
 
@@ -22,9 +23,13 @@ Differences from the JAX binary:
   the JAX backend probe, and NO fallback: without a card the binary
   exits 2 before building anything, naming `--device cpu`, which is the
   only way to run the kernels' plain versions on the host;
-- `--device cuda|cpu` is new; `--kubeconfig`/`--in-cluster` (the
-  apiserver bus, `kube/`), `--mesh-devices` (ROADMAP A11) and the AOT
-  opt-out ($KARPENTER_TPU_AOT, A9) wait for their modules.
+- `--device cuda|cpu` is new; `--mesh-devices` (ROADMAP A11) and the
+  AOT opt-out ($KARPENTER_TPU_AOT, A9) wait for their modules.
+
+`--kubeconfig PATH` / `--in-cluster` run the operator over a real
+apiserver (`kube.KubeCluster`) as the JAX binary does: apply the port's
+CRD copy, karpenter_tpu_torch/apis/crds/*.yaml, first. The CUDA probe
+comes first in that mode too.
 """
 from __future__ import annotations
 
@@ -139,8 +144,27 @@ def build_operator(args):
         # as the solve_disrupt op against the catalogs already staged per
         # seqnum, and the breaker's degrade ladder covers both paths
         evaluator = ConsolidationEvaluator(solver=solver)
+    cluster = None
+    if getattr(args, "kubeconfig", None) or getattr(args, "in_cluster", False):
+        # real coordination bus (the reference's kwok deployment topology:
+        # live apiserver, emulated cloud). Apply apis/crds/*.yaml first.
+        from karpenter_tpu_torch.kube import KubeClient, KubeConfig, KubeCluster
+
+        cfg = (
+            KubeConfig.in_cluster()
+            if getattr(args, "in_cluster", False)
+            else KubeConfig.from_kubeconfig(args.kubeconfig)
+        )
+        cluster = KubeCluster(KubeClient(cfg))
+        # over a real bus, on_event handlers fire from watch threads (the
+        # in-memory store dispatches synchronously from writes); without
+        # this the pod-arrival wake-up and its batching window never engage
+        from karpenter_tpu_torch.apis import Pod
+
+        cluster.watch_events([Pod])
     return Operator(
         options=options, solver=solver, consolidation_evaluator=evaluator,
+        cluster=cluster,
         identity=getattr(args, "identity", ""),
     )
 
@@ -249,6 +273,15 @@ def main(argv=None) -> int:
         "'rpc.server.dispatch=latency(0.05):p=0.3;instance.launch="
         "error(InsufficientCapacityError):times=5' (also via "
         "$KARPENTER_TPU_FAILPOINTS; see karpenter_tpu_torch/failpoints.py)",
+    )
+    parser.add_argument(
+        "--kubeconfig", default="",
+        help="run against a REAL apiserver via this kubeconfig (apply "
+        "karpenter_tpu_torch/apis/crds/*.yaml first)",
+    )
+    parser.add_argument(
+        "--in-cluster", action="store_true",
+        help="use the pod serviceaccount to reach the apiserver",
     )
     parser.add_argument("--tick-interval", type=float, default=1.0, help="seconds between sweeps")
     parser.add_argument(
@@ -384,12 +417,15 @@ def main(argv=None) -> int:
     from karpenter_tpu_torch.utils import configure_gc_for_latency
 
     configure_gc_for_latency()
-    # a default NodeClass + NodePool so the RIG provisions out of the box
+    # a default NodeClass + NodePool so the RIG provisions out of the box.
+    # Never against a real apiserver: auto-writing a provisioning policy
+    # into live infrastructure is an operator decision, not a default.
     from karpenter_tpu_torch.apis import NodePool, TPUNodeClass
 
-    if not op.cluster.list(TPUNodeClass):
+    kube_mode = bool(args.kubeconfig or args.in_cluster)
+    if not kube_mode and not op.cluster.list(TPUNodeClass):
         op.cluster.create(TPUNodeClass("default"))
-    if not op.cluster.list(NodePool):
+    if not kube_mode and not op.cluster.list(NodePool):
         op.cluster.create(NodePool("default"))
 
     stop = {"flag": False}
@@ -408,7 +444,7 @@ def main(argv=None) -> int:
 
         recorder = TraceRecorder(
             op.cluster, op.clock, scenario="recorded", seed=args.seed
-        ).attach(op.cloud)
+        ).attach(op.cloud if not kube_mode else None)
 
     ticks = 0
     op.watch_pods()   # pod arrivals wake the loop through the batch window

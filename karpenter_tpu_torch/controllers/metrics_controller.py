@@ -6,8 +6,6 @@ as an info gauge, pruning series for claims that no longer exist so the
 registry never leaks cardinality across claim churn.
 
 Copy of karpenter_tpu/controllers/metrics_controller.py, imports rewritten to the port's.
-Cut: the pool-status update's apiserver errors (the port has no `kube/`
-bus yet; the in-memory store raises only Conflict and NotFound).
 """
 from __future__ import annotations
 
@@ -102,6 +100,7 @@ class MetricsController:
             if not pool_name or not claim.launched():
                 continue
             totals[pool_name] = totals.get(pool_name, Resources()) + claim.capacity
+        from karpenter_tpu_torch.kube.client import ApiError, NotFound as HttpNotFound
         from karpenter_tpu_torch.kwok.cluster import Conflict, NotFound
 
         for pool in self.cluster.list(NodePool):
@@ -110,8 +109,14 @@ class MetricsController:
                 pool.status_resources = want
                 try:
                     self.cluster.update(pool)
-                except (Conflict, NotFound):
+                except (Conflict, NotFound, HttpNotFound):
                     pass  # stale read vs a concurrent writer/deleter: next sweep retries
+                except (ApiError, OSError) as e:  # kube mode: a racing delete
+                    # or apiserver hiccup (HTTP error or transport failure --
+                    # socket/ssl errors are OSErrors) must not abort the whole
+                    # operator tick (ADVICE round 4); the sweep is idempotent
+                    # next tick
+                    self.log.warning("pool status update failed", error=str(e))
 
 
     def _sweep_conditions(self) -> None:

@@ -5,10 +5,10 @@ Copy of karpenter_tpu/metrics.py: the same `Counter`, `Gauge`,
 port's modules reach: the solver's, the wire's (transport, delta
 shipping, the sidecar's staging LRUs, the breaker), and the operator's
 (its controllers, the kwok batchers, the journal and fencing, overload
-control, the replay). Each family keeps the JAX package's name, type and
-label names (tests/test_torch_obs.py holds every family here against the
-JAX registry), so one dashboard and one runbook serve both packages. No
-external client library.
+control, the replay and the shrinker). Each family keeps the JAX
+package's name, type and label names (tests/test_torch_obs.py holds every
+family here against the JAX registry), so one dashboard and one runbook
+serve both packages. No external client library.
 
 The port has no Pallas -> XLA pin, so it has no
 ``karpenter_solver_kernel_fallbacks_total``: a wrapper given a CUDA
@@ -607,4 +607,8 @@ SIM_DIVERGENCES = REGISTRY.counter(
     "karpenter_sim_divergences_total",
     "Differential-replay divergences (placements/digest mismatches or "
     "invariant violations)", labels=("kind",),
+)
+SIM_SHRINK_ROUNDS = REGISTRY.counter(
+    "karpenter_sim_shrink_rounds_total",
+    "Delta-debugging reduction attempts run by the trace shrinker",
 )

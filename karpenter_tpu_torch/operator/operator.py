@@ -9,10 +9,11 @@ Copy of karpenter_tpu/operator/operator.py, imports rewritten to the port's.
 The decision plane is the port's: `solver=TorchSolver(...)` and
 `consolidation_evaluator=ConsolidationEvaluator(solver=...)` (or the
 `DisruptEngine` it names), so the provisioner runs kernel A (and kernel B
-for its existing-node pass) and the disruption sweep runs kernel B. Cut:
-the per-jit-entry dispatch probes (`jitstats.install()`, which wait for
-the port's cold-start work) and the real-apiserver bus (`kube/`): the
-cluster is the in-memory kwok store.
+for its existing-node pass) and the disruption sweep runs kernel B. The
+coordination bus is the in-memory kwok store by default, or the port's
+`kube.KubeCluster` over a real apiserver (`cluster=`). Cut: the
+per-jit-entry dispatch probes (`jitstats.install()`, which wait for the
+port's cold-start work).
 """
 from __future__ import annotations
 
@@ -222,8 +223,9 @@ class Operator:
             from karpenter_tpu_torch.obs import flight
 
             flight.RECORDER.configure(capacity=self.options.flight_capacity)
-        # the coordination bus: the in-memory store by default (any object
-        # with the in-memory Cluster's surface may be passed in)
+        # the coordination bus: the in-memory store by default; pass a
+        # karpenter_tpu_torch.kube.KubeCluster to run against a real apiserver
+        # (the reference's kwok topology: real bus, emulated cloud)
         self.cluster = cluster if cluster is not None else Cluster(clock=self.clock)
 
         self.recorder = Recorder(self.clock)

@@ -32,9 +32,8 @@ backoff jitter all derive from the one seed, so two replays of the same
 trace produce byte-identical decision logs (tests/test_sim.py).
 
 Copy of karpenter_tpu/sim/__init__.py, imports rewritten to the port's.
-The port has `trace` and `replay` (and the CLI's `replay` verb); the
-scenario generators (`scenario`), the shrinker (`shrink`) and the fleet
-replay (`fleet`) wait (ROADMAP): the port replays the committed corpus.
+The fleet replay (`fleet`, and the CLI's `corpus` and `fleet` verbs)
+waits for A11 (ROADMAP).
 """
 from karpenter_tpu_torch.sim.trace import (
     TRACE_VERSION,
@@ -50,6 +49,8 @@ from karpenter_tpu_torch.sim.replay import (
     differential,
     replay,
 )
+from karpenter_tpu_torch.sim.scenario import STANDARD_SCENARIOS, ScenarioBuilder, build_scenario
+from karpenter_tpu_torch.sim.shrink import ddmin
 
 __all__ = [
     "TRACE_VERSION",
@@ -62,4 +63,8 @@ __all__ = [
     "ReplayResult",
     "differential",
     "replay",
+    "STANDARD_SCENARIOS",
+    "ScenarioBuilder",
+    "build_scenario",
+    "ddmin",
 ]

@@ -19,9 +19,11 @@ per-set verdicts. Two routes, chosen as the JAX engine chooses them:
 - local: kernel B and the replacement search on the engine's device.
 
 Both count ``karpenter_disruption_device_dispatches_total{path}`` and the
-sweep's wall in ``karpenter_disruption_device_sweep_seconds``; the local
-route also kernel B's dispatch in
-``karpenter_solver_kernel_dispatches_total{entry="disrupt_repack"}``.
+sweep's wall in ``karpenter_disruption_device_sweep_seconds``. As in the
+JAX engine, the local route's kernel B call is not counted in
+``karpenter_solver_kernel_dispatches_total``: that family is the solver's
+own, and ``{path="local"}`` counts the engine's one kernel B run per
+evaluate.
 
 Scope: candidate sets whose pods carry stateful constraints (hard
 topology spread, affinity terms, multi-term node affinity) are routed to
@@ -409,8 +411,6 @@ class DisruptEngine:
         ops = kernel.repack_from_numpy(
             enc.headroom, enc.feas, enc.req, enc.member, enc.excl, self.device)
         leftover, _ = kernel.disrupt_repack(*ops)
-        metrics.SOLVER_KERNEL_DISPATCHES.inc(
-            entry="disrupt_repack", impl="cuda" if ops[0].is_cuda else "plain")
         self._leftover = leftover
         return leftover.sum(dim=1).cpu().numpy()
 

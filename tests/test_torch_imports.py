@@ -2,7 +2,9 @@
 
 - no module of karpenter_tpu_torch/, and not chip_smoke.py, imports jax or
   anything of karpenter_tpu (an AST scan);
-- a solve in a fresh interpreter leaves both out of sys.modules;
+- a solve in a fresh interpreter leaves both out of sys.modules, and so do
+  the apiserver bus, CEL admission, the scenario generators and the
+  shrinker;
 - without CUDA, TorchSolver() raises instead of moving to the CPU, and
   chip_smoke.py exits non-zero without printing a result;
 - a kernel wrapper given a tensor that is neither on the CPU nor on a
@@ -107,6 +109,18 @@ OPERATOR_MODULES = (
     "karpenter_tpu_torch/sim/trace.py",
     "karpenter_tpu_torch/solver/convex/repack.py",
 )
+# the bus slice's modules: the apiserver bus, CEL admission, the scenario
+# generators and the shrinker
+BUS_MODULES = (
+    "karpenter_tpu_torch/kube/__init__.py",
+    "karpenter_tpu_torch/kube/client.py",
+    "karpenter_tpu_torch/kube/cluster.py",
+    "karpenter_tpu_torch/kube/convert.py",
+    "karpenter_tpu_torch/apis/celcheck.py",
+    "karpenter_tpu_torch/apis/celmini.py",
+    "karpenter_tpu_torch/sim/scenario.py",
+    "karpenter_tpu_torch/sim/shrink.py",
+)
 
 
 def imported_modules(path: Path):
@@ -156,6 +170,7 @@ class TestNoJaxImports:
         # the operator, its controllers, the kwok world, the providers, the
         # binary and the replay
         assert set(OPERATOR_MODULES) <= rel
+        assert set(BUS_MODULES) <= rel
 
     @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
     def test_no_forbidden_import(self, path):
@@ -287,6 +302,43 @@ class TestNoJaxImports:
             "assert r.ticks > 0\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
             "print('LOADED', len(names), bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+
+
+    def test_bus_admission_and_scenarios_load_neither(self):
+        """kube/ against a fake apiserver (loaded by file path: tests/ is
+        no package the port may import), CEL admission on the port's CRD
+        copy, a scenario built and a shrink over it, in a fresh
+        interpreter."""
+        code = (
+            "import importlib.util, os, sys\n"
+            "spec = importlib.util.spec_from_file_location('fake_apiserver', 'tests/fake_apiserver.py')\n"
+            "fa = importlib.util.module_from_spec(spec); spec.loader.exec_module(fa)\n"
+            "import yaml\n"
+            "from karpenter_tpu_torch.apis import NodePool, Pod, celcheck, celmini\n"
+            "from karpenter_tpu_torch.kube import KubeClient, KubeConfig, KubeCluster, convert\n"
+            "from karpenter_tpu_torch.scheduling import Resources\n"
+            "from karpenter_tpu_torch.sim import scenario, shrink\n"
+            "srv = fa.FakeApiServer().start()\n"
+            "cl = KubeCluster(KubeClient(KubeConfig(server=srv.url)))\n"
+            "try:\n"
+            "    cl.create(NodePool('default')); cl.create(Pod('w', requests=Resources({'cpu': '1'})))\n"
+            "    assert [p.metadata.name for p in cl.pending_pods()] == ['w']\n"
+            "finally:\n"
+            "    cl.stop(); srv.stop()\n"
+            "crd = yaml.safe_load(open('karpenter_tpu_torch/apis/crds/karpenter.sh_nodepools.yaml'))\n"
+            "m = convert.nodepool_to_manifest(NodePool('p', weight=101))\n"
+            "assert celcheck.validate_manifest(crd, m) and celmini.evaluate('self > 1', 2)\n"
+            "events = scenario.build_scenario('diurnal-small', seed=scenario.DEFAULT_SEED)\n"
+            "out = shrink.ddmin(events, lambda ev: any(e.get('ev') == 'advance' for e in ev))\n"
+            "assert len(out) == 2\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
+            "print('LOADED', bad)\n"
             "sys.exit(1 if bad else 0)\n"
         )
         env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -106,7 +106,7 @@ PORT_FAMILIES = {
     "karpenter_scheduler_breaker_probes_total", "karpenter_scheduler_breaker_short_circuits_total",
     "karpenter_scheduler_pipeline_fallbacks_total", "karpenter_disruption_device_fallbacks_total",
     # the operator and its controllers (controllers/, kwok/, batcher/,
-    # journal.py, fencing.py, overload.py) and the replay (sim/)
+    # journal.py, fencing.py, overload.py) and the replay and shrinker (sim/)
     "karpenter_cloud_batcher_batch_size", "karpenter_cloud_batcher_batch_time_seconds",
     "karpenter_cloudprovider_instance_info",
     "karpenter_cloudprovider_instance_type_offering_available",
@@ -126,7 +126,7 @@ PORT_FAMILIES = {
     "karpenter_scheduler_pipeline_ticks_total",
     "karpenter_scheduler_scheduling_duration_seconds",
     "karpenter_sim_divergences_total", "karpenter_sim_replay_events_total",
-    "karpenter_sim_replay_ticks_total", "karpenter_status_condition_count",
+    "karpenter_sim_replay_ticks_total", "karpenter_sim_shrink_rounds_total", "karpenter_status_condition_count",
     "karpenter_status_condition_transitions_total",
     "karpenter_voluntary_disruption_decision_evaluation_duration_seconds",
     "karpenter_voluntary_disruption_decisions_total",

@@ -119,12 +119,6 @@ def samples(metrics):
                 summed = {}
                 for (entry, _impl), v in vals.items():
                     summed[(entry,)] = summed.get((entry,), 0.0) + v
-                if metrics is tmetrics and ("disrupt_repack",) in summed:
-                    # the port's consolidation engine counts its own local
-                    # kernel B dispatch here too (one per local evaluate);
-                    # the JAX engine calls its kernel uncounted
-                    summed[("disrupt_repack",)] -= metrics.DISRUPTION_DEVICE_DISPATCHES.value(
-                        path="local")
                 vals = summed
             out[name] = vals
         elif isinstance(m, metrics.Histogram):
@@ -413,8 +407,9 @@ def test_disruption_world(name):
         assert reg.get("karpenter_voluntary_disruption_decisions_total")
         assert any(e[3] == "Disrupted" for e in ticks[-1]["events"])
     if name == "rampdown":
-        # the consolidation engine's repack (kernel B's plain version) judged sets
-        assert reg.get(DISPATCHES, {}).get(("disrupt_repack",), 0) > 0
+        # the consolidation engine's repack (kernel B's plain version) judged
+        # sets: one local dispatch per evaluate, counted alike in both packages
+        assert reg.get("karpenter_disruption_device_dispatches_total", {}).get(("local",), 0) > 0
         assert reg.get("karpenter_disruption_device_sets_total")
 
 

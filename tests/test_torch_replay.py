@@ -45,6 +45,11 @@ def dispatches(entry):
     return metrics.SOLVER_KERNEL_DISPATCHES.value(entry=entry, impl="plain")
 
 
+def engine_repacks():
+    # the consolidation engine's kernel B runs: one per local evaluate
+    return metrics.DISRUPTION_DEVICE_DISPATCHES.value(path="local")
+
+
 def replay(name, backend):
     events, seed = load(name)
     return port_replay(events, backend=backend, seed=seed, device="cpu")
@@ -56,14 +61,14 @@ HOST = [pytest.param(k, marks=() if k in TIER1 else pytest.mark.slow) for k in s
 @pytest.mark.parametrize("key", HOST)
 def test_golden_digest(key):
     backend, _, name = key.rpartition(":")
-    scans, repacks = dispatches("ffd_solve_fused"), dispatches("disrupt_repack")
+    scans, repacks = dispatches("ffd_solve_fused"), engine_repacks()
     res = replay(name, backend or "host")
     assert res.digest == GOLDEN[key], f"{key}: the port's replay drifted from the golden digest"
     # the port's device path ran: kernel A's plain version on every such tick
     assert dispatches("ffd_solve_fused") > scans
     if name == "diurnal-consolidation":
         # the disruption sweep judged candidate sets with kernel B's plain version
-        assert dispatches("disrupt_repack") > repacks
+        assert engine_repacks() > repacks
 
 
 WIRE = [pytest.param(b, n, marks=() if (b == "wire" and n in TIER1) else pytest.mark.slow)

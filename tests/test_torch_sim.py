@@ -318,9 +318,14 @@ def plain_dispatches(entry) -> float:
     return tmetrics.SOLVER_KERNEL_DISPATCHES.value(entry=entry, impl="plain")
 
 
+def engine_repacks() -> float:
+    # the port's consolidation engine's kernel B runs: one per local evaluate
+    return tmetrics.DISRUPTION_DEVICE_DISPATCHES.value(path="local")
+
+
 @pytest.mark.parametrize("key", SCENARIOS)
 def test_golden_digest_through_port(key, port_engines):
-    scans, repacks = plain_dispatches("ffd_solve_fused"), plain_dispatches("disrupt_repack")
+    scans, repacks = plain_dispatches("ffd_solve_fused"), engine_repacks()
     res, solver, engine = replay_through_port(key, port_engines)
     assert res.digest == GOLDEN[key], f"{key}: the port's replay drifted from the golden digest"
     # the port's device path (kernel A's plain version on the CPU) ran
@@ -329,7 +334,7 @@ def test_golden_digest_through_port(key, port_engines):
         # the port's consolidation engine judged candidate sets end to end
         # (kernel B's plain version)
         assert engine.calls > 0 and engine.last_dispatch["path"] == "local"
-        assert plain_dispatches("disrupt_repack") > repacks
+        assert engine_repacks() > repacks
     if key.startswith("convex:"):
         assert solver.last_convex is not None
 
