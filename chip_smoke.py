@@ -5,6 +5,9 @@
     python3 chip_smoke.py --rehearse-kube [N_PODS]
                                    (phase `kube` and its reference alone,
                                    on the CPU, small)
+    python3 chip_smoke.py --coldstart empty|warm OUT N_PODS G_MAX DEVICE
+                                   (one process of phase `coldstart`; set
+                                   $KARPENTER_TPU_COMPILE_CACHE first)
 
 Runs the karpenter_tpu_torch main path at full width -- the 627-type
 generated catalog, 50,000 pending pods from 160 templates, one NodePool,
@@ -75,7 +78,7 @@ one JSON line each:
               `torch.profiler` capture of two warm ticks naming kernel A,
               then three warm ticks with it stopped; the sync witness's
               sanctioned fetches and unsanctioned sites over warm ticks 1
-              and 2 and a sweep
+              and 2 and a sweep, which must book no unsanctioned site
   wire        the solver sidecar: `python -m karpenter_tpu_torch.
               solver.rpc` started as a subprocess answers ping, then tick 1
               and tick 2 through the port's SolverClient, equal to the
@@ -150,9 +153,28 @@ one JSON line each:
               sets, and the layouts each kernel takes when shared memory is
               short, run at shapes the others fit too; the sidecar's own
               calls in phase `wire`; the operator's calls in phases
-              `operator` and `kube`; equality is exact
+              `operator` and `kube`; the warm-up ladder's armed CUDA graphs
+              (solver/aot.py) against the ordinary dispatch byte for byte at
+              every tier-0 bucket (the fused buffer and the bound's totals
+              on real class rows, C = 16 .. 1024) and at the tier-3
+              pre-pass floor shape, a tick through them, and two rung
+              drills: a replay rejected by the `aot.dispatch` failpoint
+              (disarmed, counted once, kernel A launched instead, the same
+              decisions) and a corrupt library in a store (counted once,
+              rebuilt, kernel B exact); equality is exact
   plain       the same ticks, worlds and sweeps with both kernels swapped
               for their plain versions: the decisions must be identical
+  coldstart   tick 1 of the main path in two fresh processes over one
+              temporary $KARPENTER_TPU_COMPILE_CACHE: (a) the store empty --
+              each library's nvcc seconds, then the cold tick 1 broken down
+              into the CUDA context (torch.cuda.init and the first
+              allocation), library loads, catalog staging, each device
+              entry's first dispatch (obs/jitstats) and the wall; (b) the
+              store warm, `enable_aot()` and its ladder drained before tick 1:
+              no store miss and no nvcc run, `karpenter_aot_dispatches_total
+              {entry="ffd_solve_fused"}` >= 1 on tick 1, coverage 1.0 for
+              every tier-0 entry, tick 1's decisions equal to (a)'s, its wall.
+              Printed, not claimed
   references  the operator world and the kube world with device="cpu",
               each in a second process, both started once phase `times`,
               the last timed section, has ended (phases `kernels` and
@@ -645,6 +667,10 @@ def phase_operator(dev, tag: dict, metrics, ka, kb):
         "probe_line": probe[0] if probe else None,
         "no_card": {k: no_card[k] for k in ("rc", "wall_s", "readyz_statuses")},
         "no_card_stderr": no_card["stderr"].strip().splitlines()[-1:],
+        # the binary's warm-up ladder and store (printed, not gated)
+        "aot_metrics": [ln for ln in on_card["stdout"].splitlines()
+                        if ln.startswith(("karpenter_aot_", "karpenter_compile_cache_"))
+                        or 'impl="aot"' in ln],
         "checks": binary_ok,
     }
     if not all(binary_ok.values()):
@@ -1038,14 +1064,16 @@ def phase_kube(dev, tag: dict, metrics, ka, kb):
         # no apiserver
         off_cluster = run_binary(repo, {}, ("--in-cluster", "--max-ticks", "3", *dev_args),
                                  ("KUBERNETES_SERVICE_HOST", "KUBERNETES_SERVICE_PORT"))
-        impl = "plain" if DEVICE == "cpu" else "cuda"
+        # on the card kernel A runs launched (cuda) or inside a graph the
+        # warm-up ladder armed (aot)
+        impls = ("plain",) if DEVICE == "cpu" else ("cuda", "aot")
         dumped = {}
         for labels, value in re.findall(
                 r"^karpenter_solver_kernel_dispatches_total\{([^}]*)\} (\S+)$",
                 run["stdout"], re.M):
             dumped[labels] = float(value)
         scans = sum(v for k, v in dumped.items()
-                    if 'entry="ffd_solve_fused"' in k and f'impl="{impl}"' in k)
+                    if 'entry="ffd_solve_fused"' in k and any(f'impl="{i}"' in k for i in impls))
         binary_ok = {
             "exit_0": run["rc"] == 0,
             "readyz_200": run["start_to_ready_s"] is not None,
@@ -1153,6 +1181,174 @@ def rehearse_kube(n_pods: int) -> int:
     print(json.dumps({"rehearsal": "kube", "launches": launches, "card_seconds": card_s,
                       "seconds": time.perf_counter() - t0}), flush=True)
     return 0
+
+
+# -- coldstart: tick 1 of a fresh process, over an empty and a warm store ----------
+
+COLDSTART_TIMEOUT_S = 400
+# tier 0 of the warm-up ladder's plan (solver/aot.py)
+TIER0_ENTRIES = ("ffd_solve_fused", "fractional_price_bound")
+
+
+def decision_digest(result) -> str:
+    """sha256 of a decision: groups by pod names and cheapest type,
+    existing-node assignments, unschedulable reasons."""
+    import hashlib
+
+    sig = (
+        sorted((tuple(sorted(p.metadata.name for p in g.pods)), g.instance_types[0].name)
+               for g in result.new_groups),
+        sorted(result.existing_assignments.items()),
+        sorted(result.unschedulable.items()),
+    )
+    return hashlib.sha256(repr(sig).encode()).hexdigest()
+
+
+def coldstart_child(mode: str, out_path: str) -> int:
+    """One process of phase `coldstart` (`--coldstart MODE OUT N_PODS
+    G_MAX DEVICE`, $KARPENTER_TPU_COMPILE_CACHE set by the caller): the
+    CUDA context, the store prepared, then `empty` builds the libraries
+    (nvcc, one process per source) and `warm` enables AOT over the store
+    and drains the warm-up ladder on the staged catalog; then tick 1 of
+    the main path with its stages, each device entry's first dispatch and
+    the store's counters, and a second tick. Writes the document to OUT."""
+    from karpenter_tpu_torch import metrics, workload
+    from karpenter_tpu_torch.apis import NodePool
+    from karpenter_tpu_torch.obs import jitstats
+    from karpenter_tpu_torch.solver import ffd
+    from karpenter_tpu_torch.solver.kernels import build
+    from karpenter_tpu_torch.solver.service import TorchSolver
+    from karpenter_tpu_torch.utils import enable_compilation_cache
+
+    dev = torch.device(DEVICE)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    doc = {"mode": mode, "device": DEVICE}
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.init()
+        torch.empty(1, device=dev)
+        sync()
+    doc["cuda_context_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    home = enable_compilation_cache()
+    doc["store"] = {"dir": home, "prepare_s": time.perf_counter() - t0,
+                    "before": build.store_stats(home)}
+    jitstats.install()
+    items = workload.build_catalog_items()
+    pool = NodePool("default")
+    pods1 = workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS, salt=1)
+    solver = TorchSolver(g_max=G_MAX, device=dev)
+    if mode == "empty":
+        t0 = time.perf_counter()
+        if on_card:
+            build.build()
+        doc["nvcc_wall_s"] = time.perf_counter() - t0
+        doc["nvcc_s"] = {name: log["seconds"] for name, log in build.BUILD_LOG.items()}
+    else:
+        t0 = time.perf_counter()
+        mgr = solver.enable_aot(home, duty=1.0)
+        doc["enable_aot_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        solver._catalog(items)          # stages the catalog: the ladder plans it
+        doc["ladder_drained"] = mgr.drain(COLDSTART_TIMEOUT_S)
+        doc["stage_and_ladder_s"] = time.perf_counter() - t0
+        doc["aot"] = mgr.describe()
+    jitstats.reset()
+    before = {"aot": {e: metrics.AOT_DISPATCHES.value(entry=e) for e in TIER0_ENTRIES},
+              "impl": {i: metrics.SOLVER_KERNEL_DISPATCHES.value(entry="ffd_solve_fused", impl=i)
+                       for i in ("cuda", "plain", "aot")}}
+    with fn_timer([(ffd, "stage_catalog", "catalog_staging"), (solver, "_group", "group"),
+                   (solver, "_encode", "encode"), (ffd, "fetch_fused", "fetch_fused"),
+                   (solver, "_decode", "decode")]) as stages:
+        t0 = time.perf_counter()
+        tick1 = solver.solve(pool, items, pods1)
+        sync()
+        wall1 = (time.perf_counter() - t0) * 1e3
+    table = jitstats.table()
+    doc["tick1"] = {
+        "wall_ms": wall1, "stages_ms": dict(stages),
+        "first_dispatch": {e: {k: row[k] for k in ("dispatches", "dispatch_ms", "compiles",
+                                                  "compile_ms")}
+                           for e, row in table.items() if row.get("dispatches")},
+        "library_load_ms": sum(row.get("compile_ms", 0.0) for e, row in table.items()
+                               if e.endswith((".fused_scan", "kernels.disrupt_repack.disrupt_repack"))),
+        "aot_dispatches": {e: metrics.AOT_DISPATCHES.value(entry=e) - before["aot"][e]
+                           for e in TIER0_ENTRIES},
+        "fused_dispatches_by_impl": {
+            i: metrics.SOLVER_KERNEL_DISPATCHES.value(entry="ffd_solve_fused", impl=i)
+            - before["impl"][i] for i in before["impl"]},
+        "decision_sig": decision_digest(tick1),
+        "groups": len(tick1.new_groups),
+    }
+    t0 = time.perf_counter()
+    tick1b = solver.solve(pool, items, pods1)
+    sync()
+    doc["tick1_again_ms"] = (time.perf_counter() - t0) * 1e3
+    doc["tick1_again_same"] = decision_digest(tick1b) == doc["tick1"]["decision_sig"]
+    doc["cache"] = {k: v for k, v in jitstats.cache_stats().items()}
+    doc["nvcc_runs"] = len(build.BUILD_LOG)
+    doc["loaded_from_store"] = {n: metrics.AOT_LOADED.value(entry=n) for n in build.SOURCES}
+    doc["store"]["after"] = build.store_stats(home)
+    if solver._aot is not None:
+        solver._aot.stop(timeout_s=60.0)
+    with open(out_path, "w") as f:
+        json.dump(doc, f)
+    return 0
+
+
+def phase_coldstart(tag: dict) -> dict:
+    """Phase `coldstart`: `coldstart_child` in two fresh processes over one
+    temporary store, empty then warm. Prints, claims nothing; fails when
+    the warm process ran nvcc or missed the store, served tick 1 without an
+    armed dispatch, planned tier 0 short of full coverage, or decided
+    otherwise than the empty one."""
+    docs = {}
+    with tempfile.TemporaryDirectory(prefix="karpenter-coldstart-") as tmp:
+        env = dict(os.environ, KARPENTER_TPU_COMPILE_CACHE=os.path.join(tmp, "store"))
+        for mode in ("empty", "warm"):
+            out, log = os.path.join(tmp, f"{mode}.json"), os.path.join(tmp, f"{mode}.log")
+            t0 = time.perf_counter()
+            with open(log, "wb") as f:
+                proc = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__), "--coldstart", mode, out,
+                     str(N_PODS), str(G_MAX), DEVICE],
+                    cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=f,
+                    stderr=subprocess.STDOUT, timeout=COLDSTART_TIMEOUT_S)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                with open(log) as f:
+                    raise AssertionError(f"coldstart {mode} exited {proc.returncode}: "
+                                         f"{f.read()[-3000:]}")
+            with open(out) as f:
+                docs[mode] = json.load(f)
+            docs[mode]["process_s"] = seconds
+    a, b = docs["empty"], docs["warm"]
+    entries = b["aot"]["entries"]
+    checks = {
+        "empty_built_every_library": DEVICE == "cpu" or sorted(a["nvcc_s"]) == sorted(
+            ("ffd_scan", "disrupt_repack")),
+        "warm_cache_misses_0": b["cache"]["misses"] == 0,
+        "warm_no_nvcc_run": b["nvcc_runs"] == 0,
+        "warm_loaded_every_library": DEVICE == "cpu" or all(
+            n >= 1 for n in b["loaded_from_store"].values()),
+        "warm_ladder_drained": b["ladder_drained"] and b["aot"]["compile_failures"] == 0,
+        "warm_tick1_aot_fused_ge_1": b["tick1"]["aot_dispatches"]["ffd_solve_fused"] >= 1,
+        "warm_tier0_coverage_1": all(entries.get(e, {}).get("fraction") == 1.0
+                                     for e in TIER0_ENTRIES),
+        "tick1_decision_sig_equal": a["tick1"]["decision_sig"] == b["tick1"]["decision_sig"],
+        "second_ticks_equal": a["tick1_again_same"] and b["tick1_again_same"],
+    }
+    emit({"phase": "coldstart", "pods": N_PODS, "g_max": G_MAX, "empty_cache": a,
+          "warm_cache": b, "checks": checks, "claimed": "nothing: printed beside the card",
+          **tag})
+    if not all(checks.values()):
+        raise AssertionError(f"phase coldstart: {checks}")
+    return docs
 
 
 def main() -> int:
@@ -1816,6 +2012,11 @@ def main() -> int:
         raise AssertionError(f"not one flight record with stages per tick: {flight_doc}")
     if sync["sanctioned_fetches"] < 1:
         raise AssertionError(f"the sync witness saw no sanctioned fetch: {sync}")
+    if sync["unsanctioned"]:
+        raise AssertionError(f"the tick waited for the card outside its fetches: {sync}")
+
+    # -- coldstart: tick 1 of a fresh process, empty store then warm ---------------
+    phase_coldstart(tag)
 
     # -- wire: the solver sidecar ---------------------------------------------------
     # the real entry point in a subprocess (tick 1, the byte and staging
@@ -2373,6 +2574,58 @@ def main() -> int:
         world_stages[name] = {k: statistics.median(r.get(k, 0.0) for r in runs)
                               for k in runs[0]}
     torch.cuda.synchronize()
+
+    # the armed route of B8 and B9 (solver/aot.py): the fused solve, the bound
+    # and the relaxation on tick 1's inputs, the ordinary dispatch against the
+    # armed graph's replay -- host enqueue (median of 10, each call alone
+    # after a sync) and CUDA events around 10 back-to-back calls (median of 5);
+    # printed, not claimed
+    from karpenter_tpu_torch.solver import aot as aot_mod
+
+    cx_armed = TorchSolver(g_max=G_MAX, device=dev, tier="convex")
+    mgr_t = cx_armed.enable_aot(None, duty=1.0, pads=(cs1.c_pad,))
+    ent_t = cx_armed._catalog(items)
+    if not mgr_t.drain(600):
+        raise AssertionError(f"the convex ladder did not drain: {mgr_t.describe()}")
+    inp_t = ffd.make_inputs_staged(ent_t.staged, cs1, packed_masks=True)
+    stat_b = dict(word_offsets=ent_t.offsets, words=ent_t.words)
+    routes = {
+        "ffd_solve_fused": ((inp_t,), dict(g_max=G_MAX, nnz_max=ffd.nnz_budget(cs1.c_pad, G_MAX),
+                                           objective="price", **stat_b), ffd.ffd_solve_fused),
+        "fractional_price_bound": ((inp_t, torch.from_numpy(cs1.count.astype(np.float32)).to(dev)),
+                                   stat_b, price_bound.fractional_price_bound),
+        "convex_relax": ((inp_t,), dict(iters=relax.DEFAULT_ITERS, **stat_b), relax.convex_relax),
+    }
+    armed_route = {}
+    for name, (args, statics, fn) in routes.items():
+        def ordinary(args=args, statics=statics, fn=fn):
+            return fn(*args, **statics)
+
+        def armed(name=name, args=args, statics=statics):
+            hit, out = mgr_t.try_call(name, args, statics)
+            if not hit:
+                raise AssertionError(f"{name} is not armed at C={cs1.c_pad}")
+            return out
+
+        got, want = aot_mod._flatten(armed())[0], aot_mod._flatten(ordinary())[0]
+        torch.cuda.synchronize()
+        same = all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+                   for a, b in zip(got, want))
+        if not same:
+            raise AssertionError(f"the armed {name} differs from its ordinary dispatch")
+        row = {}
+        for route, call in (("ordinary", ordinary), ("armed", armed)):
+            enq = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                enq.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            row[route] = {"enqueue_ms_median_of_10": statistics.median(enq),
+                          "events_ms_10_back_to_back": cuda_ms(call, reps=5)}
+        armed_route[name] = {"c_pad": cs1.c_pad, "equal": same, **row}
+    mgr_t.stop(timeout_s=60.0)
     emit({"phase": "times", "timing": "CUDA events around 10 back-to-back calls, median of 20",
           "ffd_scan": {"ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
                        "bound_by": by_a, "shape": {"C": C, "G": G_MAX, "K": K}},
@@ -2393,6 +2646,7 @@ def main() -> int:
           "peak_device_bytes_main_path": peak_bytes,
           "ffd_scan_scratch_vs_lean_k1280": scratch_vs_lean,
           "consolidate": sweep_times, "bench_sweep_nodes_per_s": bench_nodes_per_s,
+          "armed_route": armed_route,
           "consolidate_stages_note": "host clock; encode_sets holds group (group_pods) and "
                                      "feasibility (the [C, N] loop), repack holds kernel B "
                                      "and the fetch of the leftover totals, assemble holds "
@@ -2557,7 +2811,114 @@ def main() -> int:
             check_scan(f"{name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
         for name, (ops, _) in operator_ops["disrupt_repack"].items():
             check_repack(f"{name} S={ops[4].shape[0]} C={ops[2].shape[0]} N={ops[4].shape[1]}", ops)
-        emit({"phase": "kernels", "checks": checks, **tag})
+        # the warm-up ladder's armed CUDA graphs against the ordinary dispatch,
+        # byte for byte: every tier-0 bucket on real class rows (the C=256
+        # world's classes, repeated past 256), the tier-3 pre-pass floor shape
+        from karpenter_tpu_torch.solver.kernels import build as kbuild
+
+        armed_solver = TorchSolver(g_max=G_MAX, device=dev)
+        mgr = armed_solver.enable_aot(None, duty=1.0)
+        armed_entry = armed_solver._catalog(items)
+        if not mgr.drain(600) or mgr.describe()["compile_failures"]:
+            raise AssertionError(f"the warm-up ladder did not arm: {mgr.describe()}")
+        # the fused solve's graph holds kernel A, the pre-pass's kernel B;
+        # the bound is torch code (no kernel of its own)
+        armed_checks = {"ffd_scan": 0, "disrupt_repack": 0, "fractional_price_bound": 0}
+
+        def check_armed(kernel, label, entry_name, args, statics, ordinary):
+            hit, got = mgr.try_call(entry_name, args, statics)
+            want = ordinary(*args, **statics)
+            torch.cuda.synchronize()
+            got_t = got if isinstance(got, tuple) else (got,)
+            want_t = want if isinstance(want, tuple) else (want,)
+            same = hit and all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+                               for a, b in zip(got_t, want_t))
+            checks.append({"kernel": kernel, "case": f"armed graph {label} vs the ordinary "
+                           f"dispatch", "equal": same, "hit": hit})
+            if not same:
+                raise AssertionError(f"an armed graph differs from the ordinary dispatch: {label}")
+            armed_checks[kernel] += 1
+
+        for cp in armed_solver.WARM_C_PADS:
+            rows = (list(classes3) * (cp // len(classes3) + 1))[:cp]
+            cs_cp = encode.encode_classes(rows, armed_entry.tensors, c_pad=cp)
+            inp_cp = ffd.make_inputs_staged(armed_entry.staged, cs_cp, packed_masks=True)
+            fstat = dict(g_max=G_MAX, nnz_max=ffd.nnz_budget(cp, G_MAX),
+                         word_offsets=armed_entry.offsets, words=armed_entry.words,
+                         objective="price")
+            check_armed("ffd_scan", f"fused c{cp}", "ffd_solve_fused", (inp_cp,), fstat,
+                        ffd.ffd_solve_fused)
+            placed_cp = torch.from_numpy(cs_cp.count.astype(np.float32)).to(dev)
+            check_armed("fractional_price_bound", f"bound c{cp}", "fractional_price_bound",
+                        (inp_cp, placed_cp),
+                        dict(word_offsets=armed_entry.offsets, words=armed_entry.words),
+                        price_bound.fractional_price_bound)
+        rng_p = np.random.default_rng(SEED + 3)
+        floor_ops = dk.repack_from_numpy(
+            rng_p.integers(0, 64, (16, encode.R)).astype(np.float32), rng_p.random((16, 16)) < 0.6,
+            rng_p.integers(0, 5, (16, encode.R)).astype(np.float32),
+            rng_p.integers(0, 9, (1, 16)).astype(np.int32), np.zeros((1, 16), bool), dev)
+        check_armed("disrupt_repack", "pre-pass floor S=1 C=16 N=16", "disrupt_repack",
+                    floor_ops, {}, kb.disrupt_repack)
+        # a tick through the graphs: one armed fused solve, no launch, tick 1's
+        # decisions; then the rejected-replay drill on the same tick
+        a0 = metrics.AOT_DISPATCHES.value(entry="ffd_solve_fused")
+        la = ka.launches
+        through = armed_solver.solve(pool, items, pods1)
+        torch.cuda.synchronize()
+        tick_doc = {"aot_dispatches": metrics.AOT_DISPATCHES.value(entry="ffd_solve_fused") - a0,
+                    "kernel_a_launches": ka.launches - la,
+                    "decisions_equal_tick1": sig(through) == sig(tick1)}
+        armed0 = mgr.describe()["armed"]
+        f0 = metrics.AOT_FALLBACKS.value(reason="dispatch")
+        la = ka.launches
+        failpoints.FAILPOINTS.arm_spec("aot.dispatch=error(RuntimeError):times=1")
+        try:
+            drilled = armed_solver.solve(pool, items, pods1)
+            torch.cuda.synchronize()
+        finally:
+            failpoints.FAILPOINTS.reset()
+        reject_doc = {"fallbacks_dispatch": metrics.AOT_FALLBACKS.value(reason="dispatch") - f0,
+                      "disarmed": armed0 - mgr.describe()["armed"],
+                      "kernel_a_launches": ka.launches - la,
+                      "decisions_equal_tick1": sig(drilled) == sig(tick1)}
+        # a corrupt library in a store: counted once, unlinked, rebuilt by
+        # nvcc, kernel B exact (the process's own libraries are put back)
+        saved_libs, saved_store = dict(kbuild._LIBS), kbuild._store_dir
+        try:
+            with tempfile.TemporaryDirectory(prefix="karpenter-store-drill-") as store:
+                kbuild.use_store(store)
+                bad = kbuild._library_path("disrupt_repack")
+                bad.write_bytes(b"\x7fELF not a library")
+                kbuild._manifest(bad).write_text(json.dumps({
+                    "v": kbuild._MANIFEST_VERSION, "fingerprint": kbuild.fingerprint(),
+                    "name": "disrupt_repack"}))
+                kbuild._LIBS.pop("disrupt_repack", None)
+                d0 = metrics.AOT_FALLBACKS.value(reason="deserialize")
+                m0 = metrics.COMPILE_CACHE_MISSES.value()
+                check_repack("store drill: the rebuilt library, tick2 pre-pass S=1", ops_b)
+                corrupt_doc = {
+                    "fallbacks_deserialize": metrics.AOT_FALLBACKS.value(reason="deserialize") - d0,
+                    "rebuilt_by_nvcc": metrics.COMPILE_CACHE_MISSES.value() - m0,
+                    "rebuilt_seconds": kbuild.BUILD_LOG.get("disrupt_repack", {}).get("seconds"),
+                    "store_after": kbuild.store_stats(store)}
+        finally:
+            kbuild._LIBS.clear()
+            kbuild._LIBS.update(saved_libs)
+            kbuild._store_dir = saved_store
+        aot_doc = {"describe": mgr.describe(), "armed_checks": armed_checks,
+                   "tick_through_graphs": tick_doc, "rejected_replay_drill": reject_doc,
+                   "corrupt_library_drill": corrupt_doc}
+        aot_ok = (tick_doc["aot_dispatches"] == 1 and tick_doc["kernel_a_launches"] == 0
+                  and tick_doc["decisions_equal_tick1"]
+                  and reject_doc == {"fallbacks_dispatch": 1, "disarmed": 1,
+                                     "kernel_a_launches": 1, "decisions_equal_tick1": True}
+                  and corrupt_doc["fallbacks_deserialize"] == 1
+                  and corrupt_doc["rebuilt_by_nvcc"] == 1)
+        mgr.stop(timeout_s=60.0)
+        emit({"phase": "kernels", "checks": checks, "aot": aot_doc, **tag})
+        if not aot_ok:
+            raise AssertionError(f"the armed graphs or their rung drills: {aot_doc}")
 
         # -- the same two ticks through the plain versions, on the card --------------
         with plain_kernels():
@@ -2597,13 +2958,15 @@ def main() -> int:
          "replaces": "karpenter_tpu/solver/kernels/ffd_pallas.py:70",
          "launches": launches_on_paths("ffd_scan"), "max_abs_err": err_a,
          "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a, "bound_by": by_a,
-         "library_ms": None, "shapes": shape_rows["ffd_scan"]},
+         "library_ms": None, "shapes": shape_rows["ffd_scan"],
+         "armed_replay_checks": armed_checks["ffd_scan"]},
         {"name": "disrupt_repack", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/disrupt_repack.cu",
          "replaces": "karpenter_tpu/solver/kernels/disrupt_pallas.py:38",
          "launches": launches_on_paths("disrupt_repack"),
          "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b,
-         "bound_by": by_b, "library_ms": None, "shapes": shape_rows["disrupt_repack"]},
+         "bound_by": by_b, "library_ms": None, "shapes": shape_rows["disrupt_repack"],
+         "armed_replay_checks": armed_checks["disrupt_repack"]},
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})
@@ -2618,6 +2981,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--kube-reference"]:
         KUBE_PODS, KUBE_WAVE, G_MAX = (int(v) for v in sys.argv[3:6])
         sys.exit(side_world(sys.argv[1], sys.argv[2]))
+    if sys.argv[1:2] == ["--coldstart"]:
+        N_PODS, G_MAX = (int(v) for v in sys.argv[4:6])
+        DEVICE = sys.argv[6]
+        sys.exit(coldstart_child(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--rehearse-kube"]:
         sys.exit(rehearse_kube(int(sys.argv[2]) if len(sys.argv) > 2 else 200))
     sys.exit(main())

@@ -23,8 +23,16 @@ Differences from the JAX binary:
   the JAX backend probe, and NO fallback: without a card the binary
   exits 2 before building anything, naming `--device cpu`, which is the
   only way to run the kernels' plain versions on the host;
-- `--device cuda|cpu` is new; `--mesh-devices` (ROADMAP A11) and the
-  AOT opt-out ($KARPENTER_TPU_AOT, A9) wait for their modules.
+- `--device cuda|cpu` is new; `--mesh-devices` waits for the mesh
+  (ROADMAP A11);
+- the cold-start layer as the JAX binary's: on the card the versioned
+  kernel-library store is prepared under $KARPENTER_TPU_COMPILE_CACHE
+  (`utils.enable_compilation_cache`), and an in-process solver is built
+  with `auto_warm` and `enable_aot(store)` (the warm-up ladder, solver/
+  aot.py) unless KARPENTER_TPU_AOT=0; /debug/aot serves its document. On
+  `--device cpu` there is no store and no background warm-up (no library,
+  no allocator to warm, and the plain scan at 1,024 classes costs the host
+  seconds per bucket); the ladder still arms its plain closures.
 
 `--kubeconfig PATH` / `--in-cluster` run the operator over a real
 apiserver (`kube.KubeCluster`) as the JAX binary does: apply the port's
@@ -135,10 +143,25 @@ def build_operator(args):
                 auto_probe=True,
                 **breaker_kw,
             )
+        from karpenter_tpu_torch.solver.service import resolve_device
+
+        device = resolve_device(getattr(args, "device", None))
+        on_card = device.type == "cuda"
         solver = TorchSolver(
             client=client, breaker=breaker, tier=getattr(args, "solve_tier", "ffd"),
-            device=getattr(args, "device", None),
+            device=device, auto_warm=client is None and on_card,
         )
+        # the cold-start layer (solver/aot.py): the kernel-library store
+        # (libraries load at start, no nvcc on a restart), then the warm-up
+        # ladder over every staged catalog. In-process solves only (a
+        # sidecar owns its own); KARPENTER_TPU_AOT=0 opts out
+        cache_home = None
+        if on_card:
+            from karpenter_tpu_torch.utils import enable_compilation_cache
+
+            cache_home = enable_compilation_cache()
+        if client is None and _os.environ.get("KARPENTER_TPU_AOT", "1") != "0":
+            solver.enable_aot(cache_home)
         # the consolidation engine rides the SAME wire as the scheduling
         # solve: with a sidecar configured, candidate-set sweeps dispatch
         # as the solve_disrupt op against the catalogs already staged per
@@ -391,6 +414,9 @@ def main(argv=None) -> int:
         if hasattr(op.solver, "describe_wire"):
             # /debug/solver: incremental-tick engine + staging LRU state
             health.solver_info = op.solver.describe_wire
+        if hasattr(op.solver, "describe_aot"):
+            # /debug/aot: armed graphs per entry + the warm-up ladder
+            health.aot_info = op.solver.describe_aot
         # /debug/journal: the crash-consistency intent journal (open
         # write-ahead records + the recently-resolved ring)
         health.journal_info = op.journal.describe
@@ -478,6 +504,10 @@ def main(argv=None) -> int:
         raise
     if op.watchdog is not None:
         op.watchdog.stop()
+    if hasattr(op.solver, "stop_warm_up"):
+        # let a capture or a warm call in flight end before the
+        # interpreter tears CUDA down
+        op.solver.stop_warm_up(timeout_s=60.0)
     if health is not None:
         health.stop()
     if recorder is not None:

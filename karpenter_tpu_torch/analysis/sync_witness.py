@@ -20,7 +20,12 @@ that on a running tick:
   with their counts. The witness records; it does not fail the tick.
 
 The retrace half of the JAX witness has no counterpart: the port compiles
-nothing per shape (the kernels build once per process).
+nothing per shape (the kernels build once per process). Its ``aot_phase()``
+has one: the warm-up ladder (solver/aot.py) captures CUDA graphs on its own
+thread, and ``torch.cuda.graph`` synchronizes on entry; a synchronizing
+call made by a thread inside ``aot_phase()`` is booked apart
+(``aot_exempt`` in ``stats()``), never as one of the tick's unsanctioned
+sites.
 
 On a host without CUDA the debug mode is not set; a caller may still
 raise the same warning itself (``SYNC_MESSAGE``) -- the tests do, from a
@@ -69,10 +74,13 @@ class _State:
         self.hot_labels: list = []
         self.sanctioned = 0
         self.unsanctioned: Dict[str, int] = {}
+        self.aot_exempt = 0
         self.saved: Optional[Tuple[Any, Any, Optional[int]]] = None
 
 
 _state = _State()
+# per thread: inside aot_phase() (the warm-up ladder's work)
+_tls = threading.local()
 
 
 def _site_and_sanctioned() -> Tuple[str, bool]:
@@ -100,7 +108,9 @@ def note_sync() -> None:
     with _state.guard:
         if _state.hot_depth <= 0:
             return
-        if sanctioned:
+        if getattr(_tls, "aot_depth", 0) > 0:
+            _state.aot_exempt += 1
+        elif sanctioned:
             _state.sanctioned += 1
         else:
             _state.unsanctioned[site] = _state.unsanctioned.get(site, 0) + 1
@@ -165,18 +175,38 @@ def hot(label: str = "hot") -> _HotSection:
     return _HotSection(label)
 
 
+class _AotPhase:
+    def __enter__(self) -> "_AotPhase":
+        _tls.aot_depth = getattr(_tls, "aot_depth", 0) + 1
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        _tls.aot_depth -= 1
+        return False
+
+
+def aot_phase() -> _AotPhase:
+    """The calling thread's synchronizing calls until exit are the
+    warm-up ladder's (jax_witness.aot_phase): booked as ``aot_exempt``,
+    never as a hot section's unsanctioned sites."""
+    return _AotPhase()
+
+
 def reset() -> None:
     with _state.guard:
         _state.sanctioned = 0
         _state.unsanctioned.clear()
+        _state.aot_exempt = 0
 
 
 def stats() -> Dict[str, Any]:
-    """{"sanctioned_fetches": n, "unsanctioned": {site: count}, "hot":
-    depth}: the unsanctioned sites sorted by count, most first."""
+    """{"sanctioned_fetches": n, "unsanctioned": {site: count},
+    "aot_exempt": n, "hot": depth}: the unsanctioned sites sorted by
+    count, most first."""
     with _state.guard:
         return {
             "sanctioned_fetches": _state.sanctioned,
+            "aot_exempt": _state.aot_exempt,
             "unsanctioned": dict(sorted(_state.unsanctioned.items(),
                                         key=lambda kv: (-kv[1], kv[0]))),
             "hot": _state.hot_depth,

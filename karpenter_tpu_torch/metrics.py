@@ -5,7 +5,9 @@ Copy of karpenter_tpu/metrics.py: the same `Counter`, `Gauge`,
 port's modules reach: the solver's, the wire's (transport, delta
 shipping, the sidecar's staging LRUs, the breaker), and the operator's
 (its controllers, the kwok batchers, the journal and fencing, overload
-control, the replay and the shrinker). Each family keeps the JAX
+control, the replay and the shrinker), and the cold-start layer's (the
+versioned kernel-library store and the warm-up ladder of solver/aot.py,
+the per-entry table of obs/jitstats.py). Each family keeps the JAX
 package's name, type and label names (tests/test_torch_obs.py holds every
 family here against the JAX registry), so one dashboard and one runbook
 serve both packages. No external client library.
@@ -14,7 +16,8 @@ The port has no Pallas -> XLA pin, so it has no
 ``karpenter_solver_kernel_fallbacks_total``: a wrapper given a CUDA
 tensor launches its kernel or raises. ``SOLVER_KERNEL_DISPATCHES`` says
 which implementation ran: ``cuda`` when the kernel launched, ``plain``
-when its plain torch version ran (tensors on the CPU).
+when its plain torch version ran (tensors on the CPU), ``aot`` when a
+CUDA graph the warm-up ladder captured replayed it (solver/aot.py).
 """
 from __future__ import annotations
 
@@ -342,9 +345,11 @@ SOLVER_KERNEL_DISPATCHES = REGISTRY.counter(
     "karpenter_solver_kernel_dispatches_total",
     "Hot-path kernel dispatches by entry and implementation actually "
     "run: cuda = the hand-written CUDA kernel (csrc/), plain = its plain "
-    "torch version (tensors on the CPU). A solver on the card counts cuda "
-    "only: a wrapper given a CUDA tensor launches its kernel or raises",
-    labels=("entry", "impl"),  # ffd_solve_fused | disrupt_repack x cuda | plain
+    "torch version (tensors on the CPU), aot = an armed dispatch of the "
+    "warm-up ladder (a CUDA graph replay on the card). A solver on the card "
+    "counts cuda or aot only: a wrapper given a CUDA tensor launches its "
+    "kernel or raises",
+    labels=("entry", "impl"),  # ffd_solve_fused | disrupt_repack x cuda | plain | aot
 )
 SOLVER_STAGED_PRESSURE_EVICTIONS = REGISTRY.counter(
     "karpenter_solver_staged_pressure_evictions_total",
@@ -611,4 +616,111 @@ SIM_DIVERGENCES = REGISTRY.counter(
 SIM_SHRINK_ROUNDS = REGISTRY.counter(
     "karpenter_sim_shrink_rounds_total",
     "Delta-debugging reduction attempts run by the trace shrinker",
+)
+
+# the cold-start layer (solver/aot.py): the warm-up ladder's armed
+# dispatches and its degrade rungs, the versioned kernel-library store
+# (solver/kernels/build.py). The JAX package's names, help texts and labels
+AOT_PRECOMPILED_FRACTION = REGISTRY.gauge(
+    "karpenter_aot_precompiled_fraction",
+    "Fraction of the enumerated AOT plan compiled and armed, per jit "
+    "entry family (1.0 = every planned static/shape bucket of this "
+    "entry is compile-free); /debug/aot carries the full breakdown",
+    labels=("entry",),
+)
+AOT_DISPATCHES = REGISTRY.counter(
+    "karpenter_aot_dispatches_total",
+    "Solve dispatches served by an armed AOT executable instead of the "
+    "jit path (bit-identical by the AOT differential; the cold-start "
+    "latency win is measured by the bench coldstart stage)",
+    labels=("entry",),
+)
+AOT_FALLBACKS = REGISTRY.counter(
+    "karpenter_aot_fallbacks_total",
+    "AOT degrade-ladder rungs taken, by reason: deserialize (corrupt/"
+    "stale artifact -> JIT), dispatch (armed executable rejected the "
+    "call -> disarmed + JIT), compile (a ladder task failed -> skipped), "
+    "serialize (artifact write failed -> in-memory only). Every rung "
+    "leaves the tick on the proven jit path",
+    labels=("reason",),
+)
+AOT_SERIALIZED = REGISTRY.counter(
+    "karpenter_aot_serialized_total",
+    "Compiled executables serialized into the exec store, per entry -- "
+    "what a restarted operator can load instead of recompiling",
+    labels=("entry",),
+)
+AOT_LOADED = REGISTRY.counter(
+    "karpenter_aot_loaded_total",
+    "Serialized executables deserialized and armed at startup, per "
+    "entry (the restart path's compile-free budget)",
+    labels=("entry",),
+)
+AOT_SWEPT_DIRS = REGISTRY.counter(
+    "karpenter_aot_swept_dirs_total",
+    "Stale fingerprint-versioned cache directories removed at server "
+    "start (a jaxlib/backend/topology change invalidates executables "
+    "wholesale -- the shm stale-segment sweep, for compile artifacts)",
+)
+# the per-entry table (obs/jitstats.py): dispatches and host enqueue time
+# per registered device entry; "compiles" are kernel-library loads and
+# builds attributed to the calling thread's dispatch; the ladder's own
+# captures count apart (the aot columns)
+JIT_DISPATCHES = REGISTRY.counter(
+    "karpenter_jit_entry_dispatches_total",
+    "Calls into each registered jit entry point (JIT_ENTRY_FUNCTIONS), "
+    "per entry -- the denominator of every per-entry cost claim",
+    labels=("entry",),
+)
+JIT_DISPATCH_SECS = REGISTRY.counter(
+    "karpenter_jit_entry_dispatch_seconds_total",
+    "Cumulative wall seconds inside each jit entry call: trace+lower on "
+    "a cache miss, argument staging + async launch on a hit (device "
+    "execution overlaps and is NOT in here -- capture it with "
+    "/debug/profile)",
+    labels=("entry",),
+)
+JIT_COMPILES = REGISTRY.counter(
+    "karpenter_jit_entry_compiles_total",
+    "Jit traces attributed to each entry (compile-counter delta across "
+    "one dispatch; populated while the jax witness's compile listener "
+    "is installed)",
+    labels=("entry",),
+)
+JIT_COMPILE_SECS = REGISTRY.counter(
+    "karpenter_jit_entry_compile_seconds_total",
+    "Cumulative jaxpr-trace seconds attributed to each entry (the "
+    "retrace stall cost; backend-compile time comes on top when the "
+    "persistent compilation cache misses)",
+    labels=("entry",),
+)
+JIT_AOT_COMPILES = REGISTRY.counter(
+    "karpenter_jit_entry_aot_compiles_total",
+    "Warmup-ladder AOT precompiles per jit entry family (solver/aot.py; "
+    "kept apart from karpenter_jit_entry_compiles_total so background "
+    "precompilation never reads as hot-path compile cost)",
+    labels=("entry",),
+)
+JIT_AOT_COMPILE_SECS = REGISTRY.counter(
+    "karpenter_jit_entry_aot_compile_seconds_total",
+    "Cumulative wall seconds the AOT warmup ladder spent precompiling "
+    "each entry family (lower+compile, off the tick thread)",
+    labels=("entry",),
+)
+COMPILE_CACHE_HITS = REGISTRY.counter(
+    "karpenter_compile_cache_hits_total",
+    "Persistent XLA compilation-cache hits (the backend binary came "
+    "from disk; only the trace/lower phases ran)",
+)
+COMPILE_CACHE_MISSES = REGISTRY.counter(
+    "karpenter_compile_cache_misses_total",
+    "Persistent XLA compilation-cache misses (a full backend compile "
+    "ran and its artifact was written). The CI cache-persistence drill "
+    "asserts this stays 0 in a second process over a warm cache",
+)
+COMPILE_CACHE_BYTES = REGISTRY.gauge(
+    "karpenter_compile_cache_bytes",
+    "On-disk size of the persistent compile cache's versioned directory "
+    "(XLA entries + serialized AOT executables), for the cache-sizing "
+    "runbook in docs/operations.md",
 )

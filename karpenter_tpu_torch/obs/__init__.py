@@ -8,10 +8,9 @@
 - ``profiler`` -- an on-demand ``torch.profiler`` capture bracketing the
   next N ticks, exported as a Chrome trace;
 - ``flight``   -- the always-on ring of per-tick records and its JSONL
-  black box.
-
-The JAX package's fourth layer, ``jitstats`` (per-jit-entry compile and
-dispatch cost), has no counterpart yet: the port compiles nothing per
-shape, and a table of its kernel builds and launches comes with the
-cold-start work.
+  black box;
+- ``jitstats`` -- the per-entry table: dispatches and host enqueue time
+  per device entry, the kernel-library loads and builds each dispatch
+  paid for, the warm-up ladder's own work (the ``aot`` columns) and the
+  library store's hits, misses and bytes.
 """

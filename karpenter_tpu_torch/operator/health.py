@@ -33,9 +33,9 @@ Heartbeats are plain float timestamps; reads are lock-free (float
 stores are atomic in CPython).
 
 Copy of karpenter_tpu/operator/health.py, imports rewritten to the port's.
-Cut: `/debug/aot` and its `aot_info` hook (the port's cold-start and
-compile-cache work waits, ROADMAP A9). `/debug/profile` arms the port's
-torch.profiler capture (obs/profiler.py).
+`/debug/profile` arms the port's torch.profiler capture
+(obs/profiler.py); `/debug/aot` serves `TorchSolver.describe_aot` (the
+warm-up ladder and the kernel-library store, solver/aot.py).
 """
 from __future__ import annotations
 
@@ -88,6 +88,11 @@ DEBUG_ENDPOINTS = {
         "(realized fleet price / fractional bound), waste attribution "
         "(stranded CPU/mem, fragmentation index), price by pool and "
         "capacity type (karpenter_tpu_torch/obs/quality.py)"),
+    "/debug/aot": (
+        "compile-cache subsystem: cache fingerprint + exec store, "
+        "armed-executable coverage per jit entry, warmup-ladder "
+        "progress and duty cycle, deserialize/dispatch fallback "
+        "counts (karpenter_tpu_torch/solver/aot.py)"),
 }
 
 
@@ -122,6 +127,11 @@ class HealthServer:
         # /debug/overload, loopback-only -- the overload runbook's first
         # stop during a storm (docs/operations.md).
         self.overload_info = None
+        # optional () -> dict with the cold-start state (TorchSolver
+        # .describe_aot: store fingerprint, armed graphs per entry, ladder
+        # progress, fallback counts). Served by /debug/aot, loopback-only
+        # -- the cold-start runbook's first stop when a restart is slow.
+        self.aot_info = None
         # whether the run loop actually brackets ticks with the profiler
         # (Options.observatory): with the observatory off, an armed
         # capture would wait forever, so /debug/profile must report
@@ -327,6 +337,11 @@ class HealthServer:
                     # deadline/admission bounds, brownout ladder state,
                     # watchdog escalation counts
                     self._debug_json(outer.overload_info)
+                elif self.path == "/debug/aot":
+                    # the cold-start layer (solver/aot.py): armed graphs
+                    # per entry, the library store, warm-up ladder state,
+                    # fallback counts
+                    self._debug_json(outer.aot_info)
                 elif self.path == "/debug/journal":
                     # crash-consistency intent journal (karpenter_tpu_torch/
                     # journal.py): open write-ahead intents + the

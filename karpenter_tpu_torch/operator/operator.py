@@ -11,9 +11,9 @@ The decision plane is the port's: `solver=TorchSolver(...)` and
 `DisruptEngine` it names), so the provisioner runs kernel A (and kernel B
 for its existing-node pass) and the disruption sweep runs kernel B. The
 coordination bus is the in-memory kwok store by default, or the port's
-`kube.KubeCluster` over a real apiserver (`cluster=`). Cut: the
-per-jit-entry dispatch probes (`jitstats.install()`, which wait for the
-port's cold-start work).
+`kube.KubeCluster` over a real apiserver (`cluster=`). With the
+observatory on and a solver, the per-entry dispatch probes install
+(obs/jitstats.py), as in the JAX operator.
 """
 from __future__ import annotations
 
@@ -218,11 +218,15 @@ class Operator:
         overload.install_brownout(self.brownout)
         # device performance observatory (karpenter_tpu_torch/obs/): the
         # flight-data ring is process-global like the tracer; the last
-        # Operator's capacity wins
+        # Operator's capacity wins. The per-entry dispatch probes install
+        # once, only when a solver exists (they wrap the solver package's
+        # device entries)
         if self.options.observatory:
-            from karpenter_tpu_torch.obs import flight
+            from karpenter_tpu_torch.obs import flight, jitstats
 
             flight.RECORDER.configure(capacity=self.options.flight_capacity)
+            if solver is not None:
+                jitstats.install()
         # the coordination bus: the in-memory store by default; pass a
         # karpenter_tpu_torch.kube.KubeCluster to run against a real apiserver
         # (the reference's kwok topology: real bus, emulated cloud)

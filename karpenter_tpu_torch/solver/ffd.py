@@ -106,8 +106,9 @@ class StagedCatalog(NamedTuple):
     price: torch.Tensor
 
 
-def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    """numpy -> torch on `device`; uint32 words become int32 lanes."""
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """numpy -> a CPU tensor over the same bytes; uint32 words become
+    int32 lanes."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         # a received wire frame's read-only view: torch.from_numpy needs
@@ -115,7 +116,39 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
         a = a.copy()
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(a).to(device)
+    return torch.from_numpy(a)
+
+
+def _pinned_path(device) -> bool:
+    """Uploads to `device` stage through page-locked memory (the card)."""
+    return torch.device(device).type == "cuda"
+
+
+def _pin(t: torch.Tensor) -> torch.Tensor:
+    """A page-locked copy of the CPU tensor `t`."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+def _to_device(a: np.ndarray, device, hold: Optional[list] = None) -> torch.Tensor:
+    """numpy -> torch on `device`; uint32 words become int32 lanes.
+
+    To the card the bytes go through a page-locked staging buffer and a
+    non_blocking copy: torch copies pageable memory synchronously (the
+    host waits for the card), a pinned copy is only enqueued on the
+    stream. The staging buffer must outlive its copy: `hold` keeps it
+    until the caller's next barrier (a solve holds its uploads on its
+    _PendingSolve until the fetch, which waits for the stream, has
+    returned); without one the caching host allocator keeps the block
+    until the event torch records on the stream for every non_blocking
+    copy out of pinned memory has passed."""
+    t = _host_tensor(a)
+    if not _pinned_path(device):
+        return t.to(device)
+    pinned = _pin(t)
+    out = pinned.to(device, non_blocking=True)
+    if hold is not None:
+        hold.append(pinned)
+    return out
 
 
 def _offsets(words) -> Tuple[int, ...]:
@@ -144,7 +177,8 @@ def _mask_form(mask: Optional[np.ndarray], c_pad: int, k_pad: int, packed: bool)
     return mask
 
 
-def _class_inputs(staged: StagedCatalog, classes: Dict[str, object], packed_masks: bool, device) -> SolveInputs:
+def _class_inputs(staged: StagedCatalog, classes: Dict[str, object], packed_masks: bool, device,
+                  hold: Optional[list] = None) -> SolveInputs:
     allowed = classes["allowed"]
     if isinstance(allowed, (list, tuple)):
         allowed = np.concatenate(allowed, axis=1)
@@ -154,7 +188,7 @@ def _class_inputs(staged: StagedCatalog, classes: Dict[str, object], packed_mask
     overhead = classes.get("node_overhead")
     if overhead is None:
         overhead = np.zeros((req.shape[1],), dtype=np.float32)
-    put = lambda a: _to_device(np.asarray(a), device)  # noqa: E731
+    put = lambda a: _to_device(np.asarray(a), device, hold)  # noqa: E731
     return SolveInputs(
         *staged,
         req=put(req), count=put(classes["count"]), env_count=put(classes["env_count"]),
@@ -173,11 +207,13 @@ _CLASS_FIELDS = (
 )
 
 
-def make_inputs_staged(staged: StagedCatalog, classes: PodClassSet, packed_masks: bool = False) -> SolveInputs:
+def make_inputs_staged(staged: StagedCatalog, classes: PodClassSet, packed_masks: bool = False,
+                       hold: Optional[list] = None) -> SolveInputs:
     """SolveInputs over a pre-staged device catalog: the per-tick class
-    tensors move to the catalog's device."""
+    tensors move to the catalog's device (through pinned staging buffers
+    on the card, kept in `hold` when given: see _to_device)."""
     fields = {name: getattr(classes, name, None) for name in _CLASS_FIELDS}
-    return _class_inputs(staged, fields, packed_masks, staged.cap.device)
+    return _class_inputs(staged, fields, packed_masks, staged.cap.device, hold)
 
 
 def inputs_from_numpy(catalog: Dict[str, np.ndarray], classes: Dict[str, object], device,

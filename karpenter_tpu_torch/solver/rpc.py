@@ -1971,6 +1971,14 @@ def serve_main(argv=None) -> int:
               "the sidecar does not move to the CPU unless --device cpu asks for it",
               file=sys.stderr, flush=True)
         return 2
+    if device.type == "cuda":
+        # the versioned kernel-library store, prepared before the first
+        # dispatch (the JAX sidecar enables its compilation cache here):
+        # a restarted sidecar loads the kernels without nvcc. Failure
+        # returns None and the kernels build on first use
+        from karpenter_tpu_torch.utils import enable_compilation_cache
+
+        enable_compilation_cache()
     token = None
     if args.token_file:
         with open(args.token_file) as f:

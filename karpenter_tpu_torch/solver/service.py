@@ -77,7 +77,28 @@ reason="rpc-down"}` or `karpenter_scheduler_breaker_short_circuits_total`
 -- and nowhere else, so both registries read alike after the same run;
 each rung logs once per change.
 
-Not here (later slices): the mesh and AOT.
+Cold start (solver/aot.py), as TPUSolver's: `auto_warm=True` warms every
+class-count bucket of `WARM_C_PADS` in a background thread on each freshly
+staged catalog (in process only); `warm(instance_types, c_pads)` does it
+on the calling thread. On the card a warm call runs the real kernels --
+it loads the libraries, raises their shared-memory ceilings, loads lazy
+modules and grows the allocator -- never a plain version. A tick whose
+class-count bucket was not warmed logs so once per new (c_pad, catalog
+geometry) key. `enable_aot(exec_dir, ...)` loads the kernel-library store
+and runs the warm-up ladder over every staged catalog; the dispatch
+seams (`_dispatch_fused`, `_dispatch_bound`, `_dispatch_convex`,
+`_dispatch_disrupt_repack`) then replay an armed CUDA graph where one
+matches exactly (`karpenter_solver_kernel_dispatches_total{impl="aot"}`
+for the two kernels' entries), and take the ordinary dispatch of the
+same kernel on any miss or counted rung. `describe_aot()` is the
+/debug/aot document.
+
+Host-to-device uploads of a tick go through page-locked staging buffers
+with non_blocking copies (ffd._to_device), held on the _PendingSolve
+until its fetch has returned: the tick waits for the card only at its
+sanctioned fetches (analysis/sync_witness.py).
+
+Not here (a later slice): the mesh (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -177,7 +198,7 @@ class _PendingSolve:
     and decodes. A ticket with nothing in flight carries its result."""
 
     __slots__ = ("done", "pool", "entry", "class_set", "result", "placed_existing",
-                 "nodepool_usage", "buf", "inp", "nnz_max", "cx", "rpc_handle")
+                 "nodepool_usage", "buf", "inp", "nnz_max", "cx", "rpc_handle", "uploads")
 
     def __init__(self, done: Optional[SchedulingResult] = None):
         self.done = done
@@ -189,6 +210,9 @@ class _PendingSolve:
         # the pipelined wire solve's reply slot (None: the barrier runs
         # the synchronous wire ladder)
         self.rpc_handle = None
+        # the pinned staging buffers of this solve's uploads, kept until
+        # the barrier's fetch has waited for their copies
+        self.uploads = None
 
     @property
     def completed(self) -> bool:
@@ -199,7 +223,8 @@ class TorchSolver:
     log = get_logger("solver")
 
     def __init__(self, g_max: int = 1024, objective: str = "price", device=None,
-                 incremental: bool = True, tier: str = "ffd", client=None, breaker=None):
+                 incremental: bool = True, tier: str = "ffd", client=None, breaker=None,
+                 auto_warm: bool = False):
         if objective not in ("price", "fit"):
             raise ValueError(f"objective must be 'price' or 'fit', got {objective!r}")
         # the solve tier: "convex" enqueues the LP relaxation next to the
@@ -217,6 +242,13 @@ class TorchSolver:
         # optimality gap against the fractional bound, waste attribution,
         # price decomposition; observe-only
         self.last_quality: Optional[dict] = None
+        # auto_warm: warm every class-count bucket in a background thread
+        # whenever a new catalog is staged (see warm()); opt-in, as in
+        # TPUSolver
+        self.auto_warm = auto_warm
+        # warm-coverage keys (_warm_key) of the buckets warm() dispatched
+        self._warmed_pads: set = set()
+        self._warm_thread: Optional[threading.Thread] = None
         # g_max sized for the price objective at 50k pods: cost-optimal
         # packing opens ~1.6x the groups max-fit does
         self.g_max = g_max
@@ -245,6 +277,12 @@ class TorchSolver:
         # degrade rungs log once per change (logging.ChangeMonitor)
         self._route_monitor = ChangeMonitor()
         self._lock = threading.Lock()
+        # held by each dispatch seam while it enqueues and by each warm-up
+        # ladder task while it captures (solver/aot.py)
+        self._dispatch_lock = threading.RLock()
+        # the cold-start layer (solver/aot.py), armed by enable_aot(): None
+        # means every dispatch takes the ordinary path
+        self._aot = None
         # the sidecar (solver/rpc.SolverClient, or anything speaking its
         # surface): the tensor half of each solve goes over the wire
         self.client = client
@@ -267,6 +305,35 @@ class TorchSolver:
             if self.breaker._on_promote is None:
                 self.breaker._on_promote = self._on_wire_restored
 
+    # -- the cold-start layer (solver/aot.py) ---------------------------------
+    def enable_aot(self, exec_dir: Optional[str] = None, serialize: bool = True,
+                   duty: float = 0.05, pads: Optional[Sequence[int]] = None):
+        """Arm the cold-start layer: load the kernel-library store at
+        `exec_dir` NOW (the restart path), and run the warm-up ladder over
+        every staged catalog from here on. In process only: a sidecar
+        owns its own. Returns the manager, or None in wire mode."""
+        if self.client is not None:
+            return None
+        from karpenter_tpu_torch.solver import aot as aot_mod
+
+        self._aot = aot_mod.AotManager(
+            self, exec_dir=exec_dir, serialize=serialize, duty=duty, pads=pads)
+        self._aot.load_store()
+        return self._aot
+
+    def describe_aot(self) -> dict:
+        """The /debug/aot document ({} while AOT is not enabled)."""
+        return self._aot.describe() if self._aot is not None else {}
+
+    def stop_warm_up(self, timeout_s: float = 60.0) -> None:
+        """Stop the warm-up ladder and wait, at most `timeout_s` each, for
+        its task and a background warm in flight: a process ending mid-
+        capture would tear CUDA down under them."""
+        if self._aot is not None:
+            self._aot.stop(timeout_s=timeout_s)
+        if self._warm_thread is not None:
+            self._warm_thread.join(timeout_s)
+
     # -- catalog staging ----------------------------------------------------
     def _catalog(self, instance_types: Sequence) -> _CatalogEntry:
         """The staged-catalog snapshot for one catalog list, memoized by
@@ -274,6 +341,7 @@ class TorchSolver:
         list, which makes the id() key sound; staging uploads the catalog
         to the device once, and per-tick solves move only class tensors."""
         key = id(instance_types)
+        staged_entry = None
         with self._lock:
             entry = self._catalog_cache.pop(key, None)
             if entry is not None and entry.catalog_list is instance_types:
@@ -308,7 +376,19 @@ class TorchSolver:
                 while len(self._catalog_cache) > 1:
                     self._catalog_cache.pop(next(iter(self._catalog_cache)))
                     metrics.SOLVER_STAGED_PRESSURE_EVICTIONS.inc(kind="catalog")
-            return entry
+            if staged is not None:
+                staged_entry = entry
+        if staged_entry is not None and self.auto_warm:
+            self._warm_thread = threading.Thread(
+                target=self._bg_warm, args=(staged_entry,), daemon=True,
+                name="torchsolver-warm",
+            )
+            self._warm_thread.start()
+        # the warm-up ladder (solver/aot.py) re-plans over every freshly
+        # staged catalog in the background
+        if staged_entry is not None and self._aot is not None:
+            self._aot.on_catalog(staged_entry)
+        return entry
 
     def _local_staged(self, entry: _CatalogEntry) -> _CatalogEntry:
         """The entry with tensors staged on this solver's device: remote
@@ -328,6 +408,56 @@ class TorchSolver:
             ):
                 self._catalog_cache[id(entry.catalog_list)] = entry2
         return entry2
+
+    def _bg_warm(self, entry: _CatalogEntry) -> None:
+        from karpenter_tpu_torch.analysis import sync_witness
+
+        try:
+            # warm-up's syncs are not the tick's (sync_witness.aot_phase)
+            with sync_witness.aot_phase():
+                self._warm_entry(entry)
+        except Exception as e:  # noqa: BLE001 - warm-up is best-effort
+            self.log.info("background bucket warm-up failed", error=repr(e))
+
+    # class-count buckets warmed: powers of two up to the group-slot budget
+    # (g_max defaults to 1024 -- more classes than groups cannot all place
+    # anyway). A dispatch beyond the warmed set still works; its first
+    # dispatch pays the cold costs once and logs it (see solve_begin)
+    WARM_C_PADS = (16, 32, 64, 128, 256, 512, 1024)
+
+    def warm(self, instance_types: Sequence, c_pads: Sequence[int] = WARM_C_PADS) -> None:
+        """Dispatch the solve and its bound once for every class-count
+        bucket a live tick is expected to hit, so no tick pays a bucket's
+        first dispatch: on the card the kernels' libraries load, their
+        shared-memory ceilings rise, lazy modules load and the allocator
+        grows here. Zero-class sets dispatch the same shapes the real
+        ones do. In process only."""
+        if self.client is not None:
+            return
+        self._warm_entry(self._catalog(instance_types), c_pads)
+
+    @staticmethod
+    def _warm_key(c_pad: int, entry: _CatalogEntry) -> tuple:
+        """Warm-coverage key: a bucket is warm per catalog geometry, so
+        the key is (c_pad, k_pad, offsets, words), as TPUSolver's."""
+        return (c_pad, entry.tensors.k_pad, entry.offsets, entry.words)
+
+    def _warm_entry(self, entry: _CatalogEntry, c_pads: Sequence[int] = WARM_C_PADS) -> None:
+        """Warm from a pinned snapshot: the warm thread never re-stages
+        (its catalog may already be stale by the time it runs)."""
+        # bound the geometry-keyed coverage BEFORE adding this entry's keys
+        # (a cleared stale key merely re-fires the unwarmed-bucket log once)
+        if len(self._warmed_pads) > 128:
+            self._warmed_pads.clear()
+        for cp in c_pads:
+            cs = encode.encode_classes([], entry.tensors, c_pad=cp)
+            inp = ffd.make_inputs_staged(entry.staged, cs, packed_masks=True)
+            self._dispatch_fused(inp, ffd.nnz_budget(cp, self.g_max), entry.offsets, entry.words)
+            # the bound runs behind every solve, so its shape warms too
+            self._dispatch_bound(inp, np.zeros((cp,), np.float32), entry.offsets, entry.words)
+            self._warmed_pads.add(self._warm_key(cp, entry))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- wire health (solver/breaker.py) -------------------------------------
     def wire_healthy(self) -> bool:
@@ -375,13 +505,15 @@ class TorchSolver:
         churn stats, the last solve's shipping mode, staged bytes by
         owner, the client's staged seqnums and epoch bases, and
         (best-effort) the sidecar's own staging/eviction counters via the
-        debug op. The JAX package's per-jit-entry table has no
-        counterpart here (no jit)."""
+        debug op, and the per-entry table of obs/jitstats.py."""
+        from karpenter_tpu_torch.obs import jitstats
+
         doc = {
             "incremental": self.incremental,
             "group_stats": dict(self.last_group_stats),
             "wire": self.client is not None,
             "staged_bytes": self.staged_bytes_by_kind(),
+            "jit_entries": jitstats.table(),
         }
         c = self.client
         if c is None:
@@ -1070,6 +1202,18 @@ class TorchSolver:
             entry = self._catalog(instance_types)
             class_set = self._encode(pool, entry, classes, placed_existing, overhead_vec)
             enc_sp.set(c_pad=class_set.c_pad)
+        warm_key = self._warm_key(class_set.c_pad, entry)
+        if (
+            self._warmed_pads
+            and warm_key not in self._warmed_pads
+            and self._route_monitor.has_changed("unwarmed_c_pad", warm_key)
+        ):
+            # this tick pays the bucket's first dispatch; say so instead of
+            # leaving an unexplained latency spike in the logs
+            self.log.info(
+                "class-count bucket was not warmed; this tick pays its first dispatch",
+                c_pad=class_set.c_pad, classes=len(classes),
+            )
         wire = self.client is not None
         if wire and self.breaker is not None and not self.breaker.allow():
             # breaker OPEN (or half-open): skip the wire BEFORE any socket
@@ -1116,8 +1260,11 @@ class TorchSolver:
                     pending.rpc_handle = None
             return pending
         with tracing.span("dispatch_device"):
-            # the open/join masks travel bit-packed (the form kernel A reads)
-            inp = ffd.make_inputs_staged(entry.staged, class_set, packed_masks=True)
+            # the open/join masks travel bit-packed (the form kernel A
+            # reads); the uploads' pinned buffers live on the pending solve
+            pending.uploads = []
+            inp = ffd.make_inputs_staged(entry.staged, class_set, packed_masks=True,
+                                         hold=pending.uploads)
             nnz_max = ffd.nnz_budget(class_set.c_pad, self.g_max)
             # attribution: nbytes is tensor metadata, not a sync
             self._last_solve_bytes = hbm.sum_nbytes(inp)
@@ -1133,11 +1280,18 @@ class TorchSolver:
 
     def _dispatch_fused(self, inp: ffd.SolveInputs, nnz_max: int, offsets, words) -> torch.Tensor:
         """The fused FFD solve (prologue, kernel A, epilogue), counted by
-        the implementation that runs."""
-        buf = ffd.ffd_solve_fused(
-            inp, g_max=self.g_max, nnz_max=nnz_max, word_offsets=offsets,
-            words=words, objective=self.objective,
-        )
+        the implementation that runs: an armed graph of the warm-up
+        ladder (solver/aot.py) when one matches these statics and input
+        shapes exactly, else the ordinary dispatch."""
+        common = dict(g_max=self.g_max, nnz_max=nnz_max, word_offsets=offsets,
+                      words=words, objective=self.objective)
+        with self._dispatch_lock:
+            if self._aot is not None:
+                hit, buf = self._aot.try_call("ffd_solve_fused", (inp,), common)
+                if hit:
+                    metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="ffd_solve_fused", impl="aot")
+                    return buf
+            buf = ffd.ffd_solve_fused(inp, **common)
         metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="ffd_solve_fused", impl=_impl(inp.req))
         return buf
 
@@ -1152,9 +1306,13 @@ class TorchSolver:
             # chaos site: a dispatch fault must cost the tick ONLY the
             # convex candidate
             failpoints.eval("rpc.convex.dispatch")
-            with tracing.span("dispatch_convex"):
-                return relax.convex_relax(
-                    inp, iters=relax.DEFAULT_ITERS, word_offsets=offsets, words=words)
+            statics = dict(iters=relax.DEFAULT_ITERS, word_offsets=offsets, words=words)
+            with tracing.span("dispatch_convex"), self._dispatch_lock:
+                if self._aot is not None:
+                    hit, out = self._aot.try_call("convex_relax", (inp,), statics)
+                    if hit:
+                        return out
+                return relax.convex_relax(inp, **statics)
         except Exception as e:  # noqa: BLE001 -- counted; the FFD rung owns
             # the tick (OperatorCrashed is a BaseException and flies)
             metrics.CONVEX_FALLBACKS.inc(reason="dispatch")
@@ -1208,11 +1366,20 @@ class TorchSolver:
         }
         return dense, lower
 
-    def _dispatch_bound(self, inp: ffd.SolveInputs, placed: np.ndarray, offsets, words) -> torch.Tensor:
-        """The fractional price bound on the device; the [R] totals stay
-        there until fetch_bound."""
-        placed_t = torch.from_numpy(placed).to(inp.req.device)
-        return bound.fractional_price_bound(inp, placed_t, word_offsets=offsets, words=words)
+    def _dispatch_bound(self, inp: ffd.SolveInputs, placed: np.ndarray, offsets, words,
+                        hold: Optional[list] = None) -> torch.Tensor:
+        """The fractional price bound on the device (an armed graph when
+        one matches); the [R] totals stay there until fetch_bound. The
+        `placed` upload is pinned and non_blocking, its buffer kept in
+        `hold` (see ffd._to_device)."""
+        placed_t = ffd._to_device(placed, inp.req.device, hold)
+        statics = dict(word_offsets=offsets, words=words)
+        with self._dispatch_lock:
+            if self._aot is not None:
+                hit, totals = self._aot.try_call("fractional_price_bound", (inp, placed_t), statics)
+                if hit:
+                    return totals
+            return bound.fractional_price_bound(inp, placed_t, **statics)
 
     def _begin_quality(self, pending: _PendingSolve, dense) -> Optional[torch.Tensor]:
         """Enqueue the bound for the decision just chosen, before decode,
@@ -1227,7 +1394,8 @@ class TorchSolver:
         try:
             placed = np.asarray(dense[0]).sum(axis=1).astype(np.float32)
             return self._dispatch_bound(
-                pending.inp, placed, pending.entry.offsets, pending.entry.words)
+                pending.inp, placed, pending.entry.offsets, pending.entry.words,
+                hold=pending.uploads)
         except Exception as e:  # noqa: BLE001 -- quality must never fail a tick
             metrics.HANDLED_ERRORS.inc(site="solver.quality_dispatch")
             if self._route_monitor.has_changed("quality_dispatch", type(e).__name__):
@@ -1396,6 +1564,8 @@ class TorchSolver:
                 result=pending.result, class_offset=pending.placed_existing,
             )
         self._finish_quality(out, qtotals, lb_convex=cx_lower)
+        # every fetch above has waited for the stream: the uploads are done
+        pending.uploads = None
         return out
 
     # -- the wire barrier ------------------------------------------------------
@@ -1553,12 +1723,26 @@ class TorchSolver:
         return disrupt_kernel.repack_from_numpy(
             headroom, feas, req, member, np.zeros((1, N), dtype=bool), self.device)
 
+    def _dispatch_disrupt_repack(self, headroom, feas, req, member, excl):
+        """Kernel B through the armed-graph rung (the pre-pass's S=1 floor
+        shape is armed by the warm-up ladder), else the ordinary
+        dispatch; counted by the implementation that runs."""
+        args = (headroom, feas, req, member, excl)
+        with self._dispatch_lock:
+            if self._aot is not None:
+                hit, out = self._aot.try_call("disrupt_repack", args, {})
+                if hit:
+                    metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="disrupt_repack", impl="aot")
+                    return out
+            out = disrupt_kernel.disrupt_repack(*args)
+        metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="disrupt_repack", impl=_impl(headroom))
+        return out
+
     def _pack_existing(self, classes, existing_nodes, result: SchedulingResult) -> np.ndarray:
         """First-fit pods onto live/in-flight nodes with kernel B; fills
         result.existing_assignments and returns per-class placed counts."""
         ops = self._repack_operands(classes, existing_nodes)
-        _, takes = disrupt_kernel.disrupt_repack(*ops)
-        metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="disrupt_repack", impl=_impl(ops[0]))
+        _, takes = self._dispatch_disrupt_repack(*ops)
         takes = takes[0].cpu().numpy()                     # [C, N]
         placed = np.zeros((len(classes),), dtype=np.int64)
         for c, pc in enumerate(classes):

@@ -1,9 +1,10 @@
 """Small shared utilities (reference: pkg/utils/utils.go:1-123).
 
 Copy of karpenter_tpu/utils/__init__.py, imports rewritten to the port's.
-`probe_jax_backend` and `enable_jax_compilation_cache` are not copied:
-the port's binary probes the card with `probe_cuda_device` instead, and
-has no compilation cache (its kernels build once per checkout).
+`probe_jax_backend` is not copied: the port's binary probes the card with
+`probe_cuda_device` instead. `enable_jax_compilation_cache` becomes
+`enable_compilation_cache`, which prepares the versioned kernel-library
+store (solver/kernels/build.py) in the place of JAX's persistent cache.
 """
 from __future__ import annotations
 
@@ -134,6 +135,31 @@ def probe_cuda_device(timeout_s: float = 120.0):
         if line.startswith("DEVICE="):
             return line.split("=", 1)[1], None
     return None, (r.stderr or r.stdout).strip()[-500:] or f"probe exited {r.returncode}"
+
+
+def enable_compilation_cache(cache_dir: str = "") -> "str | None":
+    """Prepare the versioned kernel-library store so a restart loads the
+    CUDA kernels without nvcc (the counterpart of the JAX package's
+    enable_jax_compilation_cache). Call before the first kernel launch.
+
+    Resolution order: explicit arg > $KARPENTER_TPU_COMPILE_CACHE >
+    karpenter_tpu_torch/build/. The root is VERSIONED by the torch/CUDA/
+    nvcc/card/flags fingerprint and stale sibling versions are swept. The
+    store's size is published (karpenter_compile_cache_bytes). Returns the
+    versioned directory (callers hand it to TorchSolver.enable_aot), or
+    None when the root is unwritable -- the store must never abort
+    startup (readOnlyRootFilesystem pods): the kernels then build where
+    they can on first use."""
+    from karpenter_tpu_torch.obs import jitstats
+    from karpenter_tpu_torch.solver.kernels import build
+
+    try:
+        home = build.prepare_cache(cache_dir)
+    except (OSError, RuntimeError):  # the card's name unreadable: no store
+        return None
+    if home is not None:
+        jitstats.update_cache_bytes(home)
+    return home
 
 
 def configure_gc_for_latency() -> None:

@@ -677,3 +677,143 @@ class TestOperatorOnTheCard:
         res = replay(events, backend="host", seed=seed)
         assert res.digest == golden["diurnal-consolidation"]
         assert repack.launches > b0
+
+
+class TestArmedGraphsOnTheCard:
+    """The warm-up ladder's armed dispatches (solver/aot.py) on the card:
+    each captured CUDA graph replays byte for byte what the ordinary
+    dispatch computes, a solve through them decides as one without them,
+    and each rung is counted once and leaves the tick on the same kernel."""
+
+    @pytest.fixture(scope="class")
+    def armed(self, cuda, items):
+        from karpenter_tpu_torch import metrics
+
+        solver = TorchSolver(g_max=256, tier="convex")
+        mgr = solver.enable_aot(None, duty=1.0, pads=(16, 32, 64))
+        entry = solver._catalog(items)
+        assert mgr.drain(600)
+        mgr.run_plan(entry, throttle=False)
+        return solver, mgr, entry, metrics
+
+    def test_every_planned_entry_is_armed(self, armed):
+        solver, mgr, _, metrics = armed
+        doc = mgr.describe()
+        assert doc["compile_failures"] == 0 and doc["armed_form"] == "cuda graph"
+        for e in ("ffd_solve_fused", "fractional_price_bound", "convex_relax"):
+            assert doc["entries"][e]["fraction"] == 1.0 and doc["entries"][e]["armed"] == 3
+            assert metrics.AOT_PRECOMPILED_FRACTION.value(entry=e) == 1.0
+        assert doc["entries"]["disrupt_repack"]["armed"] == 1
+
+    @pytest.mark.parametrize("c_pad", [16, 64])
+    def test_replays_equal_the_ordinary_dispatch(self, armed, items, c_pad):
+        from karpenter_tpu_torch.solver import bound
+        from karpenter_tpu_torch.solver.convex import relax
+
+        solver, mgr, entry, metrics = armed
+        pods = workload.synth_pods(np.random.default_rng(c_pad), workload.ZONES, 2_000, c_pad,
+                                   c_pad // 2)
+        classes = encode.group_pods(pods, extra_requirements=NodePool("default").requirements())
+        cs = encode.encode_classes(classes, entry.tensors, c_pad=c_pad)
+        inp = ffd.make_inputs_staged(entry.staged, cs, packed_masks=True)
+        fstat = dict(g_max=256, nnz_max=ffd.nnz_budget(c_pad, 256), word_offsets=entry.offsets,
+                     words=entry.words, objective="price")
+        before = ffd_scan.launches
+        hit, got = mgr.try_call("ffd_solve_fused", (inp,), fstat)
+        assert hit and ffd_scan.launches == before       # a replay launches nothing anew
+        want = ffd.ffd_solve_fused(inp, **fstat)
+        assert torch.equal(got.cpu(), want.cpu())
+        placed = torch.from_numpy(cs.count.astype(np.float32)).to(inp.req.device)
+        bstat = dict(word_offsets=entry.offsets, words=entry.words)
+        hit, got = mgr.try_call("fractional_price_bound", (inp, placed), bstat)
+        assert hit and torch.equal(got.cpu(), bound.fractional_price_bound(inp, placed, **bstat).cpu())
+        cstat = dict(iters=relax.DEFAULT_ITERS, **bstat)
+        hit, got = mgr.try_call("convex_relax", (inp,), cstat)
+        want = relax.convex_relax(inp, **cstat)
+        assert hit
+        for name in ("x", "lower", "trace", "feas"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name).cpu()), name
+
+    def test_pack_existing_floor_shape_replays(self, armed):
+        solver, mgr, _, metrics = armed
+        rng = np.random.default_rng(3)
+        ops = disrupt_kernel.repack_from_numpy(
+            rng.integers(0, 64, (16, encode.R)).astype(np.float32), rng.random((16, 16)) < 0.6,
+            rng.integers(0, 5, (16, encode.R)).astype(np.float32),
+            rng.integers(0, 9, (1, 16)).astype(np.int32), np.zeros((1, 16), bool), solver.device)
+        d0 = metrics.SOLVER_KERNEL_DISPATCHES.value(entry="disrupt_repack", impl="aot")
+        got = solver._dispatch_disrupt_repack(*ops)
+        assert metrics.SOLVER_KERNEL_DISPATCHES.value(entry="disrupt_repack", impl="aot") == d0 + 1
+        for a, b in zip(got, repack.disrupt_repack(*ops)):
+            assert torch.equal(a.cpu(), b.cpu())
+
+    def test_solve_through_graphs_decides_as_without(self, armed, items):
+        solver, mgr, _, metrics = armed
+        pool = NodePool("default")
+        pods = workload.synth_pods(np.random.default_rng(21), workload.ZONES, 2_000, 21, 30)
+        plain = TorchSolver(g_max=256, tier="convex")
+        d0 = metrics.AOT_DISPATCHES.value(entry="ffd_solve_fused")
+        a = solver.solve(pool, items, pods)
+        assert metrics.AOT_DISPATCHES.value(entry="ffd_solve_fused") == d0 + 1
+        b = plain.solve(pool, items, pods)
+        assert sorted((tuple(p.metadata.name for p in g.pods), g.instance_types[0].name)
+                      for g in a.new_groups) == \
+            sorted((tuple(p.metadata.name for p in g.pods), g.instance_types[0].name)
+                   for g in b.new_groups)
+        assert a.unschedulable == b.unschedulable
+        assert solver.last_quality == plain.last_quality
+        assert solver.last_convex == plain.last_convex
+
+    def test_rejected_replay_is_disarmed_and_counted_once(self, cuda, items):
+        from karpenter_tpu_torch import failpoints, metrics
+
+        solver = TorchSolver(g_max=256)
+        mgr = solver.enable_aot(None, duty=1.0, pads=(16,))
+        mgr.run_plan(solver._catalog(items), throttle=False)
+        assert mgr.drain(600)
+        pods = workload.synth_pods(np.random.default_rng(22), workload.ZONES, 500, 22, 8)
+        want = TorchSolver(g_max=256).solve(NodePool("default"), items, pods)
+        armed0 = mgr.describe()["armed"]
+        f0 = metrics.AOT_FALLBACKS.value(reason="dispatch")
+        launches = ffd_scan.launches
+        failpoints.FAILPOINTS.arm_spec("aot.dispatch=error(RuntimeError):times=1")
+        try:
+            got = solver.solve(NodePool("default"), items, pods)
+        finally:
+            failpoints.FAILPOINTS.reset()
+        assert metrics.AOT_FALLBACKS.value(reason="dispatch") == f0 + 1
+        assert mgr.describe()["armed"] == armed0 - 1
+        assert ffd_scan.launches == launches + 1          # the same kernel, not a plain version
+        assert sorted(g.instance_types[0].name for g in got.new_groups) == \
+            sorted(g.instance_types[0].name for g in want.new_groups)
+        assert got.unschedulable == want.unschedulable
+
+
+class TestLibraryStoreOnTheCard:
+    def test_corrupt_library_is_counted_once_and_rebuilt(self, cuda, tmp_path, monkeypatch):
+        """A library in the store that ctypes cannot load is counted
+        (deserialize), unlinked and rebuilt by nvcc; the kernel runs."""
+        import json
+
+        from karpenter_tpu_torch import metrics
+        from karpenter_tpu_torch.solver.kernels import build
+
+        monkeypatch.setattr(build, "_store_dir", None)
+        monkeypatch.setattr(build, "_LIBS", {})
+        monkeypatch.setattr(build, "BUILD_LOG", {})
+        home = build.prepare_cache(str(tmp_path))
+        path = build._library_path("disrupt_repack")
+        path.write_bytes(b"\x7fELF not a library")
+        build._manifest(path).write_text(json.dumps({
+            "v": build._MANIFEST_VERSION, "fingerprint": build.fingerprint(),
+            "name": "disrupt_repack"}))
+        f0 = metrics.AOT_FALLBACKS.value(reason="deserialize")
+        m0 = metrics.COMPILE_CACHE_MISSES.value()
+        lib = build.library("disrupt_repack")
+        assert metrics.AOT_FALLBACKS.value(reason="deserialize") == f0 + 1
+        assert metrics.COMPILE_CACHE_MISSES.value() == m0 + 1
+        assert lib.disrupt_repack_max_r() >= 9 and path.parent == type(path)(home)
+        ops = disrupt_kernel.repack_from_numpy(
+            np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
+            np.array([[5]]), np.zeros((1, 2), bool), cuda)
+        assert repack.disrupt_repack(*ops)[1].cpu().tolist() == [[[2, 2]]]

@@ -166,7 +166,11 @@ class TestNoJaxImports:
                 "karpenter_tpu_torch/overload.py",
                 "karpenter_tpu_torch/solver/rpc.py",
                 "karpenter_tpu_torch/solver/shm.py",
-                "karpenter_tpu_torch/solver/breaker.py"} <= rel
+                "karpenter_tpu_torch/solver/breaker.py",
+                # the cold-start slice
+                "karpenter_tpu_torch/solver/aot.py",
+                "karpenter_tpu_torch/obs/jitstats.py",
+                "karpenter_tpu_torch/solver/kernels/build.py"} <= rel
         # the operator, its controllers, the kwok world, the providers, the
         # binary and the replay
         assert set(OPERATOR_MODULES) <= rel
@@ -237,6 +241,44 @@ class TestNoJaxImports:
                            capture_output=True, text=True, timeout=240)
         assert r.returncode == 0, r.stdout + r.stderr
 
+
+    def test_cold_start_modules_load_neither(self):
+        """The library store, the warm-up ladder (armed, drained, serving
+        a tick), warm(), the per-entry table and /debug/aot's document, on
+        the CPU in a fresh interpreter."""
+        code = (
+            "import sys, tempfile\n"
+            "import numpy as np\n"
+            "from karpenter_tpu_torch import workload\n"
+            "from karpenter_tpu_torch.apis import NodePool\n"
+            "from karpenter_tpu_torch.analysis import sync_witness\n"
+            "from karpenter_tpu_torch.obs import jitstats\n"
+            "from karpenter_tpu_torch.solver import aot\n"
+            "from karpenter_tpu_torch.solver.service import TorchSolver\n"
+            "from karpenter_tpu_torch.utils import enable_compilation_cache\n"
+            "home = enable_compilation_cache(tempfile.mkdtemp(prefix='kt-'))\n"
+            "assert home is not None\n"
+            "assert jitstats.install() > 0\n"
+            "items = workload.build_catalog_items()[::4]\n"
+            "pods = workload.synth_pods(np.random.default_rng(0), workload.ZONES, 200, 0, 8)\n"
+            "s = TorchSolver(device='cpu', g_max=32)\n"
+            "m = s.enable_aot(home, duty=1.0, pads=(16,))\n"
+            "s.warm(items, c_pads=(16,))\n"
+            "assert m.drain(120)\n"
+            "n0 = aot.AOT_DISPATCHES.value(entry='ffd_solve_fused')\n"
+            "with sync_witness.aot_phase():\n"
+            "    assert s.solve(NodePool('default'), items, pods).new_groups\n"
+            "assert aot.AOT_DISPATCHES.value(entry='ffd_solve_fused') == n0 + 1\n"
+            "assert s.describe_aot()['entries']['ffd_solve_fused']['fraction'] == 1.0\n"
+            "assert s.describe_wire()['jit_entries']\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
+            "print('LOADED', bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert r.returncode == 0, r.stdout + r.stderr
 
     def test_wire_modules_load_neither(self):
         """The sidecar, its client, the ring, the breaker and the overload
@@ -416,8 +458,12 @@ class TestNoFallback:
         with pytest.raises(RuntimeError, match="nvcc"):
             build.nvcc_path()
 
-    def test_library_names_follow_the_sources(self):
+    def test_library_names_follow_the_sources(self, monkeypatch):
+        # no prepared store and no $KARPENTER_TPU_COMPILE_CACHE: the
+        # checkout's build directory, versioned by the runtime fingerprint
+        monkeypatch.setattr(build, "_store_dir", None)
+        monkeypatch.delenv(build.CACHE_ENV, raising=False)
         a = build._library_path("ffd_scan")
         assert a == build._library_path("ffd_scan")
-        assert a.parent == build.BUILD_DIR and a.name.startswith("ffd_scan-")
+        assert a.parent == build.BUILD_DIR / build.fingerprint() and a.name.startswith("ffd_scan-")
         assert a != build._library_path("disrupt_repack")

@@ -31,9 +31,11 @@ from karpenter_tpu import tracing as jtracing
 from karpenter_tpu.apis import NodePool as JNodePool
 from karpenter_tpu.obs import flight as jflight
 from karpenter_tpu.obs import hbm as jhbm
+from karpenter_tpu.obs import jitstats as jjitstats  # noqa: F401  -- registers its families
 from karpenter_tpu.obs import profiler as jprofiler  # noqa: F401  -- registers its families
 from karpenter_tpu import operator as joperator  # noqa: F401  -- registers the controllers' families
 from karpenter_tpu.obs import quality as jquality
+from karpenter_tpu.solver import aot as jaot  # noqa: F401  -- registers its families
 from karpenter_tpu.solver.disrupt import DisruptEngine as JEngine
 from karpenter_tpu.solver.service import TPUSolver
 from karpenter_tpu_torch import failpoints as tfailpoints
@@ -130,7 +132,21 @@ PORT_FAMILIES = {
     "karpenter_status_condition_transitions_total",
     "karpenter_voluntary_disruption_decision_evaluation_duration_seconds",
     "karpenter_voluntary_disruption_decisions_total",
+    # the cold-start layer (solver/aot.py, solver/kernels/build.py) and the
+    # per-entry table (obs/jitstats.py)
+    "karpenter_aot_precompiled_fraction", "karpenter_aot_dispatches_total",
+    "karpenter_aot_fallbacks_total", "karpenter_aot_serialized_total",
+    "karpenter_aot_loaded_total", "karpenter_aot_swept_dirs_total",
+    "karpenter_jit_entry_dispatches_total", "karpenter_jit_entry_dispatch_seconds_total",
+    "karpenter_jit_entry_compiles_total", "karpenter_jit_entry_compile_seconds_total",
+    "karpenter_jit_entry_aot_compiles_total", "karpenter_jit_entry_aot_compile_seconds_total",
+    "karpenter_compile_cache_hits_total", "karpenter_compile_cache_misses_total",
+    "karpenter_compile_cache_bytes",
 }
+# the cold-start families keep the JAX help texts too (one runbook)
+COLD_START_FAMILIES = sorted(n for n in PORT_FAMILIES
+                             if n.startswith(("karpenter_aot_", "karpenter_jit_entry_",
+                                              "karpenter_compile_cache_")))
 
 
 class TestRegistry:
@@ -139,6 +155,10 @@ class TestRegistry:
         differ = {name: (shape, jax_fams.get(name)) for name, shape in port.items()
                   if jax_fams.get(name) != shape}
         assert not differ, f"port families absent from, or shaped unlike, the JAX registry: {differ}"
+
+    @pytest.mark.parametrize("name", COLD_START_FAMILIES)
+    def test_cold_start_family_help_is_the_jax_text(self, name):
+        assert tmetrics.REGISTRY._metrics[name].help == jmetrics.REGISTRY._metrics[name].help
 
     def test_the_port_registers_exactly_its_families(self):
         assert set(families(tmetrics.REGISTRY)) == PORT_FAMILIES
@@ -651,7 +671,8 @@ class TestSyncWitness:
             assert sync_witness.stats()["hot"] == 2
         torch.zeros(3).cpu()                                  # outside hot(): not booked
         st = sync_witness.stats()
-        assert st == {"sanctioned_fetches": 0, "unsanctioned": {"<outside-package>": 1}, "hot": 0}
+        assert st == {"sanctioned_fetches": 0, "unsanctioned": {"<outside-package>": 1},
+                      "aot_exempt": 0, "hot": 0}
 
     def test_sanctioned_manifest_names_real_functions(self):
         import importlib

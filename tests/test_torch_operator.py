@@ -13,7 +13,11 @@ dispatch family summed over its implementation label, which names
 pallas/xla in one package and cuda/plain in the other), and the fleet
 gauges the metrics controller sets every tick; not the cloud batcher's
 two families, whose batch counts follow the launch threads' wall-clock
-timing in either package. Decisions are exact: no tolerance anywhere.
+timing in either package. The per-entry dispatch counter (obs/jitstats,
+installed by both Operators) compares on the entries both packages
+register, by module path below the package; its seconds, compile and
+compile-cache families are host timing and each runtime's own build
+work, and stay out. Decisions are exact: no tolerance anywhere.
 
 Worlds: tests/test_e2e_provisioning.py's (bin packing, fan-out, pool
 requirements, a zonal selector, taints, a GPU pod, zone spread, preferred
@@ -104,15 +108,44 @@ DISPATCHES = "karpenter_solver_kernel_dispatches_total"
 # how many batches the cloud batcher cut depends on how the launch
 # fan-out's threads met its wall-clock window, in either package
 TIMING = ("karpenter_cloud_batcher_batch_size", "karpenter_cloud_batcher_batch_time_seconds")
+# the per-entry table: dispatch counts compare per shared entry; the rest is
+# host timing or the runtime's own compiles (jit traces / library loads)
+JIT_DISPATCHES = "karpenter_jit_entry_dispatches_total"
+JIT_COST = ("karpenter_jit_entry_dispatch_seconds_total", "karpenter_jit_entry_compiles_total",
+            "karpenter_jit_entry_compile_seconds_total",
+            "karpenter_jit_entry_aot_compiles_total",
+            "karpenter_jit_entry_aot_compile_seconds_total",
+            "karpenter_compile_cache_hits_total", "karpenter_compile_cache_misses_total",
+            "karpenter_compile_cache_bytes")
+
+
+def _shared_entries():
+    from karpenter_tpu.analysis.checkers.jax_discipline import JIT_ENTRY_FUNCTIONS as jentries
+    from karpenter_tpu_torch.obs.jitstats import JIT_ENTRY_FUNCTIONS as tentries
+
+    def names(reg, pkg):
+        return {f"{mod[len(pkg) + 1:]}.{fn}" for mod, fns in reg.items() for fn in fns}
+
+    # the JAX ffd_solve_fused calls ffd_solve_compact inside its trace, so
+    # the JAX probe counts that entry once per trace, not per dispatch
+    return (names(jentries, "karpenter_tpu") & names(tentries, "karpenter_tpu_torch")) - {
+        "solver.ffd.ffd_solve_compact"}
+
+
+SHARED_ENTRIES = _shared_entries()
 
 
 def samples(metrics):
     out = {}
     for name, m in list(metrics.REGISTRY._metrics.items()):
-        if name in TIMING:
+        if name in TIMING or name in JIT_COST:
             continue
         if isinstance(m, metrics.Counter):
             vals = dict(m._values)
+            if name == JIT_DISPATCHES:
+                # the entry's module path below its package
+                vals = {(entry.split(".", 1)[1],): v for (entry,), v in vals.items()
+                        if entry.split(".", 1)[1] in SHARED_ENTRIES}
             if name == DISPATCHES:
                 # entry x impl: impl is pallas|xla in the JAX package and
                 # cuda|plain in the port -- compare per entry
