@@ -8,6 +8,9 @@
     python3 chip_smoke.py --coldstart empty|warm OUT N_PODS G_MAX DEVICE
                                    (one process of phase `coldstart`; set
                                    $KARPENTER_TPU_COMPILE_CACHE first)
+    python3 chip_smoke.py --witness OUT N_PODS N_WAVE G_MAX DEVICE
+                                   (the process of phase `witness`; runs
+                                   on the CPU too with DEVICE cpu)
 
 Runs the karpenter_tpu_torch main path at full width -- the 627-type
 generated catalog, 50,000 pending pods from 160 templates, one NodePool,
@@ -37,7 +40,11 @@ at 2,000 pods, and tests/test_convex.py's 30-pod adversarial mix. Phases,
 one JSON line each:
 
   device      the card, its count and `nvidia-smi` name and power limit
-  build       nvcc for sm_90a, one process per source, with ptxas -v lines
+  build       nvcc for sm_90a, one process per source, with ptxas -v lines;
+              then karpenter_tpu_torch.native.grouping must have built
+              (the C grouping loop: cc and Python.h on this machine)
+  analysis    `python -m karpenter_tpu_torch.analysis` on the host, over
+              the tree that runs: exit 0 against its baseline
   main        the two ticks with every launch count set to 0 before a tick
               and read after it; every pod must be placed exactly once
   schedule    the five worlds, counted the same way, each with its route,
@@ -140,7 +147,22 @@ one JSON line each:
               and world, peak device memory; per sweep its wall (median of
               warm sweeps) with host stages, each replacement pass in CUDA
               events, and on bench-sweep the candidate nodes judged per
-              second
+              second; the grouping stage (`encode.group_pods`) on each
+              world's pods with the native C loop and with the pure-Python
+              loop, in turns, median of 3 each: both must give the same
+              classes in the same order with the same pods
+  witness     a second process that installs the port's three runtime
+              witnesses (lock order, exception escape, torch: rebuilds,
+              captures and host syncs) before it imports the port, then
+              runs ticks 1 and 2 cold and warm (warm inside
+              torch_witness.hot()), `enable_aot(duty=0.05)` with at least
+              20 live ticks of tick 1 inside hot() while the ladder's thread
+              captures, a SolverServer thread with a cold and a warm wire
+              tick, and the `convex.rounding=error(RuntimeError):times=1`
+              drill; fails on any inversion, unsanctioned swallow or hot
+              violation; prints the counts, the witnessed lock sites, the
+              sanctioned fetches and the ticks' walls beside phase `times`'
+              unwitnessed tick 1
   kernels     each kernel against its plain torch version on the card, on
               the main path's own inputs (tick 1's scan; tick 2's scan,
               whose C=128 holds 63 padded rows; tick 2's repack; the
@@ -259,14 +281,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2, batch: int = 10) -> float:
     return statistics.median(times)
 
 
-def wall_ms(fn, reps: int):
-    """(first, median) host milliseconds of fn(), each ending in a sync."""
+def wall_runs(fn, reps: int) -> list:
+    """Host milliseconds of each of `reps` calls of fn(), each ending in a sync."""
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def wall_ms(fn, reps: int):
+    """(first, median) host milliseconds of fn(), each ending in a sync."""
+    times = wall_runs(fn, reps)
     return times[0], statistics.median(times)
 
 
@@ -1351,11 +1379,235 @@ def phase_coldstart(tag: dict) -> dict:
     return docs
 
 
+WITNESS_TIMEOUT_S = 420
+# live ticks of the main path beside the warm-up ladder (duty 0.05): at
+# least this many, and on the card until the ladder has captured inside
+# the window, for at most WITNESS_WINDOW_S
+WITNESS_LIVE_TICKS = 20
+WITNESS_WINDOW_S = 45.0
+
+
+def p90(values) -> float:
+    return statistics.quantiles(values, n=10, method="inclusive")[-1] if len(values) > 1 \
+        else values[0]
+
+
+def witness_child(out_path: str) -> int:
+    """Phase `witness`, one process (`--witness OUT N_PODS N_WAVE G_MAX
+    DEVICE`): the port's three runtime witnesses installed BEFORE the
+    first import of karpenter_tpu_torch, then (a) ticks 1 and 2 of the
+    main path, cold then warm (the warm ones inside torch_witness.hot());
+    (b) `enable_aot(duty=0.05)`, as the binary runs it, and live ticks
+    inside hot() while the ladder's thread captures; (c) a SolverServer
+    thread and ticks through the port's client; (d) the convex.rounding
+    drill. Writes the witnesses' counts and the ticks' walls to OUT."""
+    from karpenter_tpu_torch.analysis import witness
+
+    witness.install()
+    from karpenter_tpu_torch.analysis import torch_witness
+
+    torch_witness.install()
+    from karpenter_tpu_torch.analysis import errwitness
+
+    errwitness.install()
+    from karpenter_tpu_torch import failpoints, metrics, workload
+    from karpenter_tpu_torch.apis import NodePool, Pod
+    from karpenter_tpu_torch.scheduling import Resources
+    from karpenter_tpu_torch.solver import rpc
+    from karpenter_tpu_torch.solver.kernels import build
+    from karpenter_tpu_torch.solver.service import TorchSolver
+
+    dev = torch.device(DEVICE)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(fn, label=None):
+        """(result, host ms) of fn() ending in a sync, inside hot(label)
+        when a label is given."""
+        section = torch_witness.hot(label) if label else contextlib.nullcontext()
+        with section:
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            return out, (time.perf_counter() - t0) * 1e3
+
+    doc = {"device": DEVICE, "pods": [N_PODS, N_WAVE], "g_max": G_MAX}
+    if on_card:
+        build.build()       # the parent's store: loads, no nvcc
+    items = workload.build_catalog_items()
+    pool = NodePool("default")
+    pods1 = workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS, salt=1)
+    pods2 = workload.synth_pods(np.random.default_rng(SEED + 1), workload.ZONES, N_WAVE, salt=2)
+
+    # (a) the main path: cold, then warm inside hot()
+    solver = TorchSolver(g_max=G_MAX, device=dev)
+    tick1, cold1 = timed(lambda: solver.solve(pool, items, pods1))
+    nodes = workload.nodes_from_result(tick1)
+    tick2, cold2 = timed(lambda: solver.solve(pool, items, pods2, existing_nodes=nodes))
+    d1, d2 = decision_digest(tick1), decision_digest(tick2)
+    warm1, warm2, same = [], [], True
+    for _ in range(3):
+        r, ms = timed(lambda: solver.solve(pool, items, pods1), "tick 1")
+        warm1.append(ms)
+        same &= decision_digest(r) == d1
+        r, ms = timed(lambda: solver.solve(pool, items, pods2, existing_nodes=nodes), "tick 2")
+        warm2.append(ms)
+        same &= decision_digest(r) == d2
+    doc["main"] = {"tick1_cold_ms": cold1, "tick2_cold_ms": cold2, "tick1_warm_ms": warm1,
+                   "tick2_warm_ms": warm2, "decisions_equal_cold": same}
+
+    # (b) the warm-up ladder at the binary's duty beside live ticks
+    live_solver = TorchSolver(g_max=G_MAX, device=dev)
+    mgr = live_solver.enable_aot(None, duty=0.05)
+    st0 = torch_witness.stats()
+    hits0 = metrics.AOT_DISPATCHES.value(entry="ffd_solve_fused")
+    first, first_ms = timed(lambda: live_solver.solve(pool, items, pods1))   # stages: the ladder plans
+    live, same_live = [], decision_digest(first) == d1
+    t_window = time.perf_counter()
+    while True:
+        r, ms = timed(lambda: live_solver.solve(pool, items, pods1), f"live tick {len(live)}")
+        live.append(ms)
+        same_live &= decision_digest(r) == d1
+        captured = torch_witness.stats()["aot_captures"] - st0["aot_captures"]
+        elapsed = time.perf_counter() - t_window
+        if len(live) >= WITNESS_LIVE_TICKS and (captured >= 2 or not on_card
+                                                 or elapsed > WITNESS_WINDOW_S):
+            break
+    st1 = torch_witness.stats()
+    ladder = mgr.describe()
+    mgr.stop(timeout_s=120.0)
+    doc["ladder"] = {"duty": ladder["duty"], "first_tick_ms": first_ms, "live_tick_ms": live,
+                     "window_s": time.perf_counter() - t_window,
+                     "captures_in_window": st1["aot_captures"] - st0["aot_captures"],
+                     "armed_dispatches": metrics.AOT_DISPATCHES.value(entry="ffd_solve_fused") - hits0,
+                     "armed_graphs": ladder["armed"], "ladder_busy_at_end": ladder["ladder_busy"],
+                     "decisions_equal": same_live}
+
+    # (c) the sidecar as a thread: a cold wire tick (staging), then a warm one in hot()
+    wire_dir = tempfile.mkdtemp(prefix="kt-")
+    server = rpc.SolverServer(path=os.path.join(wire_dir, "w.sock"), device=dev).start()
+    try:
+        client = rpc.SolverClient(path=os.path.join(wire_dir, "w.sock"), timeout=120.0)
+        wire_solver = TorchSolver(g_max=G_MAX, device=dev, client=client)
+        r_cold, wire_cold = timed(lambda: wire_solver.solve(pool, items, pods1))
+        r_warm, wire_warm = timed(lambda: wire_solver.solve(pool, items, pods1), "wire tick")
+        doc["wire"] = {"cold_ms": wire_cold, "warm_ms": wire_warm,
+                       "transport": "shm" if client._ring is not None else "tcp",
+                       "decisions_equal": decision_digest(r_cold) == decision_digest(r_warm) == d1}
+        client.close()
+    finally:
+        server.stop()
+        shutil.rmtree(wire_dir, ignore_errors=True)
+
+    # (d) the rounding drill on the adversarial mix: one FFD tick, counted once
+    shapes_adv = (("1100m", "2200Mi"), ("700m", "1400Mi"), ("1700m", "3400Mi"))
+    adv = [Pod(f"adv{i}", requests=Resources(
+        {"cpu": shapes_adv[i % 3][0], "memory": shapes_adv[i % 3][1]})) for i in range(30)]
+    cx = TorchSolver(g_max=G_MAX, device=dev, tier="convex")
+    ffd_digest = decision_digest(TorchSolver(g_max=G_MAX, device=dev).solve(pool, items, adv))
+    cx.solve(pool, items, adv)
+    sync()
+    f0 = metrics.CONVEX_FALLBACKS.value(reason="rounding")
+    failpoints.FAILPOINTS.arm_spec("convex.rounding=error(RuntimeError):times=1")
+    try:
+        drilled, drill_ms = timed(lambda: cx.solve(pool, items, adv), "drill")
+    finally:
+        failpoints.FAILPOINTS.reset()
+    doc["drill"] = {"spec": "convex.rounding=error(RuntimeError):times=1", "ms": drill_ms,
+                    "fallbacks_moved": metrics.CONVEX_FALLBACKS.value(reason="rounding") - f0,
+                    "drilled_equals_ffd_tick": decision_digest(drilled) == ffd_digest}
+
+    errwitness.flush()
+    swallows = errwitness.swallows()
+    doc["counts"] = {"inversions": len(witness.inversions()),
+                     "unsanctioned_swallows": sum(not s.sanctioned for s in swallows),
+                     "hot_violations": len(torch_witness.hot_violations())}
+    doc["witnessed_locks"] = {"wrapped": witness.wrapped_count(), "edges": witness.edge_count(),
+                              "sites": witness.sites()}
+    doc["swallows"] = [s.render() for s in swallows]
+    doc["torch_witness"] = torch_witness.stats()
+    doc["reports"] = {"lock": witness.report()[-4000:], "escape": errwitness.report()[-4000:],
+                      "torch": torch_witness.report()[-4000:]}
+    with open(out_path, "w") as f:
+        json.dump(doc, f)
+    return 0
+
+
+def phase_witness(tag: dict, unwitnessed: dict) -> dict:
+    """Phase `witness`: `witness_child` in a process of its own. Fails on
+    any lock-order inversion, unsanctioned swallow or hot violation (a
+    library build or load inside hot(), a capture outside the ladder, an
+    unsanctioned sync), on a decision that differs, on a drill that did
+    not land on the FFD rung once, and on the card when the ladder did not
+    capture beside the live ticks."""
+    with tempfile.TemporaryDirectory(prefix="karpenter-witness-") as tmp:
+        out, log = os.path.join(tmp, "witness.json"), os.path.join(tmp, "witness.log")
+        t0 = time.perf_counter()
+        with open(log, "wb") as f:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--witness", out, str(N_PODS),
+                 str(N_WAVE), str(G_MAX), DEVICE],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=f,
+                stderr=subprocess.STDOUT, timeout=WITNESS_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            with open(log) as f:
+                raise AssertionError(f"witness child exited {proc.returncode}: {f.read()[-3000:]}")
+        with open(out) as f:
+            doc = json.load(f)
+    live = doc["ladder"]["live_tick_ms"]
+    warm1 = doc["main"]["tick1_warm_ms"]
+    costs = {
+        "tick1_witnessed_ms": {"median": statistics.median(warm1), "p90": p90(warm1)},
+        "tick1_unwitnessed_ms_phase_times": unwitnessed,
+        "live_ticks_beside_ladder_ms": {"n": len(live), "median": statistics.median(live),
+                                        "p90": p90(live)},
+    }
+    checks = {
+        "inversions_0": doc["counts"]["inversions"] == 0,
+        "unsanctioned_swallows_0": doc["counts"]["unsanctioned_swallows"] == 0,
+        "hot_violations_0": doc["counts"]["hot_violations"] == 0,
+        "locks_witnessed": doc["witnessed_locks"]["wrapped"] > 0,
+        "main_decisions_equal": doc["main"]["decisions_equal_cold"],
+        "live_ticks_ge_20": len(live) >= WITNESS_LIVE_TICKS,
+        "ladder_captured_beside_live_ticks": DEVICE == "cpu" or doc["ladder"]["captures_in_window"] >= 1,
+        "live_decisions_equal": doc["ladder"]["decisions_equal"],
+        "wire_decisions_equal": doc["wire"]["decisions_equal"],
+        "drill_on_the_ffd_rung_once": (doc["drill"]["fallbacks_moved"] == 1
+                                       and doc["drill"]["drilled_equals_ffd_tick"]),
+    }
+    emit({"phase": "witness", "process_s": seconds, "counts": doc["counts"], "costs": costs,
+          "witnessed_locks": doc["witnessed_locks"], "torch_witness": doc["torch_witness"],
+          "swallows": doc["swallows"], "main": doc["main"], "ladder": doc["ladder"],
+          "wire": doc["wire"], "drill": doc["drill"], "checks": checks, **tag})
+    if not all(checks.values()):
+        raise AssertionError(f"phase witness: {checks}\n{json.dumps(doc['reports'])[:6000]}")
+    return doc
+
+
+def phase_analysis(tag: dict) -> None:
+    """Phase `analysis`: the port's static checkers over the tree that
+    runs, on the host; fails unless they exit 0 against the baseline."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "karpenter_tpu_torch.analysis"],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=300)
+    emit({"phase": "analysis", "command": "python -m karpenter_tpu_torch.analysis",
+          "rc": r.returncode, "seconds": time.perf_counter() - t0,
+          "summary": (r.stdout.strip().splitlines() or [""])[-1], **tag})
+    if r.returncode != 0:
+        raise AssertionError(f"python -m karpenter_tpu_torch.analysis exited {r.returncode}: "
+                             f"{(r.stdout + r.stderr)[-3000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
         return 2
-    from karpenter_tpu_torch import failpoints, metrics, tracing, workload
+    from karpenter_tpu_torch import failpoints, metrics, native, tracing, workload
     from karpenter_tpu_torch.analysis import sync_witness
     from karpenter_tpu_torch.apis import NodePool, Pod, labels as wk
     from karpenter_tpu_torch.obs import flight, hbm, profiler
@@ -1390,6 +1642,13 @@ def main() -> int:
           "nvcc_flags": " ".join(build.NVCC_FLAGS),
           "sources": {name: build.BUILD_LOG.get(name, {"seconds": 0.0, "ptxas": ["cached"]})
                       for name in build.SOURCES}, **tag})
+
+    # the native grouping loop must have built here: a missing cc or
+    # Python.h on this machine shows, it is not papered over by the pure loop
+    if native.grouping is None:
+        raise AssertionError("karpenter_tpu_torch.native.grouping is None: the C grouping "
+                             "loop did not build on this machine (cc, Python.h)")
+    phase_analysis(tag)
 
     # every counted run of the main path: its launch counts and the solver's
     # kernel-dispatch counter over the same run (phase `observe` holds the
@@ -2344,7 +2603,8 @@ def main() -> int:
     plain_a, plain_a2 = scan_plain_ms(ops_a), scan_plain_ms(ops_a2)
     ms_b = cuda_ms(lambda: kb.disrupt_repack(*ops_b), reps=50)
     plain_b = cuda_ms(lambda: kb.repack_reference(*ops_b), reps=5, warmup=1, batch=1)
-    tick1_first, tick1_ms = wall_ms(lambda: solver.solve(pool, items, pods1), reps=5)
+    tick1_runs = wall_runs(lambda: solver.solve(pool, items, pods1), reps=5)
+    tick1_first, tick1_ms = tick1_runs[0], statistics.median(tick1_runs)
     tick2_first, tick2_ms = wall_ms(
         lambda: solver.solve(pool, items, pods2, existing_nodes=nodes), reps=5)
 
@@ -2626,6 +2886,30 @@ def main() -> int:
                           "events_ms_10_back_to_back": cuda_ms(call, reps=5)}
         armed_route[name] = {"c_pad": cs1.c_pad, "equal": same, **row}
     mgr_t.stop(timeout_s=60.0)
+
+    # the grouping stage on each world's pods: the C loop (native/_grouping.c)
+    # against the pure-Python loop, in turns, median of 3 each; both must give
+    # the same classes in the same order with the same pods
+    group_loops = {}
+    for name, (pods_w, _route, _needed) in world_spec.items():
+        runs = {"native": [], "pure": []}
+        classes = {}
+        for _ in range(3):
+            for loop in ("native", "pure"):
+                encode._native_grouping = native.grouping if loop == "native" else None
+                try:
+                    t0 = time.perf_counter()
+                    got = encode.group_pods(pods_w)
+                    runs[loop].append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    encode._native_grouping = native.grouping
+                classes[loop] = [(c.key, [p.metadata.name for p in c.pods]) for c in got]
+        if classes["native"] != classes["pure"]:
+            raise AssertionError(f"world {name}: the native and pure grouping loops differ")
+        group_loops[name] = {"pods": len(pods_w), "classes": len(classes["native"]),
+                             "native_ms_median_of_3": statistics.median(runs["native"]),
+                             "pure_ms_median_of_3": statistics.median(runs["pure"]),
+                             "same_classes_order_and_pods": True}
     emit({"phase": "times", "timing": "CUDA events around 10 back-to-back calls, median of 20",
           "ffd_scan": {"ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
                        "bound_by": by_a, "shape": {"C": C, "G": G_MAX, "K": K}},
@@ -2647,12 +2931,18 @@ def main() -> int:
           "ffd_scan_scratch_vs_lean_k1280": scratch_vs_lean,
           "consolidate": sweep_times, "bench_sweep_nodes_per_s": bench_nodes_per_s,
           "armed_route": armed_route,
+          "group_native_vs_pure": {"native_module": native.grouping.__name__,
+                                   "worlds": group_loops},
           "consolidate_stages_note": "host clock; encode_sets holds group (group_pods) and "
                                      "feasibility (the [C, N] loop), repack holds kernel B "
                                      "and the fetch of the leftover totals, assemble holds "
                                      "the replacement passes and their fetches, replace is "
                                      "their enqueue",
           **tag})
+
+    # -- witness: the port's three runtime witnesses over the threaded paths,
+    # in a process of its own, after every timed section of this one
+    phase_witness(tag, {"median": tick1_ms, "p90": p90(tick1_runs), "n": len(tick1_runs)})
 
     # -- references: each card world against the same world with device="cpu",
     # each in a second process started after every timed section; the kernel
@@ -2985,6 +3275,10 @@ if __name__ == "__main__":
         N_PODS, G_MAX = (int(v) for v in sys.argv[4:6])
         DEVICE = sys.argv[6]
         sys.exit(coldstart_child(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--witness"]:
+        N_PODS, N_WAVE, G_MAX = (int(v) for v in sys.argv[3:6])
+        DEVICE = sys.argv[6]
+        sys.exit(witness_child(sys.argv[2]))
     if sys.argv[1:2] == ["--rehearse-kube"]:
         sys.exit(rehearse_kube(int(sys.argv[2]) if len(sys.argv) > 2 else 200))
     sys.exit(main())

@@ -5,7 +5,8 @@ jax_witness.py (``_note_transfer``, ``hot()``). The port's tick is
 designed to wait for the card at a handful of fetches -- one fused
 buffer (or its dense refetch), the pre-pass's takes, the bound's [R]
 totals, the relaxation's outputs, the sweep's leftover totals and each
-replacement pass's results -- and nowhere else. This witness checks
+replacement pass's results, and on the sidecar each op's reply --
+and nowhere else. This witness checks
 that on a running tick:
 
 - inside ``hot(label)`` the witness sets ``torch.cuda.set_sync_debug_mode
@@ -56,6 +57,12 @@ SANCTIONED_FETCH = frozenset({
     # replacement pass's (best, best_od, best_k)
     ("karpenter_tpu_torch/solver/disrupt/engine.py", "_dispatch_local"),
     ("karpenter_tpu_torch/solver/disrupt/engine.py", "replace"),
+    # the sidecar's ops: each fetches its reply's tensors once, as the JAX
+    # manifest's rpc entries (solve_delta reaches _op_solve_compact)
+    ("karpenter_tpu_torch/solver/rpc.py", "_op_solve"),
+    ("karpenter_tpu_torch/solver/rpc.py", "_op_solve_compact"),
+    ("karpenter_tpu_torch/solver/rpc.py", "_op_solve_disrupt"),
+    ("karpenter_tpu_torch/solver/rpc.py", "_op_solve_convex"),
 })
 
 # what torch's sync debug mode warns (c10/cuda: warn_or_error_on_sync)

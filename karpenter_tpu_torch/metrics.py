@@ -213,8 +213,8 @@ def _labels_str(names, values) -> str:
 REGISTRY = Registry()
 
 # device consolidation engine (solver/disrupt/engine.py): both routes
-# record these; the JAX package's _SETS (counted by the disruption
-# controller) waits for the port's controllers
+# record these; DISRUPTION_DEVICE_SETS below is counted by the disruption
+# controller (controllers/disruption.py), as in the JAX package
 DISRUPTION_DEVICE_DISPATCHES = REGISTRY.counter(
     "karpenter_disruption_device_dispatches_total",
     "Batched consolidation evaluations by dispatch route (wire = the "

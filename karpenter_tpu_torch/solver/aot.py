@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch import failpoints, metrics
+from karpenter_tpu_torch.analysis import torch_witness
 from karpenter_tpu_torch.logging import get_logger
 from karpenter_tpu_torch.solver.kernels import build
 
@@ -211,10 +212,15 @@ def capture(fn: Callable, args: Tuple, statics: Dict[str, Any], pool=None) -> Gr
     with torch.cuda.stream(side):
         fn(*s_args, **statics)
     cur.wait_stream(side)
+    torch_witness.note_capture(getattr(fn, "__name__", "?"))
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool,
-                                                     capture_error_mode="thread_local"):
-        out = fn(*s_args, **statics)
+    try:
+        with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool,
+                                                         capture_error_mode="thread_local"):
+            out = fn(*s_args, **statics)
+    except BaseException:
+        graph.reset()       # a failed capture frees its partial graph now
+        raise
     out_leaves, out_spec = _flatten(out)
     return GraphExec(graph, static_in, out_leaves, out_spec)
 
@@ -508,7 +514,13 @@ class AotManager:
             t.join(timeout_s)
 
     def _plan(self, entry) -> List["_Task"]:
-        plan = self.build_plan(entry)
+        from karpenter_tpu_torch.analysis import sync_witness
+
+        # planning stages the tasks' operands on the device (blocking
+        # pageable copies, which synchronize): ladder work, booked apart
+        # like the tasks' own, never as a live tick's sync sites
+        with sync_witness.aot_phase():
+            plan = self.build_plan(entry)
         with self._lock:
             self._planned = {}
             self._done = {}

@@ -111,7 +111,7 @@ def convex_relax(
     # load > 0 only where cap_eff > 0
     inv_cap = torch.where(cap_eff > 0.0, 1.0 / torch.clamp_min(cap_eff, 1e-30), 0.0)
     req64 = inp.req.to(_F64)
-    k_idx = torch.arange(inv_cap.shape[0], device=inv_cap.device)
+    k_idx = torch.arange(inv_cap.shape[0], dtype=torch.int64, device=inv_cap.device)
     best_lb = torch.zeros((), dtype=torch.float32, device=x.device)
     trace = []
     for t in range(iters):

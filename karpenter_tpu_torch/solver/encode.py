@@ -3,8 +3,9 @@
 Copy of karpenter_tpu/solver/encode.py. It stays NumPy: the host builds
 the encoded arrays, and solver/ffd.py moves them to the device. Grouping,
 in group_pods and in the cross-tick IncrementalGrouper, is the
-pure-Python loop (the JAX package's C grouping extension gives the same
-classes and is not carried over).
+C loop of native/_grouping.c when it built (the JAX package's extension,
+copied byte for byte), else the pure-Python loop: the same classes in the
+same order either way.
 
 This is the bridge between the host-side constraint algebra and the
 device decision plane.
@@ -38,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from karpenter_tpu_torch.apis import Pod, labels as wk
+from karpenter_tpu_torch.native import grouping as _native_grouping
 from karpenter_tpu_torch.providers.instancetype.types import InstanceType
 from karpenter_tpu_torch.scheduling import Requirements, Resources, Taint, tolerates_all
 from karpenter_tpu_torch.scheduling import resources as res
@@ -470,15 +472,22 @@ def group_pods(pods: Sequence[Pod], extra_requirements: Optional[Requirements] =
     # gc paused: cold grouping of 50k fresh pods allocates ~400k young
     # containers; mid-loop generational collections multiply the cost ~6x
     with gc_paused():
-        for pod in pods:
-            tok = pod._spec_token
-            if tok is not None:
-                pc = tok_get(tok)
-                if pc is None:
-                    pc = tok_to_class[tok] = classify(pod)
-            else:
-                pc = classify(pod)
-            pc.pods.append(pod)
+        if _native_grouping is not None:
+            # the C hot loop (native/_grouping.c): token attribute read +
+            # dict probe + list append per pod, calling classify() back
+            # only on per-template misses -- same semantics, less per-pod
+            # cost (chip_smoke.py phase `times` holds the two loops)
+            _native_grouping.group_by_token(pods, classify)
+        else:
+            for pod in pods:
+                tok = pod._spec_token
+                if tok is not None:
+                    pc = tok_get(tok)
+                    if pc is None:
+                        pc = tok_to_class[tok] = classify(pod)
+                else:
+                    pc = classify(pod)
+                pc.pods.append(pod)
     # FFD order: dominant resource descending with the canonical tie-break
     # (pod_sort_key) -- must match the oracle's sort for differential
     # equivalence, including between equal-sized classes
@@ -498,7 +507,7 @@ class IncrementalGrouper:
     function of class identity: every pod_sort_key component is determined
     by the _class_key components). A warm steady-state tick's grouping
     therefore costs one token/signature dict probe + list append per pod
-    (the same loop group_pods runs) plus canonical work ONLY for
+    (the same native C loop group_pods runs) plus canonical work ONLY for
     signatures never seen before -- classification cost scales with churn,
     not cluster size.
 
@@ -576,15 +585,18 @@ class IncrementalGrouper:
             return pc
 
         with gc_paused():
-            for pod in pods:
-                tok = pod._spec_token
-                if tok is not None:
-                    pc = tok_get(tok)
-                    if pc is None:
-                        pc = tok_to_class[tok] = classify(pod)
-                else:
-                    pc = classify(pod)
-                pc.pods.append(pod)
+            if _native_grouping is not None:
+                _native_grouping.group_by_token(pods, classify)
+            else:
+                for pod in pods:
+                    tok = pod._spec_token
+                    if tok is not None:
+                        pc = tok_get(tok)
+                        if pc is None:
+                            pc = tok_to_class[tok] = classify(pod)
+                    else:
+                        pc = classify(pod)
+                    pc.pods.append(pod)
         sort_memo = self._sort_memo
 
         def order_key(pc: PodClass) -> tuple:

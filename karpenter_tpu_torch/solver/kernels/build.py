@@ -32,7 +32,9 @@ The store (counterpart of karpenter_tpu/solver/aot.py's `prepare_cache`,
 
 Each load or build is attributed to the calling thread
 (`thread_compile_totals`), so the per-entry table (obs/jitstats.py) books
-it on the dispatch that paid for it.
+it on the dispatch that paid for it, and reported to the torch witness
+(analysis/torch_witness.py): one inside a declared-warm hot section,
+outside the warm-up ladder, is a violation.
 
 Never built with --use_fast_math: the kernels must divide with IEEE
 rounding, and -fmad=false keeps each multiply and add rounded apart, as
@@ -52,6 +54,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
+
+from karpenter_tpu_torch.analysis import torch_witness
 
 PKG_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PKG_ROOT / "csrc"
@@ -295,6 +299,7 @@ def load_store(names: Sequence[str] = SOURCES) -> Tuple[int, int]:
 def _load_counted(name: str, path: Path) -> ctypes.CDLL:
     from karpenter_tpu_torch import metrics
 
+    torch_witness.note_library(name, "load")
     t0 = time.perf_counter()
     lib = load_one(name, path)
     _LIBS[name] = lib
@@ -319,9 +324,9 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
     out_dir = paths[todo[0]].parent
     try:
         out_dir.mkdir(parents=True, exist_ok=True)
-        probe = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(probe[0])
-        os.unlink(probe[1])
+        fd, probe = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        os.unlink(probe)
     except OSError:
         # the store cannot take the library: build into a private
         # directory, counted; the next process builds again
@@ -330,6 +335,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
         paths.update({name: out_dir / paths[name].name for name in todo})
     procs = {}
     for name in todo:
+        torch_witness.note_library(name, "build")
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]

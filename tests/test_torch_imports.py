@@ -123,6 +123,27 @@ BUS_MODULES = (
 )
 
 
+# the native grouping loop and the analysis layer (checkers and witnesses)
+NATIVE_ANALYSIS_MODULES = (
+    "karpenter_tpu_torch/native/__init__.py",
+    "karpenter_tpu_torch/analysis/__init__.py",
+    "karpenter_tpu_torch/analysis/__main__.py",
+    "karpenter_tpu_torch/analysis/base.py",
+    "karpenter_tpu_torch/analysis/witness.py",
+    "karpenter_tpu_torch/analysis/errwitness.py",
+    "karpenter_tpu_torch/analysis/torch_witness.py",
+    "karpenter_tpu_torch/analysis/pytest_plugin.py",
+    "karpenter_tpu_torch/analysis/checkers/__init__.py",
+    "karpenter_tpu_torch/analysis/checkers/determinism.py",
+    "karpenter_tpu_torch/analysis/checkers/errflow.py",
+    "karpenter_tpu_torch/analysis/checkers/locks.py",
+    "karpenter_tpu_torch/analysis/checkers/registry_drift.py",
+    "karpenter_tpu_torch/analysis/checkers/reslife.py",
+    "karpenter_tpu_torch/analysis/checkers/torch_discipline.py",
+    "karpenter_tpu_torch/analysis/checkers/zerocopy.py",
+)
+
+
 def imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -390,6 +411,37 @@ class TestNoJaxImports:
 
 
 class TestNoFallback:
+    def test_native_and_analysis_are_scanned(self):
+        rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
+        assert set(NATIVE_ANALYSIS_MODULES) <= rel
+
+    def test_native_and_analysis_load_neither(self):
+        """The native grouping loop, every checker family, the three
+        witnesses and the pytest plugin, in a fresh interpreter."""
+        code = (
+            "import sys\n"
+            "from karpenter_tpu_torch.analysis import witness, errwitness, torch_witness\n"
+            "witness.install()\n"
+            "torch_witness.install()\n"
+            "errwitness.install()\n"
+            "from karpenter_tpu_torch.analysis import pytest_plugin\n"
+            "from karpenter_tpu_torch.analysis.__main__ import main\n"
+            "assert main(['--rules', 'locks', '--rules', 'registry']) == 0\n"
+            "import numpy as np\n"
+            "from karpenter_tpu_torch import native, workload\n"
+            "from karpenter_tpu_torch.solver import encode\n"
+            "pods = workload.synth_pods(np.random.default_rng(0), workload.ZONES, 300, 0, 8)\n"
+            "assert encode.group_pods(pods)\n"
+            "print('NATIVE', native.grouping is not None)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
+            "print('LOADED', bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert r.returncode == 0, r.stdout + r.stderr
+
     def test_solver_without_cuda_raises(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):

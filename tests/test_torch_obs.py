@@ -58,9 +58,22 @@ from tests.test_torch_catalog import (  # noqa: F401
 from tests.test_torch_consolidate import jax_sweep, sweep_pools
 from tests.test_torch_convex import world
 from tests.test_torch_quality import both_pods
+from karpenter_tpu.analysis import errwitness as jerrwitness
+from karpenter_tpu.analysis import jax_witness as jjax_witness
+from karpenter_tpu.analysis import witness as jwitness
+from karpenter_tpu_torch.analysis import errwitness as terrwitness
+from karpenter_tpu_torch.analysis import torch_witness as ttorch_witness
+from karpenter_tpu_torch.analysis import witness as twitness
+
 
 # small tensors: one intra-op thread per test worker (several workers share the cores)
 torch.set_num_threads(1)
+
+# the witnesses register their families lazily (first violation, or their
+# _register_metrics hook): register them in both registries up front, so
+# the comparison below does not depend on which tests this worker ran first
+for _w in (jwitness, jerrwitness, jjax_witness, twitness, terrwitness, ttorch_witness):
+    _w._register_metrics()
 
 G = 64
 
@@ -142,6 +155,9 @@ PORT_FAMILIES = {
     "karpenter_jit_entry_aot_compiles_total", "karpenter_jit_entry_aot_compile_seconds_total",
     "karpenter_compile_cache_hits_total", "karpenter_compile_cache_misses_total",
     "karpenter_compile_cache_bytes",
+    # the runtime witnesses (analysis/): the JAX families' names
+    "karpenter_lockwitness_inversions_total", "karpenter_errflow_swallowed_total",
+    "karpenter_jaxwitness_retraces_total", "karpenter_jaxwitness_host_transfers_total",
 }
 # the cold-start families keep the JAX help texts too (one runbook)
 COLD_START_FAMILIES = sorted(n for n in PORT_FAMILIES

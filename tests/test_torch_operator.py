@@ -117,6 +117,10 @@ JIT_COST = ("karpenter_jit_entry_dispatch_seconds_total", "karpenter_jit_entry_c
             "karpenter_jit_entry_aot_compile_seconds_total",
             "karpenter_compile_cache_hits_total", "karpenter_compile_cache_misses_total",
             "karpenter_compile_cache_bytes")
+# the runtime witnesses' families: each package's witness books its own
+# package's sites (a site label names the package's file)
+WITNESS = ("karpenter_lockwitness_inversions_total", "karpenter_errflow_swallowed_total",
+           "karpenter_jaxwitness_retraces_total", "karpenter_jaxwitness_host_transfers_total")
 
 
 def _shared_entries():
@@ -138,7 +142,7 @@ SHARED_ENTRIES = _shared_entries()
 def samples(metrics):
     out = {}
     for name, m in list(metrics.REGISTRY._metrics.items()):
-        if name in TIMING or name in JIT_COST:
+        if name in TIMING or name in JIT_COST or name in WITNESS:
             continue
         if isinstance(m, metrics.Counter):
             vals = dict(m._values)
