@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's provisioning solve, its convex tier, the consolidation engine and the operator (in memory and over an apiserver) on one GPU.
+"""Drive the port's provisioning solve, its convex tier, the consolidation engine, the operator (in memory and over an apiserver) and the fleet's coalescing sidecar on one GPU.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
     python3 chip_smoke.py --rehearse-kube [N_PODS]
@@ -11,6 +11,8 @@
     python3 chip_smoke.py --witness OUT N_PODS N_WAVE G_MAX DEVICE
                                    (the process of phase `witness`; runs
                                    on the CPU too with DEVICE cpu)
+    python3 chip_smoke.py --rehearse-fleet [N_PODS]
+                                   (phase `fleet` alone, on the CPU, small)
 
 Runs the karpenter_tpu_torch main path at full width -- the 627-type
 generated catalog, 50,000 pending pods from 160 templates, one NodePool,
@@ -129,12 +131,36 @@ one JSON line each:
               from start to ready), `--in-cluster` without the service
               account's env (exit non-zero before any tick); the world --
               the port's Operator over KubeCluster, TorchSolver(g_max=1024)
-              and ConsolidationEvaluator, a FakeClock, 800 pods from the
-              160 templates, a 200-pod wave onto the live nodes, 75 % of
+              and ConsolidationEvaluator, a FakeClock, 600 pods from the
+              160 templates, a 150-pod wave onto the live nodes, 75 % of
               the pods deleted, 2 ramp-down ticks -- with tick walls, HTTP
               requests per tick, kernel launches (A and B both) and the
               device's idle share in a torch.profiler capture of the
               binding tick
+  fleet       N = 3 tenants through one coalescing sidecar: build_fleet_
+              server(coalesce=True) as a thread, each tenant a SolverClient(
+              tenant=) behind its own TorchSolver; each tenant's world the
+              50,000-pod synth_pods world with its own seed and salt
+              (bench.py's fleet stage at the main path's size), tick 2 a
+              10,000-pod wave onto tick 1's nodes, then a 75 % ramp-down
+              sweep over solve_disrupt; a sequential warm pass, then each
+              step from 3 threads at once, then one tenant after another:
+              every result equal to the same tenant alone on a plain
+              SolverServer, karpenter_tenant_dispatches_total{outcome="ok"}
+              equal to the ops the dispatcher ran, no rung; kernel A and B
+              launched inside windows (the dispatcher's thread), B's pre-
+              pass on the tenants' threads; the windows' sizes, each
+              tenant's dispatch count, the concurrent and sequential walls,
+              peak device memory, tenant_staged_bytes and max_tenants_for_
+              headroom; three drills on tick 1, each costing one tenant its
+              rung: fleet.dispatch=error(ConnectionError):times=1, a
+              deadline refusal behind a fleet.dispatch latency neighbour (a
+              2.5 s tenant budget, a 1.5 s window), a tenant breaker tripped
+              by 4 faults whose next solve is refused without a dispatch;
+              replay_fleet(3) against multi-cluster-storm.digests.json and
+              each tenant's isolated replay; `python -m karpenter_tpu_torch.
+              solver.rpc --coalesce --tenant-budget 2.0` as a subprocess:
+              ping advertises coalesce, two tenants each solve tick 1
   times       each kernel and its plain version at every main-path shape
               (kernel A at tick 1, tick 2 and in each world; kernel B at
               tick 2, the spread wave and each sweep; kernel A also on
@@ -157,12 +183,15 @@ one JSON line each:
               runs ticks 1 and 2 cold and warm (warm inside
               torch_witness.hot()), `enable_aot(duty=0.05)` with at least
               20 live ticks of tick 1 inside hot() while the ladder's thread
-              captures, a SolverServer thread with a cold and a warm wire
-              tick, and the `convex.rounding=error(RuntimeError):times=1`
-              drill; fails on any inversion, unsanctioned swallow or hot
-              violation; prints the counts, the witnessed lock sites, the
-              sanctioned fetches and the ticks' walls beside phase `times`'
-              unwitnessed tick 1
+              captures, a SolverServer thread with a DispatchCoalescer and
+              two tenants (a cold wire tick each, then a warm tick of both
+              at once inside hot(), run by the dispatcher thread), and the
+              `convex.rounding=error(RuntimeError):times=1` drill; fails on
+              any inversion, unsanctioned swallow or hot violation, and
+              unless the four wire ticks were coalesced; prints the counts,
+              the witnessed lock sites, the sanctioned fetches (the
+              dispatcher's in the warm ticks apart) and the ticks' walls
+              beside phase `times`' unwitnessed tick 1
   kernels     each kernel against its plain torch version on the card, on
               the main path's own inputs (tick 1's scan; tick 2's scan,
               whose C=128 holds 63 padded rows; tick 2's repack; the
@@ -224,6 +253,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -795,9 +825,10 @@ def phase_operator(dev, tag: dict, metrics, ka, kb):
 # `references`), so the card world and its reference run in turn: to stay
 # inside the script's time limit on a slow host, the ramp-down's ticks
 # were cut (4 to 2) and each stage's settle ticks (5 to 4, the last ones
-# idle) before the pods (1,000 to 800; PERF.md section 4).
-KUBE_PODS = 800
-KUBE_WAVE = 200
+# idle) before the pods (1,000 to 800), and the pods again (800 to 600, the
+# wave 200 to 150) when phase `fleet` joined the script (PERF.md section 4).
+KUBE_PODS = 600
+KUBE_WAVE = 150
 KUBE_BINARY_PODS = 200
 KUBE_STAGE_TICKS = (("pods", 4), ("wave", 4), ("ramp-down", 2))
 # the binding tick: the third of the first stage (the nodes the first
@@ -1179,6 +1210,17 @@ def phase_kube(dev, tag: dict, metrics, ka, kb):
     return launches, operands, [t["digest"] for t in card["ticks"]]
 
 
+def count_plain_launches(ka, kb) -> None:
+    """For a CPU rehearsal: each wrapper counts its calls as a launch, as
+    the wrappers count their kernels' launches on the card."""
+    for mod, name in ((ka, "fused_scan"), (kb, "disrupt_repack")):
+        def call(*a, _fn=getattr(mod, name), _mod=mod, **k):
+            with _mod._launches_lock:
+                _mod.launches += 1
+            return _fn(*a, **k)
+        setattr(mod, name, call)
+
+
 def rehearse_kube(n_pods: int) -> int:
     """`python3 chip_smoke.py --rehearse-kube [N_PODS]`: phases `kube` and
     `references` (its world only) on the CPU (DEVICE = "cpu", g_max 256,
@@ -1192,11 +1234,7 @@ def rehearse_kube(n_pods: int) -> int:
 
     torch.set_num_threads(4)
     DEVICE, G_MAX, KUBE_PODS, KUBE_WAVE = "cpu", 256, n_pods, n_pods // 4
-    for mod, name in ((ka, "fused_scan"), (kb, "disrupt_repack")):
-        def call(*a, _fn=getattr(mod, name), _mod=mod, **k):
-            _mod.launches += 1
-            return _fn(*a, **k)
-        setattr(mod, name, call)
+    count_plain_launches(ka, kb)
     tag = {"card": "cpu rehearsal", "power_limit": "n/a"}
     t0 = time.perf_counter()
     launches, _, digests = phase_kube(torch.device("cpu"), tag, metrics, ka, kb)
@@ -1207,6 +1245,493 @@ def rehearse_kube(n_pods: int) -> int:
     finally:
         stop_references(references)
     print(json.dumps({"rehearsal": "kube", "launches": launches, "card_seconds": card_s,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+# -- fleet: N tenants through one coalescing sidecar ---------------------------------
+# the JAX package's own fleet settings: `sim fleet --tenants 3`, bench.py's
+# FLEET_TENANTS=3; each tenant's world is bench.py's _fleet_coalescing_gain
+# world (synth_pods, seed 9,000 + t, salt t) at the main path's 50,000 pods
+FLEET_TENANTS = 3
+# the deadline drill: a server with a 2.5 s tenant budget and a 1.5 s window.
+# The victim (cluster-1) submits first; its neighbour (cluster-0, sorted
+# ahead of it) 0.8 s later, into the same window, and sleeps 1.5 s at
+# fleet.dispatch: the neighbour dispatches ~2.2 s after its own submit
+# (inside its budget), the victim 3.0 s plus the neighbour's solve after
+# its own (past it). Each margin is 0.3 s or more.
+FLEET_BUDGET_S = 2.5
+FLEET_DRILL_WINDOW_S = 1.5
+FLEET_DRILL_LAG_S = 0.8
+FLEET_DRILL_LATENCY_S = 1.5
+FLEET_BINARY_TIMEOUT_S = 180
+DISPATCHER_THREAD = "fleet-coalescer"    # DispatchCoalescer's thread
+
+
+def hist_now(h, **labels):
+    """(observations, sum) of a histogram's series."""
+    key = tuple(labels.get(n, "") for n in h.label_names)
+    return h._totals.get(key, 0), h._sums.get(key, 0.0)
+
+
+@contextlib.contextmanager
+def thread_recording(ka, kb):
+    """The operands each kernel wrapper is called with inside the block,
+    per kernel, with the calling thread's name; the calls go on to the
+    wrappers unchanged."""
+    rec = {"ffd_scan": [], "disrupt_repack": []}
+    lock = threading.Lock()
+    scan, repack = ka.fused_scan, kb.disrupt_repack
+
+    def scan_rec(*ops, **kw):
+        with lock:
+            rec["ffd_scan"].append((threading.current_thread().name, ops))
+        return scan(*ops, **kw)
+
+    def repack_rec(*ops):
+        with lock:
+            rec["disrupt_repack"].append((threading.current_thread().name, ops))
+        return repack(*ops)
+
+    ka.fused_scan, kb.disrupt_repack = scan_rec, repack_rec
+    try:
+        yield rec
+    finally:
+        ka.fused_scan, kb.disrupt_repack = scan, repack
+
+
+def phase_fleet(dev, tag: dict, metrics, ka, kb, items):
+    """Phase `fleet`: N tenants through one coalescing sidecar
+    (`build_fleet_server`, a thread of this script) against each tenant
+    alone on a plain `SolverServer`; the fault drills; the storm corpus
+    through `replay_fleet`; the `--coalesce` binary. Returns the launches
+    of each counted run and the kernels' operands on the fleet's path."""
+    from karpenter_tpu_torch import workload
+    from karpenter_tpu_torch.apis import NodePool
+    from karpenter_tpu_torch.failpoints import FAILPOINTS
+    from karpenter_tpu_torch.fleet.service import (build_fleet_server,
+                                                   max_tenants_for_headroom,
+                                                   tenant_staged_bytes)
+    from karpenter_tpu_torch.sim.fleet import replay_fleet
+    from karpenter_tpu_torch.solver import rpc
+    from karpenter_tpu_torch.solver.disrupt import DisruptEngine
+    from karpenter_tpu_torch.solver.service import TorchSolver
+
+    on_card = dev.type == "cuda"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    names = [f"cluster-{t}" for t in range(FLEET_TENANTS)]
+    pool = NodePool("default")
+    tmp = tempfile.mkdtemp(prefix="kt-")
+    servers, clients, procs = [], [], []
+    launches, operands = {}, {"ffd_scan": {}, "disrupt_repack": {}}
+    checks, doc = {}, {"tenants": FLEET_TENANTS, "pods": [N_PODS, N_WAVE], "g_max": G_MAX}
+    t_phase = time.perf_counter()
+    a0, b0 = ka.launches, kb.launches
+    plain0 = {k: v for k, v in dispatch_counts(metrics).items() if k.endswith("/plain")}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def wire_solver(path, tenant=None):
+        client = rpc.SolverClient(path=path, tenant=tenant, timeout=300.0,
+                                  track_transport=False)
+        clients.append(client)
+        return TorchSolver(g_max=G_MAX, device=dev, client=client, breaker=False)
+
+    def rungs():
+        return metrics.SOLVER_PIPELINE_FALLBACKS.value(reason="rpc-down")
+
+    def tenant_counts(ts=names):
+        return {f"{n} {k}": v for n in ts for k, v in (
+            ("ok", metrics.TENANT_DISPATCHES.value(tenant=n, outcome="ok")),
+            ("error", metrics.TENANT_DISPATCHES.value(tenant=n, outcome="error")),
+            ("deadline", metrics.TENANT_REFUSALS.value(tenant=n, reason="deadline")),
+            ("breaker-open", metrics.TENANT_REFUSALS.value(tenant=n, reason="breaker-open")),
+            ("trips", metrics.TENANT_BREAKER_TRIPS.value(tenant=n)),
+            ("dispatched", hist_now(metrics.TENANT_DISPATCH_SECONDS, tenant=n)[0]))}
+
+    def counts_moved(before):
+        return {k: v - before[k] for k, v in tenant_counts(
+            sorted({k.split()[0] for k in before})).items() if v != before[k]}
+
+    def concurrently(fn, tenants):
+        """fn(t) from one thread per tenant at once: (results, wall ms)."""
+        out, errs = {}, {}
+
+        def run(t):
+            try:
+                out[t] = fn(t)
+            except BaseException as e:  # noqa: BLE001 -- re-raised below
+                errs[t] = e
+
+        threads = [threading.Thread(target=run, args=(t,), name=f"tenant-{t}") for t in tenants]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        if errs or any(th.is_alive() for th in threads):
+            raise AssertionError(f"a tenant thread failed: {errs}")
+        return out, wall
+
+    try:
+        # the tenants' worlds: tick 1, a wave onto tick 1's nodes, a ramp-down
+        worlds = []
+        for t in range(FLEET_TENANTS):
+            worlds.append({
+                "pods1": workload.synth_pods(np.random.default_rng(9_000 + t), workload.ZONES,
+                                             N_PODS, salt=t),
+                "wave": workload.synth_pods(np.random.default_rng(9_500 + t), workload.ZONES,
+                                            N_WAVE, salt=50 + t)})
+
+        # 1. each tenant alone against a plain sidecar: the references
+        iso_path = os.path.join(tmp, "iso.sock")
+        servers.append(rpc.SolverServer(path=iso_path, device=dev).start())
+        ref = []
+        for t, w in enumerate(worlds):
+            s = wire_solver(iso_path)
+            r1 = s.solve(pool, items, w["pods1"])
+            w["nodes"] = workload.nodes_from_result(r1, prefix=f"{names[t]}-node")
+            r2 = s.solve(pool, items, w["wave"], existing_nodes=w["nodes"])
+            spec = workload.rampdown_sweep_spec(r1, np.random.default_rng(SEED + 3 + t),
+                                                prefix=f"{names[t]}-node")
+            nodes_s, sets_s = workload.sweep_world(spec)
+            pools_s, ovh_s = workload.sweep_pools("default")
+            w["sweep"] = (nodes_s, sets_s, dict(pools=pools_s, catalogs={p.name: items
+                                                                      for p in pools_s},
+                                                daemon_overhead=ovh_s))
+            eng = DisruptEngine(solver=s)
+            verdicts = eng.evaluate(nodes_s, sets_s, **w["sweep"][2])
+            if eng.last_dispatch["path"] != "wire":
+                raise AssertionError(f"{names[t]}'s isolated sweep left the wire")
+            ref.append({"tick 1": decision_digest(r1), "tick 2": decision_digest(r2),
+                        "sweep": [repr(v) for v in verdicts]})
+        doc["worlds"] = [{"tenant": names[t], "pods": len(w["pods1"]), "wave": len(w["wave"]),
+                          "tick1_nodes": len(w["nodes"]), "sweep_sets": len(w["sweep"][1])}
+                         for t, w in enumerate(worlds)]
+
+        # 2. the coalescing sidecar; every op its dispatcher runs is counted
+        path = os.path.join(tmp, "fleet.sock")
+        srv = build_fleet_server(path=path, mesh=False, coalesce=True, device=dev)
+        servers.append(srv)
+        coal = srv._coalescer
+        ops_run = [0]
+        dispatch_solve = srv._dispatch_solve
+
+        def counted_op(*a, **k):
+            ops_run[0] += 1
+            return dispatch_solve(*a, **k)
+
+        srv._dispatch_solve = counted_op
+        solvers = [wire_solver(path, n) for n in names]
+        engines = [DisruptEngine(solver=s) for s in solvers]
+        steps = {
+            "tick 1": lambda t: solvers[t].solve(pool, items, worlds[t]["pods1"]),
+            "tick 2": lambda t: solvers[t].solve(pool, items, worlds[t]["wave"],
+                                                 existing_nodes=worlds[t]["nodes"]),
+            "sweep": lambda t: engines[t].evaluate(worlds[t]["sweep"][0], worlds[t]["sweep"][1],
+                                                   **worlds[t]["sweep"][2]),
+        }
+
+        def result_of(step, r):
+            return [repr(v) for v in r] if step == "sweep" else decision_digest(r)
+
+        def equal(step, out):
+            return {names[t]: result_of(step, out[t]) == ref[t][step] for t in out}
+
+        if "coalesce" not in solvers[0].client.features():
+            raise AssertionError("the coalescing sidecar does not advertise coalesce")
+        # a sequential warm pass stages every tenant's catalog and epochs
+        warm_equal = {}
+        for step, fn in steps.items():
+            warm_equal[step] = equal(step, {t: fn(t) for t in range(FLEET_TENANTS)})
+
+        # the concurrent pass: each step from one thread per tenant at once
+        before = tenant_counts()
+        secs0 = {n: hist_now(metrics.TENANT_DISPATCH_SECONDS, tenant=n) for n in names}
+        n_win0 = len(metrics.TENANT_WINDOW_SIZE._samples.get((), []))
+        rung0, ops0 = rungs(), ops_run[0]
+        la, lb = ka.launches, kb.launches
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        conc, recs = {}, {}
+        for step, fn in steps.items():
+            with thread_recording(ka, kb) as rec:
+                out, wall = concurrently(fn, range(FLEET_TENANTS))
+            recs[step] = rec
+            conc[step] = {"wall_ms": wall, "equal": equal(step, out),
+                          "in_window": {k: sum(th == DISPATCHER_THREAD for th, _ in v)
+                                        for k, v in rec.items()},
+                          "on_tenant_threads": {k: sum(th != DISPATCHER_THREAD for th, _ in v)
+                                                for k, v in rec.items()}}
+        launches["fleet concurrent pass"] = {"ffd_scan": ka.launches - la,
+                                             "disrupt_repack": kb.launches - lb}
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        deadline = time.perf_counter() + 10
+        while (sum(v for k, v in counts_moved(before).items() if k.endswith(" ok"))
+               < ops_run[0] - ops0 and time.perf_counter() < deadline):
+            time.sleep(0.01)
+        moved_c = counts_moved(before)
+        ok_c = sum(v for k, v in moved_c.items() if k.endswith(" ok"))
+        windows = [int(v) for v in metrics.TENANT_WINDOW_SIZE._samples.get((), [])[n_win0:]]
+        doc["concurrent"] = {
+            "steps": conc, "coalesced_ops": ops_run[0] - ops0, "tenant_counts_moved": moved_c,
+            "windows": {"n": len(windows), "sizes": dict(collections.Counter(windows))},
+            "dispatch_s": {n: {"n": now[0] - secs0[n][0], "sum_s": now[1] - secs0[n][1]}
+                           for n in names
+                           for now in [hist_now(metrics.TENANT_DISPATCH_SECONDS, tenant=n)]},
+            "peak_device_bytes": peak, "rungs": rungs() - rung0,
+            "sweeps_on_wire": [e.last_dispatch["path"] for e in engines]}
+        checks["concurrent_equal_isolated"] = all(all(s["equal"].values()) for s in conc.values())
+        checks["warm_pass_equal_isolated"] = all(all(v.values()) for v in warm_equal.values())
+        checks["coalesced_ok_equals_ops"] = ok_c == ops_run[0] - ops0 >= 3 * FLEET_TENANTS
+        checks["no_error_or_refusal_in_clean_pass"] = set(k.split()[1] for k in moved_c) <= {
+            "ok", "dispatched"}
+        checks["no_rung"] = rungs() == rung0 and all(e.last_dispatch["path"] == "wire"
+                                                     for e in engines)
+        checks["kernel_a_in_windows"] = (conc["tick 1"]["in_window"]["ffd_scan"] >= FLEET_TENANTS
+                                         and conc["tick 2"]["in_window"]["ffd_scan"] >= FLEET_TENANTS)
+        checks["kernel_b_in_windows"] = conc["sweep"]["in_window"]["disrupt_repack"] >= FLEET_TENANTS
+        checks["kernel_b_prepass_on_tenant_threads"] = (
+            conc["tick 2"]["on_tenant_threads"]["disrupt_repack"] >= FLEET_TENANTS)
+
+        # the fleet's own operands (phases `kernels` and `times`): one tenant's
+        # tick 1 and tick 2 scans and its sweep's repack inside windows, the
+        # tick 2 pre-pass on a tenant's thread
+        def first(step, kernel, in_window=True):
+            got = [ops for th, ops in recs[step][kernel] if (th == DISPATCHER_THREAD) == in_window]
+            return got[0], len(got)
+
+        operands["ffd_scan"]["fleet tick 1, in a window"] = first("tick 1", "ffd_scan")
+        operands["ffd_scan"]["fleet tick 2, in a window"] = first("tick 2", "ffd_scan")
+        operands["disrupt_repack"]["fleet tick 2 pre-pass, tenant thread"] = first(
+            "tick 2", "disrupt_repack", in_window=False)
+        operands["disrupt_repack"]["fleet sweep, in a window"] = first("sweep", "disrupt_repack")
+
+        # the same steps one tenant after another (the sequential walls)
+        seq = {}
+        for step, fn in steps.items():
+            t0 = time.perf_counter()
+            out = {t: fn(t) for t in range(FLEET_TENANTS)}
+            sync()
+            seq[step] = {"wall_ms": (time.perf_counter() - t0) * 1e3, "equal": equal(step, out)}
+        checks["sequential_equal_isolated"] = all(all(s["equal"].values()) for s in seq.values())
+        doc["walls_ms"] = {step: {"concurrent": conc[step]["wall_ms"],
+                                  "sequential": seq[step]["wall_ms"],
+                                  "sequential_over_concurrent":
+                                      seq[step]["wall_ms"] / conc[step]["wall_ms"]}
+                           for step in steps}
+        doc["sizing"] = {"tenant_staged_bytes_client": tenant_staged_bytes(solvers[0]),
+                         "server_staged_bytes": solvers[0].client.debug_info()["staged_bytes"],
+                         "max_tenants_for_headroom": max_tenants_for_headroom(),
+                         "max_tenants_for_headroom_client_ledger":
+                             max_tenants_for_headroom(solver=solvers[0])}
+        doc["coalescer"] = coal.describe()
+
+        # 3. the drills, each on the concurrent world's tick 1
+        tick1 = steps["tick 1"]
+        # (a) a dispatch fault: exactly one tenant takes its rung
+        before, r0 = tenant_counts(), rungs()
+        FAILPOINTS.arm_spec("fleet.dispatch=error(ConnectionError):times=1")
+        try:
+            out, wall = concurrently(tick1, range(FLEET_TENANTS))
+            fires = FAILPOINTS.fires("fleet.dispatch")
+        finally:
+            FAILPOINTS.reset()
+        moved_a = counts_moved(before)
+        errors = {k: v for k, v in moved_a.items() if k.endswith(" error")}
+        drill_a = {"spec": "fleet.dispatch=error(ConnectionError):times=1", "fires": fires,
+                   "rungs": rungs() - r0, "errors": errors, "wall_ms": wall,
+                   "equal": equal("tick 1", out)}
+        # the next concurrent tick as before: no rung
+        r1 = rungs()
+        out, _ = concurrently(tick1, range(FLEET_TENANTS))
+        drill_a["next_tick_equal_no_rung"] = all(equal("tick 1", out).values()) and rungs() == r1
+        checks["drill_dispatch_fault_one_tenant"] = (
+            fires == 1 and drill_a["rungs"] == 1 and sum(errors.values()) == 1
+            and all(drill_a["equal"].values()) and drill_a["next_tick_equal_no_rung"])
+
+        # (b) a deadline refusal behind a slow neighbour (not kernel time)
+        dl_path = os.path.join(tmp, "deadline.sock")
+        dl = build_fleet_server(path=dl_path, mesh=False, device=dev,
+                                tenant_budget_s=FLEET_BUDGET_S, window_s=FLEET_DRILL_WINDOW_S)
+        servers.append(dl)
+        neighbour, victim = 0, 1
+        dls = {t: wire_solver(dl_path, names[t]) for t in (neighbour, victim)}
+        for t, s in dls.items():
+            s.solve(pool, items, worlds[t]["pods1"])
+        seen = []
+        wire_down = dls[victim]._wire_down
+        dls[victim]._wire_down = lambda e, what: (seen.append(f"{type(e).__name__}: {e}"[:300]),
+                                                  wire_down(e, what))
+        before, r0 = tenant_counts([names[neighbour], names[victim]]), rungs()
+        spec_b = f"fleet.dispatch=latency({FLEET_DRILL_LATENCY_S}):times=1"
+        FAILPOINTS.arm_spec(spec_b)
+        def lagged_tick1(t):
+            if t == neighbour:
+                time.sleep(FLEET_DRILL_LAG_S)
+            return dls[t].solve(pool, items, worlds[t]["pods1"])
+
+        try:
+            out, wall = concurrently(lagged_tick1, (victim, neighbour))
+        finally:
+            FAILPOINTS.reset()
+        moved_b = counts_moved(before)
+        drill_b = {"spec": spec_b, "tenant_budget_s": FLEET_BUDGET_S,
+                   "window_s": FLEET_DRILL_WINDOW_S, "neighbour_lag_s": FLEET_DRILL_LAG_S,
+                   "victim": names[victim], "neighbour": names[neighbour], "moved": moved_b,
+                   "rungs": rungs() - r0, "wall_ms": wall, "victim_wire_error": seen,
+                   "victim_breaker_open": dl._coalescer.tenant_open(names[victim]),
+                   "victim_failures": dl._coalescer.describe()["tenants"][names[victim]]["failures"],
+                   "equal": equal("tick 1", out)}
+        checks["drill_deadline_refuses_one_tenant"] = (
+            moved_b == {f"{names[victim]} deadline": 1, f"{names[victim]} dispatched": 1,
+                        f"{names[neighbour]} ok": 1, f"{names[neighbour]} dispatched": 1}
+            and drill_b["rungs"] == 1 and not drill_b["victim_breaker_open"]
+            and drill_b["victim_failures"] == 0 and all(drill_b["equal"].values())
+            and len(seen) == 1 and "TenantRefusal" in seen[0] and "deadline" in seen[0])
+
+        # (c) a tenant's breaker trips after 4 failures; its next solve is
+        # refused at submit, without a dispatch; the others are untouched
+        x = FLEET_TENANTS - 1
+        others = [t for t in range(FLEET_TENANTS) if t != x]
+        before, r0 = tenant_counts(), rungs()
+        spec_c = "fleet.dispatch=error(ConnectionError):times=4"
+        FAILPOINTS.arm_spec(spec_c)
+        fail_ms, eq_c = [], []
+        try:
+            for _ in range(4):
+                t0 = time.perf_counter()
+                eq_c.append(decision_digest(tick1(x)) == ref[x]["tick 1"])
+                fail_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            FAILPOINTS.reset()
+        t0 = time.perf_counter()
+        eq_c.append(decision_digest(tick1(x)) == ref[x]["tick 1"])
+        refused_ms = (time.perf_counter() - t0) * 1e3
+        out, _ = concurrently(tick1, others)
+        moved_c3 = counts_moved(before)
+        drill_c = {"spec": spec_c, "tenant": names[x], "moved": moved_c3, "rungs": rungs() - r0,
+                   "failed_tick_ms": fail_ms, "refused_tick_ms": refused_ms,
+                   "breaker_open": coal.tenant_open(names[x]),
+                   "breaker_state_gauge": metrics.TENANT_BREAKER_STATE.value(tenant=names[x]),
+                   "equal": {names[x]: all(eq_c), **equal("tick 1", out)}}
+        want_c = {f"{names[x]} error": 4, f"{names[x]} trips": 1,
+                  f"{names[x]} breaker-open": 1, f"{names[x]} dispatched": 4,
+                  **{f"{names[t]} ok": 1 for t in others},
+                  **{f"{names[t]} dispatched": 1 for t in others}}
+        checks["drill_breaker_trips_one_tenant"] = (
+            moved_c3 == want_c and drill_c["rungs"] == 5 and drill_c["breaker_open"]
+            and drill_c["breaker_state_gauge"] == 1.0 and all(drill_c["equal"].values()))
+        doc["drills"] = {"dispatch_fault": drill_a, "deadline": drill_b, "breaker": drill_c}
+
+        # 4. the storm corpus: N tenants' replays through one coalescing sidecar
+        with open(os.path.join(repo, "tests", "golden", "scenarios",
+                               "multi-cluster-storm.digests.json")) as f:
+            golden = json.load(f)
+        la, lb = ka.launches, kb.launches
+        t0 = time.perf_counter()
+        res = replay_fleet(FLEET_TENANTS, device=DEVICE)
+        launches["fleet storm corpus"] = {"ffd_scan": ka.launches - la,
+                                          "disrupt_repack": kb.launches - lb}
+        doc["storm"] = {"wall_s": time.perf_counter() - t0, "digests": res.digests,
+                        "divergences": res.divergences,
+                        "launches": launches["fleet storm corpus"]}
+        checks["storm_digests_pinned"] = res.digests == golden
+        checks["storm_equal_isolated"] = res.ok and len(res.isolated) == FLEET_TENANTS
+
+        # 5. the binary: python -m karpenter_tpu_torch.solver.rpc --coalesce
+        bin_sock, bin_log = os.path.join(tmp, "bin.sock"), os.path.join(tmp, "bin.log")
+        with open(bin_log, "wb") as log:
+            t0 = time.perf_counter()
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "karpenter_tpu_torch.solver.rpc", "--socket", bin_sock,
+                 "--device", DEVICE, "--coalesce", "--tenant-budget", "2.0"],
+                cwd=repo, stdout=log, stderr=log))
+        while True:
+            if procs[-1].poll() is not None:
+                with open(bin_log) as f:
+                    raise AssertionError(f"the --coalesce sidecar exited: {f.read()[-2000:]}")
+            probe = rpc.SolverClient(path=bin_sock, timeout=5.0, connect_timeout=1.0,
+                                     shm=False, track_transport=False)
+            try:
+                if probe.ping():
+                    features = sorted(probe.features())
+                    break
+            except OSError:
+                pass
+            finally:
+                probe.close()
+            if time.perf_counter() - t0 > FLEET_BINARY_TIMEOUT_S:
+                raise AssertionError("the --coalesce sidecar did not answer ping")
+            time.sleep(0.2)
+        start_s = time.perf_counter() - t0
+        bins = [wire_solver(bin_sock, f"bin-{t}") for t in range(2)]
+        bin_equal = [decision_digest(s.solve(pool, items, worlds[t]["pods1"])) == ref[t]["tick 1"]
+                     for t, s in enumerate(bins)]
+        bin_doc = bins[0].client.debug_info()["coalescer"]
+        doc["binary"] = {"cmd": "python -m karpenter_tpu_torch.solver.rpc --coalesce "
+                                "--tenant-budget 2.0", "start_to_ping_s": start_s,
+                         "features": features, "tick1_equal": bin_equal,
+                         "coalescer": bin_doc}
+        checks["binary_coalesces_two_tenants"] = (
+            "coalesce" in features and all(bin_equal)
+            and sorted(bin_doc["tenants"]) == ["bin-0", "bin-1"])
+    finally:
+        FAILPOINTS.reset()
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.stop()
+            s._thread.join(timeout=30)
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches["fleet (the phase)"] = {"ffd_scan": ka.launches - a0,
+                                     "disrupt_repack": kb.launches - b0}
+    plain1 = {k: v for k, v in dispatch_counts(metrics).items() if k.endswith("/plain")}
+    checks["no_plain_version_on_the_card"] = DEVICE == "cpu" or plain1 == plain0
+    doc["launches"] = launches
+    doc["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "fleet", "entry": "build_fleet_server(coalesce=True); "
+          "SolverClient(tenant=); TorchSolver(client=); DisruptEngine over solve_disrupt; "
+          "replay_fleet; python -m karpenter_tpu_torch.solver.rpc --coalesce",
+          **doc, "checks": checks,
+          "walls_note": "host clock ending in a sync; dispatch_s: the coalescer's per-tenant "
+                        "dispatch histogram over the concurrent pass",
+          **tag})
+    if not all(checks.values()):
+        raise AssertionError(f"phase fleet: {checks}")
+    # the whole phase's launches count once (the passes are inside it)
+    return {"fleet (the phase)": launches["fleet (the phase)"]}, operands
+
+
+def rehearse_fleet(n_pods: int) -> int:
+    """`python3 chip_smoke.py --rehearse-fleet [N_PODS]`: phase `fleet` on
+    the CPU (DEVICE = "cpu", g_max 256, the wave a fifth of N_PODS, the
+    binary with --device cpu), each kernel wrapper counted as the phase
+    counts launches on the card; prints the phase's line and the seconds."""
+    global DEVICE, G_MAX, N_PODS, N_WAVE
+    from karpenter_tpu_torch import metrics, workload
+    from karpenter_tpu_torch.solver.kernels import disrupt_repack as kb
+    from karpenter_tpu_torch.solver.kernels import ffd_scan as ka
+
+    torch.set_num_threads(4)
+    DEVICE, G_MAX, N_PODS, N_WAVE = "cpu", 256, n_pods, n_pods // 5
+    count_plain_launches(ka, kb)
+    t0 = time.perf_counter()
+    launches, _ = phase_fleet(torch.device("cpu"), {"card": "cpu rehearsal", "power_limit": "n/a"},
+                              metrics, ka, kb, workload.build_catalog_items())
+    print(json.dumps({"rehearsal": "fleet", "launches": launches,
                       "seconds": time.perf_counter() - t0}), flush=True)
     return 0
 
@@ -1399,8 +1924,9 @@ def witness_child(out_path: str) -> int:
     main path, cold then warm (the warm ones inside torch_witness.hot());
     (b) `enable_aot(duty=0.05)`, as the binary runs it, and live ticks
     inside hot() while the ladder's thread captures; (c) a SolverServer
-    thread and ticks through the port's client; (d) the convex.rounding
-    drill. Writes the witnesses' counts and the ticks' walls to OUT."""
+    thread with a DispatchCoalescer and two tenants' ticks through the
+    port's client, cold, then warm and at once inside hot(); (d) the
+    convex.rounding drill. Writes the witnesses' counts and the ticks' walls to OUT."""
     from karpenter_tpu_torch.analysis import witness
 
     witness.install()
@@ -1486,19 +2012,59 @@ def witness_child(out_path: str) -> int:
                      "armed_graphs": ladder["armed"], "ladder_busy_at_end": ladder["ladder_busy"],
                      "decisions_equal": same_live}
 
-    # (c) the sidecar as a thread: a cold wire tick (staging), then a warm one in hot()
+    # (c) the sidecar as a thread with a coalescer: two tenants, a cold wire
+    # tick each (staging), then a warm tick of both at once inside hot(), each
+    # op run by the coalescer's dispatcher thread
+    from karpenter_tpu_torch.fleet.coalesce import DispatchCoalescer
+
     wire_dir = tempfile.mkdtemp(prefix="kt-")
-    server = rpc.SolverServer(path=os.path.join(wire_dir, "w.sock"), device=dev).start()
+    server = rpc.SolverServer(path=os.path.join(wire_dir, "w.sock"), device=dev,
+                              coalescer=DispatchCoalescer()).start()
+    tenants = ("witness-0", "witness-1")
+    clients = [rpc.SolverClient(path=os.path.join(wire_dir, "w.sock"), timeout=120.0, tenant=t)
+               for t in tenants]
     try:
-        client = rpc.SolverClient(path=os.path.join(wire_dir, "w.sock"), timeout=120.0)
-        wire_solver = TorchSolver(g_max=G_MAX, device=dev, client=client)
-        r_cold, wire_cold = timed(lambda: wire_solver.solve(pool, items, pods1))
-        r_warm, wire_warm = timed(lambda: wire_solver.solve(pool, items, pods1), "wire tick")
-        doc["wire"] = {"cold_ms": wire_cold, "warm_ms": wire_warm,
-                       "transport": "shm" if client._ring is not None else "tcp",
-                       "decisions_equal": decision_digest(r_cold) == decision_digest(r_warm) == d1}
-        client.close()
+        wire_solvers = [TorchSolver(g_max=G_MAX, device=dev, client=c) for c in clients]
+        ok0 = sum(metrics.TENANT_DISPATCHES.value(tenant=t, outcome="ok") for t in tenants)
+        cold = [timed(lambda s=s: s.solve(pool, items, pods1)) for s in wire_solvers]
+        st0 = torch_witness.stats()
+        warm, errs = {}, []
+
+        def warm_tick(i):
+            try:
+                warm[i] = wire_solvers[i].solve(pool, items, pods1)
+            except BaseException as e:  # noqa: BLE001 -- reported below
+                errs.append(e)
+
+        with torch_witness.hot("coalesced wire ticks"):
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=warm_tick, args=(i,)) for i in range(2)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(300)
+            sync()
+            wire_warm = (time.perf_counter() - t0) * 1e3
+        st1 = torch_witness.stats()
+        if errs:
+            raise errs[0]
+        digests = [decision_digest(r) for r, _ in cold] + [decision_digest(warm[i]) for i in range(2)]
+        doc["wire"] = {"tenants": list(tenants), "cold_ms": [ms for _, ms in cold],
+                       "warm_both_ms": wire_warm,
+                       "transport": ["shm" if c._ring is not None else "tcp" for c in clients],
+                       "coalesced_dispatches": sum(metrics.TENANT_DISPATCHES.value(
+                           tenant=t, outcome="ok") for t in tenants) - ok0,
+                       "dispatcher": {
+                           "sanctioned_fetches_in_warm_ticks":
+                               st1["sanctioned_fetches"] - st0["sanctioned_fetches"],
+                           "lock_sites_on_its_path": {
+                               k: v for k, v in witness.sites().items()
+                               if "fleet/coalesce.py" in k or "solver/rpc.py" in k}},
+                       "coalescer": server._coalescer.describe(),
+                       "decisions_equal": all(d == d1 for d in digests)}
     finally:
+        for c in clients:
+            c.close()
         server.stop()
         shutil.rmtree(wire_dir, ignore_errors=True)
 
@@ -1576,6 +2142,7 @@ def phase_witness(tag: dict, unwitnessed: dict) -> dict:
         "ladder_captured_beside_live_ticks": DEVICE == "cpu" or doc["ladder"]["captures_in_window"] >= 1,
         "live_decisions_equal": doc["ladder"]["decisions_equal"],
         "wire_decisions_equal": doc["wire"]["decisions_equal"],
+        "wire_ticks_coalesced": doc["wire"]["coalesced_dispatches"] == 4,
         "drill_on_the_ffd_rung_once": (doc["drill"]["fallbacks_moved"] == 1
                                        and doc["drill"]["drilled_equals_ffd_tick"]),
     }
@@ -2567,6 +3134,11 @@ def main() -> int:
     operator_launches.update(kube_launches)
     for kernel, rows in kube_ops.items():
         operator_ops[kernel].update(rows)
+    # -- fleet: N tenants through one coalescing sidecar ---------------------------
+    fleet_launches, fleet_ops = phase_fleet(dev, tag, metrics, ka, kb, items)
+    operator_launches.update(fleet_launches)
+    for kernel, rows in fleet_ops.items():
+        operator_ops[kernel].update(rows)
 
     # the main path's own kernel inputs: tick 1's scan, tick 2's repack
     classes1 = encode.group_pods(pods1, extra_requirements=pool.requirements())
@@ -3279,6 +3851,8 @@ if __name__ == "__main__":
         N_PODS, N_WAVE, G_MAX = (int(v) for v in sys.argv[3:6])
         DEVICE = sys.argv[6]
         sys.exit(witness_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--rehearse-fleet"]:
+        sys.exit(rehearse_fleet(int(sys.argv[2]) if len(sys.argv) > 2 else 3000))
     if sys.argv[1:2] == ["--rehearse-kube"]:
         sys.exit(rehearse_kube(int(sys.argv[2]) if len(sys.argv) > 2 else 200))
     sys.exit(main())

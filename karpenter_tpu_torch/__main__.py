@@ -24,7 +24,7 @@ Differences from the JAX binary:
   exits 2 before building anything, naming `--device cpu`, which is the
   only way to run the kernels' plain versions on the host;
 - `--device cuda|cpu` is new; `--mesh-devices` waits for the mesh
-  (ROADMAP A11);
+  (ROADMAP A11b);
 - the cold-start layer as the JAX binary's: on the card the versioned
   kernel-library store is prepared under $KARPENTER_TPU_COMPILE_CACHE
   (`utils.enable_compilation_cache`), and an in-process solver is built

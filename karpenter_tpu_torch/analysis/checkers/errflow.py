@@ -4,10 +4,8 @@ Copy of karpenter_tpu/analysis/checkers/errflow.py over the port. The
 manifests (``LADDER_SEAMS``, ``SANCTIONED_CRASH_SWALLOWS``,
 ``SANCTIONED_ESCAPE_SITES``, ``FAILPOINT_INJECTS``, ``RAISE_SOURCES``)
 name the port's own paths; the terminal rungs are ``TorchSolver``'s.
-Entries whose code lives in the fleet and mesh modules the port does not
-have yet are left out, and come with those modules: the tenant-dispatch
-seam ``fleet/coalesce.py:DispatchCoalescer._run_one`` and the crash
-terminal ``fleet/coalesce.py:_loop`` (ROADMAP A11a); the mesh seams
+Entries whose code lives in the mesh modules the port does not have yet
+are left out, and come with those modules: the mesh seams
 ``fleet/shard.py:MeshSolveEngine._dispatch`` and ``._reshard``,
 ``fleet/straggler.py:ShardStragglerWatchdog.check_now`` and the
 ``mesh.`` failpoint prefix (ROADMAP A11b).
@@ -205,6 +203,20 @@ LADDER_SEAMS: Tuple[Seam, ...] = (
          failpoint="rpc.shm.corrupt",
          why="ring recv: closed/dead-peer states surface as ShmError so "
              "the client's stream ladder handles them as connection loss"),
+    # -- tenant dispatch: the fleet coalescer's per-submission runner --
+    # every per-tenant dispatch failure becomes THAT submission's outcome
+    # (re-raised in its own handler thread, crossing the wire as ITS
+    # error reply) plus its tenant's breaker accounting; nothing may
+    # escape to kill the dispatcher thread or poison another tenant's
+    # window. OperatorCrashed is a BaseException and still propagates.
+    Seam("karpenter_tpu_torch/fleet/coalesce.py", "DispatchCoalescer", "_run_one",
+         must_handle=("ConnectionError", "OSError", "TimeoutError",
+                      "StaleSeqnumError", "StaleEpochError", "ShmError",
+                      "RuntimeError", "ValueError", "KeyError"),
+         failpoint="fleet.dispatch",
+         why="the tenant-dispatch seam: one sick cluster's failures are "
+             "data on its own submissions, never an exception into the "
+             "shared dispatch loop"),
     # -- server dispatch: errors cross the wire, never kill the connection loop
     Seam("karpenter_tpu_torch/solver/rpc.py", "SolverServer", "_dispatch",
          must_handle=("StaleSeqnumError", "StaleEpochError", "ValueError",
@@ -252,6 +264,14 @@ SANCTIONED_CRASH_SWALLOWS: Dict[Tuple[str, str], str] = {
         "the operator mid-tick and _restart_operator brings up the next "
         "incarnation over the surviving cluster state (the crash-chaos "
         "soak's core loop)",
+    ("karpenter_tpu_torch/fleet/coalesce.py", "_loop"):
+        "the fleet dispatcher's crash terminal: the sidecar's dispatch "
+        "thread has no run-loop driver above it, so a crash TERMINATES "
+        "the coalescer here -- every queued submission fails with a typed "
+        "refusal (each tenant's client degrades to its in-process rung), "
+        "close() makes future submits refuse fast, and the crash is "
+        "logged + counted (karpenter_handled_errors_total); an unhandled "
+        "daemon-thread death would instead silently wedge every tenant",
 }
 
 # Handler sites sanctioned to absorb a LADDER-CLASS exception at runtime

@@ -56,9 +56,6 @@ _SITE_FUNCS = {"eval", "corrupt", "live", "hits", "fires"}
 # documented families the port leaves out on purpose, by name prefix ->
 # why. Everything else docs/metrics.md lists, the port registers.
 OMITTED_FAMILIES: Dict[str, str] = {
-    "karpenter_tenant_":
-        "the fleet coalescer's per-tenant families come with fleet/coalesce.py "
-        "and SolverServer(coalescer=) (ROADMAP A11a)",
     "karpenter_mesh_":
         "the sharded engine's topology families come with parallel/mesh.py "
         "and fleet/shard.py (ROADMAP A11b)",

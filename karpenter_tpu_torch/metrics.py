@@ -394,6 +394,39 @@ WIRE_SHM_SEND_TIMEOUTS = REGISTRY.counter(
     "freed ring space within the send deadline (a wedged reader; "
     "surfaces as a ConnectionError feeding the shm->tcp degrade ladder)",
 )
+# fleet subsystem: multi-tenant dispatch coalescer (fleet/coalesce.py)
+TENANT_DISPATCHES = REGISTRY.counter(
+    "karpenter_tenant_dispatches_total",
+    "Coalesced per-tenant solve dispatches, by outcome (ok/error)",
+    labels=("tenant", "outcome"),
+)
+TENANT_DISPATCH_SECONDS = REGISTRY.histogram(
+    "karpenter_tenant_dispatch_seconds",
+    "Wall time of one tenant's dispatch inside a coalesced window "
+    "(queue wait excluded)", labels=("tenant",),
+)
+TENANT_WINDOW_SIZE = REGISTRY.histogram(
+    "karpenter_tenant_window_size",
+    "Submissions drained per coalesced dispatch window",
+    buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32),
+)
+TENANT_REFUSALS = REGISTRY.counter(
+    "karpenter_tenant_refusals_total",
+    "Typed per-tenant refusals (breaker-open fast path, deadline blown "
+    "while queued) -- each crosses the wire as an error reply into the "
+    "client's existing overload/degrade ladder",
+    labels=("tenant", "reason"),
+)
+TENANT_BREAKER_STATE = REGISTRY.gauge(
+    "karpenter_tenant_breaker_state",
+    "Per-tenant dispatch breaker (1 = open: this tenant's solves refuse "
+    "fast while other tenants dispatch normally)", labels=("tenant",),
+)
+TENANT_BREAKER_TRIPS = REGISTRY.counter(
+    "karpenter_tenant_breaker_trips_total",
+    "Per-tenant breaker trips (K consecutive dispatch failures)",
+    labels=("tenant",),
+)
 # the convex tier (solver/convex/): LP relaxation + rounding
 CONVEX_SOLVES = REGISTRY.counter(
     "karpenter_convex_solves_total",

@@ -32,8 +32,9 @@ backoff jitter all derive from the one seed, so two replays of the same
 trace produce byte-identical decision logs (tests/test_sim.py).
 
 Copy of karpenter_tpu/sim/__init__.py, imports rewritten to the port's.
-The fleet replay (`fleet`, and the CLI's `corpus` and `fleet` verbs)
-waits for A11 (ROADMAP).
+The fleet replay (`sim/fleet.py`, the CLI's `fleet` verb) runs N tenants
+through one coalescing sidecar; the CLI's `corpus` verb waits for the
+mesh (ROADMAP A11b).
 """
 from karpenter_tpu_torch.sim.trace import (
     TRACE_VERSION,

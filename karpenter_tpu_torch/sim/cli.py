@@ -6,6 +6,8 @@
     sim replay --differential trace.jsonl         # host vs wire vs pipelined
     sim replay trace.jsonl --device cpu           # the plain versions, no card
     sim shrink trace.jsonl -o sim-artifacts       # minimize a failing trace
+    sim fleet --tenants 3 --device cpu            # N tenants, one sidecar,
+                                                  # per-tenant golden digests
 
 Every command prints exactly one JSON line on stdout (the bench/CI
 contract) and returns a nonzero exit code on divergence or invariant
@@ -13,11 +15,14 @@ violation. Recording a live run is the binary's job:
 `python -m karpenter_tpu_torch --sim-record out.jsonl`.
 
 Copy of karpenter_tpu/sim/cli.py, imports rewritten to the port's, with
-the `generate`, `replay` and `shrink` verbs. The replay's and the
+the `generate`, `replay`, `shrink` and `fleet` verbs. The replay's and the
 shrinker's engines run on the card unless `--device cpu` is given.
-`generate` needs no engine. The `corpus` and `fleet` verbs wait for A11
-(ROADMAP): `corpus` re-replays through the `mesh` backend and `fleet`
-needs the fleet service and the device mesh.
+`generate` needs no engine. The `fleet` verb replays N tenants through
+one shared coalescing sidecar (sim/fleet.py), each against the pinned
+multi-cluster-storm digests and its isolated replay; it has no `--mesh`,
+and no `--update-digests`: the pinned file belongs to the JAX package.
+The `corpus` verb waits for A11b (ROADMAP): it re-replays through the
+`mesh` backend.
 """
 from __future__ import annotations
 
@@ -150,6 +155,40 @@ def _cmd_shrink(args) -> int:
     return 0
 
 
+def _cmd_fleet(args) -> int:
+    """N tenants through one shared coalescing sidecar (sim/fleet.py):
+    per-tenant digests must equal their isolated replays AND the goldens
+    pinned in multi-cluster-storm.digests.json. The fleet gate. The
+    pinned file is read, never written: it belongs to the JAX package."""
+    from karpenter_tpu_torch.sim.fleet import replay_fleet
+    from karpenter_tpu_torch.sim.scenario import DEFAULT_SEED
+
+    seed = args.seed if args.seed is not None else DEFAULT_SEED
+    res = replay_fleet(args.tenants, base_seed=seed, device=args.device)
+    digest_path = os.path.join(args.dir, "multi-cluster-storm.digests.json")
+    golden = {}
+    if os.path.exists(digest_path):
+        with open(digest_path) as f:
+            golden = json.load(f)
+    rc = 0 if res.ok else 1
+    report = {
+        "tenants": args.tenants, "seed": seed, "mesh": False,
+        "digests": res.digests,
+        "divergences": list(res.divergences),
+    }
+    drift = {
+        t: {"golden": golden.get(t), "got": d}
+        for t, d in res.digests.items()
+        if golden.get(t) not in (None, d)
+    }
+    if drift:
+        rc = 1
+        report["drift"] = drift
+        report["note"] = "per-tenant decision digest drifted from golden"
+    print(json.dumps({"fleet": report, "ok": rc == 0}, sort_keys=True))
+    return rc
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="karpenter-tpu-torch sim",
@@ -198,6 +237,21 @@ def main(argv=None) -> int:
     shr.add_argument("--device", choices=("cuda", "cpu"), default=None,
                      help=device_help)
     shr.set_defaults(fn=_cmd_shrink)
+
+    flt = sub.add_parser(
+        "fleet",
+        help="multi-tenant replay: N engines sharing one coalescing "
+        "sidecar, per-tenant golden digests (multi-tenant == isolated); "
+        "no --mesh (ROADMAP A11b) and no --update-digests (the pinned "
+        "file belongs to the JAX package)",
+    )
+    flt.add_argument("--tenants", type=int, default=3)
+    flt.add_argument("--seed", type=int, default=None)
+    flt.add_argument("--dir", default="tests/golden/scenarios",
+                     help="where multi-cluster-storm.digests.json is read from")
+    flt.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                     help=device_help)
+    flt.set_defaults(fn=_cmd_fleet)
 
     args = parser.parse_args(argv)
     return args.fn(args)

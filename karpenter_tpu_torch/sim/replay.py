@@ -38,7 +38,9 @@ the port's `SolverClient` and `CircuitBreaker`. Backends: `host`,
 `convex`, `pipelined`, `wire`, `delta` and `tcp` as in the JAX package;
 `packed` is the host path, since the port's masks are always bit-packed
 (solver/packing.py); `mesh` raises until the port has a mesh (ROADMAP
-A11).
+A11b). A wire engine built with `server_path=` and `tenant=` is one
+tenant of a shared coalescing sidecar (sim/fleet.py) instead of starting
+its own.
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ BACKENDS = ("host", "wire", "pipelined")
 #   wire v2, so the trio already exercises the ring; this backend pins
 #   the socket path, proving shm == tcp == host decision digests);
 # - "mesh": the sharded solve over a device mesh -- raises in the port
-#   until ROADMAP A11 brings one;
+#   until ROADMAP A11b brings one;
 # - "packed": the host path (the port's open/join masks are always
 #   bit-packed, solver/packing.py), kept so the JAX package's backend
 #   names all resolve;
@@ -127,7 +129,8 @@ def _percentile(samples: List[float], q: float) -> float:
 class _Engine:
     def __init__(self, backend: str, seed: int, tmpdir: Optional[str] = None,
                  options_overrides: Optional[dict] = None,
-                 device=None):
+                 device=None, server_path: Optional[str] = None,
+                 tenant: Optional[str] = None):
         if backend not in BACKENDS + EXTRA_BACKENDS:
             raise ValueError(
                 f"unknown backend {backend!r} (want one of {BACKENDS + EXTRA_BACKENDS})"
@@ -138,6 +141,12 @@ class _Engine:
         # the kernels' plain versions
         self.device = device
         self._tmpdir = tmpdir
+        # fleet replay (sim/fleet.py): connect to a SHARED sidecar at
+        # `server_path` under this tenant id instead of spawning one --
+        # close() then tears down only the client; the shared server's
+        # owner stops it
+        self._server_path = server_path
+        self._tenant = tenant
         # trace-header Options overrides, applied in build() through an
         # explicit WHITELIST (the overload knobs): a trace must not be
         # able to flip arbitrary process policy
@@ -205,15 +214,20 @@ class _Engine:
             solver = TorchSolver(g_max=64, tier="convex", device=self.device)
         elif self.backend == "mesh":
             raise NotImplementedError(
-                "the mesh backend waits for A11: the port has no device mesh yet")
+                "the mesh backend waits for A11b: the port has no device mesh yet")
         else:
             from karpenter_tpu_torch.solver.rpc import SolverClient, SolverServer
 
-            if self._tmpdir is None:
-                self._own_tmpdir = tempfile.TemporaryDirectory(prefix="karpenter-sim-")
-                self._tmpdir = self._own_tmpdir.name
-            sock = os.path.join(self._tmpdir, f"solver-{self.backend}.sock")
-            self._server = SolverServer(path=sock, device=self.device).start()
+            if self._server_path is not None:
+                # fleet replay: the shared coalescing sidecar already
+                # listens here; this engine is one tenant of it
+                sock = self._server_path
+            else:
+                if self._tmpdir is None:
+                    self._own_tmpdir = tempfile.TemporaryDirectory(prefix="karpenter-sim-")
+                    self._tmpdir = self._own_tmpdir.name
+                sock = os.path.join(self._tmpdir, f"solver-{self.backend}.sock")
+                self._server = SolverServer(path=sock, device=self.device).start()
             # the delta backend forces delta class shipping on (wire and
             # pipelined inherit the environment default, which is also on
             # -- the trio therefore exercises the delta path in CI, and
@@ -224,6 +238,7 @@ class _Engine:
                 # "tcp" pins the socket transport; everything else takes
                 # the environment default (shm ring on a UNIX socket)
                 shm=False if self.backend == "tcp" else None,
+                tenant=self._tenant,
             )
             self._breaker = CircuitBreaker(
                 failure_threshold=2, backoff_base=1000.0, rng=breaker_rng

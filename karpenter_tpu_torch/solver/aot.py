@@ -55,7 +55,7 @@ cannot take (`{reason="serialize"}`, build.py).
 
 Not here: the JAX module's `_mesh_tasks` (warm calls for the sharded
 engine's current and shrunk layouts) waits for the mesh slice (ROADMAP
-A11); `describe()` says so. Importing this module imports nothing of
+A11b); `describe()` says so. Importing this module imports nothing of
 CUDA; graphs are made inside functions.
 """
 from __future__ import annotations
@@ -88,7 +88,7 @@ _ARTIFACT_VERSION = 1
 # minutes between tasks
 _MAX_THROTTLE_SLEEP_S = 30.0
 # the mesh tasks' place in /debug/aot until the sharded engine exists
-MESH_TASKS = "not ported: the sharded engine's layouts wait for ROADMAP A11"
+MESH_TASKS = "not ported: the sharded engine's layouts wait for ROADMAP A11b"
 
 AOT_PRECOMPILED_FRACTION = metrics.AOT_PRECOMPILED_FRACTION
 AOT_DISPATCHES = metrics.AOT_DISPATCHES

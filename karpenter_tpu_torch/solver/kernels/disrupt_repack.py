@@ -10,6 +10,7 @@ uint8 (the float32 conversion of the Pallas kernel was a TPU constraint).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -19,6 +20,7 @@ from karpenter_tpu_torch.solver.kernels.ffd_scan import f2i
 
 # launches of the CUDA kernel by this process (see ffd_scan.launches)
 launches = 0
+_launches_lock = threading.Lock()
 
 _MASK_DTYPES = (torch.bool, torch.uint8)
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
@@ -107,7 +109,8 @@ def _launch(headroom0, feas, req, member, excl, *, resident: Optional[bool] = No
             S, C, N, R, threads, chunk, int(resident), stream,
         )
     build.check(err, "disrupt_repack")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return leftover, takes
 
 

@@ -16,6 +16,7 @@ against it on the card.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -26,6 +27,9 @@ from karpenter_tpu_torch.solver.kernels import build
 # launches of the CUDA kernel by this process (a plain count: chip_smoke.py
 # zeroes it before the main path and reads it after)
 launches = 0
+# several threads launch (the fleet's dispatcher beside the tenants' own
+# pre-passes): the read-add-write of the count must not lose one
+_launches_lock = threading.Lock()
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 THREADS = 1024        # threads of the one block that runs the scan
@@ -164,7 +168,8 @@ def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, c
             C, g_max, K, R, int(objective == "price"), THREADS, LAYOUTS[layout_name], stream,
         )
     build.check(err, "ffd_scan")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return take, unplaced, n_open[0], gmask_bits, gzc
 
 

@@ -25,12 +25,17 @@ kernel A (the FFD scan) behind ``solve``, ``solve_compact``,
 ``solve_disrupt`` -- or crosses the wire as an error frame; it never
 computes a plain version in their place.
 
-Not here (the fleet slice, ROADMAP A11): ``SolverServer(mesh=,
-coalescer=)``, the ``coalesce`` feature, tenant ids and ordering,
+The fleet's single-device half is here: ``SolverServer(coalescer=)``
+routes the five device ops through a ``fleet.coalesce.DispatchCoalescer``
+(one dispatcher thread, deterministic tenant order, per-tenant budgets
+and breakers; each reply captured in a ``_ReplyBuffer`` and flushed by
+the tenant's own handler thread), the ping advertises ``coalesce``, and
+``SolverClient(tenant=)`` stamps its tenant id on every op header (a
+client without one sends the frames it always sent). Not here (the mesh,
+ROADMAP A11b): ``SolverServer(mesh=)`` and ``--mesh`` (both raise),
 ``StaleTopologyError`` and ``karpenter_mesh_stale_solves_total``, the
-client's record of a stage reply's topology epoch. The
-server advertises every other feature the JAX server advertises without
-a mesh.
+client's record of a stage reply's topology epoch. The server advertises
+every other feature the JAX server advertises without a mesh.
 
 Run the sidecar with ``python -m karpenter_tpu_torch.solver.rpc`` (see
 ``serve_main``).
@@ -370,6 +375,40 @@ def expand_reply_v2(header: dict, t: Dict[str, np.ndarray], g_max: int):
 
 # -- server ------------------------------------------------------------------
 
+class _ReplyBuffer:
+    """Capture a coalesced op's reply frames in memory so the SHARED
+    dispatcher thread never blocks on one tenant's socket: a stalled
+    operator (full TCP window, SIGSTOP'd controller) must cost ITS
+    handler thread at flush time, never head-of-line-block every other
+    tenant's window. Quacks like the frame wire for _send_frame's
+    purposes (sendmsg/sendall + the transport label: the tenant's ring
+    or socket); the one buffered copy per reply is the price of the
+    isolation and replies are small (reply_v2 trims them to the decision
+    rows)."""
+
+    def __init__(self, sock):
+        self.transport_label = _transport(sock)
+        self._chunks: List[bytes] = []
+
+    def sendmsg(self, bufs) -> int:
+        n = 0
+        for b in bufs:
+            bb = bytes(b)
+            self._chunks.append(bb)
+            n += len(bb)
+        return n
+
+    def sendall(self, data) -> None:
+        self._chunks.append(bytes(data))
+
+    def flush_to(self, sock) -> None:
+        """Write the buffered frames onto the real wire -- called from
+        the submitting connection's own handler thread."""
+        for chunk in self._chunks:
+            sock.sendall(chunk)
+        self._chunks.clear()
+
+
 class _StagedEntry:
     def __init__(self, staged, offsets, words):
         self.staged = staged
@@ -385,7 +424,10 @@ class SolverServer:
     deployment); `host`/`port` -> TCP, which REQUIRES a shared token
     unless `insecure_tcp=True`; `ssl_context` optionally wraps accepted
     TCP connections in TLS. `device`: None = the card, "cpu" = the
-    kernels' plain versions (the tests)."""
+    kernels' plain versions (the tests). `coalescer`: a
+    fleet.coalesce.DispatchCoalescer batching concurrent per-tenant
+    solve ops into shared dispatch windows; `mesh` raises until the port
+    has a device mesh (ROADMAP A11b)."""
 
     def __init__(
         self, host: str = "127.0.0.1", port: int = 0, *,
@@ -394,11 +436,20 @@ class SolverServer:
         handshake_timeout: float = 30.0,
         shm: Optional[bool] = None, shm_size: Optional[int] = None,
         shm_dir: Optional[str] = None, device=None,
+        mesh=None, coalescer=None,
     ):
         from karpenter_tpu_torch.solver import shm as shm_mod
         from karpenter_tpu_torch.solver.service import resolve_device
 
+        if mesh is not None:
+            raise NotImplementedError(
+                "SolverServer(mesh=...): the port has no device mesh yet "
+                "(ROADMAP A11b: parallel/mesh.py, fleet/shard.py)")
         self.device = resolve_device(device)
+        # fleet subsystem (fleet/): `coalescer` is a DispatchCoalescer
+        # batching concurrent per-tenant solve ops into shared dispatch
+        # windows on its one dispatcher thread
+        self._coalescer = coalescer
         # shared-memory ring transport (solver/shm.py): advertised in ping
         # features and established per connection via the shm_open op.
         # Default on (the client only asks when IT decides the topology is
@@ -534,6 +585,10 @@ class SolverServer:
         return self
 
     def stop(self) -> None:
+        if self._coalescer is not None:
+            # fail queued tenant submissions first so handler threads
+            # blocked in submit() unwind before the listener dies
+            self._coalescer.close()
         with self._lock:
             segs = list(self._live_segs)
         for seg in segs:
@@ -557,7 +612,7 @@ class SolverServer:
             if op == "ping":
                 # features lets a client decide whether semantics it
                 # depends on exist server-side (the JAX server's list
-                # without a mesh: no "coalesce")
+                # without a mesh)
                 features = [
                     "join_allowed", "trace_echo", "solve_delta", "reply_v2",
                     "solve_disrupt", "packed_masks", "topology_epoch",
@@ -565,25 +620,53 @@ class SolverServer:
                 ]
                 if self._shm_enabled:
                     features.append("shm")
+                if self._coalescer is not None:
+                    features.append("coalesce")
                 _send_frame(sock, {"ok": True, "features": features})
             elif op == "stage":
                 self._op_stage(sock, header, tensors)
-            elif op == "solve":
-                self._op_solve(sock, header, tensors, wt)
-            elif op == "solve_compact":
-                self._op_solve_compact(sock, header, tensors, wt)
-            elif op == "solve_delta":
-                self._op_solve_delta(sock, header, tensors, wt)
-            elif op == "solve_convex":
-                self._op_solve_convex(sock, header, tensors, wt)
-            elif op == "solve_disrupt":
-                self._op_solve_disrupt(sock, header, tensors, wt)
+            elif op in ("solve", "solve_compact", "solve_delta", "solve_disrupt",
+                        "solve_convex"):
+                if self._coalescer is not None:
+                    # fleet topology: device dispatches from N tenants
+                    # batch into shared windows with deterministic tenant
+                    # ordering; a TenantRefusal (breaker open, deadline
+                    # blown while queued) or a per-tenant dispatch error
+                    # re-raises HERE -- in this tenant's handler thread --
+                    # and crosses the wire as ITS error reply below,
+                    # never another tenant's. The reply itself buffers
+                    # inside the window and flushes from THIS thread, so
+                    # a stalled tenant socket can never head-of-line-
+                    # block the shared dispatcher.
+                    reply = _ReplyBuffer(sock)
+                    self._coalescer.submit(
+                        str(header.get("tenant", "")),
+                        lambda: self._dispatch_solve(reply, op, header, tensors, wt),
+                    )
+                    reply.flush_to(sock)
+                else:
+                    self._dispatch_solve(sock, op, header, tensors, wt)
             elif op == "debug":
                 self._op_debug(sock)
             else:
                 _send_frame(sock, {"ok": False, "error": f"unknown op {op!r}"})
         except Exception as e:  # noqa: BLE001 -- errors cross the wire
             _send_frame(sock, {"ok": False, "error": f"{type(e).__name__}: {e}"})
+
+    def _dispatch_solve(self, sock, op: str, header: dict,
+                        tensors: Dict[str, np.ndarray], wt) -> None:
+        """The device-dispatching ops (everything the fleet coalescer
+        batches); replies stream on the submitting connection's wire."""
+        if op == "solve":
+            self._op_solve(sock, header, tensors, wt)
+        elif op == "solve_compact":
+            self._op_solve_compact(sock, header, tensors, wt)
+        elif op == "solve_delta":
+            self._op_solve_delta(sock, header, tensors, wt)
+        elif op == "solve_convex":
+            self._op_solve_convex(sock, header, tensors, wt)
+        else:
+            self._op_solve_disrupt(sock, header, tensors, wt)
 
     def _sync(self, wt) -> None:
         """Traced requests wait for the card inside the "device" stage, so
@@ -698,6 +781,8 @@ class SolverServer:
                 "evictions": dict(self._evictions),
                 "staged_bytes": self._staged_bytes_locked(),
             }
+        if self._coalescer is not None:
+            doc["coalescer"] = self._coalescer.describe()
         _send_frame(sock, doc)
 
     def _op_solve_delta(self, sock, header: dict, t: Dict[str, np.ndarray],
@@ -1046,10 +1131,18 @@ class SolverClient:
         connect_timeout: float = DEFAULT_CONNECT_TIMEOUT,
         delta: Optional[bool] = None,
         shm: Optional[bool] = None, reply_v2: Optional[bool] = None,
-        track_transport: bool = True, packed_masks: Optional[bool] = None,
+        track_transport: bool = True, tenant: Optional[str] = None,
+        packed_masks: Optional[bool] = None,
     ):
         self.addr = (host, port) if path is None else None
         self.path = path
+        # fleet topology (fleet/): the tenant id this replica's solve ops
+        # carry -- the shared sidecar's coalescer keys its deterministic
+        # ordering, deadline budget, and per-tenant breaker on it. None
+        # (the single-cluster default) omits the field; the server then
+        # treats the connection as the anonymous tenant, which is exactly
+        # the pre-fleet behavior.
+        self.tenant = str(tenant) if tenant else None
         # karpenter_wire_transport_in_use is process-global: only the
         # PRIMARY client (the solver's real wire) reports to it. Throwaway
         # connections -- the breaker's half-open probe, ad-hoc tooling --
@@ -1344,6 +1437,14 @@ class SolverClient:
             self._epoch_bases.clear()
 
     # -- request pipelining (the async solve path) ---------------------------
+    def _op_header(self, **fields) -> dict:
+        """An op header carrying this replica's tenant id (fleet
+        topology); single-cluster clients omit the field entirely so the
+        frames are byte-identical to the pre-fleet protocol."""
+        if self.tenant is not None:
+            fields["tenant"] = self.tenant
+        return fields
+
     def _drain_pending(self, target: Optional[_PendingReply] = None) -> None:
         """Receive outstanding replies in FIFO order (all of them, or up to
         and including `target`). MUST run before any synchronous roundtrip
@@ -1387,7 +1488,7 @@ class SolverClient:
         seqnum surfaces as StaleSeqnumError -- no silent restage."""
         if not nnz_max:
             nnz_max = ffd.nnz_budget(class_set.c_pad, g_max)
-        header = dict(
+        header = self._op_header(
             op="solve_compact", seqnum=seqnum, g_max=g_max,
             nnz_max=nnz_max, objective=objective,
         )
@@ -1795,7 +1896,7 @@ class SolverClient:
         self, seqnum: str, catalog: encode.CatalogTensors, class_set: encode.PodClassSet,
         g_max: int = 512, objective: str = "price",
     ) -> ffd.SolveOutputs:
-        header = dict(
+        header = self._op_header(
             op="solve", seqnum=seqnum, g_max=g_max, objective=objective
         )
         _, out = self._solve_op(header, seqnum, catalog, class_set)
@@ -1810,7 +1911,7 @@ class SolverClient:
         ffd.expand_compact and falls back to solve_classes on overflow."""
         if not nnz_max:
             nnz_max = ffd.nnz_budget(class_set.c_pad, g_max)
-        header = dict(
+        header = self._op_header(
             op="solve_compact", seqnum=seqnum, g_max=g_max,
             nnz_max=nnz_max, objective=objective,
         )
@@ -1834,7 +1935,7 @@ class SolverClient:
         )
         if iters is not None:
             fields["iters"] = int(iters)
-        header = dict(**fields)
+        header = self._op_header(**fields)
         resp, out = self._solve_op(header, seqnum, catalog, class_set)
         dense = (
             np.asarray(out["take"]), np.asarray(out["unplaced"]),
@@ -1886,7 +1987,7 @@ class SolverClient:
         failpoints.eval("rpc.disrupt.dispatch")
         with self._lock:
             depoch = self._next_epoch()
-            header = dict(op="solve_disrupt", depoch=depoch)
+            header = self._op_header(op="solve_disrupt", depoch=depoch)
             tensors = list(repack.items())
             if replace is not None and seqnum is not None:
                 header["seqnum"] = seqnum
@@ -1904,7 +2005,7 @@ class SolverClient:
         `leftover` rides along as the stateless fallback for a
         pressure-evicted depoch."""
         failpoints.eval("rpc.disrupt.dispatch")
-        header = dict(op="solve_disrupt", depoch=depoch, seqnum=seqnum)
+        header = self._op_header(op="solve_disrupt", depoch=depoch, seqnum=seqnum)
         tensors = list(replace.items())
         if leftover is not None:
             tensors.append(("leftover", leftover))
@@ -1914,9 +2015,10 @@ class SolverClient:
 
 def serve_main(argv=None) -> int:
     """`python -m karpenter_tpu_torch.solver.rpc` -- run the solver sidecar
-    on the card. The JAX binary's flags (without --mesh, --coalesce and
-    --tenant-budget, which come with the fleet slice), plus --device
-    (default cuda). Default transport: a mode-0600 UNIX socket. TCP
+    on the card. The JAX binary's flags, plus --device (default cuda):
+    --coalesce and --tenant-budget serve N tenants through one
+    DispatchCoalescer; --mesh (and $KARPENTER_TPU_MESH) is refused until
+    the port has a device mesh (ROADMAP A11b). Default transport: a mode-0600 UNIX socket. TCP
     (--host/--port) requires --token-file / $KARPENTER_TPU_SOLVER_TOKEN, or
     the explicit --insecure flag; --tls-cert/--tls-key add TLS on top.
     Without a card the sidecar exits non-zero: it never moves to the CPU
@@ -1959,12 +2061,35 @@ def serve_main(argv=None) -> int:
         help="ring size per direction (default 8 MiB or $KARPENTER_TPU_SHM_SIZE)",
     )
     parser.add_argument(
+        "--mesh", default=None, metavar="SPEC",
+        help="refused: the port has no device mesh yet (ROADMAP A11b); "
+        "$KARPENTER_TPU_MESH is refused the same way",
+    )
+    parser.add_argument(
+        "--coalesce", action="store_true",
+        help="fleet topology: batch concurrent solves from N operator "
+        "replicas into shared dispatch windows (deterministic tenant "
+        "ordering, per-tenant breaker; see docs/operations.md)",
+    )
+    parser.add_argument(
+        "--tenant-budget", type=float, default=0.0, metavar="SECONDS",
+        help="per-tenant dispatch deadline budget under --coalesce "
+        "(0 = unbounded); a blown budget refuses THAT tenant's solve "
+        "into its client's overload ladder",
+    )
+    parser.add_argument(
         "--device", default="cuda",
         help="torch device the kernels run on (default cuda; cpu runs their "
         "plain versions and must be asked for)",
     )
     args = parser.parse_args(argv)
 
+    mesh_spec = args.mesh if args.mesh is not None else os.environ.get("KARPENTER_TPU_MESH")
+    if mesh_spec:
+        # the JAX sidecar would shard over this layout: refusing it is
+        # the only honest answer until the port has a device mesh
+        parser.error(f"mesh {mesh_spec!r}: the port has no device mesh yet "
+                     "(ROADMAP A11b: parallel/mesh.py, fleet/shard.py)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("karpenter-tpu-torch-solver: no CUDA device is available; "
@@ -1990,6 +2115,10 @@ def serve_main(argv=None) -> int:
         ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
         ctx.load_cert_chain(args.tls_cert, args.tls_key)
     shm_kw = dict(shm=args.shm, shm_dir=args.shm_dir, shm_size=args.shm_size, device=device)
+    if args.coalesce:
+        from karpenter_tpu_torch.fleet.coalesce import DispatchCoalescer
+
+        shm_kw["coalescer"] = DispatchCoalescer(budget_s=args.tenant_budget)
     if args.host is not None:
         server = SolverServer(
             args.host, args.port, token=token,

@@ -98,7 +98,7 @@ with non_blocking copies (ffd._to_device), held on the _PendingSolve
 until its fetch has returned: the tick waits for the card only at its
 sanctioned fetches (analysis/sync_witness.py).
 
-Not here (a later slice): the mesh (ROADMAP A11).
+Not here (a later slice): the mesh (ROADMAP A11b).
 """
 from __future__ import annotations
 

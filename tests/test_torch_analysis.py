@@ -363,9 +363,12 @@ def test_real_tree_seams_exist_and_terminal_rungs_hold():
     for key in ("karpenter_tpu_torch/solver/disrupt/engine.py:DisruptEngine.evaluate",
                 "karpenter_tpu_torch/solver/service.py:TorchSolver._probe_sidecar"):
         assert g["seams"][key]["ladder_escapes"] in ([], ["OperatorCrashed"]), key
-    # no seam of the fleet or the mesh: they come with A11a / A11b
-    assert not any(s.rel.startswith(("karpenter_tpu_torch/fleet/", "karpenter_tpu_torch/parallel/"))
-                   for s in terrflow.LADDER_SEAMS)
+    # the fleet's one seam is the coalescer's tenant dispatch (A11a); no
+    # seam of the mesh: it comes with A11b
+    fleet = [s.key for s in terrflow.LADDER_SEAMS
+             if s.rel.startswith(("karpenter_tpu_torch/fleet/", "karpenter_tpu_torch/parallel/"))]
+    assert fleet == ["karpenter_tpu_torch/fleet/coalesce.py:DispatchCoalescer._run_one"]
+    assert g["seams"][fleet[0]]["ladder_escapes"] in ([], ["OperatorCrashed"])
     for table in (terrflow.SANCTIONED_CRASH_SWALLOWS, terrflow.SANCTIONED_ESCAPE_SITES):
         for (rel, func), why in table.items():
             assert rel.startswith("karpenter_tpu_torch/") and len(why) > 40
@@ -390,7 +393,7 @@ def test_jit_entry_registry_equals_the_dispatched_entries(monkeypatch):
 
 def test_omitted_families_are_explicit(monkeypatch):
     assert set(tregistry.OMITTED_FAMILIES) == {
-        "karpenter_tenant_", "karpenter_mesh_", "karpenter_solver_kernel_fallbacks_total"}
+        "karpenter_mesh_", "karpenter_solver_kernel_fallbacks_total"}
     for why in tregistry.OMITTED_FAMILIES.values():
         assert len(why) > 40
     mods = tbase.iter_modules()

@@ -29,6 +29,14 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "karpenter_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
+# the fleet slice's modules (single device)
+FLEET_MODULES = (
+    "karpenter_tpu_torch/fleet/__init__.py",
+    "karpenter_tpu_torch/fleet/coalesce.py",
+    "karpenter_tpu_torch/fleet/service.py",
+    "karpenter_tpu_torch/sim/fleet.py",
+)
+
 
 # the operator slice's modules (copies of the JAX package's jax-free control
 # plane under the same paths)
@@ -402,6 +410,39 @@ class TestNoJaxImports:
             "assert len(out) == 2\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
             "print('LOADED', bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+
+
+    def test_fleet_modules_are_scanned(self):
+        rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
+        assert set(FLEET_MODULES) <= rel
+
+    def test_fleet_replay_loads_neither(self):
+        """Every module of the package imported, then the fleet replay --
+        two tenants of the multi-cluster storm through one coalescing
+        sidecar, each against its isolated replay and the pinned digests
+        -- on the CPU, in a fresh interpreter."""
+        code = (
+            "import importlib, json, pkgutil, sys\n"
+            "import torch\n"
+            "torch.set_num_threads(1)\n"
+            "import karpenter_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(karpenter_tpu_torch.__path__, 'karpenter_tpu_torch.')\n"
+            "         if not m.name.endswith('__main__')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "from karpenter_tpu_torch.fleet import DispatchCoalescer, TenantRefusal\n"
+            "from karpenter_tpu_torch.sim.fleet import replay_fleet\n"
+            "res = replay_fleet(2, device='cpu')\n"
+            "golden = json.load(open('tests/golden/scenarios/multi-cluster-storm.digests.json'))\n"
+            "assert res.ok and res.digests == {t: golden[t] for t in res.digests}, res.digests\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
+            "print('LOADED', len(names), bad)\n"
             "sys.exit(1 if bad else 0)\n"
         )
         env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -155,6 +155,10 @@ PORT_FAMILIES = {
     "karpenter_jit_entry_aot_compiles_total", "karpenter_jit_entry_aot_compile_seconds_total",
     "karpenter_compile_cache_hits_total", "karpenter_compile_cache_misses_total",
     "karpenter_compile_cache_bytes",
+    # the fleet coalescer (fleet/coalesce.py): the per-tenant families
+    "karpenter_tenant_dispatches_total", "karpenter_tenant_dispatch_seconds",
+    "karpenter_tenant_window_size", "karpenter_tenant_refusals_total",
+    "karpenter_tenant_breaker_state", "karpenter_tenant_breaker_trips_total",
     # the runtime witnesses (analysis/): the JAX families' names
     "karpenter_lockwitness_inversions_total", "karpenter_errflow_swallowed_total",
     "karpenter_jaxwitness_retraces_total", "karpenter_jaxwitness_host_transfers_total",

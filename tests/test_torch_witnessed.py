@@ -5,10 +5,12 @@ karpenter_tpu_torch.analysis.pytest_plugin` over the tests that drive the
 port's threads: the warm-up ladder beside dispatching threads
 (test_torch_aot.py::TestConcurrency), the sidecar and its client
 (test_torch_wire.py), the breaker and its dead-sidecar drill
-(test_torch_breaker.py) and one operator world
-(test_torch_operator.py). The session must pass, and the plugin's
-summary must show zero lock-order inversions, zero unsanctioned swallows
-and zero hot-section violations over a non-empty set of witnessed locks.
+(test_torch_breaker.py), one operator world (test_torch_operator.py)
+and the fleet's coalescer with its dispatcher thread, the coalescing
+sidecar's tenants and their drills (test_torch_fleet.py). The session
+must pass, and the plugin's summary must show zero lock-order
+inversions, zero unsanctioned swallows and zero hot-section violations
+over a non-empty set of witnessed locks.
 tests/conftest.py installs the JAX package's witnesses in the same
 process, so this is also the two packages' witnesses side by side.
 """
@@ -25,6 +27,9 @@ TARGETS = (
     "tests/test_torch_wire.py",
     "tests/test_torch_breaker.py",
     "tests/test_torch_operator.py::test_provisioning_world[binpack]",
+    "tests/test_torch_fleet.py::TestCoalescerPolicy",
+    "tests/test_torch_fleet.py::TestMultiTenant",
+    "tests/test_torch_fleet.py::TestTenantChaos",
 )
 
 
