@@ -1736,6 +1736,410 @@ def rehearse_fleet(n_pods: int) -> int:
     return 0
 
 
+# -- mesh: the 8-shard mesh and its failure ladder on one card ---------------------
+
+MESH_SHARDS = 8
+MESH_STALL_S = 1.0             # the mesh.shard.stall drill's stall
+MESH_STALL_BUDGET_S = 0.05     # its watchdog's per-shard budget
+MESH_BINARY_TIMEOUT_S = 120
+
+
+def phase_mesh(dev, tag: dict, metrics, ka, kb, items):
+    """Phase `mesh`: `MeshSolveEngine(make_mesh(8, devices=[dev] * 8))`
+    -- eight positional shards of the card, each on its own stream --
+    against an unsharded `TorchSolver` on the same card: ticks 1 and 2 and
+    the pipelined schedule (the fused buffer byte-equal, the bound's [R]
+    totals equal, kernel A once a solve, kernel B once a pre-pass), the
+    spot/on-demand ramp-down sweep through `DisruptEngine(mesh=)` (kernel
+    B once per shard), the degrade ladder 8 -> 4 -> 2 -> unsharded under
+    `mesh.device.lost`, re-promotion, the `mesh.restage` and
+    `mesh.shard.stall` drills, the sidecar with a mesh (`tepoch`, a
+    mid-flight device loss restaged once), `--mesh` beyond the real
+    devices refused, the mesh-device-loss and multi-cluster-storm replays,
+    the warm-up ladder's mesh tasks, the sync witness over warm mesh
+    ticks; prints the sharded against the unsharded tick 1, each rung's
+    reshard seconds and the phase's wall. Returns the phase's launches
+    and the kernels' operands on the mesh path."""
+    from karpenter_tpu_torch import workload
+    from karpenter_tpu_torch.analysis import sync_witness
+    from karpenter_tpu_torch.apis import NodePool
+    from karpenter_tpu_torch.failpoints import FAILPOINTS
+    from karpenter_tpu_torch.fleet import MeshSolveEngine, ShardStragglerWatchdog
+    from karpenter_tpu_torch.parallel import dryrun
+    from karpenter_tpu_torch.parallel.mesh import make_mesh
+    from karpenter_tpu_torch.sim.fleet import replay_fleet
+    from karpenter_tpu_torch.sim.replay import replay
+    from karpenter_tpu_torch.sim.trace import read_trace
+    from karpenter_tpu_torch.solver import bound, ffd, rpc
+    from karpenter_tpu_torch.solver.disrupt import DisruptEngine
+    from karpenter_tpu_torch.solver.oracle import Scheduler
+    from karpenter_tpu_torch.solver.service import TorchSolver
+
+    on_card = dev.type == "cuda"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    golden_dir = os.path.join(repo, "tests", "golden", "scenarios")
+    pool = NodePool("default")
+    t_phase = time.perf_counter()
+    a0, b0 = ka.launches, kb.launches
+    plain0 = {k: v for k, v in dispatch_counts(metrics).items() if k.endswith("/plain")}
+    checks, doc = {}, {"shards": MESH_SHARDS, "pods": [N_PODS, N_WAVE], "g_max": G_MAX,
+                       "device": str(dev)}
+    operands = {"ffd_scan": {}, "disrupt_repack": {}}
+    tmp = tempfile.mkdtemp(prefix="kt-")
+    servers, clients = [], []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def mesh8():
+        return make_mesh(MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+
+    def launched(fn):
+        """(fn's result, its kernel launches)."""
+        la, lb = ka.launches, kb.launches
+        out = fn()
+        sync()
+        return out, {"ffd_scan": ka.launches - la, "disrupt_repack": kb.launches - lb}
+
+    def fetched(fn):
+        """(fn's result, the fused buffers and bound totals it fetched)."""
+        with calls_of(ffd, "fetch_fused") as bufs, calls_of(bound, "fetch_bound") as totals:
+            out = fn()
+        return out, [b[2] for b in bufs], [t[0][0].cpu().numpy() for t in totals]
+
+    def mesh_counters():
+        out = {}
+        for fam, label, values in (
+                ("MESH_RESHARDS", "reason", ("full", "shrunk", "unsharded", "restage-failed")),
+                ("MESH_STALE_SOLVES", "site", ("fused", "bound", "fetch", "server-restage",
+                                               "client-wire", "client-sync")),
+                ("MESH_TOPOLOGY_TRANSITIONS", "kind", ("device-lost", "device-returned")),
+                ("MESH_SHARD_WATCHDOG", "stage", ("cancel", "quarantine")),
+                ("SOLVER_PIPELINE_FALLBACKS", "reason", ("stale-topology", "stale-seqnum"))):
+            for v in values:
+                out[f"{fam}{{{v}}}"] = getattr(metrics, fam).value(**{label: v})
+        out["HANDLED_ERRORS{mesh.reshard}"] = metrics.HANDLED_ERRORS.value(site="mesh.reshard")
+        return out
+
+    def counters_moved(before):
+        return {k: v - before[k] for k, v in mesh_counters().items() if v != before[k]}
+
+    try:
+        pods1 = workload.synth_pods(np.random.default_rng(SEED), workload.ZONES, N_PODS, salt=1)
+        pods2 = workload.synth_pods(np.random.default_rng(SEED + 1), workload.ZONES, N_WAVE,
+                                    salt=2)
+
+        # 1. ticks: the unsharded reference, then the mesh, both on the card
+        ref = TorchSolver(g_max=G_MAX, device=dev)
+        (r1, rbuf1, rtot1), _ = launched(lambda: fetched(lambda: ref.solve(pool, items, pods1)))
+        nodes = workload.nodes_from_result(r1)
+        (r2, rbuf2, rtot2), _ = launched(lambda: fetched(
+            lambda: ref.solve(pool, items, pods2, existing_nodes=nodes)))
+        engine = MeshSolveEngine(mesh8())
+        ms = TorchSolver(g_max=G_MAX, mesh=engine)
+        with recording(ka, kb) as rec:
+            (m1, mbuf1, mtot1), l1 = launched(lambda: fetched(lambda: ms.solve(pool, items, pods1)))
+            (m2, mbuf2, mtot2), l2 = launched(lambda: fetched(
+                lambda: ms.solve(pool, items, pods2, existing_nodes=nodes)))
+        operands["ffd_scan"]["mesh tick 1"] = (rec["ffd_scan"][0], 1)
+        operands["ffd_scan"]["mesh tick 2"] = (rec["ffd_scan"][1], 1)
+        operands["disrupt_repack"]["mesh tick 2 pre-pass (unsharded)"] = (
+            rec["disrupt_repack"][0], 1)
+        sched = Scheduler(nodepools=[pool], instance_types={pool.name: items},
+                          zones=set(workload.ZONES))
+        ref_p = ref.schedule(Scheduler(nodepools=[pool], instance_types={pool.name: items},
+                                       zones=set(workload.ZONES)), pods1)
+        mp, lp = launched(lambda: ms.schedule_finish(ms.schedule_begin(sched, pods1)))
+        ticks = {
+            "tick 1": {"launches": l1, "decision_equal": decision_digest(m1) == decision_digest(r1),
+                       "fused_buffer_equal": [b.tobytes() for b in mbuf1] == [
+                           b.tobytes() for b in rbuf1],
+                       "bound_totals_equal": [t.tobytes() for t in mtot1] == [
+                           t.tobytes() for t in rtot1],
+                       "groups": len(m1.new_groups)},
+            "tick 2": {"launches": l2, "decision_equal": decision_digest(m2) == decision_digest(r2),
+                       "fused_buffer_equal": [b.tobytes() for b in mbuf2] == [
+                           b.tobytes() for b in rbuf2],
+                       "bound_totals_equal": [t.tobytes() for t in mtot2] == [
+                           t.tobytes() for t in rtot2],
+                       "on_existing": len(m2.existing_assignments)},
+            "pipelined schedule": {"launches": lp, "route": ms.last_route["path"],
+                                   "decision_equal": decision_digest(mp) == decision_digest(ref_p)},
+        }
+        doc["ticks"] = ticks
+        checks["ticks_equal"] = all(t["decision_equal"] for t in ticks.values()) and all(
+            ticks[k]["fused_buffer_equal"] and ticks[k]["bound_totals_equal"] and len(
+                rbuf1) == 1 for k in ("tick 1", "tick 2"))
+        checks["kernel_a_once_a_solve"] = (l1 == {"ffd_scan": 1, "disrupt_repack": 0}
+                                           and l2 == {"ffd_scan": 1, "disrupt_repack": 1}
+                                           and lp["ffd_scan"] == 1)
+
+        # 2. the spot/on-demand ramp-down sweep through DisruptEngine(mesh=)
+        spec = workload.rampdown_sweep_spec(r1, np.random.default_rng(SEED + 3))
+        nodes_s, sets_s = workload.sweep_world(spec)
+        pools_s, ovh_s = workload.sweep_pools("spot-od")
+        sw_kw = dict(pools=pools_s, catalogs={p.name: items for p in pools_s},
+                     daemon_overhead=ovh_s)
+        ref_v = DisruptEngine(solver=ref).evaluate(nodes_s, sets_s, **sw_kw)
+        m_engine = DisruptEngine(solver=TorchSolver(g_max=G_MAX, device=dev), mesh=mesh8())
+        with recording(ka, kb) as rec:
+            mv, ls = launched(lambda: m_engine.evaluate(nodes_s, sets_s, **sw_kw))
+        shard_sets = [int(ops[3].shape[0]) for ops in rec["disrupt_repack"]]
+        operands["disrupt_repack"]["mesh sweep shard 0"] = (rec["disrupt_repack"][0], len(
+            rec["disrupt_repack"]))
+        doc["sweep"] = {"sets": len(sets_s), "launches": ls, "sets_per_shard": shard_sets,
+                        "verdicts_equal": [repr(v) for v in mv] == [repr(v) for v in ref_v]}
+        checks["sweep"] = (doc["sweep"]["verdicts_equal"] and ls["disrupt_repack"] == MESH_SHARDS
+                           and len(set(shard_sets)) == 1)
+
+        # the sync witness over warm mesh ticks 1 and 2 and the sweep
+        sync_witness.reset()
+        with sync_witness.hot("mesh warm ticks 1, 2 and the sweep"):
+            ms.solve(pool, items, pods1)
+            ms.solve(pool, items, pods2, existing_nodes=nodes)
+            m_engine.evaluate(nodes_s, sets_s, **sw_kw)
+            sync()
+        doc["sync_witness"] = sync_witness.stats()
+        checks["sync_witness_clean"] = not doc["sync_witness"]["unsanctioned"]
+
+        # printed, not claimed: the sharded against the unsharded warm tick 1
+        walls = {"unsharded": [], "mesh": []}
+        for _ in range(3):
+            for name, s in (("unsharded", ref), ("mesh", ms)):
+                t0 = time.perf_counter()
+                s.solve(pool, items, pods1)
+                sync()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        doc["tick1_wall_ms"] = {k: {"median_of_3": statistics.median(v), "runs": v}
+                                for k, v in walls.items()}
+
+        # 3. the ladder: one mesh.device.lost a rung, each rung's tick equal
+        eng_l = MeshSolveEngine(mesh8())
+        sl = TorchSolver(g_max=G_MAX, mesh=eng_l)
+        want1 = decision_digest(r1)
+        rungs, epochs = [], [eng_l.epoch]
+        c0 = mesh_counters()
+        for mark_first in ((), (6, 5, 4), (2,)):
+            for idx in mark_first:
+                eng_l.mark_device_lost(idx, reason="chaos")
+            FAILPOINTS.arm("mesh.device.lost", "error", "RuntimeError", times=1)
+            h0 = hist_now(metrics.MESH_RESHARD_SECONDS)
+            try:
+                res, lr = launched(lambda: sl.solve(pool, items, pods1))
+            finally:
+                fired = FAILPOINTS.fires("mesh.device.lost")
+                FAILPOINTS.reset()
+            h1 = hist_now(metrics.MESH_RESHARD_SECONDS)
+            epochs.append(eng_l.epoch)
+            rungs.append({"marked_first": list(mark_first), "fired": fired,
+                          "shards_after": eng_l.describe()["devices"],
+                          "mode": eng_l.topology.mode(), "epoch": eng_l.epoch,
+                          "launches": lr, "equal": decision_digest(res) == want1,
+                          "reshard_s": [h1[0] - h0[0], h1[1] - h0[1]]})
+        ladder_moved = counters_moved(c0)
+        full_mesh = eng_l._full_mesh
+        for idx in sorted(eng_l.topology.quarantined()):
+            eng_l.mark_device_returned(idx)
+        res = sl.solve(pool, items, pods1)
+        repromoted = {"mesh_is_the_original": eng_l.mesh is full_mesh,
+                      "shards": eng_l.describe()["devices"],
+                      "equal": decision_digest(res) == want1}
+        epochs.append(eng_l.epoch)
+        # the restage drill: the reshard itself fails -> unsharded
+        c1 = mesh_counters()
+        FAILPOINTS.arm("mesh.restage", "error", "RuntimeError", times=1)
+        try:
+            eng_l.mark_device_lost(6, reason="chaos")
+            res = sl.solve(pool, items, pods1)
+        finally:
+            FAILPOINTS.reset()
+        restage = {"mode_mesh_none": eng_l.mesh is None, "equal": decision_digest(res) == want1,
+                   "moved": counters_moved(c1)}
+        eng_l.mark_device_returned(6)
+        sl.solve(pool, items, pods1)
+        restage["back_to_full"] = eng_l.topology.mode() == "full" and eng_l.mesh is not None
+        # the stall drill: one stalled dispatch, the watchdog quarantines the
+        # worst shard (7), the tick re-solves on 4 shards, equal
+        fake = [0.0]
+        wd = ShardStragglerWatchdog(MESH_STALL_BUDGET_S, engine=eng_l, clock=lambda: fake[0],
+                                    multiples=(1.0, 2.0, 1e9, 1e9))
+        eng_l.attach_watchdog(wd)
+        stages = []
+
+        def drive():
+            deadline = time.monotonic() + 60
+            while wd.describe()["dispatch_active_for_s"] is None and time.monotonic() < deadline:
+                time.sleep(0.002)
+            fake[0] += 10 * MESH_STALL_BUDGET_S
+            stages.extend([wd.check_now(), wd.check_now()])
+
+        c2 = mesh_counters()
+        FAILPOINTS.arm("mesh.shard.stall", "latency", str(MESH_STALL_S), times=1)
+        driver = threading.Thread(target=drive, name="mesh-stall-driver")
+        try:
+            driver.start()
+            res = sl.solve(pool, items, pods1)
+            driver.join(60)
+        finally:
+            FAILPOINTS.reset()
+            eng_l.attach_watchdog(None)
+        stall = {"stages": stages, "quarantined": {str(k): v for k, v in
+                                                  eng_l.topology.quarantined().items()},
+                 "shards_after": eng_l.describe()["devices"],
+                 "equal": decision_digest(res) == want1, "moved": counters_moved(c2)}
+        doc["ladder"] = {"rungs": rungs, "epochs": epochs, "moved": ladder_moved,
+                         "repromoted": repromoted, "restage_drill": restage,
+                         "stall_drill": stall}
+        checks["ladder"] = (
+            [r["shards_after"] for r in rungs] == [4, 2, 1]
+            and all(r["equal"] and r["fired"] == 1 for r in rungs)
+            and all(b > a for a, b in zip(epochs, epochs[1:]))
+            and ladder_moved.get("MESH_STALE_SOLVES{fused}") == 3
+            and ladder_moved.get("MESH_TOPOLOGY_TRANSITIONS{device-lost}") == 7
+            and ladder_moved.get("SOLVER_PIPELINE_FALLBACKS{stale-topology}") == 3
+            and ladder_moved.get("MESH_RESHARDS{unsharded}", 0) >= 1
+            and all(repromoted.values()))
+        checks["restage_drill"] = (restage["mode_mesh_none"] and restage["equal"]
+                                   and restage["back_to_full"]
+                                   and restage["moved"].get("MESH_RESHARDS{restage-failed}") == 1
+                                   and restage["moved"].get("HANDLED_ERRORS{mesh.reshard}") == 1)
+        checks["stall_drill"] = (stages == ["cancel", "quarantine"] and stall["equal"]
+                                 and stall["quarantined"] == {"7": "straggler"}
+                                 and stall["shards_after"] == 4
+                                 and stall["moved"].get("MESH_SHARD_WATCHDOG{quarantine}") == 1)
+
+        # 4. the wire: a SolverServer(mesh=) thread and the port's client
+        path = os.path.join(tmp, "mesh.sock")
+        srv = rpc.SolverServer(path=path, mesh=MeshSolveEngine(mesh8())).start()
+        servers.append(srv)
+        client = rpc.SolverClient(path=path, timeout=300.0, track_transport=False)
+        clients.append(client)
+        ws = TorchSolver(g_max=G_MAX, device=dev, client=client, breaker=False)
+        w1, lw1 = launched(lambda: ws.solve(pool, items, pods1))
+        seqnums = list(srv._staged)
+        tepoch_ok = bool(seqnums) and all(
+            client._staged_tepochs.get(s) == srv._staged[s].tepoch == srv._mesh.epoch
+            for s in seqnums)
+        c3 = mesh_counters()
+        FAILPOINTS.arm("mesh.device.lost", "error", "RuntimeError", times=1)
+        try:
+            w1b, lw2 = launched(lambda: ws.solve(pool, items, pods1))
+        finally:
+            FAILPOINTS.reset()
+        wire_moved = counters_moved(c3)
+        doc["wire"] = {"launches": {"tick 1": lw1, "tick 1 with a device lost": lw2},
+                       "tepoch_in_stage_reply": tepoch_ok,
+                       "equal": [decision_digest(w1) == want1, decision_digest(w1b) == want1],
+                       "moved": wire_moved, "shards_after": srv._mesh.describe()["devices"]}
+        checks["wire"] = (tepoch_ok and all(doc["wire"]["equal"])
+                          and wire_moved.get("MESH_STALE_SOLVES{client-wire}") == 1
+                          and wire_moved.get("MESH_STALE_SOLVES{server-restage}") == 1
+                          and doc["wire"]["shards_after"] == 4)
+        # --mesh beyond the real devices: refused, naming the count
+        kind = "cuda" if on_card else "cpu"
+        real = torch.cuda.device_count() if on_card else 1
+        argv = [sys.executable, "-m", "karpenter_tpu_torch.solver.rpc", "--mesh", str(real + 1),
+                "--socket", os.path.join(tmp, "refused.sock")] + (
+                    [] if on_card else ["--device", "cpu"])
+        env = dict(os.environ, PYTHONPATH=repo)
+        r = subprocess.run(argv, cwd=repo, env=env, capture_output=True, text=True,
+                           timeout=MESH_BINARY_TIMEOUT_S)
+        named = f"needs {real + 1} devices; {real} {kind} available"
+        doc["binary"] = {"argv": argv[1:], "rc": r.returncode, "stderr_tail": r.stderr[-300:]}
+        checks["binary_refuses_an_oversized_mesh"] = r.returncode != 0 and named in r.stderr
+
+        # 5. replays: the device-loss scenario and the storm, sharded
+        events = read_trace(os.path.join(golden_dir, "mesh-device-loss.jsonl"))
+        seed = next((int(ev["seed"]) for ev in events if ev.get("ev") == "header"
+                     and "seed" in ev), 0)
+        with open(os.path.join(golden_dir, "digests.json")) as f:
+            golden = json.load(f)
+        t0 = time.perf_counter()
+        rep, lrep = launched(lambda: replay(events, backend="mesh", seed=seed, device=dev))
+        rep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        storm, lstorm = launched(lambda: replay_fleet(3, mesh=True, device=dev))
+        storm_s = time.perf_counter() - t0
+        with open(os.path.join(golden_dir, "multi-cluster-storm.digests.json")) as f:
+            storm_golden = json.load(f)
+        doc["replays"] = {
+            "mesh-device-loss": {"equal": rep.digest == golden["mesh-device-loss"],
+                                 "seconds": rep_s, "launches": lrep},
+            "multi-cluster-storm (3 tenants, mesh sidecar)": {
+                "equal": storm.ok and storm.digests == {t: storm_golden[t] for t in storm.digests},
+                "seconds": storm_s, "launches": lstorm}}
+        checks["replays"] = all(v["equal"] for v in doc["replays"].values())
+
+        # 6. the warm-up ladder's mesh tasks: the 8, 4 and 2 layouts
+        aot_solver = TorchSolver(g_max=G_MAX, mesh=MeshSolveEngine(mesh8()))
+        mgr = aot_solver.enable_aot(None, duty=1.0, pads=(16, 32))
+        aot_solver._catalog(items)
+        drained = mgr.drain(300)
+        mesh_tasks = aot_solver.describe_aot()["mesh_tasks"]
+        mgr.stop(timeout_s=60.0)
+        doc["warm_up"] = {"drained": drained, "layouts": [
+            {"tier": d["tier"], "shards": d["shards"], "tasks": len(d["tasks"])}
+            for d in mesh_tasks], "compile_failures": aot_solver.describe_aot()[
+                "compile_failures"]}
+        checks["warm_up_layouts"] = drained and [d["shards"] for d in mesh_tasks] == [8, 4, 2]
+
+        # the multi-process mesh: NCCL takes one rank a card
+        if on_card and torch.cuda.device_count() >= 2:
+            doc["multiprocess"] = dryrun.run(2, "cuda", timeout_s=300.0)
+            checks["multiprocess"] = doc["multiprocess"]["ok"]
+        else:
+            doc["multiprocess"] = {
+                "ran": False,
+                "why": "one card: NCCL refuses two ranks on one GPU, so the multi-process "
+                       "mesh runs only in the CPU tests (2 gloo ranks, tests/test_torch_mesh.py)"}
+    finally:
+        FAILPOINTS.reset()
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.stop()
+            s._thread.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"mesh (the phase)": {"ffd_scan": ka.launches - a0,
+                                     "disrupt_repack": kb.launches - b0}}
+    plain1 = {k: v for k, v in dispatch_counts(metrics).items() if k.endswith("/plain")}
+    checks["no_plain_version_on_the_card"] = DEVICE == "cpu" or plain1 == plain0
+    doc["launches"] = launches
+    doc["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "mesh", "entry": "MeshSolveEngine(make_mesh(8, devices=[dev] * 8)); "
+          "TorchSolver(mesh=); DisruptEngine(mesh=); SolverServer(mesh=); replay(backend="
+          "'mesh'); replay_fleet(mesh=True); enable_aot with a mesh",
+          **doc, "checks": checks,
+          "walls_note": "host clock ending in a sync; reshard_s: (count, seconds) of "
+                        "karpenter_mesh_reshard_seconds over each rung's tick",
+          **tag})
+    if not all(checks.values()):
+        raise AssertionError(f"phase mesh: {checks}")
+    return launches, operands
+
+
+def rehearse_mesh(n_pods: int) -> int:
+    """`python3 chip_smoke.py --rehearse-mesh [N_PODS]`: phase `mesh` on the
+    CPU (DEVICE = "cpu", g_max 256, the wave a fifth of N_PODS, the binary
+    with --device cpu), each kernel wrapper counted as the phase counts
+    launches on the card; prints the phase's line and the seconds."""
+    global DEVICE, G_MAX, N_PODS, N_WAVE
+    from karpenter_tpu_torch import metrics, workload
+    from karpenter_tpu_torch.solver.kernels import disrupt_repack as kb
+    from karpenter_tpu_torch.solver.kernels import ffd_scan as ka
+
+    torch.set_num_threads(4)
+    DEVICE, G_MAX, N_PODS, N_WAVE = "cpu", 256, n_pods, n_pods // 5
+    count_plain_launches(ka, kb)
+    t0 = time.perf_counter()
+    launches, _ = phase_mesh(torch.device("cpu"), {"card": "cpu rehearsal", "power_limit": "n/a"},
+                             metrics, ka, kb, workload.build_catalog_items())
+    print(json.dumps({"rehearsal": "mesh", "launches": launches,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
 # -- coldstart: tick 1 of a fresh process, over an empty and a warm store ----------
 
 COLDSTART_TIMEOUT_S = 400
@@ -3139,6 +3543,11 @@ def main() -> int:
     operator_launches.update(fleet_launches)
     for kernel, rows in fleet_ops.items():
         operator_ops[kernel].update(rows)
+    # -- mesh: eight shards of the card and the degrade ladder ----------------------
+    mesh_launches, mesh_ops = phase_mesh(dev, tag, metrics, ka, kb, items)
+    operator_launches.update(mesh_launches)
+    for kernel, rows in mesh_ops.items():
+        operator_ops[kernel].update(rows)
 
     # the main path's own kernel inputs: tick 1's scan, tick 2's repack
     classes1 = encode.group_pods(pods1, extra_requirements=pool.requirements())
@@ -3853,6 +4262,8 @@ if __name__ == "__main__":
         sys.exit(witness_child(sys.argv[2]))
     if sys.argv[1:2] == ["--rehearse-fleet"]:
         sys.exit(rehearse_fleet(int(sys.argv[2]) if len(sys.argv) > 2 else 3000))
+    if sys.argv[1:2] == ["--rehearse-mesh"]:
+        sys.exit(rehearse_mesh(int(sys.argv[2]) if len(sys.argv) > 2 else 3000))
     if sys.argv[1:2] == ["--rehearse-kube"]:
         sys.exit(rehearse_kube(int(sys.argv[2]) if len(sys.argv) > 2 else 200))
     sys.exit(main())

@@ -23,8 +23,11 @@ Differences from the JAX binary:
   the JAX backend probe, and NO fallback: without a card the binary
   exits 2 before building anything, naming `--device cpu`, which is the
   only way to run the kernels' plain versions on the host;
-- `--device cuda|cpu` is new; `--mesh-devices` waits for the mesh
-  (ROADMAP A11b);
+- `--device cuda|cpu` is new; `--mesh-devices` (default
+  $KARPENTER_TPU_MESH) counts real devices of `--device`'s kind (the
+  cards, or one CPU) and raises when there are too few -- several
+  shards on one device come only from `parallel.mesh.make_mesh(n,
+  devices=...)`;
 - the cold-start layer as the JAX binary's: on the card the versioned
   kernel-library store is prepared under $KARPENTER_TPU_COMPILE_CACHE
   (`utils.enable_compilation_cache`), and an in-process solver is built
@@ -147,9 +150,18 @@ def build_operator(args):
 
         device = resolve_device(getattr(args, "device", None))
         on_card = device.type == "cuda"
+        # mesh-sharded production solve (fleet/): in-process mode only --
+        # a sidecar owns its own mesh via `python -m
+        # karpenter_tpu_torch.solver.rpc --mesh`
+        mesh = None
+        if client is None:
+            from karpenter_tpu_torch.fleet.shard import mesh_from_env, parse_mesh_spec
+
+            spec = getattr(args, "mesh_devices", None)
+            mesh = parse_mesh_spec(spec, device) if spec else mesh_from_env(device)
         solver = TorchSolver(
             client=client, breaker=breaker, tier=getattr(args, "solve_tier", "ffd"),
-            device=device, auto_warm=client is None and on_card,
+            device=device, auto_warm=client is None and on_card, mesh=mesh,
         )
         # the cold-start layer (solver/aot.py): the kernel-library store
         # (libraries load at start, no nvcc on a restart), then the warm-up
@@ -166,7 +178,7 @@ def build_operator(args):
         # solve: with a sidecar configured, candidate-set sweeps dispatch
         # as the solve_disrupt op against the catalogs already staged per
         # seqnum, and the breaker's degrade ladder covers both paths
-        evaluator = ConsolidationEvaluator(solver=solver)
+        evaluator = ConsolidationEvaluator(solver=solver, mesh=mesh)
     cluster = None
     if getattr(args, "kubeconfig", None) or getattr(args, "in_cluster", False):
         # real coordination bus (the reference's kwok deployment topology:
@@ -239,6 +251,14 @@ def main(argv=None) -> int:
         help="where the solver runs: the card by default (the binary "
         "probes it and refuses to start without one); 'cpu' runs the "
         "kernels' plain versions on the host (tests, a rig without a card)",
+    )
+    parser.add_argument(
+        "--mesh-devices", default=None, metavar="SPEC",
+        help="shard the in-process production solve across a device mesh: "
+        "a count ('8') or NxM hosts-x-devices layout ('2x4') of real devices "
+        "of --device's kind; default $KARPENTER_TPU_MESH, else single-device "
+        "(ignored with a sidecar configured -- run the sidecar with --mesh "
+        "instead)",
     )
     parser.add_argument(
         "--pipelined-scheduling", action=argparse.BooleanOptionalAction, default=True,

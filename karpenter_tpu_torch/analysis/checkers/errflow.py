@@ -4,11 +4,9 @@ Copy of karpenter_tpu/analysis/checkers/errflow.py over the port. The
 manifests (``LADDER_SEAMS``, ``SANCTIONED_CRASH_SWALLOWS``,
 ``SANCTIONED_ESCAPE_SITES``, ``FAILPOINT_INJECTS``, ``RAISE_SOURCES``)
 name the port's own paths; the terminal rungs are ``TorchSolver``'s.
-Entries whose code lives in the mesh modules the port does not have yet
-are left out, and come with those modules: the mesh seams
-``fleet/shard.py:MeshSolveEngine._dispatch`` and ``._reshard``,
-``fleet/straggler.py:ShardStragglerWatchdog.check_now`` and the
-``mesh.`` failpoint prefix (ROADMAP A11b).
+The mesh seams are the JAX manifest's: ``fleet/shard.py:MeshSolveEngine.
+_dispatch`` and ``._reshard``, ``fleet/straggler.py:
+ShardStragglerWatchdog.check_now`` and the ``mesh.`` failpoint prefix.
 
 The repo's robustness claim -- every wire failure degrades through the
 shm -> tcp -> breaker -> host ladder to a bit-identical decision, and a
@@ -226,6 +224,32 @@ LADDER_SEAMS: Tuple[Seam, ...] = (
          why="op dispatch: solver errors become error REPLIES (the client's "
              "ladder sees a typed refusal, not a dead sidecar); only "
              "transport failures may tear the connection down"),
+    # -- mesh fault tolerance: the topology-epoch degrade ladder --------------
+    Seam("karpenter_tpu_torch/fleet/shard.py", "MeshSolveEngine", "_dispatch",
+         may_raise=("StaleSeqnumError", "StaleEpochError", "RuntimeError"),
+         failpoint="mesh.device.lost",
+         why="every sharded solve funnels here: a stale staged epoch or a "
+             "device lost mid-dispatch surfaces as StaleTopologyError (a "
+             "StaleSeqnumError, so every existing restage/retry/breaker "
+             "rung handles it unchanged); a RuntimeError that does NOT "
+             "classify as device loss re-raises untouched -- misreading a "
+             "program bug as a dead chip would shrink the mesh forever"),
+    Seam("karpenter_tpu_torch/fleet/shard.py", "MeshSolveEngine", "_reshard",
+         must_handle=("RuntimeError",),
+         failpoint="mesh.restage",
+         why="the restage seam: a failed reshard (half-dead runtime, the "
+             "mesh.restage failpoint) descends one rung to the unsharded "
+             "single-device path (counted via karpenter_handled_errors_"
+             "total + karpenter_mesh_reshards_total{reason=restage-failed}) "
+             "-- the engine must always come out of a reshard dispatchable"),
+    Seam("karpenter_tpu_torch/fleet/straggler.py", "ShardStragglerWatchdog",
+         "check_now",
+         must_handle=("RuntimeError",),
+         failpoint="mesh.shard.stall",
+         why="the quarantine seam: escalation hooks (cancel wire, "
+             "quarantine worst device, force breaker open) are best-effort "
+             "-- a hook failure is counted and the ladder continues; only "
+             "the crash rung's async raise leaves this frame"),
     # -- convex tier: every fault lands on the FFD rung ----------------------
     # the convex candidate is strictly optional: a dispatch or rounding
     # fault costs the tick only that candidate, and the decision shipped
@@ -421,6 +445,11 @@ FAILPOINT_INJECTS: Dict[str, Tuple[str, ...]] = {
     # convex-tier sites inject generic compute faults (a poisoned rounding
     # pass surfaces as RuntimeError/ValueError) plus the crash rung
     "convex.": ("RuntimeError", "ValueError", "OperatorCrashed"),
+    # mesh sites inject bare RuntimeError: the device-loss classifier
+    # (fleet/topology.py) matches the site name in the message and the
+    # dispatch seam converts it to StaleTopologyError; the stall action
+    # can surface the straggler watchdog's async-raised OperatorCrashed
+    "mesh.": ("RuntimeError", "OperatorCrashed"),
 }
 
 # socket-object verbs whose calls seed OSError (the stdlib raises these;

@@ -56,9 +56,6 @@ _SITE_FUNCS = {"eval", "corrupt", "live", "hits", "fires"}
 # documented families the port leaves out on purpose, by name prefix ->
 # why. Everything else docs/metrics.md lists, the port registers.
 OMITTED_FAMILIES: Dict[str, str] = {
-    "karpenter_mesh_":
-        "the sharded engine's topology families come with parallel/mesh.py "
-        "and fleet/shard.py (ROADMAP A11b)",
     "karpenter_solver_kernel_fallbacks_total":
         "the port never falls back: a wrapper given a CUDA tensor launches "
         "its kernel or raises, so there is no Pallas -> XLA pin to count "

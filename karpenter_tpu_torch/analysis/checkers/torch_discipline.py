@@ -137,6 +137,23 @@ DEVICE_HOT_PATH: Dict[str, Tuple[Tuple[str, ...], Dict[str, Tuple[str, ...]]]] =
         {"SolverServer": ("_op_solve_delta", "_staged_inputs", "_op_solve",
                           "_op_solve_compact", "_op_solve_disrupt", "_op_solve_convex")},
     ),
+    # the mesh: the shards' split, run and gathers enqueue only; a
+    # multi-process mesh's one barrier is the all-gather
+    # (_fetch_multiprocess, sanctioned)
+    "karpenter_tpu_torch/parallel/mesh.py": (
+        ("run_shards", "shard_inputs", "sharded_scan_columns", "sharded_solve",
+         "sharded_rates", "sharded_price_bound", "sharded_repack", "sharded_replace",
+         "_fetch_multiprocess"),
+        {},
+    ),
+    # fleet subsystem: the mesh engine's dispatch methods run on every
+    # tick of a mesh-configured solver/sidecar -- hot-path by
+    # construction; its one designed barrier is `fetch` (sanctioned)
+    "karpenter_tpu_torch/fleet/shard.py": (
+        (),
+        {"MeshSolveEngine": ("solve_fused", "solve_compact", "solve_dense",
+                             "price_bound", "repack", "replace", "fetch")},
+    ),
 }
 
 RULE_UNBOUNDED = "torchjit/unbounded-static"

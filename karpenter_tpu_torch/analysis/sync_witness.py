@@ -63,6 +63,10 @@ SANCTIONED_FETCH = frozenset({
     ("karpenter_tpu_torch/solver/rpc.py", "_op_solve_compact"),
     ("karpenter_tpu_torch/solver/rpc.py", "_op_solve_disrupt"),
     ("karpenter_tpu_torch/solver/rpc.py", "_op_solve_convex"),
+    # the mesh (fleet/shard.py, parallel/mesh.py): the engine's one
+    # designed host barrier, and a multi-process mesh's all-gather
+    ("karpenter_tpu_torch/fleet/shard.py", "fetch"),
+    ("karpenter_tpu_torch/parallel/mesh.py", "_fetch_multiprocess"),
 })
 
 # what torch's sync debug mode warns (c10/cuda: warn_or_error_on_sync)

@@ -2,12 +2,13 @@
 
 One solver process serves N operator replicas ("tenants" -- one per
 cluster): the rpc server stages each tenant's catalogs/epochs under its
-own ids, and the DispatchCoalescer batches their concurrent solves into
-shared device dispatch windows. Tenant sizing reads the live device
+own ids, the DispatchCoalescer batches their concurrent solves into
+shared device dispatch windows, and (when a mesh is configured) every
+dispatch runs the mesh-sharded entries (fleet/shard.py). Tenant sizing reads the live device
 memory ledger when one exists (tenant_staged_bytes: the resident
 packed-mask staging). This module is the small assembly layer over
-`SolverServer(coalescer=)` -- the same shape the binary exposes as
-`python -m karpenter_tpu_torch.solver.rpc --coalesce --tenant-budget ...`
+`SolverServer(mesh=, coalescer=)` -- the same shape the binary exposes as
+`python -m karpenter_tpu_torch.solver.rpc --coalesce --mesh ... --tenant-budget ...`
 -- shared by the sim fleet replay (sim/fleet.py) and ad-hoc embedders.
 
 Sizing (docs/operations.md "Multi-tenant runbook"): each tenant's staged
@@ -18,11 +19,9 @@ headroom threshold), so tenant count is sized from measured headroom --
 ledger (`torch.cuda.mem_get_info` and the caching allocator's figures on
 the card; nothing on the CPU).
 
-Copy of karpenter_tpu/fleet/service.py over the port, single-device
-half: a mesh (`mesh=`, `$KARPENTER_TPU_MESH`, `engine=`) raises until
-ROADMAP A11b brings the sharded engine -- it is never ignored, since a
-hidden input to a digest-pinned gate is what sim/fleet.py guards against.
-`device=` passes through to the server (None = the card).
+Copy of karpenter_tpu/fleet/service.py over the port. `device=` passes
+through to the server (None = the card); a `$KARPENTER_TPU_MESH` spec
+counts that device's kind (fleet/shard.py parse_mesh_spec).
 """
 from __future__ import annotations
 
@@ -30,11 +29,12 @@ import os
 from typing import Optional
 
 from karpenter_tpu_torch.fleet.coalesce import DispatchCoalescer
+from karpenter_tpu_torch.fleet.shard import (MESH_ENV, MeshSolveEngine, mesh_from_env,
+                                             parse_mesh_spec)
 from karpenter_tpu_torch.logging import get_logger
 from karpenter_tpu_torch.obs import hbm as obs_hbm
 
-# the JAX package's layout variable (fleet/shard.py MESH_ENV)
-MESH_ENV = "KARPENTER_TPU_MESH"
+__all__ = ["MESH_ENV", "build_fleet_server", "max_tenants_for_headroom", "tenant_staged_bytes"]
 
 # fallback per-tenant footprint when no live ledger is available: the
 # packed-mask staging profile (catalog ~1.6 MB + class epoch ~0.4 MB with
@@ -47,12 +47,6 @@ TENANT_STAGED_BYTES_FALLBACK = 6 * 1024 * 1024
 # steady-state staging plus one dispatch's transient copies (the staged
 # epoch being replaced lingers until the LRU drops it)
 _LIVE_SIZING_HEADROOM = 2
-
-
-def _no_mesh(what: str):
-    return NotImplementedError(
-        f"{what}: the port's fleet has no device mesh yet (ROADMAP A11b: "
-        "parallel/mesh.py, fleet/shard.py); run the single-device sidecar")
 
 
 def tenant_staged_bytes(solver=None) -> int:
@@ -96,13 +90,30 @@ def max_tenants_for_headroom(
     an explicit `per_tenant_bytes` overrides both. None when no device
     ledger exists (a process that solved on the CPU) -- capacity is then
     bounded by the LRUs alone, and the operator sizes from the runbook's
-    table instead. A mesh `engine` raises until ROADMAP A11b."""
-    if engine is not None:
-        raise _no_mesh("max_tenants_for_headroom(engine=...)")
+    table instead.
+
+    TOPOLOGY-AWARE when `engine` (the MeshSolveEngine) is passed: the
+    headroom is read at call time on the device the engine stages on
+    now (its primary: the current mesh's first shard, or the first
+    healthy device on the unsharded rung), so an epoch bump that moves
+    the primary moves the sizing with it. Unlike the JAX package, whose
+    mesh spreads each tenant's staging over the shards and piles it onto
+    the survivors after a loss (there per-tenant bytes scale by
+    size/healthy), the port stages the catalog whole on the primary and
+    the shards read views of it: losing a shard changes no device's
+    staging, so the per-tenant bytes stay as measured."""
     if per_tenant_bytes is None:
         per_tenant_bytes = tenant_staged_bytes(solver)
     if headroom_bytes is None:
         devices = obs_hbm.poll().get("devices") or {}
+        if engine is not None and getattr(engine, "topology", None) is not None:
+            # only the primary holds the staging; a label that names no
+            # polled device (label scheme drift, fake provider) falls
+            # back to the unfiltered set -- sizing must degrade, not
+            # vanish
+            dev = engine.device
+            label = f"{dev.type}:{0 if dev.index is None else dev.index}"
+            devices = {k: v for k, v in devices.items() if k == label} or devices
         free = [
             int(d["bytes_limit"]) - int(d["bytes_in_use"])
             for d in devices.values()
@@ -124,17 +135,23 @@ def build_fleet_server(
 ):
     """A started SolverServer wired for the fleet topology: the dispatch
     coalescer on (deterministic tenant ordering, per-tenant breaker and
-    deadline budget) on `device` (None = the card). `mesh=None` consults
-    the environment and any falsy value pins the single-device path, as
-    in the JAX package; a truthy `mesh`, or `$KARPENTER_TPU_MESH` set
-    under `mesh=None`, raises (ROADMAP A11b). Returns the running
+    deadline budget) on `device` (None = the card) and, when `mesh` (or
+    $KARPENTER_TPU_MESH) names a layout, the mesh-sharded solve engine.
+    `mesh=None` consults the environment; any other falsy value (False,
+    0, "") pins the single-device path regardless of it -- deterministic
+    gates must not take hidden configuration. Returns the running
     server; callers own stop()."""
     from karpenter_tpu_torch.solver.rpc import SolverServer
 
-    if mesh is None and os.environ.get(MESH_ENV):
-        raise _no_mesh(f"${MESH_ENV}={os.environ[MESH_ENV]!r}")
+    kind = "cuda" if device is None else device
+    if mesh is None:
+        mesh = mesh_from_env(kind)
+    elif isinstance(mesh, str):
+        # a spec counts real devices of the server's kind
+        mesh = parse_mesh_spec(mesh, kind)
+    engine = None
     if mesh:
-        raise _no_mesh(f"build_fleet_server(mesh={mesh!r})")
+        engine = mesh if isinstance(mesh, MeshSolveEngine) else MeshSolveEngine(mesh)
     coalescer = None
     if coalesce:
         kw = {"budget_s": tenant_budget_s}
@@ -143,6 +160,6 @@ def build_fleet_server(
         coalescer = DispatchCoalescer(**kw)
     server = SolverServer(
         host, port, path=path, token=token, insecure_tcp=insecure_tcp,
-        coalescer=coalescer, device=device, **server_kw,
+        mesh=engine, coalescer=coalescer, device=device, **server_kw,
     )
     return server.start()

@@ -394,6 +394,69 @@ WIRE_SHM_SEND_TIMEOUTS = REGISTRY.counter(
     "freed ring space within the send deadline (a wedged reader; "
     "surfaces as a ConnectionError feeding the shm->tcp degrade ladder)",
 )
+# fleet subsystem: mesh-sharded production solve (fleet/shard.py)
+MESH_DEVICES = REGISTRY.gauge(
+    "karpenter_mesh_devices",
+    "Devices in the production solve mesh (0/absent = single-device path)",
+)
+MESH_DISPATCHES = REGISTRY.counter(
+    "karpenter_mesh_sharded_dispatches_total",
+    "Solve dispatches routed through the mesh engine's sharded jit "
+    "entries, by entry kind (fused/compact/dense/repack/replace)",
+    labels=("entry",),
+)
+# fleet subsystem: topology epochs + degrade ladder (fleet/topology.py)
+MESH_TOPOLOGY_EPOCH = REGISTRY.gauge(
+    "karpenter_mesh_topology_epoch",
+    "Monotonic topology epoch of the solve mesh (bumped on every device "
+    "membership change: loss, quarantine, or return; staged catalogs are "
+    "stamped with the epoch they were staged under)",
+)
+MESH_TOPOLOGY_HEALTHY = REGISTRY.gauge(
+    "karpenter_mesh_topology_healthy_devices",
+    "Devices currently healthy in the solve mesh's topology ledger",
+)
+MESH_TOPOLOGY_QUARANTINED = REGISTRY.gauge(
+    "karpenter_mesh_topology_quarantined_devices",
+    "Devices currently marked lost/quarantined in the topology ledger "
+    "(excluded from the mesh until they return and the epoch re-bumps)",
+)
+MESH_TOPOLOGY_TRANSITIONS = REGISTRY.counter(
+    "karpenter_mesh_topology_transitions_total",
+    "Topology epoch bumps by membership-change kind",
+    labels=("kind",),  # device-lost | device-returned
+)
+MESH_RESHARDS = REGISTRY.counter(
+    "karpenter_mesh_reshards_total",
+    "Mesh engine reshards onto a new topology (lazy, at the first "
+    "dispatch after an epoch bump), by resulting ladder rung (full = "
+    "re-promoted to the original mesh; shrunk = surviving-device mesh; "
+    "unsharded = single-device rung; restage-failed = the reshard "
+    "itself failed and the engine descended to unsharded)",
+    labels=("reason",),
+)
+MESH_RESHARD_SECONDS = REGISTRY.histogram(
+    "karpenter_mesh_reshard_seconds",
+    "Wall time of one mesh reshard (sharding-table swap; staged-catalog "
+    "restage is paid separately by the owners' StaleTopologyError rungs)",
+    buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0),
+)
+MESH_STALE_SOLVES = REGISTRY.counter(
+    "karpenter_mesh_stale_topology_solves_total",
+    "Sharded dispatches/fetches fenced or converted by a topology-epoch "
+    "mismatch (each surfaces as StaleTopologyError into the existing "
+    "staging-gap recovery rungs), by dispatch site",
+    labels=("site",),
+)
+MESH_SHARD_WATCHDOG = REGISTRY.counter(
+    "karpenter_mesh_shard_watchdog_escalations_total",
+    "Shard-straggler watchdog escalations by ladder stage (cancel = "
+    "wedged dispatch's owner cancel hook; quarantine = worst healthy "
+    "device quarantined, bumping the topology epoch; breaker-open = "
+    "solve breaker forced open; crash = OperatorCrashed async-raised "
+    "into the wedged thread)",
+    labels=("stage",),  # cancel | quarantine | breaker-open | crash
+)
 # fleet subsystem: multi-tenant dispatch coalescer (fleet/coalesce.py)
 TENANT_DISPATCHES = REGISTRY.counter(
     "karpenter_tenant_dispatches_total",

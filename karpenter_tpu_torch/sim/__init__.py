@@ -33,8 +33,9 @@ trace produce byte-identical decision logs (tests/test_sim.py).
 
 Copy of karpenter_tpu/sim/__init__.py, imports rewritten to the port's.
 The fleet replay (`sim/fleet.py`, the CLI's `fleet` verb) runs N tenants
-through one coalescing sidecar; the CLI's `corpus` verb waits for the
-mesh (ROADMAP A11b).
+through one coalescing sidecar; the CLI's `corpus` verb replays the
+committed corpus through the host and differential backends, `mesh`
+included, against the pinned digests.
 """
 from karpenter_tpu_torch.sim.trace import (
     TRACE_VERSION,

@@ -8,6 +8,8 @@
     sim shrink trace.jsonl -o sim-artifacts       # minimize a failing trace
     sim fleet --tenants 3 --device cpu            # N tenants, one sidecar,
                                                   # per-tenant golden digests
+    sim corpus --device cpu                       # every committed scenario,
+                                                  # differential + golden digests
 
 Every command prints exactly one JSON line on stdout (the bench/CI
 contract) and returns a nonzero exit code on divergence or invariant
@@ -15,18 +17,24 @@ violation. Recording a live run is the binary's job:
 `python -m karpenter_tpu_torch --sim-record out.jsonl`.
 
 Copy of karpenter_tpu/sim/cli.py, imports rewritten to the port's, with
-the `generate`, `replay`, `shrink` and `fleet` verbs. The replay's and the
-shrinker's engines run on the card unless `--device cpu` is given.
-`generate` needs no engine. The `fleet` verb replays N tenants through
-one shared coalescing sidecar (sim/fleet.py), each against the pinned
-multi-cluster-storm digests and its isolated replay; it has no `--mesh`,
-and no `--update-digests`: the pinned file belongs to the JAX package.
-The `corpus` verb waits for A11b (ROADMAP): it re-replays through the
-`mesh` backend.
+the `generate`, `replay`, `shrink`, `corpus` and `fleet` verbs. The
+replay's and the shrinker's engines run on the card unless `--device cpu`
+is given. `generate` needs no engine. The `fleet` verb replays N tenants
+through one shared coalescing sidecar (sim/fleet.py; `--mesh` shards it
+over 8 shards of the device), each against the pinned
+multi-cluster-storm digests and its isolated replay. The `corpus` verb
+replays every committed scenario differentially against digests.json and
+quality.json, then its legs: `delta`, `mesh` and `packed` on the first
+scenario, `mesh` on mesh-device-loss (where the device events reshard),
+`convex` on binpack-adversarial-convex (dominance). Neither verb writes a
+pinned file -- no `--update-digests`, no `--update-quality`: the goldens
+belong to the JAX package -- and a failing scenario is shrunk into
+`--artifacts`.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import sys
@@ -155,6 +163,244 @@ def _cmd_shrink(args) -> int:
     return 0
 
 
+def _cmd_corpus(args) -> int:
+    """Replay every committed scenario differentially, verify the golden
+    host-backend digests and the quality bounds, and shrink+archive any
+    failure. The CI gate. The pinned files are read, never written."""
+    from karpenter_tpu_torch.sim.replay import differential
+    from karpenter_tpu_torch.sim.shrink import differential_failing, shrink_to_repro
+    from karpenter_tpu_torch.sim.trace import read_trace
+
+    traces = sorted(
+        p for p in glob.glob(os.path.join(args.dir, "*.jsonl"))
+        if not p.endswith("-shrunk.jsonl")
+    )
+    digest_path = os.path.join(args.dir, "digests.json")
+    golden = {}
+    if os.path.exists(digest_path):
+        with open(digest_path) as f:
+            golden = json.load(f)
+    # solution-quality regression gate (obs/quality.py KPIs): per-scenario
+    # optimality-gap upper bounds pinned next to the digests. Decision
+    # digests prove behavior didn't CHANGE; these bounds catch a solver
+    # change making the ANSWERS worse while every digest stays green.
+    quality_path = os.path.join(args.dir, "quality.json")
+    quality_gold = {}
+    if os.path.exists(quality_path):
+        with open(quality_path) as f:
+            quality_gold = json.load(f)
+    quality_violations = {}
+    report = {}
+    new_digests = {}
+    host_kpis_by_name = {}
+    backends_by_path = {}
+    rc = 0
+    for path in traces:
+        name = os.path.splitext(os.path.basename(path))[0]
+        events = read_trace(path)
+        seed = _trace_seed(events, None)
+        backends_by_path[path] = _trace_backends(events)
+        from karpenter_tpu_torch.sim.replay import BACKENDS
+
+        res = differential(events, seed=seed,
+                           backends=_trace_backends(events) or BACKENDS,
+                           device=args.device)
+        host_digest = res.results["host"].digest if "host" in res.results else None
+        entry = {
+            "ok": res.ok,
+            "digest": host_digest,
+            "divergences": [
+                {"kind": d.kind, "backends": list(d.backends), "detail": d.detail}
+                for d in res.divergences
+            ],
+        }
+        new_digests[name] = host_digest
+        if not res.ok:
+            rc = 1
+            entry["shrunk"] = shrink_to_repro(
+                events, differential_failing(seed, device=args.device), args.artifacts, name)
+        elif golden.get(name) not in (None, host_digest):
+            rc = 1
+            entry["ok"] = False
+            entry["golden_digest"] = golden.get(name)
+            entry["note"] = "decision digest drifted from golden"
+        host_kpis = res.results["host"].kpis if "host" in res.results else {}
+        host_kpis_by_name[name] = host_kpis
+        gap_keys = ("optimality_gap_p50", "optimality_gap_final")
+        entry["quality"] = {
+            k: host_kpis.get(k, 0.0)
+            for k in gap_keys + ("stranded_cpu_fraction",
+                                 "stranded_memory_fraction",
+                                 "fragmentation_index")
+        }
+        gate = quality_gold.get(name)
+        if gate:
+            for k in gap_keys:
+                cap = gate.get(k + "_max")
+                observed = host_kpis.get(k, 0.0)
+                if cap is not None and observed > cap:
+                    quality_violations.setdefault(name, {})[k] = {
+                        "observed": observed, "max": cap,
+                    }
+        report[name] = entry
+    # delta-path gate (incremental-tick engine): one scenario re-replayed
+    # through the wire sidecar with delta class shipping + incremental
+    # grouping FORCED on; its decision digest must equal the committed
+    # host golden bit-for-bit, or the corpus gate fails
+    if traces and rc == 0:
+        from karpenter_tpu_torch.sim.replay import InvariantViolation, replay
+
+        # anchor on the first trace NOT restricted to the host backend:
+        # host-only scenarios (e.g. binpack-adversarial-convex) pin that
+        # restriction because their point is a quality comparison, not
+        # cross-backend bit-identity, and forcing the wire-shaped legs
+        # through one would gate on a digest the scenario never promised
+        path = next((p for p in traces
+                     if backends_by_path.get(p) != ("host",)), traces[0])
+        name = os.path.splitext(os.path.basename(path))[0]
+        events = read_trace(path)
+        seed = _trace_seed(events, None)
+        want = new_digests.get(name) or golden.get(name)
+        try:
+            dres = replay(events, backend="delta", seed=seed, device=args.device)
+            entry = {"ok": dres.digest == want, "digest": dres.digest}
+            if not entry["ok"]:
+                rc = 1
+                entry["golden_digest"] = want
+                entry["note"] = "delta-path digest diverged from golden"
+        except InvariantViolation as e:
+            rc = 1
+            entry = {"ok": False, "note": f"delta-path invariant violation: {e}"}
+        report[f"delta:{name}"] = entry
+        # mesh-path gate (fleet subsystem): the same scenario re-replayed
+        # with the production solve SHARDED over the device mesh (the
+        # virtual 8-device host mesh in CI); its digest must equal the
+        # committed host golden bit-for-bit -- sharded == unsharded,
+        # asserted the way host == wire is
+        try:
+            mres = replay(events, backend="mesh", seed=seed, device=args.device)
+            mentry = {"ok": mres.digest == want, "digest": mres.digest}
+            if not mentry["ok"]:
+                rc = 1
+                mentry["golden_digest"] = want
+                mentry["note"] = "mesh-path digest diverged from golden"
+        except InvariantViolation as e:
+            rc = 1
+            mentry = {"ok": False, "note": f"mesh-path invariant violation: {e}"}
+        report[f"mesh:{name}"] = mentry
+        # packed-path gate (bit-packed masks, solver/packing.py): the
+        # same scenario re-replayed with the open/join masks shipped as
+        # uint32 words end to end; its digest must equal the committed
+        # host golden bit-for-bit -- packed == full-width, asserted the
+        # way sharded == unsharded is
+        try:
+            pres = replay(events, backend="packed", seed=seed, device=args.device)
+            pentry = {"ok": pres.digest == want, "digest": pres.digest}
+            if not pentry["ok"]:
+                rc = 1
+                pentry["golden_digest"] = want
+                pentry["note"] = "packed-path digest diverged from golden"
+        except InvariantViolation as e:
+            rc = 1
+            pentry = {"ok": False, "note": f"packed-path invariant violation: {e}"}
+        report[f"packed:{name}"] = pentry
+    # device-loss mesh gate (fleet fault tolerance): the one scenario
+    # that actually loses and regains devices is replayed through the
+    # mesh backend, where the events BITE (topology epoch bump ->
+    # reshard onto survivors -> shrunk-mesh solves -> re-promotion);
+    # its digest must equal the committed host golden bit-for-bit --
+    # the whole degrade ladder is decision-invisible, asserted the way
+    # sharded == unsharded is for the healthy mesh
+    loss = [p for p in traces
+            if os.path.splitext(os.path.basename(p))[0] == "mesh-device-loss"]
+    if loss and rc == 0:
+        from karpenter_tpu_torch.sim.replay import InvariantViolation, replay
+
+        events = read_trace(loss[0])
+        seed = _trace_seed(events, None)
+        want = (new_digests.get("mesh-device-loss")
+                or golden.get("mesh-device-loss"))
+        try:
+            lres = replay(events, backend="mesh", seed=seed, device=args.device)
+            lentry = {"ok": lres.digest == want, "digest": lres.digest}
+            if not lentry["ok"]:
+                rc = 1
+                lentry["golden_digest"] = want
+                lentry["note"] = ("device-loss mesh digest diverged from "
+                                  "golden: the degrade ladder changed a "
+                                  "decision")
+        except InvariantViolation as e:
+            rc = 1
+            lentry = {"ok": False,
+                      "note": f"device-loss mesh invariant violation: {e}"}
+        report["mesh:mesh-device-loss"] = lentry
+    # convex-tier gate (solver/convex): the adversarial bin-packing
+    # scenario is re-replayed with the convex global-solve tier forced
+    # on. Unlike the bit-identical legs above, convex is ALLOWED to
+    # change decisions -- the gate asserts DOMINANCE instead: fleet
+    # $/pod-hour strictly below the host replay's, final optimality gap
+    # no worse, and byte-determinism via its own digest pinned under
+    # "convex:binpack-adversarial-convex" in digests.json
+    adv = [p for p in traces
+           if os.path.splitext(os.path.basename(p))[0]
+           == "binpack-adversarial-convex"]
+    if adv and rc == 0:
+        from karpenter_tpu_torch.sim.replay import InvariantViolation, replay
+
+        events = read_trace(adv[0])
+        seed = _trace_seed(events, None)
+        hk = host_kpis_by_name.get("binpack-adversarial-convex", {})
+        key = "convex:binpack-adversarial-convex"
+        try:
+            cres = replay(events, backend="convex", seed=seed, device=args.device)
+            centry = {
+                "digest": cres.digest,
+                "cost_per_pod_hour": cres.kpis.get("cost_per_pod_hour"),
+                "host_cost_per_pod_hour": hk.get("cost_per_pod_hour"),
+                "optimality_gap_final": cres.kpis.get("optimality_gap_final"),
+                "host_optimality_gap_final": hk.get("optimality_gap_final"),
+            }
+            wins = (
+                cres.kpis.get("cost_per_pod_hour", float("inf"))
+                < hk.get("cost_per_pod_hour", 0.0)
+                and cres.kpis.get("optimality_gap_final", float("inf"))
+                <= hk.get("optimality_gap_final", 0.0)
+            )
+            centry["ok"] = wins
+            if not wins:
+                rc = 1
+                centry["note"] = ("convex tier failed to dominate the host "
+                                  "replay on the adversarial corpus")
+            new_digests[key] = cres.digest
+            if wins and golden.get(key) not in (None, cres.digest):
+                rc = 1
+                centry["ok"] = False
+                centry["golden_digest"] = golden.get(key)
+                centry["note"] = "convex decision digest drifted from golden"
+        except InvariantViolation as e:
+            rc = 1
+            centry = {"ok": False,
+                      "note": f"convex-tier invariant violation: {e}"}
+        report[key] = centry
+    if quality_violations:
+        # the regression diff is a ready-made artifact: the sim-corpus CI
+        # job uploads args.artifacts on failure, so the observed-vs-bound
+        # table arrives alongside any shrunk repro
+        rc = 1
+        os.makedirs(args.artifacts, exist_ok=True)
+        diff_path = os.path.join(args.artifacts, "quality-regression.json")
+        with open(diff_path, "w") as f:
+            json.dump(quality_violations, f, indent=2, sort_keys=True)
+            f.write("\n")
+        report["quality_regression"] = {
+            "violations": quality_violations, "diff": diff_path,
+            "note": "optimality gap exceeded the pinned bound "
+                    "(tests/golden/scenarios/quality.json)",
+        }
+    print(json.dumps({"corpus": report, "ok": rc == 0}, sort_keys=True))
+    return rc
+
+
 def _cmd_fleet(args) -> int:
     """N tenants through one shared coalescing sidecar (sim/fleet.py):
     per-tenant digests must equal their isolated replays AND the goldens
@@ -164,7 +410,7 @@ def _cmd_fleet(args) -> int:
     from karpenter_tpu_torch.sim.scenario import DEFAULT_SEED
 
     seed = args.seed if args.seed is not None else DEFAULT_SEED
-    res = replay_fleet(args.tenants, base_seed=seed, device=args.device)
+    res = replay_fleet(args.tenants, base_seed=seed, mesh=args.mesh, device=args.device)
     digest_path = os.path.join(args.dir, "multi-cluster-storm.digests.json")
     golden = {}
     if os.path.exists(digest_path):
@@ -172,7 +418,7 @@ def _cmd_fleet(args) -> int:
             golden = json.load(f)
     rc = 0 if res.ok else 1
     report = {
-        "tenants": args.tenants, "seed": seed, "mesh": False,
+        "tenants": args.tenants, "seed": seed, "mesh": bool(args.mesh),
         "digests": res.digests,
         "divergences": list(res.divergences),
     }
@@ -238,14 +484,29 @@ def main(argv=None) -> int:
                      help=device_help)
     shr.set_defaults(fn=_cmd_shrink)
 
+    cor = sub.add_parser(
+        "corpus",
+        help="replay every committed scenario differentially and against "
+        "the pinned digests and quality bounds (read, never written: no "
+        "--update-digests, no --update-quality -- the goldens belong to "
+        "the JAX package)",
+    )
+    cor.add_argument("--dir", default="tests/golden/scenarios")
+    cor.add_argument("--artifacts", default="sim-artifacts",
+                     help="where shrunk repros and the quality diff land")
+    cor.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                     help=device_help)
+    cor.set_defaults(fn=_cmd_corpus)
+
     flt = sub.add_parser(
         "fleet",
         help="multi-tenant replay: N engines sharing one coalescing "
         "sidecar, per-tenant golden digests (multi-tenant == isolated); "
-        "no --mesh (ROADMAP A11b) and no --update-digests (the pinned "
-        "file belongs to the JAX package)",
+        "no --update-digests (the pinned file belongs to the JAX package)",
     )
     flt.add_argument("--tenants", type=int, default=3)
+    flt.add_argument("--mesh", action="store_true",
+                     help="shard the shared sidecar's solves over 8 shards of the device")
     flt.add_argument("--seed", type=int, default=None)
     flt.add_argument("--dir", default="tests/golden/scenarios",
                      help="where multi-cluster-storm.digests.json is read from")

@@ -21,7 +21,8 @@ solver layer, where decisions carry no process-global RNG
 
 Copy of karpenter_tpu/sim/fleet.py over the port: every engine, the
 shared sidecar and each isolated one run on ``device`` (None = the card;
-the tests pass "cpu"). ``mesh=True`` raises until ROADMAP A11b.
+the tests pass "cpu"). ``mesh=True`` shards the shared sidecar over 8
+shards of that device.
 """
 from __future__ import annotations
 
@@ -70,13 +71,11 @@ def replay_fleet(
 ) -> FleetReplayResult:
     """Replay N tenants through one shared coalescing sidecar on
     `device`; optionally re-replay each tenant isolated (its own plain
-    sidecar) and record any digest divergence."""
+    sidecar) and record any digest divergence. ``mesh=True``
+    additionally shards the shared sidecar's solves over 8 shards of
+    `device` (sharded == unsharded rides the same differential)."""
     from karpenter_tpu_torch.fleet.service import build_fleet_server
 
-    if mesh:
-        raise NotImplementedError(
-            "replay_fleet(mesh=True): the port has no device mesh yet "
-            "(ROADMAP A11b: parallel/mesh.py, fleet/shard.py)")
     out = FleetReplayResult()
     own_tmp = None
     if tmpdir is None:
@@ -86,7 +85,16 @@ def replay_fleet(
     # mesh=False must stay single-device regardless of the environment:
     # a $KARPENTER_TPU_MESH leaking into the replay would be a hidden
     # input to a digest-pinned gate
-    server = build_fleet_server(path=sock, mesh=False, coalesce=True, device=device)
+    mesh_obj = None
+    if mesh:
+        from karpenter_tpu_torch.parallel.mesh import make_mesh
+        from karpenter_tpu_torch.solver.service import resolve_device
+
+        mesh_obj = make_mesh(8, devices=[resolve_device(device)] * 8)
+    server = build_fleet_server(
+        path=sock, mesh=mesh_obj if mesh else False, coalesce=True,
+        device=None if mesh else device,
+    )
     try:
         for i in range(n_tenants):
             tenant = f"cluster-{i}"

@@ -37,8 +37,10 @@ for the wire backends the port's `SolverServer` on the same device with
 the port's `SolverClient` and `CircuitBreaker`. Backends: `host`,
 `convex`, `pipelined`, `wire`, `delta` and `tcp` as in the JAX package;
 `packed` is the host path, since the port's masks are always bit-packed
-(solver/packing.py); `mesh` raises until the port has a mesh (ROADMAP
-A11b). A wire engine built with `server_path=` and `tenant=` is one
+(solver/packing.py); `mesh` is the host path with the solve sharded over
+8 shards of the replay's device (`make_mesh(8, devices=[device] * 8)`,
+the shape of the JAX package's CI mesh), where the trace's
+`device_lost`/`device_returned` events reach the engine. A wire engine built with `server_path=` and `tenant=` is one
 tenant of a shared coalescing sidecar (sim/fleet.py) instead of starting
 its own.
 """
@@ -66,8 +68,10 @@ BACKENDS = ("host", "wire", "pipelined")
 #   off (wire backends on a UNIX socket negotiate shm by default since
 #   wire v2, so the trio already exercises the ring; this backend pins
 #   the socket path, proving shm == tcp == host decision digests);
-# - "mesh": the sharded solve over a device mesh -- raises in the port
-#   until ROADMAP A11b brings one;
+# - "mesh": TorchSolver in-process with the production solve sharded over
+#   8 shards of the replay's device (fleet/shard.py; the JAX package's CI
+#   runs 8 virtual devices) -- the corpus gate replays scenarios through
+#   it, and mesh-device-loss's device events reshard it;
 # - "packed": the host path (the port's open/join masks are always
 #   bit-packed, solver/packing.py), kept so the JAX package's backend
 #   names all resolve;
@@ -213,8 +217,15 @@ class _Engine:
             # the adversarial scenario rather than digest equality
             solver = TorchSolver(g_max=64, tier="convex", device=self.device)
         elif self.backend == "mesh":
-            raise NotImplementedError(
-                "the mesh backend waits for A11b: the port has no device mesh yet")
+            # the sharded production solve over 8 positional shards of the
+            # replay's device: in-process like "host", every dispatch
+            # through the mesh engine -- digest equality with the host
+            # golden IS the sharded == unsharded differential
+            from karpenter_tpu_torch.parallel.mesh import make_mesh
+            from karpenter_tpu_torch.solver.service import resolve_device
+
+            dev = resolve_device(self.device)
+            solver = TorchSolver(g_max=64, mesh=make_mesh(8, devices=[dev] * 8))
         else:
             from karpenter_tpu_torch.solver.rpc import SolverClient, SolverServer
 

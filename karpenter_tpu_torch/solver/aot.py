@@ -53,10 +53,14 @@ key (`{reason="dispatch"}`; the `aot.dispatch` failpoint drills it), a
 failed capture skips its task (`{reason="compile"}`), a library the store
 cannot take (`{reason="serialize"}`, build.py).
 
-Not here: the JAX module's `_mesh_tasks` (warm calls for the sharded
-engine's current and shrunk layouts) waits for the mesh slice (ROADMAP
-A11b); `describe()` says so. Importing this module imports nothing of
-CUDA; graphs are made inside functions.
+With a mesh engine (`TorchSolver(mesh=)`) the hot shapes are the mesh
+tasks instead (`_mesh_tasks`, the JAX module's): ordinary warm calls, no
+graphs, of the sharded fused solve and bound of the CURRENT layout (tier
+0). `describe()["mesh_tasks"]` lists that layout with its tasks and
+every deterministic shrunk layout of the degrade ladder (tier 1), which
+is not called: on the card a shrunk layout's first tick is no slower
+than its second without it. Importing this module imports nothing of CUDA;
+graphs are made inside functions.
 """
 from __future__ import annotations
 
@@ -87,8 +91,6 @@ _ARTIFACT_VERSION = 1
 # ladder sleeps are capped so one slow capture cannot park the ladder for
 # minutes between tasks
 _MAX_THROTTLE_SLEEP_S = 30.0
-# the mesh tasks' place in /debug/aot until the sharded engine exists
-MESH_TASKS = "not ported: the sharded engine's layouts wait for ROADMAP A11b"
 
 AOT_PRECOMPILED_FRACTION = metrics.AOT_PRECOMPILED_FRACTION
 AOT_DISPATCHES = metrics.AOT_DISPATCHES
@@ -302,6 +304,8 @@ class AotManager:
         self._pending = None
         self._thread: Optional[threading.Thread] = None
         self._pool = None
+        # the mesh tasks' layouts as last planned (describe())
+        self._mesh_doc: List[Dict[str, Any]] = []
         _MANAGERS.add(self)
 
     def _fp(self) -> str:
@@ -407,6 +411,11 @@ class AotManager:
             cs = encode.encode_classes([], tensors, c_pad=cp)
             return ffd.make_inputs_staged(entry.staged, cs, packed_masks=True)
 
+        if solver.mesh_engine is not None:
+            tasks.extend(self._mesh_tasks(entry, pads))
+            tasks.extend(self._disrupt_tasks(tensors))
+            tasks.sort(key=lambda t: t.tier)
+            return tasks
         # tier 0: the production solve + its bound, every class-count
         # bucket -- the hot shapes a restart's first tick dispatches
         for cp in pads:
@@ -435,6 +444,71 @@ class AotManager:
         # tier 3 (rare buckets last): the consolidation kernels
         tasks.extend(self._disrupt_tasks(tensors))
         tasks.sort(key=lambda t: t.tier)
+        return tasks
+
+    def _mesh_tasks(self, entry, pads) -> List["_Task"]:
+        """Warm-call tasks for the sharded engine: mesh entries take no
+        graph (as the JAX package keeps serialized executables off the
+        mesh), so coverage is an ordinary sharded dispatch of the CURRENT
+        layout's fused solve and bound (tier 0: the first enqueue of each
+        op on the shard streams, ~250 ms of the first 8-shard tick on an
+        H100, hack/mesh_warm_probe.py). Every deterministic shrunk layout
+        of the degrade ladder is listed (tier 1) but not called: the JAX
+        module compiles it ahead, while here a shrunk layout reuses the
+        full one's per-position streams and ops, and its first tick on
+        the card is no slower than its second (same probe). The calls go
+        to the layout directly, not through an engine: no topology ledger
+        or dispatch counter moves for a warm-up."""
+        from karpenter_tpu_torch.parallel import mesh as mesh_mod
+        from karpenter_tpu_torch.solver import encode, ffd
+
+        solver = self.solver
+        engine = solver.mesh_engine
+        tensors, offs, words = entry.tensors, entry.offsets, entry.words
+        tasks: List[_Task] = []
+        doc = []
+        mesh = engine.mesh
+        if mesh is not None and entry.staged.cap.device == mesh.primary:
+            labels = []
+            for cp in pads:
+                def inputs(cp=cp):
+                    cs = encode.encode_classes([], tensors, c_pad=cp)
+                    return ffd.make_inputs_staged(entry.staged, cs, packed_masks=True)
+
+                def run_fused(cp=cp, inputs=inputs):
+                    inp = inputs()
+                    cols = mesh_mod.sharded_scan_columns(mesh, inp, offs, words,
+                                                         solver.objective)
+                    ffd.ffd_solve_fused(
+                        inp, g_max=solver.g_max, nnz_max=ffd.nnz_budget(cp, solver.g_max),
+                        word_offsets=offs, words=words, objective=solver.objective,
+                        columns=cols)
+                    _sync(mesh.primary)
+
+                def run_bound(cp=cp, inputs=inputs):
+                    placed = torch.zeros((cp,), dtype=torch.float32, device=mesh.primary)
+                    mesh_mod.sharded_price_bound(mesh, inputs(), placed, word_offsets=offs,
+                                                 words=words)
+                    _sync(mesh.primary)
+
+                for name, fn in (("fused", run_fused), ("bound", run_bound)):
+                    label = f"mesh full {mesh.size} {name} c{cp}"
+                    labels.append(label)
+                    tasks.append(_Task(0, f"mesh_{name}", label, None, fn))
+            doc.append({"tier": 0, "layout": "full", "shards": mesh.size,
+                        "axes": dict(zip(mesh.axis_names, mesh.shape)), "tasks": labels})
+        try:
+            shrunk = engine.topology.shrunk_meshes()
+        except Exception as e:  # noqa: BLE001 -- enumeration is advisory:
+            # losing the listing costs visibility, never correctness
+            AOT_FALLBACKS.inc(reason="compile")
+            log.warning("shrunk-layout enumeration failed",
+                        error=f"{type(e).__name__}: {e}"[:200])
+            shrunk = []
+        doc.extend({"tier": 1, "layout": "shrunk", "shards": m.size,
+                    "axes": dict(zip(m.axis_names, m.shape)), "tasks": []} for m in shrunk)
+        with self._lock:
+            self._mesh_doc = doc
         return tasks
 
     def _disrupt_tasks(self, tensors) -> List["_Task"]:
@@ -656,7 +730,7 @@ class AotManager:
                 "ladder_busy": self._ladder_busy,
                 "device": str(self.device),
                 "armed_form": "cuda graph" if self.device.type == "cuda" else "plain closure",
-                "mesh_tasks": MESH_TASKS,
+                "mesh_tasks": list(self._mesh_doc),
             }
         entries = sorted(set(planned) | set(armed_by_entry))
         doc["entries"] = {

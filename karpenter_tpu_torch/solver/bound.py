@@ -52,6 +52,36 @@ def feasible(inp: SolveInputs, word_offsets: Tuple[int, ...],
     return feas, price_ck, cap_eff
 
 
+def class_rates(inp: SolveInputs, word_offsets: Tuple[int, ...],
+                words: Tuple[int, ...]) -> torch.Tensor:
+    """[R, C] f32: each class's cheapest feasible price per unit of axis
+    r over `inp`'s type columns (+inf when none). A minimum over column
+    blocks is the minimum over all columns, so a mesh shard computes it
+    for its own columns and the combine takes the minimum
+    (parallel/mesh.py)."""
+    feas, price_ck, cap_eff = feasible(inp, word_offsets, words)
+    best = []
+    # R-unrolled, as the JAX entry: R separate [C, K] passes
+    for r in range(inp.cap.shape[1]):
+        capr = cap_eff[None, :, r]                                     # [1, K]
+        rate = torch.where(feas & (capr > 0.0), price_ck / capr, torch.inf)
+        best.append(torch.amin(rate, dim=-1))                          # [C]
+    return torch.stack(best)
+
+
+def totals_from_rates(best: torch.Tensor, req: torch.Tensor, placed: torch.Tensor) -> torch.Tensor:
+    """The [R] totals from the [R, C] class rates: each axis summed in
+    float64 and rounded to float32 once."""
+    placed_f = placed.to(torch.float32)                                # [C]
+    totals = []
+    for r in range(best.shape[0]):
+        # a class with no finite rate on axis r contributes nothing --
+        # where() guards inf * 0 = nan
+        contrib = torch.where(torch.isfinite(best[r]), best[r], 0.0) * req[:, r] * placed_f
+        totals.append(contrib.sum(dtype=torch.float64))
+    return torch.stack(totals).to(torch.float32)                       # [R]
+
+
 def fractional_price_bound(
     inp: SolveInputs, placed: torch.Tensor, *,
     word_offsets: Tuple[int, ...], words: Tuple[int, ...],
@@ -59,19 +89,7 @@ def fractional_price_bound(
     """The [R] per-resource fractional price totals ($/h) on the
     device; the bound is their max, taken on the host so the binding
     resource comes from the same fetch."""
-    feas, price_ck, cap_eff = feasible(inp, word_offsets, words)
-    placed_f = placed.to(torch.float32)                                # [C]
-    totals = []
-    # R-unrolled, as the JAX entry: R separate [C, K] passes
-    for r in range(inp.cap.shape[1]):
-        capr = cap_eff[None, :, r]                                     # [1, K]
-        rate = torch.where(feas & (capr > 0.0), price_ck / capr, torch.inf)
-        best = torch.amin(rate, dim=-1)                                # [C]
-        # a class with no finite rate on axis r contributes nothing --
-        # where() guards inf * 0 = nan
-        contrib = torch.where(torch.isfinite(best), best, 0.0) * inp.req[:, r] * placed_f
-        totals.append(contrib.sum(dtype=torch.float64))
-    return torch.stack(totals).to(torch.float32)                       # [R]
+    return totals_from_rates(class_rates(inp, word_offsets, words), inp.req, placed)
 
 
 def fetch_bound(totals: torch.Tensor) -> Tuple[float, int]:

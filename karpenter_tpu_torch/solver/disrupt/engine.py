@@ -1,7 +1,6 @@
 """DisruptEngine: batched candidate-set consolidation in one dispatch.
 
-Copy of karpenter_tpu/solver/disrupt/engine.py without the mesh-sharded
-repack. Host side of the consolidation solve: encode the candidate sets
+Copy of karpenter_tpu/solver/disrupt/engine.py. Host side of the consolidation solve: encode the candidate sets
 once ([S, C] membership, [S, N] exclusions, [C, N] feasibility, [N, R]
 headroom), run the repack (kernel B, one block per candidate set) and the
 per-pool replacement search (solver/disrupt/kernel.py), and assemble
@@ -16,7 +15,11 @@ per-set verdicts. Two routes, chosen as the JAX engine chooses them:
   locally (``karpenter_disruption_device_fallbacks_total{reason=
   "rpc-down"}``); an open breaker or a sidecar without the op go local
   at once (``breaker-open``, ``feature-missing``);
-- local: kernel B and the replacement search on the engine's device.
+- local: kernel B and the replacement search on the engine's device;
+  with ``mesh=`` the repack's candidate-set axis splits over the mesh's
+  shards (parallel/mesh.py ``sharded_repack``: kernel B once per shard,
+  S padded to a multiple of the mesh size), its operands uploaded through
+  the pinned path.
 
 Both count ``karpenter_disruption_device_dispatches_total{path}`` and the
 sweep's wall in ``karpenter_disruption_device_sweep_seconds``. As in the
@@ -180,11 +183,17 @@ class DisruptEngine:
     ``device`` None means the card and raises without CUDA; only an
     explicit ``device="cpu"`` runs the kernels' plain versions. ``solver``
     (a TorchSolver) lends its device and its catalog cache: the sweep
-    reads the same staged catalog the provisioning solve runs against."""
+    reads the same staged catalog the provisioning solve runs against.
+    ``mesh`` (a parallel.mesh.Mesh) splits the local repack's
+    candidate-set axis across the shards (parallel/mesh.sharded_repack),
+    as the JAX engine's does."""
 
-    def __init__(self, device=None, solver=None):
+    def __init__(self, device=None, solver=None, mesh=None):
+        self.mesh = mesh
         if solver is not None:
             self.device = solver.device
+        elif mesh is not None and device is None:
+            self.device = mesh.primary
         else:
             from karpenter_tpu_torch.solver.service import resolve_device
 
@@ -236,7 +245,12 @@ class DisruptEngine:
         enc.n_sets = len(sets)
         C = enc.C = _bucket(len(classes))
         N = enc.N = _bucket(max(1, len(nodes)), lo=16)
-        S = enc.S = _bucket(len(sets))
+        S = _bucket(len(sets))
+        n = self.mesh.size if self.mesh is not None else 0
+        if n and S % n:
+            # the split set axis divides evenly across the shards
+            S = ((S + n - 1) // n) * n
+        enc.S = S
         R = encode.R
 
         req = np.zeros((C, R), dtype=np.float32)
@@ -406,8 +420,17 @@ class DisruptEngine:
     # -- local route ----------------------------------------------------------
     def _dispatch_local(self, enc: _Encoded) -> np.ndarray:
         """[n_sets] leftover totals from kernel B (its plain version on the
-        CPU); the [S, C] leftover stays on the device for the replacement
-        passes."""
+        CPU; once per shard with a mesh); the [S, C] leftover stays on the
+        device for the replacement passes."""
+        if self.mesh is not None:
+            from karpenter_tpu_torch.parallel.mesh import sharded_repack
+
+            # the pinned uploads' staging buffers live until the fetch below
+            hold: list = []
+            leftover, _ = sharded_repack(
+                self.mesh, enc.headroom, enc.feas, enc.req, enc.member, enc.excl, hold=hold)
+            self._leftover = leftover
+            return leftover.sum(dim=1).cpu().numpy()
         ops = kernel.repack_from_numpy(
             enc.headroom, enc.feas, enc.req, enc.member, enc.excl, self.device)
         leftover, _ = kernel.disrupt_repack(*ops)

@@ -13,7 +13,7 @@ Counterpart of karpenter_tpu/solver/disrupt/kernel.py:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,11 +38,17 @@ def disrupt_repack(
     return repack_kernel.disrupt_repack(headroom0, feas, req, member, excl)
 
 
-def repack_from_numpy(headroom0, feas, req, member, excl, device) -> Tuple[torch.Tensor, ...]:
+def repack_from_numpy(headroom0, feas, req, member, excl, device,
+                      hold: Optional[list] = None) -> Tuple[torch.Tensor, ...]:
     """The repack's five operands, as the JAX entry takes them (numpy
-    arrays), moved to `device` in the dtypes kernel B takes."""
+    arrays), moved to `device` in the dtypes kernel B takes. To the card
+    they stage through page-locked buffers (`ffd._to_device`; `hold`
+    keeps them until the caller's barrier), so no copy waits on the
+    host."""
+    from karpenter_tpu_torch.solver import ffd
+
     def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=dtype))).to(device)
+        return ffd._to_device(np.asarray(a, dtype=dtype), device, hold)
 
     return (
         put(headroom0, np.float32), put(feas, bool), put(req, np.float32),

@@ -299,12 +299,26 @@ def _pack_zc(zmask: torch.Tensor, cmask: torch.Tensor) -> torch.Tensor:
     return (zbits | cbits).to(torch.int32)
 
 
-def scan_operands(inp: SolveInputs, word_offsets: Tuple[int, ...], words: Tuple[int, ...],
-                  objective: str) -> Tuple[torch.Tensor, ...]:
-    """The prologue: kernel A's eleven operands, in its argument order."""
+class ScanColumns(NamedTuple):
+    """The prologue's per-column results, unpacked: everything kernel A
+    reads that depends on the catalog axis K. Each [C, K] entry is a
+    function of one class row and one type column only, so a mesh shard
+    computes them for its own rows and columns (parallel/mesh.py) and the
+    gather packs them once, on the primary shard."""
+
+    compat: torch.Tensor        # [C, K] bool, the join gate applied
+    fresh: torch.Tensor         # [C, K] bool a fresh node of type k may open for c
+    has_res: torch.Tensor       # [C, K] bool an admitted reserved offering exists
+    n_fresh: torch.Tensor       # [C, K] f32 pods of c on an empty node of type k
+    price: torch.Tensor         # [C, K] f32 cheapest admitted offering price
+    cap_eff: torch.Tensor       # [K, R] f32 capacity net of the node overhead
+    tzc: torch.Tensor           # [K] i32 lanes of the type's zone|captype bits
+
+
+def scan_columns(inp: SolveInputs, word_offsets: Tuple[int, ...], words: Tuple[int, ...],
+                 objective: str) -> ScanColumns:
+    """The prologue over `inp`'s rows and columns, unpacked (any K)."""
     K = inp.cap.shape[0]
-    if K % 32:
-        raise ValueError(f"the fused scan needs k_pad % 32 == 0, got {K}")
     join_allowed = packing.as_bool_mask(inp.join_allowed, K)
     open_allowed = packing.as_bool_mask(inp.open_allowed, K)
     compat = _device_compat(inp, word_offsets, words) & join_allowed
@@ -320,17 +334,32 @@ def scan_operands(inp: SolveInputs, word_offsets: Tuple[int, ...], words: Tuple[
     else:
         price_ck = torch.zeros_like(n_fresh_all)
         has_res_ck = torch.zeros(n_fresh_all.shape, dtype=torch.bool, device=n_fresh_all.device)
+    return ScanColumns(compat, fresh_mask_all, has_res_ck, n_fresh_all, price_ck, cap_eff, tzc)
+
+
+def scan_operands(inp: SolveInputs, word_offsets: Tuple[int, ...], words: Tuple[int, ...],
+                  objective: str, columns: Optional[ScanColumns] = None) -> Tuple[torch.Tensor, ...]:
+    """The prologue: kernel A's eleven operands, in its argument order.
+    `columns` are the prologue's results already computed (a mesh
+    gathers them from its shards); None computes them here."""
+    K = inp.cap.shape[0]
+    if K % 32:
+        raise ValueError(f"the fused scan needs k_pad % 32 == 0, got {K}")
+    if columns is None:
+        columns = scan_columns(inp, word_offsets, words, objective)
     return (
-        inp.req.contiguous(), packing.pack_rows(compat), packing.pack_rows(fresh_mask_all),
-        packing.pack_rows(has_res_ck), n_fresh_all.contiguous(), price_ck.contiguous(),
-        inp.count.to(torch.int32).contiguous(), inp.env_count.to(torch.int32).contiguous(),
-        azc, cap_eff.contiguous(), tzc,
+        inp.req.contiguous(), packing.pack_rows(columns.compat), packing.pack_rows(columns.fresh),
+        packing.pack_rows(columns.has_res), columns.n_fresh.contiguous(),
+        columns.price.contiguous(), inp.count.to(torch.int32).contiguous(),
+        inp.env_count.to(torch.int32).contiguous(), _pack_zc(inp.azone, inp.acap),
+        columns.cap_eff.contiguous(), columns.tzc,
     )
 
 
-def solve_scan(inp: SolveInputs, *, g_max: int, word_offsets, words, objective: str = "price"):
+def solve_scan(inp: SolveInputs, *, g_max: int, word_offsets, words, objective: str = "price",
+               columns: Optional[ScanColumns] = None):
     """Prologue + kernel A: (take, unplaced, n_open, gmask_bits, gzc)."""
-    ops = scan_operands(inp, word_offsets, words, objective)
+    ops = scan_operands(inp, word_offsets, words, objective, columns)
     return ffd_scan.fused_scan(*ops, g_max=g_max, objective=objective)
 
 
@@ -364,7 +393,7 @@ def _sparse_take(take: torch.Tensor, nnz_max: int) -> Tuple[torch.Tensor, torch.
 
 
 def ffd_solve_fused(inp: SolveInputs, *, g_max: int, nnz_max: int, word_offsets, words,
-                    objective: str = "price") -> torch.Tensor:
+                    objective: str = "price", columns: Optional[ScanColumns] = None) -> torch.Tensor:
     """The whole decision as ONE vector of 32-bit lanes (int32 holding the
     uint32 bits), laid out as the JAX package's ffd_solve_fused:
         [0]                  nnz (true sparse count)
@@ -376,7 +405,8 @@ def ffd_solve_fused(inp: SolveInputs, *, g_max: int, nnz_max: int, word_offsets,
         [... : +G]           gzc
     """
     take, unplaced, n_open, gmask_bits, gzc = solve_scan(
-        inp, g_max=g_max, word_offsets=word_offsets, words=words, objective=objective)
+        inp, g_max=g_max, word_offsets=word_offsets, words=words, objective=objective,
+        columns=columns)
     idx, val, nnz_true = _sparse_take(take, nnz_max)
     return torch.cat([
         nnz_true.reshape(1), n_open.reshape(1).to(torch.int32), unplaced,
@@ -392,15 +422,20 @@ def _unpack_zc(gzc: torch.Tensor, Z: int, CTn: int) -> Tuple[torch.Tensor, torch
     return gzone, gcap
 
 
-def ffd_solve(inp: SolveInputs, *, g_max: int, word_offsets, words, objective: str = "price") -> SolveOutputs:
+def ffd_solve(inp: SolveInputs, *, g_max: int, word_offsets, words, objective: str = "price",
+              columns: Optional[ScanColumns] = None) -> SolveOutputs:
     """The dense decision on the device (the sidecar's `solve` op).
     `accum` is the per-group sum of take x req, accumulated in float64
     and rounded once: every partial sum of the JAX scan's float32 carry is
     an exact small integer (encode.py scaling), so the two are equal."""
     take, unplaced, n_open, gmask_bits, gzc = solve_scan(
-        inp, g_max=g_max, word_offsets=word_offsets, words=words, objective=objective)
+        inp, g_max=g_max, word_offsets=word_offsets, words=words, objective=objective,
+        columns=columns)
     K = inp.cap.shape[0]
-    compat = _device_compat(inp, word_offsets, words) & packing.as_bool_mask(inp.join_allowed, K)
+    if columns is not None:
+        compat = columns.compat
+    else:
+        compat = _device_compat(inp, word_offsets, words) & packing.as_bool_mask(inp.join_allowed, K)
     accum = torch.matmul(take.T.to(torch.float64), inp.req.to(torch.float64)).to(torch.float32)
     gzone, gcap = _unpack_zc(gzc, inp.tzone.shape[1], inp.tcap.shape[1])
     return SolveOutputs(
@@ -410,11 +445,13 @@ def ffd_solve(inp: SolveInputs, *, g_max: int, word_offsets, words, objective: s
 
 
 def ffd_solve_compact(inp: SolveInputs, *, g_max: int, nnz_max: int, word_offsets, words,
-                      objective: str = "price") -> CompactDecision:
+                      objective: str = "price",
+                      columns: Optional[ScanColumns] = None) -> CompactDecision:
     """The compact decision on the device (the sidecar's `solve_compact`
     and `solve_delta` ops): kernel A's outputs with the take sparsified."""
     take, unplaced, n_open, gmask_bits, gzc = solve_scan(
-        inp, g_max=g_max, word_offsets=word_offsets, words=words, objective=objective)
+        inp, g_max=g_max, word_offsets=word_offsets, words=words, objective=objective,
+        columns=columns)
     idx, val, nnz_true = _sparse_take(take, nnz_max)
     return CompactDecision(
         idx=idx, val=val, nnz=nnz_true.reshape(()).to(torch.int32), unplaced=unplaced,

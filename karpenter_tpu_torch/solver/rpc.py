@@ -31,11 +31,20 @@ routes the five device ops through a ``fleet.coalesce.DispatchCoalescer``
 and breakers; each reply captured in a ``_ReplyBuffer`` and flushed by
 the tenant's own handler thread), the ping advertises ``coalesce``, and
 ``SolverClient(tenant=)`` stamps its tenant id on every op header (a
-client without one sends the frames it always sent). Not here (the mesh,
-ROADMAP A11b): ``SolverServer(mesh=)`` and ``--mesh`` (both raise),
-``StaleTopologyError`` and ``karpenter_mesh_stale_solves_total``, the
-client's record of a stage reply's topology epoch. The server advertises
-every other feature the JAX server advertises without a mesh.
+client without one sends the frames it always sent).
+
+The mesh half: ``SolverServer(mesh=)`` (a ``fleet.shard.MeshSolveEngine``
+or a ``parallel.mesh.Mesh``) routes every device op through the sharded
+entries -- kernel A once per solve on the primary shard, kernel B once
+per shard of a ``solve_disrupt`` repack -- and stamps each staged seqnum
+with the topology epoch it was staged under (``tepoch`` in the stage
+reply, the ``topology_epoch`` feature). A seqnum staged under an older
+epoch restages in place at its next lookup; a device lost mid-dispatch
+crosses the wire as ``StaleTopologyError``, which the client's
+synchronous ops retry once (``karpenter_mesh_stale_topology_solves_total
+{site="client-sync"|"client-disrupt"}``) and its pipelined claim raises
+as a ``StaleSeqnumError``. ``--mesh``/``$KARPENTER_TPU_MESH`` count real
+devices and exit non-zero when there are too few.
 
 Run the sidecar with ``python -m karpenter_tpu_torch.solver.rpc`` (see
 ``serve_main``).
@@ -410,10 +419,16 @@ class _ReplyBuffer:
 
 
 class _StagedEntry:
-    def __init__(self, staged, offsets, words):
+    def __init__(self, staged, offsets, words, tepoch=None, catalog=None):
         self.staged = staged
         self.offsets = offsets
         self.words = words
+        # mesh fleet path only: the topology epoch the catalog was staged
+        # under, and the HOST catalog tensors so a topology change can be
+        # healed server-side (one transparent restage at lookup -- the
+        # client keeps its seqnum, no wire round-trip, no restage loop)
+        self.tepoch = tepoch
+        self.catalog = catalog
 
 
 class SolverServer:
@@ -426,8 +441,10 @@ class SolverServer:
     TCP connections in TLS. `device`: None = the card, "cpu" = the
     kernels' plain versions (the tests). `coalescer`: a
     fleet.coalesce.DispatchCoalescer batching concurrent per-tenant
-    solve ops into shared dispatch windows; `mesh` raises until the port
-    has a device mesh (ROADMAP A11b)."""
+    solve ops into shared dispatch windows. `mesh`: a MeshSolveEngine (or
+    a Mesh) routing every device dispatch through the sharded entries;
+    the server then computes on the mesh's primary device (`device`
+    must be None or that device)."""
 
     def __init__(
         self, host: str = "127.0.0.1", port: int = 0, *,
@@ -441,10 +458,21 @@ class SolverServer:
         from karpenter_tpu_torch.solver import shm as shm_mod
         from karpenter_tpu_torch.solver.service import resolve_device
 
+        # fleet subsystem (fleet/): `mesh` routes every device dispatch
+        # through the sharded entries -- sharded == unsharded byte
+        # identity means the wire contract is byte-unchanged
         if mesh is not None:
-            raise NotImplementedError(
-                "SolverServer(mesh=...): the port has no device mesh yet "
-                "(ROADMAP A11b: parallel/mesh.py, fleet/shard.py)")
+            from karpenter_tpu_torch.fleet.shard import MeshSolveEngine
+
+            if not isinstance(mesh, MeshSolveEngine):
+                mesh = MeshSolveEngine(mesh)
+            from karpenter_tpu_torch.parallel.mesh import _norm_device
+
+            if device is not None and _norm_device(device) != mesh.device:
+                raise ValueError(f"SolverServer(device={device!r}) differs from the mesh's "
+                                 f"primary device {mesh.device}")
+            device = mesh.device
+        self._mesh = mesh
         self.device = resolve_device(device)
         # fleet subsystem (fleet/): `coalescer` is a DispatchCoalescer
         # batching concurrent per-tenant solve ops into shared dispatch
@@ -725,16 +753,30 @@ class SolverServer:
             tcap=t["tcap"], price=t["price"], vocabs=[], zones=list(header["zones"]),
             words=list(words),
         )
-        staged, offsets, words = ffd.stage_catalog(catalog, self.device)
+        tepoch = None
+        if self._mesh is not None:
+            # fleet: the catalog stages once per seqnum on the mesh's
+            # primary device, stamped with the topology epoch; the entry
+            # keeps the HOST tensors so a topology-epoch change restages
+            # transparently at the next lookup
+            staged, offsets, words, tepoch = self._mesh.stage_catalog_versioned(catalog)
+        else:
+            staged, offsets, words = ffd.stage_catalog(catalog, self.device)
         with self._lock:
             if len(self._staged) >= 4 and seqnum not in self._staged:
                 self._staged.pop(next(iter(self._staged)))
                 self._evictions["catalog"] += 1
                 metrics.SOLVER_STAGED_EVICTIONS.inc(kind="catalog")
-            self._staged[seqnum] = _StagedEntry(staged, offsets, words)
+            self._staged[seqnum] = _StagedEntry(
+                staged, offsets, words, tepoch=tepoch,
+                catalog=catalog if self._mesh is not None else None,
+            )
             self._evict_for_pressure_locked()
             self._staged_bytes_locked()
-        _send_frame(sock, {"ok": True, "seqnum": seqnum})
+        reply = {"ok": True, "seqnum": seqnum}
+        if tepoch is not None:
+            reply["tepoch"] = int(tepoch)
+        _send_frame(sock, reply)
 
     def _staged_bytes_locked(self) -> Dict[str, int]:
         """Staged bytes by owner (obs/hbm.py attribution), mirrored into
@@ -781,6 +823,8 @@ class SolverServer:
                 "evictions": dict(self._evictions),
                 "staged_bytes": self._staged_bytes_locked(),
             }
+        if self._mesh is not None:
+            doc["mesh"] = self._mesh.describe()
         if self._coalescer is not None:
             doc["coalescer"] = self._coalescer.describe()
         _send_frame(sock, doc)
@@ -865,6 +909,24 @@ class SolverServer:
             if entry is not None:
                 self._staged.pop(seqnum)
                 self._staged[seqnum] = entry
+            if (
+                entry is not None
+                and self._mesh is not None
+                and entry.tepoch is not None
+                and entry.tepoch != self._mesh.epoch
+                and entry.catalog is not None
+            ):
+                # topology changed since this seqnum staged: heal HERE --
+                # one transparent restage onto the current mesh, in place,
+                # under the lock (exactly once per epoch change; the
+                # client keeps its seqnum and never sees a staging gap).
+                # A device loss DURING the solve itself still surfaces as
+                # StaleTopologyError through the dispatch guard.
+                metrics.MESH_STALE_SOLVES.inc(site="server-restage")
+                staged, offsets, words, tepoch = (
+                    self._mesh.stage_catalog_versioned(entry.catalog))
+                entry.staged, entry.offsets, entry.words = staged, offsets, words
+                entry.tepoch = tepoch
         if entry is None:
             _send_frame(sock, {"ok": False, "error": "unknown-seqnum"})
         return entry
@@ -879,7 +941,7 @@ class SolverServer:
         entry = self._staged_entry(sock, header)
         if entry is None:
             return None
-        inp = ffd._class_inputs(entry.staged, dict(t), True, self.device)
+        inp = ffd._class_inputs(entry.staged, dict(t), True, entry.staged.cap.device)
         return entry, inp
 
     def _op_solve(self, sock, header: dict, t: Dict[str, np.ndarray],
@@ -891,11 +953,12 @@ class SolverServer:
             return
         entry, inp = hit
         with wt.stage("device", op="solve"):
-            out = ffd.ffd_solve(
-                inp, g_max=int(header["g_max"]),
-                word_offsets=entry.offsets, words=entry.words,
-                objective=str(header.get("objective", "price")),
-            )
+            kw = dict(g_max=int(header["g_max"]), word_offsets=entry.offsets,
+                      words=entry.words, objective=str(header.get("objective", "price")))
+            if self._mesh is not None:
+                out = self._mesh.solve_dense(inp, epoch=entry.tepoch, **kw)
+            else:
+                out = ffd.ffd_solve(inp, **kw)
             self._sync(wt)
         with wt.stage("fetch"):
             arrays = [a.cpu().numpy() for a in out]
@@ -915,11 +978,13 @@ class SolverServer:
             return
         entry, inp = hit
         with wt.stage("device", op="solve_compact"):
-            dec = ffd.ffd_solve_compact(
-                inp, g_max=int(header["g_max"]), nnz_max=int(header["nnz_max"]),
-                word_offsets=entry.offsets, words=entry.words,
-                objective=str(header.get("objective", "price")),
-            )
+            kw = dict(g_max=int(header["g_max"]), nnz_max=int(header["nnz_max"]),
+                      word_offsets=entry.offsets, words=entry.words,
+                      objective=str(header.get("objective", "price")))
+            if self._mesh is not None:
+                dec = self._mesh.solve_compact(inp, epoch=entry.tepoch, **kw)
+            else:
+                dec = ffd.ffd_solve_compact(inp, **kw)
             self._sync(wt)
         with wt.stage("fetch"):
             arrays = ffd.fetch_compact(dec)
@@ -953,17 +1018,27 @@ class SolverServer:
         iters = int(header.get("iters", convex_relax.DEFAULT_ITERS))
         objective = str(header.get("objective", "price"))
         with wt.stage("device", op="solve_convex"):
-            scan = ffd.solve_scan(
-                inp, g_max=g_max, word_offsets=entry.offsets, words=entry.words,
-                objective=objective,
-            )
+            if self._mesh is not None:
+                dense_out = self._mesh.solve_dense(
+                    inp, g_max=g_max, word_offsets=entry.offsets, words=entry.words,
+                    objective=objective, epoch=entry.tepoch,
+                )
+            else:
+                scan = ffd.solve_scan(
+                    inp, g_max=g_max, word_offsets=entry.offsets, words=entry.words,
+                    objective=objective,
+                )
             cx = convex_relax.convex_relax(
                 inp, iters=iters, word_offsets=entry.offsets, words=entry.words,
             )
             self._sync(wt)
         with wt.stage("fetch"):
-            dense_ffd = ffd.dense_tuple(
-                scan, inp.cap.shape[0], inp.tzone.shape[1], inp.tcap.shape[1])
+            if self._mesh is not None:
+                f = self._mesh.fetch(dense_out)
+                dense_ffd = (f.take, f.unplaced, int(f.n_open), f.gmask, f.gzone, f.gcap)
+            else:
+                dense_ffd = ffd.dense_tuple(
+                    scan, inp.cap.shape[0], inp.tzone.shape[1], inp.tcap.shape[1])
             x, lower, trace = convex_relax.fetch_relax(cx)
             feas = cx.feas.cpu().numpy()
             cap = inp.cap.cpu().numpy()
@@ -1026,11 +1101,15 @@ class SolverServer:
         left_dev = None
         if "member" in t:  # the repack half
             with wt.stage("device", op="solve_disrupt"):
-                left_dev, _ = disrupt_kernel.disrupt_repack(
-                    self._put(t["headroom"], np.float32), self._put(t["feas"], bool),
-                    self._put(t["req"], np.float32), self._put(t["member"], np.int32),
-                    self._put(t["excl"], bool),
-                )
+                if self._mesh is not None:
+                    left_dev, _ = self._mesh.repack(
+                        t["headroom"], t["feas"], t["req"], t["member"], t["excl"])
+                else:
+                    left_dev, _ = disrupt_kernel.disrupt_repack(
+                        self._put(t["headroom"], np.float32), self._put(t["feas"], bool),
+                        self._put(t["req"], np.float32), self._put(t["member"], np.int32),
+                        self._put(t["excl"], bool),
+                    )
                 self._sync(wt)
             with wt.stage("fetch"):
                 leftover = left_dev.cpu().numpy()
@@ -1065,12 +1144,15 @@ class SolverServer:
             with wt.stage("device", op="disrupt_replace"):
                 if left_dev is None:
                     left_dev = self._put(leftover, np.int32)
-                out = disrupt_kernel.disrupt_replace(
+                args = (
                     left_dev, self._put(t["creq"], np.float32), self._put(t["compat"], bool),
                     self._put(t["azone"], bool), self._put(t["acap"], bool),
                     entry.staged.cap, self._put(t["ovh"], np.float32), entry.staged.price,
-                    od_col=od_col,
                 )
+                if self._mesh is not None:
+                    out = self._mesh.replace(*args, od_col=od_col, epoch=entry.tepoch)
+                else:
+                    out = disrupt_kernel.disrupt_replace(*args, od_col=od_col)
                 self._sync(wt)
             with wt.stage("fetch"):
                 arrays = [a.cpu().numpy() for a in out]
@@ -1099,6 +1181,20 @@ class StaleEpochError(StaleSeqnumError):
     existing ladder that handles a mid-flight staging gap handles this one
     identically: the synchronous retry full-restages the class tensors
     (the client dropped its base on this error)."""
+
+
+class StaleTopologyError(StaleSeqnumError):
+    """The MESH-topology analogue of StaleSeqnumError: the device mesh a
+    sharded solve was staged under changed mid-flight (a device was lost,
+    quarantined, or returned -- fleet/topology.py bumps the topology
+    epoch on any membership change). Staged state from the old epoch
+    belongs to a mesh that no longer exists, so the solve cannot be
+    completed as issued. Subclasses StaleSeqnumError so every existing
+    recovery rung -- the synchronous restage-and-retry ladder, the
+    pipelined barrier fallback, the breaker, the delta-epoch drop --
+    handles a topology change exactly like any other staging gap: the
+    retry restages onto the CURRENT mesh (fleet/shard.py reshards
+    lazily at the next dispatch) and re-solves byte-identically."""
 
 
 class _PendingReply:
@@ -1189,6 +1285,13 @@ class SolverClient:
         self._server_hostname = server_hostname or (host if host else None)
         self._sock: Optional[socket.socket] = None
         self._staged_seqnums: set = set()
+        # mesh topology epoch each seqnum was staged under, as reported in
+        # the stage reply (feature-negotiated "topology_epoch"; an
+        # unsharded server omits the field). Informational: the SERVER
+        # owns restaging across topology changes -- this is the observable
+        # half, so operators and tests can see which device set a staged
+        # catalog targeted.
+        self._staged_tepochs: Dict[str, int] = {}
         self._features: Optional[frozenset] = None  # per-connection, lazy
         # delta class shipping (the incremental-tick wire layer): when the
         # server advertises solve_delta, compact solves stage the class
@@ -1431,6 +1534,7 @@ class SolverClient:
             # needs (the breaker's promotion hook relies on this to gate
             # re-promotion on a catalog re-stage)
             self._staged_seqnums.clear()
+            self._staged_tepochs.clear()
             # delta bases die with the connection for the same reason: the
             # replacement sidecar holds no epochs, and a stale base would
             # cost one unknown-epoch roundtrip per seqnum before recovering
@@ -1544,6 +1648,16 @@ class SolverClient:
         header, out = rest
         if not header.get("ok"):
             err = str(header.get("error", ""))
+            if err.startswith("StaleTopologyError"):
+                # the sidecar's device mesh changed membership while this
+                # solve was in flight (server errors cross the wire as
+                # "ClassName: message"). The server restages the seqnum
+                # onto the surviving devices at its next touch, so the
+                # typed re-raise rides the existing StaleSeqnumError
+                # barrier-fallback rung -- one synchronous retry against
+                # the SAME seqnum lands on the new topology epoch.
+                metrics.MESH_STALE_SOLVES.inc(site="client-wire")
+                raise StaleTopologyError(err)
             if err == "unknown-epoch":
                 # the sidecar lost the base epoch mid-flight: drop the
                 # client base so the synchronous retry ships full, and
@@ -1666,6 +1780,8 @@ class SolverClient:
             raise RuntimeError(f"stage failed: {resp.get('error')}")
         with self._lock:
             self._staged_seqnums.add(seqnum)
+            if resp.get("tepoch") is not None:
+                self._staged_tepochs[seqnum] = int(resp["tepoch"])
 
     @staticmethod
     def _class_tensors(class_set: encode.PodClassSet, packed: bool = False):
@@ -1887,6 +2003,22 @@ class SolverClient:
                 tensors = self._delta_request(seqnum, class_set, header)
                 self._maybe_reply_v2(header)
                 resp, out = self._roundtrip(header, tensors)
+            if (
+                not resp.get("ok")
+                and str(resp.get("error", "")).startswith("StaleTopologyError")
+            ):
+                # the sidecar's device mesh changed membership mid-solve
+                # (device lost, quarantine, or return). Its staging layer
+                # restages the seqnum onto the current device set on the
+                # next touch, so one retry -- same seqnum, same tensors --
+                # lands on the new topology epoch. At most once: a second
+                # stale answer surfaces as the failure it is and rides the
+                # breaker ladder like any other wire fault.
+                metrics.MESH_STALE_SOLVES.inc(site="client-sync")
+                header = dict(op_header)
+                tensors = self._delta_request(seqnum, class_set, header)
+                self._maybe_reply_v2(header)
+                resp, out = self._roundtrip(header, tensors)
             if not resp.get("ok"):
                 raise RuntimeError(f"solve failed: {resp.get('error')}")
             tracing.TRACER.graft(resp)
@@ -1969,6 +2101,14 @@ class SolverClient:
                 # sidecar restarted / evicted: re-stage once and retry
                 self.stage_catalog(seqnum, catalog)
                 resp, out = self._roundtrip(header, tensors)
+            if (
+                not resp.get("ok")
+                and str(resp.get("error", "")).startswith("StaleTopologyError")
+            ):
+                # mesh membership changed mid-dispatch: server-side
+                # restage is transparent on the next touch, retry once
+                metrics.MESH_STALE_SOLVES.inc(site="client-disrupt")
+                resp, out = self._roundtrip(header, tensors)
             if not resp.get("ok"):
                 raise RuntimeError(f"solve_disrupt failed: {resp.get('error')}")
             tracing.TRACER.graft(resp)
@@ -2017,8 +2157,9 @@ def serve_main(argv=None) -> int:
     """`python -m karpenter_tpu_torch.solver.rpc` -- run the solver sidecar
     on the card. The JAX binary's flags, plus --device (default cuda):
     --coalesce and --tenant-budget serve N tenants through one
-    DispatchCoalescer; --mesh (and $KARPENTER_TPU_MESH) is refused until
-    the port has a device mesh (ROADMAP A11b). Default transport: a mode-0600 UNIX socket. TCP
+    DispatchCoalescer; --mesh (and $KARPENTER_TPU_MESH) shards every
+    solve over that many real devices of --device's kind and exits
+    non-zero, naming the count, when there are fewer. Default transport: a mode-0600 UNIX socket. TCP
     (--host/--port) requires --token-file / $KARPENTER_TPU_SOLVER_TOKEN, or
     the explicit --insecure flag; --tls-cert/--tls-key add TLS on top.
     Without a card the sidecar exits non-zero: it never moves to the CPU
@@ -2062,8 +2203,9 @@ def serve_main(argv=None) -> int:
     )
     parser.add_argument(
         "--mesh", default=None, metavar="SPEC",
-        help="refused: the port has no device mesh yet (ROADMAP A11b); "
-        "$KARPENTER_TPU_MESH is refused the same way",
+        help="shard the production solve across a device mesh: a count "
+        "('8') or NxM hosts-x-devices layout ('2x4') of real devices of "
+        "--device's kind; default $KARPENTER_TPU_MESH, else single-device",
     )
     parser.add_argument(
         "--coalesce", action="store_true",
@@ -2084,13 +2226,18 @@ def serve_main(argv=None) -> int:
     )
     args = parser.parse_args(argv)
 
+    device = torch.device(args.device)
+    mesh = None
     mesh_spec = args.mesh if args.mesh is not None else os.environ.get("KARPENTER_TPU_MESH")
     if mesh_spec:
-        # the JAX sidecar would shard over this layout: refusing it is
-        # the only honest answer until the port has a device mesh
-        parser.error(f"mesh {mesh_spec!r}: the port has no device mesh yet "
-                     "(ROADMAP A11b: parallel/mesh.py, fleet/shard.py)")
-    device = torch.device(args.device)
+        from karpenter_tpu_torch.fleet.shard import parse_mesh_spec
+
+        try:
+            mesh = parse_mesh_spec(mesh_spec, device)
+        except ValueError as e:
+            # more shards than real devices: a configuration error, never
+            # a quiet shrink
+            parser.error(str(e))
     if device.type == "cuda" and not torch.cuda.is_available():
         print("karpenter-tpu-torch-solver: no CUDA device is available; "
               "the sidecar does not move to the CPU unless --device cpu asks for it",
@@ -2115,6 +2262,8 @@ def serve_main(argv=None) -> int:
         ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
         ctx.load_cert_chain(args.tls_cert, args.tls_key)
     shm_kw = dict(shm=args.shm, shm_dir=args.shm_dir, shm_size=args.shm_size, device=device)
+    if mesh is not None:
+        shm_kw["mesh"] = mesh
     if args.coalesce:
         from karpenter_tpu_torch.fleet.coalesce import DispatchCoalescer
 

@@ -98,7 +98,17 @@ with non_blocking copies (ffd._to_device), held on the _PendingSolve
 until its fetch has returned: the tick waits for the card only at its
 sanctioned fetches (analysis/sync_witness.py).
 
-Not here (a later slice): the mesh (ROADMAP A11b).
+The mesh (`mesh=`, fleet/shard.py), as TPUSolver's: with a
+`MeshSolveEngine` (or a `parallel.mesh.Mesh`) and no client, catalog
+staging goes through the engine, stamped with its topology epoch, and the
+fused solve and the bound dispatch through its sharded entries -- the
+shards' prologue, kernel A once on the primary shard -- while the
+existing-node pre-pass (kernel B, S=1) and the convex relaxation stay
+unsharded, as in the JAX package. Mesh entries never take an armed
+graph. A topology change between ticks restages the same encoding under
+a fresh seqnum; a change mid-dispatch (`StaleTopologyError`) re-enters
+`solve_begin` once per epoch step; a change before the barrier re-solves
+(`karpenter_scheduler_pipeline_fallbacks_total{reason="stale-topology"}`).
 """
 from __future__ import annotations
 
@@ -180,6 +190,12 @@ class _CatalogEntry(NamedTuple):
     col_pools: Optional[np.ndarray] = None
     pools: Optional[tuple] = None
     decode_types: Optional[np.ndarray] = None
+    # mesh mode only (fleet/topology.py): the topology epoch the catalog
+    # was staged under. _catalog revalidates it -- a device loss/return
+    # between ticks restages the SAME encoding onto the new mesh under a
+    # fresh seqnum, and a mid-dispatch change surfaces as
+    # StaleTopologyError
+    mesh_epoch: Optional[int] = None
 
 
 class _MergedVirtualPool(NodePool):
@@ -198,7 +214,8 @@ class _PendingSolve:
     and decodes. A ticket with nothing in flight carries its result."""
 
     __slots__ = ("done", "pool", "entry", "class_set", "result", "placed_existing",
-                 "nodepool_usage", "buf", "inp", "nnz_max", "cx", "rpc_handle", "uploads")
+                 "nodepool_usage", "buf", "inp", "nnz_max", "cx", "rpc_handle", "uploads",
+                 "call_args", "call_kwargs")
 
     def __init__(self, done: Optional[SchedulingResult] = None):
         self.done = done
@@ -213,6 +230,9 @@ class _PendingSolve:
         # the pinned staging buffers of this solve's uploads, kept until
         # the barrier's fetch has waited for their copies
         self.uploads = None
+        # solve()'s arguments, for the mesh's stale-topology re-solve
+        self.call_args = ()
+        self.call_kwargs = {}
 
     @property
     def completed(self) -> bool:
@@ -224,7 +244,7 @@ class TorchSolver:
 
     def __init__(self, g_max: int = 1024, objective: str = "price", device=None,
                  incremental: bool = True, tier: str = "ffd", client=None, breaker=None,
-                 auto_warm: bool = False):
+                 auto_warm: bool = False, mesh=None):
         if objective not in ("price", "fit"):
             raise ValueError(f"objective must be 'price' or 'fit', got {objective!r}")
         # the solve tier: "convex" enqueues the LP relaxation next to the
@@ -233,6 +253,24 @@ class TorchSolver:
         # pods of any class behind (solver/convex/tier.py)
         if tier not in ("ffd", "convex"):
             raise ValueError(f"tier must be 'ffd' or 'convex', got {tier!r}")
+        # mesh-sharded production solve (fleet/shard.py): with a mesh
+        # configured (and no wire client -- the sidecar owns its own mesh
+        # in remote mode), catalog staging and the fused solve and bound
+        # route through the MeshSolveEngine's sharded entries, on the
+        # mesh's primary device. Decisions are byte-identical to the
+        # single-device path, so everything downstream -- pipelining, the
+        # degrade ladder -- is untouched.
+        self.mesh_engine = None
+        if mesh is not None and client is None:
+            from karpenter_tpu_torch.fleet.shard import MeshSolveEngine
+            from karpenter_tpu_torch.parallel.mesh import _norm_device
+
+            self.mesh_engine = (
+                mesh if isinstance(mesh, MeshSolveEngine) else MeshSolveEngine(mesh))
+            if device is not None and _norm_device(device) != self.mesh_engine.device:
+                raise ValueError(f"TorchSolver(device={device!r}) differs from the mesh's "
+                                 f"primary device {self.mesh_engine.device}")
+            device = self.mesh_engine.device
         self.device = resolve_device(device)
         self.tier = tier
         # the last convex differential: {"winner", "price_ffd",
@@ -345,13 +383,37 @@ class TorchSolver:
         with self._lock:
             entry = self._catalog_cache.pop(key, None)
             if entry is not None and entry.catalog_list is instance_types:
-                self._catalog_cache[key] = entry   # LRU touch
+                if (
+                    self.mesh_engine is not None
+                    and entry.mesh_epoch != self.mesh_engine.epoch
+                ):
+                    # topology changed since this catalog was staged:
+                    # restage the SAME encoding (tensors/row_cache survive)
+                    # onto the current mesh under a FRESH seqnum, so
+                    # in-flight barriers legally fall back -- exactly one
+                    # restage per epoch change, never a loop (the stamp is
+                    # read under the engine's reshard lock)
+                    staged, offsets, words, tepoch = (
+                        self.mesh_engine.stage_catalog_versioned(entry.tensors))
+                    self._seq_counter += 1
+                    entry = entry._replace(
+                        staged=staged, offsets=offsets, words=words,
+                        seqnum=f"{self._seq_prefix}-{self._seq_counter}",
+                        mesh_epoch=tepoch,
+                    )
+                self._catalog_cache[key] = entry   # LRU touch (and publish)
                 return entry
             tensors = encode.encode_catalog(instance_types)
+            tepoch = None
             if self.client is not None:
                 # remote mode: the sidecar stages on ITS device; the
                 # in-process rungs stage locally on first use
                 staged, offsets, words = None, (), ()
+            elif self.mesh_engine is not None:
+                # fleet: staged through the engine, stamped with the
+                # topology epoch it was staged under
+                staged, offsets, words, tepoch = (
+                    self.mesh_engine.stage_catalog_versioned(tensors))
             else:
                 staged, offsets, words = ffd.stage_catalog(tensors, self.device)
             # decode acceleration: type objects pre-sorted by cheapest
@@ -363,7 +425,7 @@ class TorchSolver:
                 tensors=tensors, staged=staged, offsets=offsets, words=words,
                 types_by_price=np.array(list(instance_types), dtype=object)[order],
                 order=order, catalog_list=instance_types, row_cache={},
-                seqnum=f"{self._seq_prefix}-{self._seq_counter}",
+                seqnum=f"{self._seq_prefix}-{self._seq_counter}", mesh_epoch=tepoch,
             )
             self._catalog_cache[key] = entry
             while len(self._catalog_cache) > self._catalog_cache_cap:
@@ -1130,6 +1192,10 @@ class TorchSolver:
         # chaos site for the dispatch half of the tick (latency = a slow
         # host stage; error = a dispatch-time crash)
         failpoints.eval("solver.solve_begin")
+        call_args = (pool, instance_types, pods)
+        call_kwargs = dict(nodepool_usage=nodepool_usage, existing_nodes=existing_nodes,
+                           zones=zones, spread_seeds=spread_seeds, classes=classes,
+                           daemon_overhead=daemon_overhead)
         pool_reqs = pool.requirements()
         # per-fresh-node daemonset reserve, scaled to the solver's exact
         # small-int float32 vector; None/zero = no reserve
@@ -1235,6 +1301,7 @@ class TorchSolver:
         pending.result = result
         pending.placed_existing = placed_existing
         pending.nodepool_usage = nodepool_usage
+        pending.call_args, pending.call_kwargs = call_args, call_kwargs
         if wire:
             # the convex tier sends one synchronous solve_convex op at the
             # barrier (the sidecar runs the relaxation next to its FFD
@@ -1259,32 +1326,76 @@ class TorchSolver:
                     wd_sp.set(dispatch_error=f"{type(e).__name__}: {e}"[:200])
                     pending.rpc_handle = None
             return pending
-        with tracing.span("dispatch_device"):
-            # the open/join masks travel bit-packed (the form kernel A
-            # reads); the uploads' pinned buffers live on the pending solve
-            pending.uploads = []
-            inp = ffd.make_inputs_staged(entry.staged, class_set, packed_masks=True,
-                                         hold=pending.uploads)
-            nnz_max = ffd.nnz_budget(class_set.c_pad, self.g_max)
-            # attribution: nbytes is tensor metadata, not a sync
-            self._last_solve_bytes = hbm.sum_nbytes(inp)
-            self._last_mask_bytes = inp.open_allowed.nbytes + inp.join_allowed.nbytes
-            self._last_mask_full_bytes = 2 * class_set.c_pad * entry.tensors.k_pad
-            pending.buf = self._dispatch_fused(inp, nnz_max, entry.offsets, entry.words)
-            # convex tier: the LP relaxation, enqueued right behind the FFD
-            # solve so the two are in flight together
-            pending.cx = self._dispatch_convex(inp, entry.offsets, entry.words)
+        try:
+            with tracing.span("dispatch_device"):
+                # the open/join masks travel bit-packed (the form kernel A
+                # reads); the uploads' pinned buffers live on the pending
+                # solve
+                pending.uploads = []
+                inp = ffd.make_inputs_staged(entry.staged, class_set, packed_masks=True,
+                                             hold=pending.uploads)
+                nnz_max = ffd.nnz_budget(class_set.c_pad, self.g_max)
+                # attribution: nbytes is tensor metadata, not a sync
+                self._last_solve_bytes = hbm.sum_nbytes(inp)
+                self._last_mask_bytes = inp.open_allowed.nbytes + inp.join_allowed.nbytes
+                self._last_mask_full_bytes = 2 * class_set.c_pad * entry.tensors.k_pad
+                pending.buf = self._dispatch_fused(inp, nnz_max, entry.offsets, entry.words,
+                                                   epoch=entry.mesh_epoch)
+                # convex tier: the LP relaxation, enqueued right behind the
+                # FFD solve so the two are in flight together
+                pending.cx = self._dispatch_convex(inp, entry.offsets, entry.words)
+        except rpc.StaleSeqnumError as e:
+            # only the mesh's dispatch raises this in process: a device
+            # lost between staging and dispatch (or killed BY this
+            # dispatch -- the engine classifies the error, quarantines the
+            # device and bumps the epoch). One rung: re-enter solve_begin,
+            # whose _catalog restages the same encoding onto the surviving
+            # mesh. Each retry requires the epoch to have ADVANCED past the
+            # stamp it dispatched with, so no other error can loop; repeated
+            # losses walk the ladder down to the unsharded rung, where the
+            # engine stops classifying.
+            if (
+                self.mesh_engine is None
+                or entry.mesh_epoch is None
+                or self.mesh_engine.epoch == entry.mesh_epoch
+            ):
+                raise  # no topology progress: a retry would loop
+            return self._stale_topology(self.solve_begin, call_args, call_kwargs, e)
         pending.inp = inp
         pending.nnz_max = nnz_max
         return pending
 
-    def _dispatch_fused(self, inp: ffd.SolveInputs, nnz_max: int, offsets, words) -> torch.Tensor:
+    def _stale_topology(self, again, args, kwargs, error: Optional[BaseException] = None):
+        """The mesh's stale-topology rung: count it, log once per epoch,
+        and run `again` (solve_begin or solve) on the same arguments,
+        whose _catalog restages onto the current device set --
+        byte-identical, the ladder only moves computation."""
+        metrics.SOLVER_PIPELINE_FALLBACKS.inc(reason="stale-topology")
+        tracing.annotate(fallback="stale-topology")
+        if self._route_monitor.has_changed("mesh_topology", self.mesh_engine.epoch):
+            self.log.warning(
+                "mesh topology changed; restaging onto the current device set",
+                error="" if error is None else f"{type(error).__name__}: {error}"[:200],
+                epoch=self.mesh_engine.epoch,
+            )
+        return again(*args, **kwargs)
+
+    def _dispatch_fused(self, inp: ffd.SolveInputs, nnz_max: int, offsets, words,
+                        epoch: Optional[int] = None) -> torch.Tensor:
         """The fused FFD solve (prologue, kernel A, epilogue), counted by
-        the implementation that runs: an armed graph of the warm-up
-        ladder (solver/aot.py) when one matches these statics and input
-        shapes exactly, else the ordinary dispatch."""
+        the implementation that runs: the mesh engine's sharded entry
+        when configured (`epoch` its staging stamp; never an armed
+        graph, as the JAX package keeps serialized executables off the
+        mesh), else an armed graph of the warm-up ladder (solver/aot.py)
+        when one matches these statics and input shapes exactly, else
+        the ordinary dispatch."""
         common = dict(g_max=self.g_max, nnz_max=nnz_max, word_offsets=offsets,
                       words=words, objective=self.objective)
+        if self.mesh_engine is not None:
+            with self._dispatch_lock:
+                buf = self.mesh_engine.solve_fused(inp, epoch=epoch, **common)
+            metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="ffd_solve_fused", impl=_impl(inp.req))
+            return buf
         with self._dispatch_lock:
             if self._aot is not None:
                 hit, buf = self._aot.try_call("ffd_solve_fused", (inp,), common)
@@ -1367,13 +1478,17 @@ class TorchSolver:
         return dense, lower
 
     def _dispatch_bound(self, inp: ffd.SolveInputs, placed: np.ndarray, offsets, words,
-                        hold: Optional[list] = None) -> torch.Tensor:
-        """The fractional price bound on the device (an armed graph when
-        one matches); the [R] totals stay there until fetch_bound. The
-        `placed` upload is pinned and non_blocking, its buffer kept in
-        `hold` (see ffd._to_device)."""
+                        hold: Optional[list] = None, epoch: Optional[int] = None) -> torch.Tensor:
+        """The fractional price bound on the device: the mesh engine's
+        sharded entry when configured, else an armed graph when one
+        matches, else the ordinary dispatch; the [R] totals stay there
+        until fetch_bound. The `placed` upload is pinned and non_blocking,
+        its buffer kept in `hold` (see ffd._to_device)."""
         placed_t = ffd._to_device(placed, inp.req.device, hold)
         statics = dict(word_offsets=offsets, words=words)
+        if self.mesh_engine is not None:
+            with self._dispatch_lock:
+                return self.mesh_engine.price_bound(inp, placed_t, epoch=epoch, **statics)
         with self._dispatch_lock:
             if self._aot is not None:
                 hit, totals = self._aot.try_call("fractional_price_bound", (inp, placed_t), statics)
@@ -1395,7 +1510,7 @@ class TorchSolver:
             placed = np.asarray(dense[0]).sum(axis=1).astype(np.float32)
             return self._dispatch_bound(
                 pending.inp, placed, pending.entry.offsets, pending.entry.words,
-                hold=pending.uploads)
+                hold=pending.uploads, epoch=pending.entry.mesh_epoch)
         except Exception as e:  # noqa: BLE001 -- quality must never fail a tick
             metrics.HANDLED_ERRORS.inc(site="solver.quality_dispatch")
             if self._route_monitor.has_changed("quality_dispatch", type(e).__name__):
@@ -1539,6 +1654,17 @@ class TorchSolver:
                 else:
                     dense = self._finish_remote(pending)
         else:
+            if (
+                self.mesh_engine is not None
+                and entry.mesh_epoch is not None
+                and entry.mesh_epoch != self.mesh_engine.epoch
+            ):
+                # topology changed between dispatch and this barrier: the
+                # fused buffer was computed on a mesh that lost (or
+                # regained) a device. Same fallback rung as a mid-flight
+                # catalog change
+                return self._stale_topology(self.solve, pending.call_args,
+                                            pending.call_kwargs)
             with tracing.span("device"):
                 # THE host barrier of the tick (sync_witness SANCTIONED_FETCH)
                 host_buf = ffd.fetch_fused(pending.buf)
@@ -1549,10 +1675,24 @@ class TorchSolver:
             if dense is None:
                 # sparse budget overflow: refetch the dense decision
                 with tracing.span("device", refetch="dense"):
-                    dense = ffd.solve_dense_tuple(
-                        pending.inp, g_max=self.g_max, word_offsets=entry.offsets,
-                        words=entry.words, objective=self.objective,
-                    )
+                    if self.mesh_engine is not None:
+                        try:
+                            out = self.mesh_engine.solve_dense(
+                                pending.inp, g_max=self.g_max, word_offsets=entry.offsets,
+                                words=entry.words, objective=self.objective,
+                                epoch=entry.mesh_epoch,
+                            )
+                            f = self.mesh_engine.fetch(out, epoch=entry.mesh_epoch)
+                        except rpc.StaleSeqnumError as e:
+                            # topology changed under the refetch
+                            return self._stale_topology(self.solve, pending.call_args,
+                                                        pending.call_kwargs, e)
+                        dense = (f.take, f.unplaced, int(f.n_open), f.gmask, f.gzone, f.gcap)
+                    else:
+                        dense = ffd.solve_dense_tuple(
+                            pending.inp, g_max=self.g_max, word_offsets=entry.offsets,
+                            words=entry.words, objective=self.objective,
+                        )
         # convex tier: round and judge before decode, so the decoded
         # groups are the chosen placement (and the bound bills its takes)
         if pending.cx is not None:

@@ -274,7 +274,8 @@ class TestArmedDecisions:
             assert got["entries"][e]["armed"] == row["armed"]
             assert got["entries"][e]["fraction"] == 1.0
         assert got["fingerprint"] == build.fingerprint() and got["compile_failures"] == 0
-        assert got["armed_form"] == "plain closure" and "A11" in got["mesh_tasks"]
+        # no mesh engine, no mesh tasks (the JAX manager's plan without one)
+        assert got["armed_form"] == "plain closure" and got["mesh_tasks"] == []
 
     def test_convex_tier_plans_the_relaxation(self, port_items):  # noqa: F811
         ts = TorchSolver(device="cpu", g_max=G, tier="convex")
@@ -297,6 +298,31 @@ class TestArmedDecisions:
 
 
 # -- the store --------------------------------------------------------------------------
+
+
+class TestMeshTasks:
+    def test_current_layout_warmed_shrunk_layouts_listed(self, port_items):  # noqa: F811
+        """With a mesh engine the plan holds the current layout's sharded
+        fused solve and bound (tier 0) and lists the ladder's shrunk
+        layouts (tier 1) without calling them; a device loss re-plans
+        nothing until the next catalog."""
+        from karpenter_tpu_torch.fleet import MeshSolveEngine
+        from karpenter_tpu_torch.parallel.mesh import make_mesh
+
+        engine = MeshSolveEngine(make_mesh(8, devices=[torch.device("cpu")] * 8))
+        ts = TorchSolver(g_max=G, mesh=engine)
+        mgr = ts.enable_aot(None, duty=1.0, pads=(16,))
+        plan = mgr.build_plan(ts._catalog(port_items))
+        assert mgr.drain(300)
+        assert [(t.tier, t.entry) for t in plan if t.entry.startswith("mesh_")] == [
+            (0, "mesh_fused"), (0, "mesh_bound")]
+        doc = ts.describe_aot()["mesh_tasks"]
+        assert [(d["tier"], d["layout"], d["shards"]) for d in doc] == [
+            (0, "full", 8), (1, "shrunk", 4), (1, "shrunk", 2)]
+        assert doc[0]["tasks"] == ["mesh full 8 fused c16", "mesh full 8 bound c16"]
+        assert doc[1]["tasks"] == doc[2]["tasks"] == []
+        assert ts.describe_aot()["compile_failures"] == 0
+        mgr.stop(timeout_s=60.0)
 
 
 def _plant(store: str, name: str, fingerprint: str, body: bytes = b"\x7fELF garbage"):

@@ -817,3 +817,104 @@ class TestLibraryStoreOnTheCard:
             np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
             np.array([[5]]), np.zeros((1, 2), bool), cuda)
         assert repack.disrupt_repack(*ops)[1].cpu().tolist() == [[[2, 2]]]
+
+
+class TestMeshOnTheCard:
+    """Eight positional shards of one card (parallel/mesh.py): the
+    sharded entries equal to the unsharded ones, kernel A once a solve
+    and kernel B once a shard; and what a device fault raises."""
+
+    def mesh8(self, cuda):
+        from karpenter_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(8, devices=[torch.device("cuda", 0)] * 8)
+
+    def test_sharded_solve_and_bound_equal_unsharded(self, cuda, items):
+        from karpenter_tpu_torch.parallel import mesh as mesh_mod
+        from karpenter_tpu_torch.solver import bound
+
+        inp, offsets, words = scan_inputs(items, cuda, 20_000, 5)
+        kw = dict(g_max=1024, word_offsets=offsets, words=words, objective="price")
+        nnz = ffd.nnz_budget(inp.req.shape[0], 1024)
+        want = ffd.ffd_solve_fused(inp, nnz_max=nnz, **kw)
+        before = ffd_scan.launches
+        cols = mesh_mod.sharded_scan_columns(self.mesh8(cuda), inp, offsets, words, "price")
+        got = ffd.ffd_solve_fused(inp, nnz_max=nnz, columns=cols, **kw)
+        torch.cuda.synchronize()
+        assert ffd_scan.launches == before + 1
+        assert torch.equal(want.cpu(), got.cpu())
+        placed = inp.count.to(torch.float32)
+        assert torch.equal(
+            bound.fractional_price_bound(inp, placed, word_offsets=offsets, words=words).cpu(),
+            mesh_mod.sharded_price_bound(self.mesh8(cuda), inp, placed, word_offsets=offsets,
+                                         words=words).cpu())
+
+    def test_sharded_repack_equal_unsharded(self, cuda):
+        from karpenter_tpu_torch.parallel import mesh as mesh_mod
+
+        rng = np.random.default_rng(17)
+        N, C, S, R = 1024, 64, 512, encode.R
+        args = (rng.integers(0, 9000, (N, R)).astype(np.float32), rng.random((C, N)) < 0.6,
+                rng.integers(1, 700, (C, R)).astype(np.float32),
+                rng.integers(0, 6, (S, C)).astype(np.int32), rng.random((S, N)) < 0.01)
+        want = disrupt_kernel.disrupt_repack(*disrupt_kernel.repack_from_numpy(*args, cuda))
+        before = repack.launches
+        got = mesh_mod.sharded_repack(self.mesh8(cuda), *args)
+        torch.cuda.synchronize()
+        assert repack.launches == before + 8
+        for a, b in zip(want, got):
+            assert torch.equal(a.cpu(), b.cpu())
+
+    def test_mesh_solver_equal_unsharded(self, cuda, items):
+        from karpenter_tpu_torch.fleet import MeshSolveEngine
+
+        pods = workload.synth_pods(np.random.default_rng(3), workload.ZONES, 20_000, salt=3)
+        want = TorchSolver(device=cuda).solve(NodePool("default"), items, pods)
+        engine = MeshSolveEngine(self.mesh8(cuda))
+        got = TorchSolver(mesh=engine).solve(NodePool("default"), items, pods)
+        assert decision(got) == decision(want)
+        engine.mark_device_lost(7, reason="test")
+        got4 = TorchSolver(mesh=engine).solve(NodePool("default"), items, pods)
+        assert decision(got4) == decision(want) and engine.describe()["devices"] == 4
+
+    def test_a_device_fault_is_a_runtime_error_the_ladder_never_takes(self, cuda, tmp_path):
+        """A device-side assert poisons its process's CUDA context, so it
+        runs in a child: the error torch raises is a RuntimeError
+        subclass (the seam's `except RuntimeError` sees it), the
+        classifier reads it as a program fault, and the engine re-raises
+        it unchanged without shrinking the mesh."""
+        import json
+        import os
+        import subprocess
+        import sys
+
+        code = (
+            "import json, torch\n"
+            "from karpenter_tpu_torch.fleet import MeshSolveEngine, classify_device_error\n"
+            "from karpenter_tpu_torch.parallel.mesh import make_mesh\n"
+            "eng = MeshSolveEngine(make_mesh(8, devices=['cuda:0'] * 8))\n"
+            "def fault():\n"
+            "    x = torch.zeros(4, device='cuda')\n"
+            "    i = torch.tensor([1 << 20], device='cuda')\n"
+            "    x[i] = 1.0\n"
+            "    torch.cuda.synchronize()\n"
+            "try:\n"
+            "    eng._dispatch('fused', None, fault)\n"
+            "    out = {'raised': None}\n"
+            "except BaseException as e:\n"
+            "    out = {'raised': type(e).__name__,\n"
+            "           'mro': [c.__name__ for c in type(e).__mro__],\n"
+            "           'is_runtime_error': isinstance(e, RuntimeError),\n"
+            "           'classified': classify_device_error(e),\n"
+            "           'message': str(e)[:300], 'mode': eng.topology.mode(),\n"
+            "           'epoch': eng.epoch}\n"
+            f"open({str(tmp_path / 'fault.json')!r}, 'w').write(json.dumps(out))\n"
+        )
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, PYTHONPATH=repo)
+        subprocess.run([sys.executable, "-c", code], cwd=repo, env=env, timeout=300,
+                       capture_output=True, text=True)
+        out = json.loads((tmp_path / "fault.json").read_text())
+        print("device fault:", out)
+        assert out["raised"] is not None and out["is_runtime_error"], out
+        assert out["classified"] is None and out["mode"] == "full" and out["epoch"] == 1, out

@@ -23,7 +23,9 @@ package's, on the CPU.
   fleet/service.py;
 - `replay_fleet(3, device="cpu")` equals the pinned
   multi-cluster-storm.digests.json and each tenant's isolated replay;
-- a mesh is refused everywhere it could enter (ROADMAP A11b).
+- a mesh enters everywhere the JAX package takes one, and an oversized
+  spec (more shards than real devices) is refused there
+  (tests/test_torch_mesh.py holds the mesh itself).
 
 Every socket carries a timeout and every server stops in a fixture or a
 finally; socket paths come from `tempfile.mkdtemp(prefix="kt-")`.
@@ -809,6 +811,12 @@ class TestFleetSizing:
                 "cuda:0": {"bytes_in_use": 16 * mb, "bytes_limit": 144 * mb},
                 "cuda:1": {"bytes_in_use": 64 * mb, "bytes_limit": 144 * mb}})
             assert tservice.max_tenants_for_headroom(per_tenant_bytes=4 * mb) == 10
+            # with a mesh engine only its primary (where the port stages)
+            # sizes; a label the ledger lacks falls back to every device
+            for dev, want in (("cuda:0", 16), ("cuda:1", 10), ("cpu", 10)):
+                engine = types.SimpleNamespace(topology=object(), device=torch.device(dev))
+                assert tservice.max_tenants_for_headroom(
+                    per_tenant_bytes=4 * mb, engine=engine) == want
         finally:
             thbm.set_stats_provider(None)
 
@@ -832,7 +840,7 @@ class TestFleetReplay:
         want = json.loads(golden.read_text())
         (tmp_path / "multi-cluster-storm.digests.json").write_text(
             json.dumps({"cluster-0": "0" * 64}))
-        monkeypatch.setattr(tsimfleet, "replay_fleet", lambda n, base_seed, device: types.
+        monkeypatch.setattr(tsimfleet, "replay_fleet", lambda n, base_seed, mesh, device: types.
                             SimpleNamespace(ok=True, divergences=[],
                                             digests={"cluster-0": want["cluster-0"]}))
         rc = cli.main(["fleet", "--tenants", "1", "--device", "cpu", "--dir", str(tmp_path)])
@@ -847,36 +855,67 @@ class TestFleetReplay:
             cli.main(["fleet", "--update-digests"])
 
 
-# -- no mesh yet (ROADMAP A11b) ----------------------------------------------------------
+# -- the mesh's entries into the fleet ------------------------------------------------------
+
+
+def cpu_engine(n=8):
+    from karpenter_tpu_torch.fleet.shard import MeshSolveEngine
+    from karpenter_tpu_torch.parallel.mesh import make_mesh
+
+    return MeshSolveEngine(make_mesh(n, devices=[torch.device("cpu")] * n))
 
 
 class TestNoMesh:
+    """Where a mesh enters the fleet: a mesh object builds a sharded
+    sidecar; a spec counts real devices (one CPU here) and an oversized
+    one is refused, never shrunk or ignored."""
+
     def test_build_fleet_server_refuses_a_mesh(self, sockdir, monkeypatch):
         monkeypatch.delenv(tservice.MESH_ENV, raising=False)
-        with pytest.raises(NotImplementedError, match="A11b"):
+        with pytest.raises(ValueError, match="needs 2 devices; 1 cpu available"):
             tservice.build_fleet_server(path=os.path.join(sockdir, "m.sock"), mesh="2",
                                         device="cpu")
+        # a mesh of 8 shards on the CPU is a sharded coalescing sidecar
+        srv = tservice.build_fleet_server(path=os.path.join(sockdir, "m.sock"),
+                                          mesh=cpu_engine())
+        try:
+            assert srv._mesh is not None and srv._mesh.describe()["devices"] == 8
+            assert srv._coalescer is not None and srv.device == torch.device("cpu")
+        finally:
+            stop_server(srv)
 
     def test_mesh_env_is_refused_not_ignored(self, sockdir, monkeypatch):
         monkeypatch.setenv(tservice.MESH_ENV, "2x4")
-        with pytest.raises(NotImplementedError, match="A11b"):
+        with pytest.raises(ValueError, match="needs 8 devices; 1 cpu available"):
             tservice.build_fleet_server(path=os.path.join(sockdir, "m.sock"), device="cpu")
         # an explicit falsy mesh pins the single-device path, as in the JAX package
         srv = tservice.build_fleet_server(path=os.path.join(sockdir, "m.sock"), mesh=False,
                                           device="cpu")
+        assert srv._mesh is None
         stop_server(srv)
 
     def test_server_sizing_and_replay_refuse_a_mesh(self, sockdir):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            trpc.SolverServer(path=os.path.join(sockdir, "m2.sock"), device="cpu",
-                              mesh=object())
-        with pytest.raises(NotImplementedError, match="A11b"):
-            tservice.max_tenants_for_headroom(headroom_bytes=1 << 30, engine=object())
-        with pytest.raises(NotImplementedError, match="A11b"):
-            tsimfleet.replay_fleet(1, mesh=True, device="cpu")
+        engine = cpu_engine()
+        srv = trpc.SolverServer(path=os.path.join(sockdir, "m2.sock"), mesh=engine).start()
+        stop_server(srv)
+        with pytest.raises(ValueError, match="primary device"):
+            trpc.SolverServer(path=os.path.join(sockdir, "m3.sock"), device="cuda",
+                              mesh=engine)
+        # topology-aware sizing: the port stages each tenant whole on the
+        # primary, so a non-primary loss leaves the sizing unchanged
+        full = tservice.max_tenants_for_headroom(headroom_bytes=1 << 30, engine=engine,
+                                                 per_tenant_bytes=None)
+        assert engine.mark_device_lost(7, reason="test")
+        shrunk = tservice.max_tenants_for_headroom(headroom_bytes=1 << 30, engine=engine)
+        assert full == (1 << 29) // tservice.TENANT_STAGED_BYTES_FALLBACK
+        assert shrunk == full
+        res = tsimfleet.replay_fleet(1, mesh=True, device="cpu")
+        assert res.ok and res.digests == {
+            t: r.digest for t, r in res.isolated.items()}
 
     @pytest.mark.parametrize("argv,env", [(["--mesh", "2"], None), ([], "2x4")])
     def test_binary_refuses_a_mesh(self, argv, env, monkeypatch, capsys):
+        """More shards than real devices: exit 2, naming the count."""
         if env is None:
             monkeypatch.delenv(tservice.MESH_ENV, raising=False)
         else:
@@ -884,4 +923,4 @@ class TestNoMesh:
         with pytest.raises(SystemExit) as e:
             trpc.serve_main([*argv, "--device", "cpu", "--socket", "/nonexistent/s.sock"])
         assert e.value.code == 2
-        assert "A11b" in capsys.readouterr().err
+        assert "1 cpu available" in capsys.readouterr().err

@@ -37,6 +37,16 @@ FLEET_MODULES = (
     "karpenter_tpu_torch/sim/fleet.py",
 )
 
+# the mesh slice's modules (parallel/, the fleet's topology ladder)
+MESH_MODULES = (
+    "karpenter_tpu_torch/parallel/__init__.py",
+    "karpenter_tpu_torch/parallel/mesh.py",
+    "karpenter_tpu_torch/parallel/dryrun.py",
+    "karpenter_tpu_torch/fleet/shard.py",
+    "karpenter_tpu_torch/fleet/topology.py",
+    "karpenter_tpu_torch/fleet/straggler.py",
+)
+
 
 # the operator slice's modules (copies of the JAX package's jax-free control
 # plane under the same paths)
@@ -443,6 +453,38 @@ class TestNoJaxImports:
             "assert res.ok and res.digests == {t: golden[t] for t in res.digests}, res.digests\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
             "print('LOADED', len(names), bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                           capture_output=True, text=True, timeout=240)
+        assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+
+
+    def test_mesh_modules_are_scanned(self):
+        rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
+        assert set(MESH_MODULES) <= rel
+
+    def test_mesh_and_its_ladder_load_neither(self):
+        """The mesh modules, an 8-shard CPU engine walked down its ladder,
+        and the mesh-device-loss replay, in a fresh interpreter."""
+        code = (
+            "import json, sys\n"
+            "import torch\n"
+            "torch.set_num_threads(1)\n"
+            "from karpenter_tpu_torch.fleet import MeshSolveEngine, ShardStragglerWatchdog\n"
+            "from karpenter_tpu_torch.fleet import TopologyTracker, classify_device_error\n"
+            "from karpenter_tpu_torch.parallel import make_mesh, make_mesh_2d, dryrun\n"
+            "eng = MeshSolveEngine(make_mesh(8, devices=['cpu'] * 8))\n"
+            "eng.mark_device_lost(7, 'test')\n"
+            "from karpenter_tpu_torch.sim.replay import replay\n"
+            "from karpenter_tpu_torch.sim.trace import read_trace\n"
+            "d = 'tests/golden/scenarios/'\n"
+            "res = replay(read_trace(d + 'mesh-device-loss.jsonl'), backend='mesh',\n"
+            "             seed=20260803, device='cpu')\n"
+            "assert res.digest == json.load(open(d + 'digests.json'))['mesh-device-loss']\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'karpenter_tpu'))\n"
+            "print('LOADED', bad)\n"
             "sys.exit(1 if bad else 0)\n"
         )
         env = dict(os.environ, PYTHONPATH=str(REPO))

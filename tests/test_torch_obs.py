@@ -159,6 +159,13 @@ PORT_FAMILIES = {
     "karpenter_tenant_dispatches_total", "karpenter_tenant_dispatch_seconds",
     "karpenter_tenant_window_size", "karpenter_tenant_refusals_total",
     "karpenter_tenant_breaker_state", "karpenter_tenant_breaker_trips_total",
+    # the mesh (fleet/shard.py, fleet/topology.py, fleet/straggler.py)
+    "karpenter_mesh_devices", "karpenter_mesh_sharded_dispatches_total",
+    "karpenter_mesh_topology_epoch", "karpenter_mesh_topology_healthy_devices",
+    "karpenter_mesh_topology_quarantined_devices", "karpenter_mesh_topology_transitions_total",
+    "karpenter_mesh_reshards_total", "karpenter_mesh_reshard_seconds",
+    "karpenter_mesh_stale_topology_solves_total",
+    "karpenter_mesh_shard_watchdog_escalations_total",
     # the runtime witnesses (analysis/): the JAX families' names
     "karpenter_lockwitness_inversions_total", "karpenter_errflow_swallowed_total",
     "karpenter_jaxwitness_retraces_total", "karpenter_jaxwitness_host_transfers_total",

@@ -57,7 +57,9 @@ torch.set_num_threads(1)
 G = 64
 JOIN_S = 10.0
 CLIENTS = {"jax": jrpc.SolverClient, "torch": trpc.SolverClient}
-# the JAX server's features without a mesh or coalescer, shm on
+# the JAX server's features without a coalescer, shm on; a mesh adds none
+# (topology_epoch is always advertised; with a mesh the stage reply carries
+# the epoch: tests/test_torch_mesh.py)
 FEATURES = sorted([
     "join_allowed", "trace_echo", "solve_delta", "reply_v2", "solve_disrupt",
     "packed_masks", "topology_epoch", "convex", "shm",
