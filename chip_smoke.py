@@ -48,7 +48,10 @@ one JSON line each:
   analysis    `python -m karpenter_tpu_torch.analysis` on the host, over
               the tree that runs: exit 0 against its baseline
   main        the two ticks with every launch count set to 0 before a tick
-              and read after it; every pod must be placed exactly once
+              and read after it, then tick 1 again through a
+              TorchSolver(objective="fit") (every fresh group opens with
+              each type that holds its pods: kernel A's wide steps);
+              every pod must be placed exactly once
   schedule    the five worlds, counted the same way, each with its route,
               C and K of kernel A, the layout it chose, and its
               unschedulable pods; each must take its route and account for
@@ -162,12 +165,14 @@ one JSON line each:
               solver.rpc --coalesce --tenant-budget 2.0` as a subprocess:
               ping advertises coalesce, two tenants each solve tick 1
   times       each kernel and its plain version at every main-path shape
-              (kernel A at tick 1, tick 2 and in each world; kernel B at
-              tick 2, the spread wave and each sweep; kernel A also on
-              the convex worlds), kernel A over G in
-              {64, 256, 1024} on tick 1's operands, on the C=256 world and
-              under the fit objective, each with its bound and, at G=1024,
-              the surviving types of its groups; the scratch layout against
+              (kernel A at tick 1, tick 2, the fit tick 1 and in each
+              world; kernel B at tick 2, the spread wave and each sweep;
+              kernel A also on the convex worlds), kernel A over G in
+              {64, 256, 1024} on tick 1's operands and on the C=256 world,
+              each with its bound (which counts the fit of every (open
+              group, type) pair each step joins, from the plain scan's
+              carry), microseconds a real class step and the surviving
+              types of its groups (median, most); the scratch layout against
               the lean one at K=1280; kernel times are CUDA events around
               10 back-to-back calls; tick walls and their stages per tick
               and world, peak device memory; per sweep its wall (median of
@@ -200,7 +205,13 @@ one JSON line each:
               tied prices, exact quotients, slot exhaustion, padded or
               infeasible rows between real classes, a count-0 class that
               open groups could join, all-zero-request classes whose int32
-              prefix sums wrap, a C=256 world, kernel B at 64 candidate
+              prefix sums wrap, a C=256 world, kernel A's wide steps (the
+              fit tick's operands; cases.wide_groups in all three layouts
+              under both objectives, with narrow and wide groups in one
+              step and a zero-request axis; cases.every_type, a group that
+              keeps every one of K types with tied fits, at K=640, 1280 and
+              1920; a class that requests nothing on wide groups, whose
+              prefix sum wraps), kernel B at 64 candidate
               sets, and the layouts each kernel takes when shared memory is
               short, run at shapes the others fit too; the sidecar's own
               calls in phase `wire`; the operator's calls in phases
@@ -2680,8 +2691,20 @@ def main() -> int:
         quality_docs["tick 2"], bound_calls["tick 2"] = solver.last_quality, qcalls[-1:]
     peak_bytes = torch.cuda.max_memory_allocated()
 
-    if launches1["ffd_scan"] < 1 or launches2["ffd_scan"] < 1:
-        raise AssertionError(f"kernel A did not run on the main path: {launches1} {launches2}")
+    # tick 1 under the fit objective: each fresh group opens with every type
+    # that holds its pods (as a zone-spread sub-class does), so kernel A
+    # takes its wide steps
+    fit_solver = TorchSolver(g_max=G_MAX, objective="fit", device=dev)
+    with recording(ka, kb) as fit_rec:
+        d0 = start_count()
+        tick1_fit = fit_solver.solve(pool, items, pods1)
+        torch.cuda.synchronize()
+        launches_fit = {"ffd_scan": ka.launches, "disrupt_repack": kb.launches}
+        end_count("tick 1, fit objective", launches_fit, d0)
+
+    if launches1["ffd_scan"] < 1 or launches2["ffd_scan"] < 1 or launches_fit["ffd_scan"] < 1:
+        raise AssertionError(f"kernel A did not run on the main path: {launches1} {launches2} "
+                             f"{launches_fit}")
     if launches2["disrupt_repack"] < 1:
         raise AssertionError(f"kernel B did not run on tick 2: {launches2}")
 
@@ -2709,7 +2732,9 @@ def main() -> int:
 
     emit({"phase": "main", "pods": [N_PODS, N_WAVE], "existing_nodes": len(nodes),
           "tick1": accounted(tick1, pods1), "tick2": accounted(tick2, pods2),
-          "launches": {"tick1": launches1, "tick2": launches2}, **tag})
+          "tick1_fit_objective": accounted(tick1_fit, pods1),
+          "launches": {"tick1": launches1, "tick2": launches2, "tick1_fit_objective": launches_fit},
+          **tag})
 
     # -- schedule(): the routing entry point on four worlds ----------------------
     zones = set(workload.ZONES)
@@ -3576,8 +3601,8 @@ def main() -> int:
     def scan_ms(ops, g_max=G_MAX, objective="price"):
         return cuda_ms(lambda: ka.fused_scan(*ops, g_max=g_max, objective=objective), reps=20)
 
-    def scan_plain_ms(ops):
-        return cuda_ms(lambda: ka.fused_scan_reference(*ops, g_max=G_MAX, objective="price"),
+    def scan_plain_ms(ops, objective="price"):
+        return cuda_ms(lambda: ka.fused_scan_reference(*ops, g_max=G_MAX, objective=objective),
                        reps=3, warmup=1, batch=1)
 
     ms_a, ms_a2 = scan_ms(ops_a), scan_ms(ops_a2)
@@ -3639,19 +3664,25 @@ def main() -> int:
 
     # bounds from this run's inputs: bytes the function must read once and
     # write once; operations it cannot skip -- kernel A's price envelope
-    # over every (real class, type) and the survivor-word join of every
-    # open group at each real class's step; kernel B's fit over every
-    # (set, class, node, axis)
+    # over every (real class, type), the survivor-word join of every open
+    # group at each real class's step, and the fit of every (open group,
+    # type) pair that step joins (R subtractions and R divides; the pairs
+    # counted from the plain scan's own carry on these inputs); kernel B's
+    # fit over every (set, class, node, axis)
     def scan_bound(ops, g_max=G_MAX, objective="price"):
         outs = ka.fused_scan(*ops, g_max=g_max, objective=objective)
+        joined = []
+        ka.fused_scan_reference(*ops, g_max=g_max, objective=objective, joined=joined)
+        pairs = int(torch.stack(joined).sum())
         take = outs[0].cpu().numpy()
         # groups open after step c: every opened group takes a pod when it opens
         last = np.where((take > 0).any(axis=1),
                         take.shape[1] - np.argmax((take > 0)[:, ::-1], axis=1), 0)
         open_before = np.concatenate([[0], np.maximum.accumulate(last)[:-1]])
         real = cases.real_classes(ops)
-        C, K = ops[0].shape[0], ops[9].shape[0]
-        n_ops = len(real) * K * 6 + int(open_before[real].sum()) * (K // 32)
+        C, R = ops[0].shape
+        K = ops[9].shape[0]
+        n_ops = len(real) * K * 6 + int(open_before[real].sum()) * (K // 32) + pairs * 2 * R
         # a no-op row is known by its compat and fresh words: of it only
         # those and its count are read (and its zero take row written)
         bytes_in = (len(real) * nbytes(t[0] for t in ops[:9])
@@ -3661,28 +3692,31 @@ def main() -> int:
     bound_a, by_a = scan_bound(ops_a)
     bound_a2, by_a2 = scan_bound(ops_a2)
     C, K = ops_a[0].shape[0], ops_a[9].shape[0]
-    sweep = {}
-    for g in (64, 256, 1024):
-        b_ms, b_by = scan_bound(ops_a, g)
-        sweep[f"G={g}"] = {"ms": scan_ms(ops_a, g), "bound_ms": b_ms, "bound_by": b_by}
-    b_ms, b_by = scan_bound(ops_a3)
-    sweep["C=256 world"] = {"ms": scan_ms(ops_a3), "bound_ms": b_ms, "bound_by": b_by,
-                            "real_classes": len(cases.real_classes(ops_a3))}
 
-    def survivors(ops, objective):
+    def survivors(ops, objective, g_max=G_MAX):
         """(median, max) surviving types over the groups the scan opened."""
-        _, _, n_open, gmask_bits, _ = ka.fused_scan(*ops, g_max=G_MAX, objective=objective)
+        _, _, n_open, gmask_bits, _ = ka.fused_scan(*ops, g_max=g_max, objective=objective)
         n = packing.unpack_rows(gmask_bits[: int(n_open)], ops[9].shape[0]).sum(1)
         return float(n.float().median()), int(n.max())
 
-    # the fit objective keeps every compatible type in a fresh group (as a
-    # zone-spread sub-class does): kernel A with wide groups at tick 1
-    ops_fit = scan_ops(cs1, "fit", True)
-    b_ms, b_by = scan_bound(ops_fit, objective="fit")
-    sweep["G=1024"]["group_types_median_max"] = survivors(ops_a, "price")
-    sweep["tick 1, fit objective"] = {
-        "ms": scan_ms(ops_fit, objective="fit"), "bound_ms": b_ms, "bound_by": b_by,
-        "group_types_median_max": survivors(ops_fit, "fit")}
+    def per_step(ms, ops):
+        """Microseconds a real class step (no-op rows cost no step)."""
+        return ms * 1e3 / len(cases.real_classes(ops))
+
+    sweep = {}
+    for g in (64, 256, 1024):
+        b_ms, b_by = scan_bound(ops_a, g)
+        ms = scan_ms(ops_a, g)
+        sweep[f"G={g}"] = {"ms": ms, "us_per_real_step": per_step(ms, ops_a), "bound_ms": b_ms,
+                           "bound_by": b_by, "group_types_median_max": survivors(ops_a, "price", g)}
+    b_ms, b_by = scan_bound(ops_a3)
+    ms = scan_ms(ops_a3)
+    sweep["C=256 world"] = {"ms": ms, "us_per_real_step": per_step(ms, ops_a3), "bound_ms": b_ms,
+                            "bound_by": b_by, "real_classes": len(cases.real_classes(ops_a3)),
+                            "group_types_median_max": survivors(ops_a3, "price")}
+    # tick 1 under the fit objective, as the main path's fit solver gave it
+    # to kernel A (a row of kernel_shapes)
+    ops_fit = fit_rec["ffd_scan"][0]
 
     def repack_bound(ops):
         outs = kb.disrupt_repack(*ops)
@@ -3698,8 +3732,11 @@ def main() -> int:
     S, N = ops_b[4].shape
     Cb, R = ops_b[2].shape
 
-    # every shape the main path gave each kernel: name -> (operands, launches)
-    shapes_a = {"tick 1": (ops_a, launches1["ffd_scan"]), "tick 2": (ops_a2, launches2["ffd_scan"])}
+    # every shape the main path gave each kernel: name -> (operands, launches);
+    # kernel A's rows take the price objective but where `objective_of` says
+    shapes_a = {"tick 1": (ops_a, launches1["ffd_scan"]), "tick 2": (ops_a2, launches2["ffd_scan"]),
+                "tick 1, fit objective": (ops_fit, launches_fit["ffd_scan"])}
+    objective_of = {"tick 1, fit objective": "fit"}
     shapes_b = {"tick 2": (ops_b, launches2["disrupt_repack"])}
     for name in world_spec:
         shapes_a[name] = (world_ops[name]["ffd_scan"][0], world_launches[name]["ffd_scan"])
@@ -3725,22 +3762,24 @@ def main() -> int:
         sum(wire_launches[f"{t} rampdown-sweep spot-od"]["disrupt_repack"] for t in ("shm", "tcp")))
     shape_rows = {"ffd_scan": [], "disrupt_repack": []}
     for name, (ops, n) in shapes_a.items():
+        obj = objective_of.get(name, "price")
         if name == "tick 1":
             ms, plain, (b_ms, b_by) = ms_a, plain_a, (bound_a, by_a)
         elif name == "tick 2":
             ms, plain, (b_ms, b_by) = ms_a2, plain_a2, (bound_a2, by_a2)
         else:
-            ms, plain, (b_ms, b_by) = scan_ms(ops), scan_plain_ms(ops), scan_bound(ops)
+            ms = scan_ms(ops, objective=obj)
+            plain, (b_ms, b_by) = scan_plain_ms(ops, obj), scan_bound(ops, objective=obj)
         C_s, R_s = ops[0].shape
         K_s = ops[9].shape[0]
         shape_rows["ffd_scan"].append({
-            "path": name, "shape": {"C": C_s, "G": G_MAX, "K": K_s, "R": R_s},
+            "path": name, "objective": obj, "shape": {"C": C_s, "G": G_MAX, "K": K_s, "R": R_s},
             "real_classes": len(cases.real_classes(ops)),
             "layout": ka.layout(G_MAX, K_s, R_s),
-            # kernel A walks each open group's survivors at every later
-            # step, one thread per group
-            "group_types_median_max": survivors(ops, "price"),
-            "launches": n, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by})
+            # a group of more than 16 surviving types makes a wide step
+            "group_types_median_max": survivors(ops, obj),
+            "launches": n, "ms": ms, "us_per_real_step": per_step(ms, ops), "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by})
     for name, (ops, n) in shapes_b.items():
         if name == "tick 2":
             ms, plain, (b_ms, b_by) = ms_b, plain_b, (bound_b, by_b)
@@ -4030,6 +4069,45 @@ def main() -> int:
         r8 = list(ops_a)
         r8[0], r8[9] = ops_a[0][:, :8].contiguous(), ops_a[9][:, :8].contiguous()
         check_scan("scratch layout tick1, R=8 (run-time R)", tuple(r8), "price", layout_name="scratch")
+        # kernel A's wide steps (groups of more than 16 surviving types, their
+        # words dealt over the warps): the main path's fit tick, and the
+        # builders' worlds in all three layouts under both objectives
+        check_scan("tick 1, fit objective (the fit solver's own operands)", ops_fit, "fit")
+        wide = cases.wide_groups(cs1)
+        zero_axis = cases.take_rows(wide, np.arange(wide.c_pad))
+        zero_axis.req[: wide.c_real, 0] = 0.0
+        for objective in ("price", "fit"):
+            ops_w = scan_ops(wide, objective, True)
+            every = cases.every_type(ops_w)
+            for layout_name in ("resident", "lean", "scratch"):
+                check_scan(f"wide groups {objective}, {layout_name} layout", ops_w, objective,
+                           layout_name=layout_name)
+                check_scan(f"every type in one group K={every[9].shape[0]} (tied fits) {objective}, "
+                           f"{layout_name} layout", every, objective, layout_name=layout_name)
+            check_scan(f"wide groups, a zero-request axis, {objective}",
+                       scan_ops(zero_axis, objective, True), objective)
+        ops_w = scan_ops(wide, "price", True)
+        if cases.first_mixed_step(ops_w, G_MAX, "price") is None:
+            raise AssertionError("the wide-group world has no step with narrow and wide groups")
+        every = cases.every_type(scan_ops(cs1, "fit", True))
+        widest = int(cases.open_widths(every, cases.real_classes(every)[0] + 1, G_MAX, "fit").max())
+        if widest != K:
+            raise AssertionError(f"the every-type world's first group keeps {widest} of {K} types")
+        for name in ("merged", "merged 3 pools"):
+            every = cases.every_type(world_ops[name]["ffd_scan"][0])
+            for objective in ("price", "fit"):
+                check_scan(f"every type in one group, {name} K={every[9].shape[0]} "
+                           f"({ka.layout(G_MAX, every[9].shape[0], every[0].shape[1])} layout) {objective}",
+                           every, objective)
+        # a class that requests nothing joins wide groups: its fits saturate
+        # and the prefix sum wraps
+        for c in reversed(cases.real_classes(ops_w)):
+            want = check_scan(f"wide groups, class {c} requests nothing",
+                              scan_ops(cases.zero_request(wide, c), "price", True), "price")
+            if int(want[1][c]) < 0:
+                break
+        else:
+            raise AssertionError("no class of the wide-group world wrapped when it requested nothing")
 
         check_repack("tick2 pre-pass S=1", ops_b)
         check_repack("tick2 pre-pass, infeasible rows between real classes S=1", cases.gap_repack(ops_b))
@@ -4196,6 +4274,7 @@ def main() -> int:
             ref_solver = TorchSolver(g_max=G_MAX, device=dev)
             ref1 = ref_solver.solve(pool, items, pods1)
             ref2 = ref_solver.solve(pool, items, pods2, existing_nodes=workload.nodes_from_result(ref1))
+            ref_fit = TorchSolver(g_max=G_MAX, objective="fit", device=dev).solve(pool, items, pods1)
             ref_worlds = {}
             for name, fn in worlds_of(TorchSolver(g_max=G_MAX, device=dev), ref_worlds).items():
                 ref_worlds[name] = fn()
@@ -4203,13 +4282,16 @@ def main() -> int:
             ref_sweeps = {name: ref_engine.evaluate(sw["nodes"], sw["sets"], **sw["kw"])
                           for name, sw in sweeps.items()}
         same1, same2 = sig(ref1) == sig(tick1), sig(ref2) == sig(tick2)
+        same_fit = sig(ref_fit) == sig(tick1_fit)
         same_worlds = {name: sig(ref_worlds[name]) == sig(world_results[name]) for name in world_spec}
         same_sweeps = {name: [repr(v) for v in ref_sweeps[name]]
                        == [repr(v) for v in sweep_results[name]] for name in sweeps}
         emit({"phase": "plain", "tick1_decisions_equal": same1, "tick2_decisions_equal": same2,
+              "tick1_fit_objective_decisions_equal": same_fit,
               "schedule_worlds_decisions_equal": same_worlds,
               "sweep_verdict_reprs_equal": same_sweeps, **tag})
-        if not (same1 and same2 and all(same_worlds.values()) and all(same_sweeps.values())):
+        if not (same1 and same2 and same_fit and all(same_worlds.values())
+                and all(same_sweeps.values())):
             raise AssertionError("the main path's decisions differ from the plain versions'")
 
         phase_references(tag, references)
@@ -4217,7 +4299,7 @@ def main() -> int:
         stop_references(references)
 
     def launches_on_paths(kernel):
-        return (launches1[kernel] + launches2[kernel]
+        return (launches1[kernel] + launches2[kernel] + launches_fit[kernel]
                 + sum(n[kernel] for n in world_launches.values())
                 + sum(n[kernel] for n in sweep_launches.values())
                 + sum(n[kernel] for n in convex_launches.values())

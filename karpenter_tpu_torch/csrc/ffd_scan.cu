@@ -16,13 +16,15 @@
 // and -fmad=false so a multiply and an add round separately.
 //
 // What bounds it on an H100: the latency of each class step. The C steps
-// are sequential and the work inside one is tiny (on the main path a group
-// holds at most 2 surviving types, so a step makes a few hundred fit
-// evaluations); the bytes it must move take under 1 us at 3.35 TB/s. So
-// the design cuts what a step waits on:
+// are sequential and the bytes a step must move take under 1 us at 3.35
+// TB/s. A narrow step -- every open group holding at most kNarrowTypes
+// surviving types, as on the main path's price ticks (1 or 2) -- makes a
+// few hundred fit evaluations; it waits on barriers and on the longest
+// walk of one thread over its groups. So the design cuts what a step
+// waits on:
 //   - one thread block runs the whole scan with the carry resident in
 //     dynamic shared memory; thread t owns a contiguous run of groups for
-//     the whole launch, so the carry update needs no barrier;
+//     the whole launch, so a narrow step's carry update needs no barrier;
 //   - a class whose compat and fresh rows are both empty is a no-op (no
 //     open group can take it and no fresh group can open), found for a
 //     chunk of classes at once; such a class only writes its zero take row
@@ -43,6 +45,47 @@
 //     totals and the takes are summed exactly, behind more barriers;
 //   - R = 9 (the repo's request axes) is a template case, so a fit's
 //     axes unroll with the request in registers.
+// A wide step is one with a group of more than kNarrowTypes surviving
+// types: a zone-spread sub-class (env_count 0) or the fit objective opens
+// each group with every compatible type (up to ~570 joined on the spread
+// worlds). Walked by its owning thread, such a group made the step last
+// hundreds of serial fits, twice -- once for the max in (2) and again for
+// the keep test in (5) -- while 1,023 threads waited at the prefix sum.
+// A wide step instead:
+//   - classifies the open groups (W0, a barrier): each owner counts its
+//     groups' survivors and sets their bits in a [G/32] wide-group bitmap
+//     (device memory, beside the fits);
+//   - deals the wide groups' non-zero survivor words, as (group, word)
+//     items in group order, round-robin over the 32 warps (each warp
+//     places the items with a scan over 32 groups at a time, so a world of
+//     many wide groups costs a warp n/32 group visits, not n); a lane
+//     takes one type of the word, so a word's fits run at once; a group's
+//     max is a REDUX over order-preserving keys and a shared atomicMax
+//     (exact: a fit is never NaN, and a max of non-NaN floats has no
+//     order); each fit goes to a [G, K] f32 scratch the wrapper allocates
+//     (2.6 MB at K = 640, in L2), written once in (2) -- -1 where the
+//     zone/captype join fails, which no take keeps;
+//   - meets again (W1) so the owners add their wide groups' counts to the
+//     prefix sum, which runs as before;
+//   - in (5), the same warps read the stored fits of a touched wide group
+//     back, word by word, and build each kept word with one ballot; the
+//     owners update accum, gzc and the take rows as before;
+//   - meets a third time (W2) and each warp rebuilds the non-zero-word
+//     bitmaps of its own lanes' touched wide groups with ballots.
+// What bounds a wide step then is no longer one group: it is the narrow
+// owners' walks (at most kNarrowTypes fits, twice for a touched group),
+// a warp's few items with an L2 round trip each in (5), and the three
+// barriers -- 8 to 13 us a step on the wide worlds against ~4.3 on a
+// narrow one (PERF.md). A lower kNarrowTypes moves fits from the owners
+// to the warps but multiplies the items (8 was slower on the fit tick).
+// Narrow groups stay with their owners in every step; an owner re-walks
+// the at most kNarrowTypes fits of a touched narrow group in (5), which
+// costs less than fetching them back from L2 one by one. Whether a step
+// is wide is known to every thread without a barrier: wide groups only
+// shrink, so a step is wide only if the last one found a wide group, or
+// opened a group whose mask (counted by the ballots that build it) is
+// wide. A step with no wide group runs the narrow path with no extra
+// barrier.
 // When the resident layout does not fit in shared memory, a lean layout
 // (one row buffer, no prefetch, cap_eff/tzc read through L1) takes any
 // shape the first version of this kernel took. When neither fits (a
@@ -50,11 +93,12 @@
 // layout keeps the survivor words in device memory: each group's words
 // [G, KW] live in the gmask output itself and their non-zero bitmaps
 // [G, NZW] in a scratch buffer the wrapper allocates, about 0.25 MB at
-// that shape, well inside the 50 MB L2. Only the owning thread touches a
-// group's words, so the carry update needs no new barrier. accum, gzc and
-// the fits (R + 2 words a group) stay in shared memory, beside the lean
-// layout's one row buffer. It is a template case, so the other layouts
-// keep their survivor words in shared memory with shared-memory loads.
+// that shape, well inside the 50 MB L2. A narrow group's words are touched
+// only by its owner; a wide group's by the warps of W0..W2, behind those
+// barriers. accum, gzc and the fits (R + 2 words a group) stay in shared
+// memory, beside the lean layout's one row buffer. It is a template case,
+// so the other layouts keep their survivor words in shared memory with
+// shared-memory loads.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,6 +113,9 @@ using ktt::kMaxWarps;
 
 constexpr int kMaxThreads = 1024;
 constexpr int kCtShift = 8;  // captype bits sit above the zone bits
+// a group of more surviving types than this is wide: its words are dealt
+// over the warps instead of walked by its owner
+constexpr int kNarrowTypes = 16;
 
 struct Operands {
     const float* req;         // [C, R]
@@ -88,6 +135,8 @@ struct Operands {
     uint32_t* gzc_out;        // [G]
     int32_t* n_open_out;      // [1]
     uint32_t* gnz_scratch;    // [G, NZW] survivor-word bitmaps (scratch layout)
+    uint32_t* wide_scratch;   // [G, K] f32 a step's fits of the wide groups' survivors,
+                              // then [ceil(G / 32)] u32 the bitmap of the wide groups
 };
 
 // The three layouts, as the wrapper names them.
@@ -110,7 +159,7 @@ __host__ __device__ __forceinline__ size_t smem_words(int G, int K, int R, int t
     const size_t bitmap = resident ? (size_t)threads >> 5 : 1;
     const size_t per_group = (size_t)R + 2 + (layout == kScratch ? 0 : KW + NZW);
     return nbuf * row_words(K, R) + (size_t)G * per_group + (resident ? (size_t)K * R + K : 0) + bitmap +
-           4 * kMaxWarps + 2 * KW + 2 * NZW;
+           4 * kMaxWarps + 2 + 2 * KW + 2 * NZW;
 }
 
 __device__ __forceinline__ bool joint_ok(uint32_t x) {
@@ -173,6 +222,73 @@ __device__ __forceinline__ void load_row(float* dst, int c, const Operands& o, i
     __pipeline_commit();
 }
 
+// Position of the n-th (from 0) set bit of x, which has more than n.
+__device__ __forceinline__ int nth_bit(uint32_t x, int n) {
+    int pos = 0;
+#pragma unroll
+    for (int width = 16; width > 0; width >>= 1) {
+        const int low = __popc(x & ((1u << width) - 1u));
+        if (n >= low) {
+            n -= low;
+            x >>= width;
+            pos += width;
+        }
+    }
+    return pos;
+}
+
+// Calls f(g, wi) on this warp's share of the wide groups' (group, non-zero
+// survivor word) items: every item in group order, then word order, dealt
+// round-robin over the warps, so each warp gets the same items in (2) and
+// in (5). The warp walks the wide groups 32 at a time, a group a lane: each
+// lane counts its group's items, a warp scan places them, and the warp
+// visits only the groups that hold one of its items. Every lane calls f
+// with the same item (f may use warp collectives). Reads the wide bitmap
+// and the groups' non-zero-word bitmaps, which nothing writes between W0
+// and W2.
+template <typename F>
+__device__ __forceinline__ void for_wide_items(const uint32_t* wide_bits, int GW, const uint32_t* gnz, int NZW,
+                                               int warp, int nwarps, F&& f) {
+    const int lane = threadIdx.x & 31;
+    int dealt = 0;  // items of the groups walked so far (the same in every lane)
+    for (int j0 = 0; j0 < GW; j0 += 32) {
+        const uint32_t bits = j0 + lane < GW ? wide_bits[j0 + lane] : 0u;
+        uint32_t words = __ballot_sync(kFullMask, bits != 0u);
+        while (words) {
+            const int src = __ffs(words) - 1;
+            words &= words - 1u;
+            const uint32_t wb = __shfl_sync(kFullMask, bits, src);
+            // lane l takes the l-th wide group of this bitmap word
+            const bool mine = lane < __popc(wb);
+            const int g = mine ? ((j0 + src) << 5) + nth_bit(wb, lane) : 0;
+            int n = 0;  // its items
+            if (mine)
+                for (int z = 0; z < NZW; ++z) n += __popc(gnz[(size_t)g * NZW + z]);
+            const int incl = (int)ktt::warp_incl_scan_u32((uint32_t)n);
+            const int first = dealt + incl - n;  // the group's first item
+            const int t0 = ((warp - first) % nwarps + nwarps) % nwarps;  // this warp's first of them
+            uint32_t todo = __ballot_sync(kFullMask, t0 < n);
+            while (todo) {
+                const int s = __ffs(todo) - 1;
+                todo &= todo - 1u;
+                const int gg = __shfl_sync(kFullMask, g, s);
+                const int nn = __shfl_sync(kFullMask, n, s);
+                for (int t = __shfl_sync(kFullMask, t0, s); t < nn; t += nwarps) {
+                    // the t-th non-zero word of group gg
+                    int rest = t, z = 0;
+                    uint32_t nzw = gnz[(size_t)gg * NZW];
+                    while (rest >= __popc(nzw)) {
+                        rest -= __popc(nzw);
+                        nzw = gnz[(size_t)gg * NZW + ++z];
+                    }
+                    f(gg, (z << 5) + nth_bit(nzw, rest));
+                }
+            }
+            dealt += __shfl_sync(kFullMask, incl, 31);
+        }
+    }
+}
+
 // First class after `after` whose bit is set in the chunk bitmap, or cend.
 __device__ __forceinline__ int next_real(const uint32_t* bitmap, int nbits, int base, int after, int cend) {
     for (int j = after - base + 1; j < nbits; j = (j | 31) + 1) {
@@ -199,6 +315,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     const int nwarps = T >> 5;
     const int ROW = row_words(K, R);
     const int nbits = resident ? T : 32;  // classes per chunk
+    const int GW = (G + 31) >> 5;         // words of the wide-group bitmap
 
     extern __shared__ __align__(16) uint32_t smem[];
     float* rows = reinterpret_cast<float*>(smem);                  // [nbuf, ROW]
@@ -215,12 +332,16 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     uint32_t* s_mfit = s_scan + kMaxWarps;
     uint32_t* s_hi = s_mfit + kMaxWarps;
     uint32_t* s_idx = s_hi + kMaxWarps;
-    uint32_t* open_full = s_idx + kMaxWarps;                      // [KW] a full new group's mask
+    uint32_t* s_open_types = s_idx + kMaxWarps;                    // [2] types of the two new masks
+    uint32_t* open_full = s_open_types + 2;                        // [KW] a full new group's mask
     uint32_t* open_last = open_full + KW;                          // [KW] the last new group's mask
     uint32_t* open_nz_full = open_last + KW;                       // [NZW] their non-zero words
     uint32_t* open_nz_last = open_nz_full + NZW;                   // [NZW]
     const float* cap = resident ? cap_s : o.cap_eff;
     const uint32_t* tz = resident ? tz_s : o.tzc;
+    // device memory (L2): a wide step's fits [G, K] and its wide groups [GW]
+    float* fits = reinterpret_cast<float*>(o.wide_scratch);
+    uint32_t* wide_bits = o.wide_scratch + (size_t)G * K;
 
     // thread t owns groups [g0, g1) for the whole launch
     const int gpt = (G + T - 1) / T;
@@ -232,6 +353,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         for (int j = 0; j < NZW; ++j) gnz[g * NZW + j] = 0u;
         gzc[g] = 0u;
     }
+    for (int i = tid; i < GW; i += T) wide_bits[i] = 0u;
     if (resident) {
         // 16 bytes a copy (K is a multiple of 32); waited for with the first row
         for (int i = tid; i < (K * R) >> 2; i += T) __pipeline_memcpy_async(cap_s + 4 * i, o.cap_eff + 4 * i, 16);
@@ -240,7 +362,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
     // a group count above vmax could make the prefix sum over G groups wrap
     const uint32_t vmax = 0x7fffffffu / (uint32_t)G;
-    int32_t n_open = 0;  // identical in every thread
+    int32_t n_open = 0;       // identical in every thread
+    bool wide_mode = false;   // some open group may be wide (identical in every thread)
 
     for (int base = 0; base < C; base += nbits) {
         const int cend = min(base + nbits, C);
@@ -316,10 +439,46 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
             mk = __reduce_max_sync(kFullMask, mk);
             if (lane == 0) s_mfit[warp] = mk;
 
-            // -- (1)+(2) best fit of the class on each owned open group ------
+            // -- a wide step: the owners mark their wide groups (W0) ------------
+            uint32_t mine = 0u;     // bit g - g0: an owned group is wide this step
+            bool has_wide = false;  // identical in every thread
+            if (wide_mode) {
+                for (int g = g0; g < min(g1, n_open); ++g) {
+                    int n = 0;  // surviving types, counted past kNarrowTypes at most
+                    for (int j = 0; j < NZW && n <= kNarrowTypes; ++j) {
+                        uint32_t nzw = gnz[g * NZW + j];
+                        while (nzw && n <= kNarrowTypes) {
+                            const int wi = (j << 5) + __ffs(nzw) - 1;
+                            nzw &= nzw - 1u;
+                            n += __popc(gmask[g * KW + wi]);
+                        }
+                    }
+                    const bool wide = n > kNarrowTypes;
+                    if (wide) {
+                        mine |= 1u << (g - g0);
+                        ngrp[g] = (int32_t)ktt::fkey_max(0.0f);  // the key of its max, raised by the warps
+                    }
+                    if (gpt > 1) {
+                        if (wide) atomicOr(&wide_bits[g >> 5], 1u << (g & 31));
+                        else atomicAnd(&wide_bits[g >> 5], ~(1u << (g & 31)));
+                    }
+                }
+                if (gpt == 1) {
+                    // thread t owns group t: a warp's ballot is its bitmap word
+                    const uint32_t wb = __ballot_sync(kFullMask, mine != 0u);
+                    if (lane == 0 && warp < GW) wide_bits[warp] = wb;
+                }
+                __syncthreads();  // W0: the bitmap, and the last step's carry, visible
+                uint32_t any = 0u;
+                for (int i = lane; i < GW; i += 32) any |= wide_bits[i];
+                has_wide = __any_sync(kFullMask, any != 0u);
+            }
+
+            // -- (1)+(2) best fit of the class on each owned narrow open group -
             uint32_t tv = 0u;
             bool risk = false;
             for (int g = g0; g < g1; ++g) {
+                if ((mine >> (g - g0)) & 1u) continue;  // wide: its warps count it, below
                 float best = 0.0f;
                 if (g < n_open) {
                     const uint32_t gz = gzc[g] & azc_c;
@@ -344,6 +503,29 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                 tv += (uint32_t)v;
                 risk |= (uint32_t)v > vmax;
             }
+            if (has_wide) {
+                // the wide groups' fits: a (group, word) item a warp, a type a lane
+                for_wide_items(wide_bits, GW, gnz, NZW, warp, nwarps, [&](int g, int wi) {
+                    const uint32_t w = gmask[g * KW + wi] & compat_row[wi];
+                    if (w == 0u) return;
+                    const int k = (wi << 5) + lane;
+                    const bool bit = (w >> lane) & 1u;
+                    float f = -1.0f;  // not joined: no take keeps it
+                    if (bit && joint_ok(gzc[g] & azc_c & tz[k]))
+                        f = fit_count<RT>(cap + k * R, accum + g * R, q, req_row, R);
+                    if (bit) fits[(size_t)g * K + k] = f;
+                    const uint32_t key = __reduce_max_sync(kFullMask, ktt::fkey_max(fmaxf(f, 0.0f)));
+                    if (lane == 0) atomicMax(reinterpret_cast<uint32_t*>(ngrp) + g, key);
+                });
+                __syncthreads();  // W1: the wide groups' maxima
+                for (int g = g0; g < g1; ++g) {
+                    if (!((mine >> (g - g0)) & 1u)) continue;
+                    const int32_t v = ktt::f2i_sat(ktt::fkey_value((uint32_t)ngrp[g]));
+                    ngrp[g] = v;
+                    tv += (uint32_t)v;
+                    risk |= (uint32_t)v > vmax;
+                }
+            }
 
             // -- (3) first fit: exclusive prefix sum in group order ----------
             const uint32_t incl = ktt::warp_incl_scan_u32(tv);
@@ -353,8 +535,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
             if (lane == 31) s_scan[warp] = warp_risk ? kFullMask : incl;
             __syncthreads();  // barrier 1
             if (resident && c_next < cend) load_row(rows + ((step + 1) & 1) * ROW, c_next, o, K, R);
-            if (tid == 0)
+            if (tid == 0) {
                 for (int j = 0; j < NZW; ++j) open_nz_full[j] = open_nz_last[j] = 0u;
+                s_open_types[0] = s_open_types[1] = 0u;
+            }
             uint32_t sv = lane < nwarps ? s_scan[lane] : 0u;
             risk = __any_sync(kFullMask, sv == kFullMask);
             if (risk) {
@@ -438,13 +622,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
             // -- open fresh identical groups for the remainder ---------------
             int32_t n_new = 0;
+            bool new_wide = false;  // a new group opens wide (identical in every thread)
             if (leftover > 0 && per_new > 0) {
                 // both below 2^31, so the ceiling divides exactly in uint32
                 const uint32_t want = ((uint32_t)leftover + (uint32_t)per_new - 1u) / (uint32_t)per_new;
                 n_new = (int32_t)min(want, (uint32_t)(G - n_open));
             }
 
-            // -- (5) carry update; each thread owns its groups' rows ---------
+            // -- (5) carry update; each thread owns its groups' rows, but a ---
+            // -- wide group's words are its warps' ----------------------------
             const int64_t left64 = leftover;
             const int64_t pn64 = per_new;
             if (n_new > 0) {
@@ -464,11 +650,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                         const int wi = base_k >> 5;
                         open_full[wi] = wf;
                         open_last[wi] = wl;
-                        if (wf) atomicOr(&open_nz_full[wi >> 5], 1u << (wi & 31));
-                        if (wl) atomicOr(&open_nz_last[wi >> 5], 1u << (wi & 31));
+                        if (wf) {
+                            atomicOr(&open_nz_full[wi >> 5], 1u << (wi & 31));
+                            atomicAdd(&s_open_types[0], (uint32_t)__popc(wf));
+                        }
+                        if (wl) {
+                            atomicOr(&open_nz_last[wi >> 5], 1u << (wi & 31));
+                            atomicAdd(&s_open_types[1], (uint32_t)__popc(wl));
+                        }
                     }
                 }
                 __syncthreads();  // barrier 3, only in steps that open groups
+                // all but the last new group take open_full, the last open_last
+                new_wide = (n_new > 1 && s_open_types[0] > kNarrowTypes) || s_open_types[1] > kNarrowTypes;
             }
             for (int g = g0; g < g1; ++g) {
                 const int32_t tk = ngrp[g];
@@ -482,7 +676,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                 const int32_t ta = tk + tn;
                 o.take[(size_t)c * G + g] = ta;
                 const float takef = (float)ta;
-                if (tk > 0) {
+                if (tk > 0 && ((mine >> (g - g0)) & 1u)) {
+                    gzc[g] = gzc[g] & azc_c;  // its kept words: below
+                } else if (tk > 0) {
                     // touched open group: keep the surviving types the class
                     // joined on that still hold the new total
                     const uint32_t gz = gzc[g] & azc_c;
@@ -530,6 +726,40 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                     for (int r = 0; r < R; ++r) acc[r] = __fadd_rn(acc[r], __fmul_rn(takef, req_row[r]));
                 }
             }
+            if (has_wide) {
+                // a touched wide group keeps the joined types whose fit (2)
+                // holds its take: one ballot a word
+                for_wide_items(wide_bits, GW, gnz, NZW, warp, nwarps, [&](int g, int wi) {
+                    const int32_t tk = ngrp[g];
+                    if (tk <= 0) return;
+                    const float takef = (float)tk;  // an open group takes no new pods
+                    const uint32_t w = gmask[g * KW + wi] & compat_row[wi];
+                    const bool keep =
+                        ((w >> lane) & 1u) && takef <= fits[(size_t)g * K + (wi << 5) + lane];
+                    const uint32_t kept = __ballot_sync(kFullMask, keep);
+                    if (lane == 0) gmask[g * KW + wi] = kept;
+                });
+                __syncthreads();  // W2: every kept word written
+                // each warp rebuilds the non-zero-word bitmaps of its own
+                // lanes' touched wide groups (their owners read them next)
+                for (int j = 0; j < gpt; ++j) {
+                    const int g = g0 + j;
+                    const bool touched = g < g1 && ((mine >> j) & 1u) && ngrp[g] > 0;
+                    uint32_t todo = __ballot_sync(kFullMask, touched);
+                    while (todo) {
+                        const int gg = __shfl_sync(kFullMask, g, __ffs(todo) - 1);
+                        todo &= todo - 1u;
+                        for (int z = 0; z < NZW; ++z) {
+                            const uint32_t old = gnz[gg * NZW + z];
+                            const uint32_t nz = __ballot_sync(
+                                kFullMask, ((old >> lane) & 1u) && gmask[gg * KW + (z << 5) + lane] != 0u);
+                            if (lane == 0) gnz[gg * NZW + z] = nz;
+                        }
+                    }
+                }
+                __syncwarp();
+            }
+            wide_mode = has_wide || new_wide;
             if (tid == 0) {
                 // the new groups' takes sum to leftover, or to n_new full groups when clipped
                 const int64_t full = (int64_t)n_new * pn64;
@@ -561,13 +791,18 @@ size_t ffd_scan_smem_bytes(int G, int K, int R, int threads, int layout) {
 }
 
 // `gnz_scratch` is a [G, ceil(K / 1024)] u32 buffer for the scratch layout,
-// unused (may be null) by the others.
+// unused (may be null) by the others; `wide_scratch` is G * K + ceil(G / 32)
+// u32 words for every layout: a wide step's fits, then its wide-group
+// bitmap (the kernel zeroes the bitmap; the fits are written before read).
 int ffd_scan_launch(const void* req, const void* compat_w, const void* fresh_w, const void* hasres_w,
                     const void* n_fresh, const void* price, const void* count, const void* env,
                     const void* azc, const void* cap_eff, const void* tzc, void* take_out,
                     void* unplaced_out, void* gmask_out, void* gzc_out, void* n_open_out, void* gnz_scratch,
-                    int C, int G, int K, int R, int price_objective, int threads, int layout, void* stream) {
+                    void* wide_scratch, int C, int G, int K, int R, int price_objective, int threads, int layout,
+                    void* stream) {
     if (threads < 32 || threads > kMaxThreads || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+    // a thread's wide groups are bits of one word (shared memory holds far fewer groups)
+    if (G > 32 * threads || wide_scratch == nullptr) return (int)cudaErrorInvalidValue;
     if (layout < kLean || layout > kScratch || (layout == kScratch && gnz_scratch == nullptr))
         return (int)cudaErrorInvalidValue;
     const size_t smem = ffd_scan_smem_bytes(G, K, R, threads, layout);
@@ -591,7 +826,7 @@ int ffd_scan_launch(const void* req, const void* compat_w, const void* fresh_w, 
                (const int32_t*)count, (const int32_t*)env,      (const uint32_t*)azc,
                (const float*)cap_eff, (const uint32_t*)tzc,     (int32_t*)take_out,
                (int32_t*)unplaced_out, (uint32_t*)gmask_out,     (uint32_t*)gzc_out,
-               (int32_t*)n_open_out,  (uint32_t*)gnz_scratch};
+               (int32_t*)n_open_out,  (uint32_t*)gnz_scratch,    (uint32_t*)wide_scratch};
     kernel<<<1, threads, smem, (cudaStream_t)stream>>>(o, C, G, K, R, price_objective, (int)(layout == kResident));
     return (int)cudaGetLastError();
 }

@@ -2,9 +2,10 @@
 
 The rows a kernel skips -- kernel A's no-op classes (compat and fresh
 words all zero), kernel B's classes with an empty feasibility row --
-placed between real classes, and classes that request nothing, whose
-int32 prefix sums wrap. The class-set builders take a PodClassSet of
-either package (they touch only its row arrays), so one definition
+placed between real classes, classes that request nothing, whose int32
+prefix sums wrap, and worlds whose groups keep hundreds of surviving
+types (kernel A's wide steps). The class-set builders take a PodClassSet
+of either package (they touch only its row arrays), so one definition
 serves the CPU tests against the JAX package, the card-only tests and
 `chip_smoke.py`. Nothing on the solve path imports this module.
 """
@@ -54,6 +55,67 @@ def zero_request(cs, c, count=None):
     if count is not None:
         out.count[c] = count
     return out
+
+
+def wide_groups(cs, count=3, every=2):
+    """Every `every`-th real class takes the max-fit envelope (env_count 0,
+    as a zone-spread sub-class does) and carries `count` pods, so the group
+    it opens keeps every compatible type that holds them -- hundreds on
+    the 627-type catalog; the classes between keep their rows (narrow
+    groups under the price objective), so later steps join wide and narrow
+    groups at once. Under the fit objective every class opens that way."""
+    out = take_rows(cs, np.arange(cs.c_pad))
+    rows = np.arange(0, cs.c_real, every)
+    out.env_count[rows] = 0
+    out.count[rows] = count
+    return out
+
+
+def every_type(scan_ops, count=2):
+    """Kernel A's operands with every real class compatible with and fresh
+    on every one of the K columns, each column the largest type's
+    capacity (so every fit ties across the types) and joinable in every
+    zone and capacity type, n_fresh recomputed from them, `count` pods a
+    class: under the fit objective each class's group keeps all K types."""
+    from karpenter_tpu_torch.solver.kernels import ffd_scan
+
+    req, compat_w, fresh_w, hasres_w, n_fresh, price, cnt, env, azc, cap_eff, tzc = (
+        t.clone() for t in scan_ops)
+    real = torch.tensor(real_classes(scan_ops), dtype=torch.long, device=req.device)
+    compat_w[real] = -1
+    fresh_w[real] = -1
+    azc[real] = -1
+    tzc.fill_(-1)
+    cap_eff.copy_(cap_eff[int(cap_eff[:, 0].argmax())].expand_as(cap_eff))
+    zero = torch.zeros((1, req.shape[1]), dtype=req.dtype, device=req.device)
+    for c in real.tolist():
+        n_fresh[c] = ffd_scan.fit_counts(cap_eff, zero, req[c])[0]
+    price[real] = torch.where(torch.isfinite(price[real]), price[real], 1.0)
+    cnt[real] = count
+    return req, compat_w, fresh_w, hasres_w, n_fresh, price, cnt, env, azc, cap_eff, tzc
+
+
+def open_widths(scan_ops, c, g_max, objective):
+    """Surviving types of each open group at the start of class c's step
+    (the plain scan of the rows before it)."""
+    from karpenter_tpu_torch.solver import packing
+    from karpenter_tpu_torch.solver.kernels import ffd_scan
+
+    head = tuple(t[:c] for t in scan_ops[:9]) + tuple(scan_ops[9:])
+    _, _, n_open, gmask_bits, _ = ffd_scan.fused_scan_reference(*head, g_max=g_max, objective=objective)
+    return packing.unpack_rows(gmask_bits[: int(n_open)], scan_ops[9].shape[0]).sum(1)
+
+
+def first_mixed_step(scan_ops, g_max, objective):
+    """The first real class (after the first) whose step meets a narrow
+    and a wide open group at once, or None."""
+    from karpenter_tpu_torch.solver.kernels.ffd_scan import NARROW_TYPES
+
+    for c in real_classes(scan_ops)[1:]:
+        widths = open_widths(scan_ops, c, g_max, objective)
+        if bool((widths > NARROW_TYPES).any() and (widths <= NARROW_TYPES).any()):
+            return c
+    return None
 
 
 def real_classes(scan_ops) -> list:

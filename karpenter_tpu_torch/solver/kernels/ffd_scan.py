@@ -33,6 +33,7 @@ _launches_lock = threading.Lock()
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 THREADS = 1024        # threads of the one block that runs the scan
+NARROW_TYPES = 16     # a group of more surviving types makes a wide step (kNarrowTypes)
 _CT_SHIFT = 8
 _ZONE_BITS = (1 << _CT_SHIFT) - 1
 _SLOT_WORDS = 4 * 32  # four reductions' per-warp slots
@@ -57,7 +58,8 @@ def smem_bytes(g_max: int, k: int, r: int, layout: str = "resident") -> int:
     per_group = r + 2                       # accum, gzc, fit
     if layout != "scratch":
         per_group += kw + nzw               # survivor words, their bitmap
-    fixed = _SLOT_WORDS + 2 * kw + 2 * nzw  # slots, the new groups' two mask rows and their bitmaps
+    # slots, the new groups' two mask rows, their bitmaps and their types
+    fixed = _SLOT_WORDS + 2 * kw + 2 * nzw + 2
     if layout == "resident":
         return 4 * (2 * row + g_max * per_group + k * r + k + THREADS // 32 + fixed)
     return 4 * (row + g_max * per_group + 1 + fixed)
@@ -156,6 +158,9 @@ def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, c
     # words (the words themselves are carried in gmask_bits)
     gnz = (torch.empty((g_max, (KW + 31) // 32), dtype=torch.int32, device=dev)
            if layout_name == "scratch" else None)
+    # a wide step's fits of the wide groups' surviving types, kept from the
+    # group max to the keep test, then its bitmap of wide groups (L2-resident)
+    wide = torch.empty((g_max * K + (g_max + 31) // 32,), dtype=torch.int32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -164,7 +169,7 @@ def _launch(req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, c
             n_fresh.data_ptr(), price.data_ptr(), count.data_ptr(), env.data_ptr(),
             azc.data_ptr(), cap_eff.data_ptr(), tzc.data_ptr(),
             take.data_ptr(), unplaced.data_ptr(), gmask_bits.data_ptr(), gzc.data_ptr(),
-            n_open.data_ptr(), None if gnz is None else gnz.data_ptr(),
+            n_open.data_ptr(), None if gnz is None else gnz.data_ptr(), wide.data_ptr(),
             C, g_max, K, R, int(objective == "price"), THREADS, LAYOUTS[layout_name], stream,
         )
     build.check(err, "ffd_scan")
@@ -177,7 +182,7 @@ def _library() -> ctypes.CDLL:
     lib = build.library("ffd_scan")
     if lib.ffd_scan_launch.argtypes is None:   # declare once: ctypes defaults to 32-bit ints
         p = ctypes.c_void_p
-        lib.ffd_scan_launch.argtypes = [p] * 17 + [ctypes.c_int] * 7 + [p]
+        lib.ffd_scan_launch.argtypes = [p] * 18 + [ctypes.c_int] * 7 + [p]
         lib.ffd_scan_launch.restype = ctypes.c_int
     return lib
 
@@ -213,10 +218,12 @@ def fit_counts(cap: torch.Tensor, accum: torch.Tensor, req: torch.Tensor) -> tor
 
 def fused_scan_reference(
     req, compat_w, fresh_w, hasres_w, n_fresh, price, count, env, azc, cap_eff, tzc,
-    *, g_max: int, objective: str,
+    *, g_max: int, objective: str, joined: Optional[list] = None,
 ) -> ScanOutputs:
     """The scan of ffd._ffd_body (JAX package) in torch ops, on any
-    device, with no host synchronisation inside."""
+    device, with no host synchronisation inside. `joined`, when given,
+    gets one 0-d tensor a class: the (open group, type) pairs its step
+    joins, whose fits the step must compute."""
     C, R = req.shape
     K = cap_eff.shape[0]
     G = g_max
@@ -236,6 +243,8 @@ def fused_scan_reference(
 
         gzc_new = gzc & azc_c
         m = gmask & compat[c][None, :] & joint_ok(gzc_new[:, None] & tzc[None, :])
+        if joined is not None:
+            joined.append(m.sum())
         n_fit = fit_counts(cap_eff, accum, req_c)
         n_grp = torch.where(m, n_fit, 0.0).amax(dim=-1)
         n_grp = f2i(torch.where(slot < n_open, n_grp, 0.0))

@@ -169,6 +169,123 @@ class TestSkippedAndWrappingRows:
         assert_scan_equal(ops, 1024, "price")
 
 
+def widths(got, k):
+    """Surviving types of each group the scan opened."""
+    from karpenter_tpu_torch.solver import packing
+
+    return packing.unpack_rows(got[3][: int(got[2])].cpu(), k).sum(1)
+
+
+class TestWideGroups:
+    """Kernel A's wide steps -- groups of more than 16 surviving types,
+    whose words the kernel deals over its warps -- exact against the plain
+    version on every output: the main path's wide worlds (tick 1 under the
+    fit objective, the zone-spread ticks), a group that keeps every one of
+    K types in each layout, narrow and wide groups in one step, a
+    zero-request axis, tied fits and a class that requests nothing (the
+    builders of karpenter_tpu_torch.solver.kernels.cases)."""
+
+    SEED = 20_260_101   # chip_smoke.py's worlds
+
+    def test_fit_objective_tick1(self, cuda, items):
+        inp, offsets, words = scan_inputs(items, cuda, 50_000, seed=2)
+        got = assert_scan_equal(ffd.scan_operands(inp, offsets, words, "fit"), 1024, "fit")
+        assert int(widths(got, 640).max()) > ffd_scan.NARROW_TYPES
+
+    def test_spread_ticks(self, cuda, items, monkeypatch):
+        """The zone-spread world of chip_smoke.py: tick 1 (50k pods) and the
+        10k wave onto its nodes, through schedule()."""
+        rec = []
+        scan = ffd_scan.fused_scan
+
+        def recording(*ops, **kw):
+            rec.append(ops)
+            return scan(*ops, **kw)
+
+        pool = NodePool("default")
+
+        def sched(existing=(), pods_by_node=None):
+            return Scheduler(nodepools=[pool], instance_types={pool.name: items},
+                             existing_nodes=existing, pods_by_node=pods_by_node,
+                             zones=set(workload.ZONES))
+
+        pods1 = workload.synth_pods(np.random.default_rng(self.SEED), workload.ZONES, 50_000,
+                                    salt=1, spread=16)
+        pods2 = workload.synth_pods(np.random.default_rng(self.SEED + 1), workload.ZONES, 10_000,
+                                    salt=2, spread=16)
+        solver = TorchSolver(g_max=1024, device=cuda)
+        monkeypatch.setattr(ffd_scan, "fused_scan", recording)
+        s1 = solver.schedule(sched(), pods1)
+        t1 = rec[-1]
+        solver.schedule(sched(workload.nodes_from_result(s1), workload.pods_by_node(s1)), pods2)
+        t2 = rec[-1]
+        monkeypatch.setattr(ffd_scan, "fused_scan", scan)
+        for ops in (t1, t2):
+            got = assert_scan_equal(ops, 1024, "price")
+            assert int(widths(got, 640).max()) > 100
+
+    @pytest.mark.parametrize("pools, k, layout", [(1, 640, "resident"), (2, 1280, "lean"),
+                                                  (3, 1920, "scratch")])
+    @pytest.mark.parametrize("objective", ["fit", "price"])
+    def test_every_type_in_one_group(self, cuda, items, pools, k, layout, objective):
+        if pools == 1:
+            world = class_world(items, cuda, 8_000, seed=1)
+            ops = price_operands(world, world[0])
+        else:
+            sets = spot_on_demand_pools() + ([NodePool("default")] if pools == 3 else [])
+            ops = merged_operands(items, cuda, sets, n_pods=2_000)
+        ops = cases.every_type(ops)
+        assert ops[9].shape[0] == k and ffd_scan.layout(1024, k, ops[0].shape[1]) == layout
+        first = cases.real_classes(ops)[0]
+        if objective == "fit":
+            assert int(cases.open_widths(ops, first + 1, 1024, objective).max()) == k
+        assert_scan_equal(ops, 1024, objective)
+
+    def test_narrow_and_wide_groups_in_one_step(self, cuda, items):
+        world = class_world(items, cuda, 8_000, seed=5)
+        ops = price_operands(world, cases.wide_groups(world[0]))
+        assert cases.first_mixed_step(ops, 256, "price") is not None
+        assert_scan_equal(ops, 256, "price")
+
+    @pytest.mark.parametrize("objective", ["price", "fit"])
+    @pytest.mark.parametrize("variant", ["zero-request axis", "tied fits"])
+    def test_zero_request_axis_and_tied_fits(self, cuda, items, objective, variant):
+        world = class_world(items, cuda, 8_000, seed=6)
+        cs = cases.wide_groups(world[0])
+        cs.req[: cs.c_real, 0] = 0.0
+        ops = price_operands(world, cs)
+        if variant == "tied fits":
+            ops = cases.every_type(ops)
+        got = assert_scan_equal(ops, 256, objective)
+        assert int(widths(got, 640).max()) > ffd_scan.NARROW_TYPES
+
+    @pytest.mark.parametrize("layout", ["lean", "scratch"])
+    @pytest.mark.parametrize("objective", ["price", "fit"])
+    def test_more_groups_than_threads(self, cuda, items, layout, objective):
+        """g_max 1500 on 1024 threads: a thread owns two groups, so the
+        wide bitmap is built with atomics instead of one ballot a warp."""
+        world = class_world(items, cuda, 8_000, seed=8)
+        ops = price_operands(world, cases.wide_groups(world[0]))
+        got = ffd_scan._launch(*ops, g_max=1500, objective=objective, layout_name=layout)
+        want = ffd_scan.fused_scan_reference(*ops, g_max=1500, objective=objective)
+        for name, a, b in zip(("take", "unplaced", "n_open", "gmask_bits", "gzc"), got, want):
+            assert torch.equal(a.cpu(), b.cpu()), name
+        assert int(widths(want, 640).max()) > ffd_scan.NARROW_TYPES
+
+    @pytest.mark.parametrize("count", [None, 1])
+    def test_class_that_requests_nothing_on_wide_groups(self, cuda, items, count):
+        """A class that requests nothing fits INT32_MAX pods in each wide
+        group it joins: the fit saturates and the prefix sum wraps."""
+        world = class_world(items, cuda, 8_000, seed=7)
+        cs = cases.wide_groups(world[0])
+        for c in range(cs.c_real - 1, 0, -1):
+            ops = price_operands(world, cases.zero_request(cs, c, count))
+            want = ffd_scan.fused_scan_reference(*ops, g_max=256, objective="price")
+            if count is not None or int(want[1][c]) < 0:
+                break
+        assert_scan_equal(ops, 256, "price")
+
+
 class TestRepackKernel:
     @pytest.mark.parametrize("seed", [0, 1])
     def test_many_sets_match_plain_version(self, cuda, seed):

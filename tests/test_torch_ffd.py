@@ -296,3 +296,82 @@ class TestScanLayout:
         assert g_over > g_top
         with pytest.raises(ValueError, match="shared memory"):
             ffd_scan.layout(g_over, k, r)
+
+
+class TestWideGroups:
+    """Kernel A's wide steps: groups of more than 16 surviving types, whose
+    words the card deals over its warps. The world (cases.wide_groups, the
+    builder chip_smoke.py and the card-only tests share) opens groups of
+    hundreds of types; pinned on the plain version against the JAX package
+    with narrow and wide groups in one step, a zero-request axis, tied fits
+    and a class that requests nothing."""
+
+    @pytest.fixture(scope="class")
+    def cs(self, entry):
+        import bench
+        from karpenter_tpu_torch import workload
+
+        pods = bench.synth_pods(np.random.default_rng(41), list(workload.ZONES), 400, 41, templates=24)
+        cs = jencode.encode_classes(jencode.group_pods(pods), entry.tensors, c_pad=C_PAD)
+        return cases.wide_groups(cs)
+
+    @staticmethod
+    def scan_ops(catalog, cs, objective):
+        tinp, offsets, words = port_inputs(catalog, cs, True)
+        return tffd.scan_operands(tinp, offsets, words, objective)
+
+    @pytest.mark.parametrize("objective", ["price", "fit"])
+    def test_opens_groups_of_hundreds_of_types(self, entry, cs, objective):
+        """Groups keep 300 or more types; under the price objective some
+        step meets wide and narrow groups at once (under fit every group
+        opens wide)."""
+        ops = self.scan_ops(entry.tensors, cs, objective)
+        steps = cases.real_classes(ops)[1:] + [len(ops[0])]   # each real step, and the end
+        widths = [cases.open_widths(ops, c, G, objective) for c in steps]
+        assert max(int(w.max()) for w in widths if w.numel()) >= 300
+        if objective == "price":
+            assert cases.first_mixed_step(ops, G, objective) is not None
+
+    @staticmethod
+    def wrapping_class(catalog, cs, objective):
+        """The last real class that, requesting nothing, wraps the prefix
+        sum of the wide world (it joins two or more open groups)."""
+        from karpenter_tpu_torch.solver.kernels import ffd_scan
+
+        for c in range(cs.c_real - 1, 0, -1):
+            z = cases.zero_request(cs, c)
+            unplaced = ffd_scan.fused_scan_reference(
+                *TestWideGroups.scan_ops(catalog, z, objective), g_max=G, objective=objective)[1]
+            if int(unplaced[c]) < 0:
+                return z, c
+        raise AssertionError("no class of the wide world wraps when it requests nothing")
+
+    @pytest.mark.parametrize("objective", ["price", "fit"])
+    @pytest.mark.parametrize("variant", ["wide", "zero-request axis", "tied fits", "requests nothing"])
+    def test_matches_jax(self, entry, cs, objective, variant):
+        cat = entry.tensors
+        if variant == "zero-request axis":
+            cs = cases.take_rows(cs, np.arange(cs.c_pad))
+            cs.req[: cs.c_real, 0] = 0.0
+        elif variant == "tied fits":
+            cap = entry.tensors.cap.copy()
+            real = cap[:, 0] > 0
+            cap[real] = cap[real][np.argmax(cap[real, 0])]
+            cat = dataclasses.replace(entry.tensors, cap=cap)
+        elif variant == "requests nothing":
+            cs, c = self.wrapping_class(cat, cs, objective)
+        want, got, _ = both_buffers(cat, cs, packed=True, objective=objective)
+        assert_bytes_equal(want, got)
+        if variant == "requests nothing":
+            assert got[2 + c].view(np.int32) < 0
+
+    @pytest.mark.parametrize("objective", ["price", "fit"])
+    def test_matches_pallas_kernel_interpreted(self, entry, cs, objective):
+        from karpenter_tpu.solver.kernels import ffd_pallas
+
+        jinp, offsets, words = jffd.make_inputs(entry.tensors, cs, packed_masks=True)
+        tinp, _, _ = port_inputs(entry.tensors, cs, True)
+        kw = dict(g_max=G, nnz_max=jffd.nnz_budget(cs.c_pad, G), word_offsets=offsets,
+                  words=words, objective=objective)
+        want = np.asarray(ffd_pallas.ffd_solve_fused_pallas(jinp, **kw))
+        assert_bytes_equal(want, tffd.fetch_fused(tffd.ffd_solve_fused(tinp, **kw)))
