@@ -69,10 +69,11 @@ one JSON line each:
               times: convex tick against FFD tick, the relaxation's
               enqueue and device time, its fetch, rounding and `choose`
   consolidate the four sweeps, counted the same way: kernel B once per
-              sweep at S=512, N=1024, the replacement passes, and the
-              verdicts by action (delete / replace-cheaper / blocked,
-              against the candidates' own prices); every verdict must be
-              well formed
+              sweep at S=512, N=1024, through its leftover-only entry
+              (no [S, C, N] takes), with its (set, class) density, the
+              replacement passes, and the verdicts by action (delete /
+              replace-cheaper / blocked, against the candidates' own
+              prices); every verdict must be well formed
   observe     the no-fallback witness over every phase above (no convex
               fallback but rounding's organic None, no quality-bound error,
               the solver's kernel-dispatch counter, with the consolidation
@@ -154,8 +155,8 @@ one JSON line each:
               launched inside windows (the dispatcher's thread), B's pre-
               pass on the tenants' threads; the windows' sizes, each
               tenant's dispatch count, the concurrent and sequential walls,
-              peak device memory, tenant_staged_bytes and max_tenants_for_
-              headroom; three drills on tick 1, each costing one tenant its
+              peak device memory (each step's), tenant_staged_bytes and
+              max_tenants_for_headroom; three drills on tick 1, each costing one tenant its
               rung: fleet.dispatch=error(ConnectionError):times=1, a
               deadline refusal behind a fleet.dispatch latency neighbour (a
               2.5 s tenant budget, a 1.5 s window), a tenant breaker tripped
@@ -166,7 +167,12 @@ one JSON line each:
               ping advertises coalesce, two tenants each solve tick 1
   times       each kernel and its plain version at every main-path shape
               (kernel A at tick 1, tick 2, the fit tick 1 and in each
-              world; kernel B at tick 2, the spread wave and each sweep;
+              world; kernel B at tick 2, the spread wave and each sweep,
+              each row the entry its path launches -- on a sweep the
+              leftover-only one, the full one's time beside it -- with its
+              (set, class) density and a bound that counts the outputs
+              that entry writes and the nodes each step of these inputs
+              needs;
               kernel A also on the convex worlds), kernel A over G in
               {64, 256, 1024} on tick 1's operands and on the C=256 world,
               each with its bound (which counts the fit of every (open
@@ -213,7 +219,15 @@ one JSON line each:
               1920; a class that requests nothing on wide groups, whose
               prefix sum wraps), kernel B at 64 candidate
               sets, and the layouts each kernel takes when shared memory is
-              short, run at shapes the others fit too; the sidecar's own
+              short, run at shapes the others fit too; kernel B's two
+              entries (the full one and the sweep's leftover-only one) on
+              every shape, each sweep's operands also through the block
+              kernel, and cases.sweep_cases (sparse members, padding sets,
+              one class a set, a zero-request class at member 0 that must
+              step, negative requests, member counts below zero) on the
+              ramp-down sweep's and the operator's widest sweep's
+              operands through the sweep kernel and the block kernel's
+              scratch layout; the sidecar's own
               calls in phase `wire`; the operator's calls in phases
               `operator` and `kube`; the warm-up ladder's armed CUDA graphs
               (solver/aot.py) against the ordinary dispatch byte for byte at
@@ -322,6 +336,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2, batch: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 5, batch: int = 10, hold_cycles: int = 20_000_000) -> float:
+    """Median over `reps` of the mean milliseconds of `batch` calls on the
+    device alone: the stream is held by a spin kernel while the host
+    enqueues the batch, so the calls run back to back whatever the host's
+    cost a call (events around calls whose enqueue outlasts the kernel
+    time the host)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles)
+        a.record()
+        for _ in range(batch):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / batch)
+    return statistics.median(times)
+
+
 def wall_runs(fn, reps: int) -> list:
     """Host milliseconds of each of `reps` calls of fn(), each ending in a sync."""
     times = []
@@ -372,26 +408,93 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+class RepackOps(tuple):
+    """Kernel B's five operands as a wrapper got them, with the entry that
+    got them: "full" (`disrupt_repack`, leftovers and takes: the pre-pass)
+    or "leftover" (`disrupt_repack_leftover`: the sweeps)."""
+
+    entry = "full"
+
+    @classmethod
+    def of(cls, ops, entry):
+        out = cls(ops)
+        out.entry = entry
+        return out
+
+
+def repack_entry(kb, ops):
+    """The kernel B wrapper that got `ops` on the main path (the full one
+    for operands that were not recorded)."""
+    if getattr(ops, "entry", "full") == "leftover":
+        return kb.disrupt_repack_leftover
+    return kb.disrupt_repack
+
+
+def repack_plain(kb, ops):
+    """The plain version of the entry that got `ops`."""
+    if getattr(ops, "entry", "full") == "leftover":
+        return kb.repack_leftover_reference
+    return kb.repack_reference
+
+
+def stepping_pairs(kb, ops):
+    """[S, C] bool: the (set, class) pairs kernel B takes a step for on
+    `ops`: member counts outside the class's span (`kb.class_spans`, the
+    span kernel's plain version)."""
+    spans = kb.class_spans(ops[0], ops[1], ops[2])
+    m = ops[3].to(torch.int64)
+    return (m < spans[:, 0]) | (m > spans[:, 1])
+
+
+def repack_kernel_of(kb, ops) -> str:
+    """Which of kernel B's two kernels the wrappers launch on `ops`."""
+    S, N = ops[4].shape
+    per_block = kb.sweep_sets_per_block(N, ops[2].shape[1])
+    return f"sweep, {per_block} sets a block" if S > 1 and per_block >= 1 else "block"
+
+
+def repack_density(kb, ops) -> dict:
+    """How much of kernel B's [S, C] grid holds work on `ops`."""
+    step = stepping_pairs(kb, ops)
+    held = ops[3] != 0
+    real = held.any(1)
+    feasible = ops[1].to(torch.bool).any(1)
+    n_real, n_feasible = int(real.sum()), int(feasible.sum())
+    per_set = step.sum(1)[real].to(torch.float64)
+    return {"sets": int(step.shape[0]), "sets_with_pods": n_real,
+            "pairs_with_pods": int(held.sum()), "stepping_pairs": int(step.sum()),
+            "stepping_share_of_real_sets_feasible_classes":
+                int(step[real][:, feasible].sum()) / max(1, n_real * n_feasible),
+            "stepping_share_of_s_by_c": int(step.sum()) / step.numel(),
+            "stepping_classes_a_real_set_mean_max": (
+                float(per_set.mean()) if n_real else 0.0, int(per_set.max()) if n_real else 0)}
+
+
 @contextlib.contextmanager
 def recording(ka, kb):
     """The operands each kernel wrapper is called with inside the block,
-    per kernel; the calls go on to the wrappers unchanged."""
+    per kernel (kernel B's two entries in one list, each tagged,
+    `RepackOps`); the calls go on to the wrappers unchanged."""
     rec = {"ffd_scan": [], "disrupt_repack": []}
-    scan, repack = ka.fused_scan, kb.disrupt_repack
+    scan, repack, left = ka.fused_scan, kb.disrupt_repack, kb.disrupt_repack_leftover
 
     def scan_rec(*ops, **kw):
         rec["ffd_scan"].append(ops)
         return scan(*ops, **kw)
 
     def repack_rec(*ops):
-        rec["disrupt_repack"].append(ops)
+        rec["disrupt_repack"].append(RepackOps.of(ops, "full"))
         return repack(*ops)
 
-    ka.fused_scan, kb.disrupt_repack = scan_rec, repack_rec
+    def left_rec(*ops):
+        rec["disrupt_repack"].append(RepackOps.of(ops, "leftover"))
+        return left(*ops)
+
+    ka.fused_scan, kb.disrupt_repack, kb.disrupt_repack_leftover = scan_rec, repack_rec, left_rec
     try:
         yield rec
     finally:
-        ka.fused_scan, kb.disrupt_repack = scan, repack
+        ka.fused_scan, kb.disrupt_repack, kb.disrupt_repack_leftover = scan, repack, left
 
 
 @contextlib.contextmanager
@@ -1224,7 +1327,7 @@ def phase_kube(dev, tag: dict, metrics, ka, kb):
 def count_plain_launches(ka, kb) -> None:
     """For a CPU rehearsal: each wrapper counts its calls as a launch, as
     the wrappers count their kernels' launches on the card."""
-    for mod, name in ((ka, "fused_scan"), (kb, "disrupt_repack")):
+    for mod, name in ((ka, "fused_scan"), (kb, "disrupt_repack"), (kb, "disrupt_repack_leftover")):
         def call(*a, _fn=getattr(mod, name), _mod=mod, **k):
             with _mod._launches_lock:
                 _mod.launches += 1
@@ -1292,7 +1395,7 @@ def thread_recording(ka, kb):
     wrappers unchanged."""
     rec = {"ffd_scan": [], "disrupt_repack": []}
     lock = threading.Lock()
-    scan, repack = ka.fused_scan, kb.disrupt_repack
+    scan, repack, left = ka.fused_scan, kb.disrupt_repack, kb.disrupt_repack_leftover
 
     def scan_rec(*ops, **kw):
         with lock:
@@ -1301,14 +1404,20 @@ def thread_recording(ka, kb):
 
     def repack_rec(*ops):
         with lock:
-            rec["disrupt_repack"].append((threading.current_thread().name, ops))
+            rec["disrupt_repack"].append((threading.current_thread().name, RepackOps.of(ops, "full")))
         return repack(*ops)
 
-    ka.fused_scan, kb.disrupt_repack = scan_rec, repack_rec
+    def left_rec(*ops):
+        with lock:
+            rec["disrupt_repack"].append((threading.current_thread().name,
+                                          RepackOps.of(ops, "leftover")))
+        return left(*ops)
+
+    ka.fused_scan, kb.disrupt_repack, kb.disrupt_repack_leftover = scan_rec, repack_rec, left_rec
     try:
         yield rec
     finally:
-        ka.fused_scan, kb.disrupt_repack = scan, repack
+        ka.fused_scan, kb.disrupt_repack, kb.disrupt_repack_leftover = scan, repack, left
 
 
 def phase_fleet(dev, tag: dict, metrics, ka, kb, items):
@@ -1466,12 +1575,13 @@ def phase_fleet(dev, tag: dict, metrics, ka, kb, items):
         n_win0 = len(metrics.TENANT_WINDOW_SIZE._samples.get((), []))
         rung0, ops0 = rungs(), ops_run[0]
         la, lb = ka.launches, kb.launches
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        conc, recs = {}, {}
+        conc, recs, step_peaks = {}, {}, {}
         for step, fn in steps.items():
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
             with thread_recording(ka, kb) as rec:
                 out, wall = concurrently(fn, range(FLEET_TENANTS))
+            step_peaks[step] = torch.cuda.max_memory_allocated() if on_card else None
             recs[step] = rec
             conc[step] = {"wall_ms": wall, "equal": equal(step, out),
                           "in_window": {k: sum(th == DISPATCHER_THREAD for th, _ in v)
@@ -1480,7 +1590,7 @@ def phase_fleet(dev, tag: dict, metrics, ka, kb, items):
                                                 for k, v in rec.items()}}
         launches["fleet concurrent pass"] = {"ffd_scan": ka.launches - la,
                                              "disrupt_repack": kb.launches - lb}
-        peak = torch.cuda.max_memory_allocated() if on_card else None
+        peak = max(step_peaks.values()) if on_card else None
         deadline = time.perf_counter() + 10
         while (sum(v for k, v in counts_moved(before).items() if k.endswith(" ok"))
                < ops_run[0] - ops0 and time.perf_counter() < deadline):
@@ -1494,7 +1604,8 @@ def phase_fleet(dev, tag: dict, metrics, ka, kb, items):
             "dispatch_s": {n: {"n": now[0] - secs0[n][0], "sum_s": now[1] - secs0[n][1]}
                            for n in names
                            for now in [hist_now(metrics.TENANT_DISPATCH_SECONDS, tenant=n)]},
-            "peak_device_bytes": peak, "rungs": rungs() - rung0,
+            "peak_device_bytes": peak, "peak_device_bytes_by_step": step_peaks,
+            "rungs": rungs() - rung0,
             "sweeps_on_wire": [e.last_dispatch["path"] for e in engines]}
         checks["concurrent_equal_isolated"] = all(all(s["equal"].values()) for s in conc.values())
         checks["warm_pass_equal_isolated"] = all(all(v.values()) for v in warm_equal.values())
@@ -1506,6 +1617,8 @@ def phase_fleet(dev, tag: dict, metrics, ka, kb, items):
         checks["kernel_a_in_windows"] = (conc["tick 1"]["in_window"]["ffd_scan"] >= FLEET_TENANTS
                                          and conc["tick 2"]["in_window"]["ffd_scan"] >= FLEET_TENANTS)
         checks["kernel_b_in_windows"] = conc["sweep"]["in_window"]["disrupt_repack"] >= FLEET_TENANTS
+        checks["sweep_on_leftover_entry"] = {ops.entry for _, ops in recs["sweep"]["disrupt_repack"]} == {
+            "leftover"}
         checks["kernel_b_prepass_on_tenant_threads"] = (
             conc["tick 2"]["on_tenant_threads"]["disrupt_repack"] >= FLEET_TENANTS)
 
@@ -1901,8 +2014,10 @@ def phase_mesh(dev, tag: dict, metrics, ka, kb, items):
             rec["disrupt_repack"]))
         doc["sweep"] = {"sets": len(sets_s), "launches": ls, "sets_per_shard": shard_sets,
                         "verdicts_equal": [repr(v) for v in mv] == [repr(v) for v in ref_v]}
+        doc["sweep"]["kernel_b_entries"] = sorted({ops.entry for ops in rec["disrupt_repack"]})
         checks["sweep"] = (doc["sweep"]["verdicts_equal"] and ls["disrupt_repack"] == MESH_SHARDS
-                           and len(set(shard_sets)) == 1)
+                           and len(set(shard_sets)) == 1
+                           and doc["sweep"]["kernel_b_entries"] == ["leftover"])
 
         # the sync witness over warm mesh ticks 1 and 2 and the sweep
         sync_witness.reset()
@@ -3052,6 +3167,9 @@ def main() -> int:
         if kb.launches != 1 or len(rec["disrupt_repack"]) != 1:
             raise AssertionError(f"sweep {name} did not launch kernel B once: {sweep_launches[name]}")
         ops = rec["disrupt_repack"][0]
+        if ops.entry != "leftover":
+            raise AssertionError(f"sweep {name} launched kernel B's {ops.entry} entry, not the "
+                                 "leftover-only one")
         (S_s, N_s), C_s = ops[4].shape, ops[2].shape[0]
         want_shape = (encode.bucket(len(sw["sets"])), encode.bucket(len(sw["nodes"]), lo=16))
         if (S_s, N_s) != want_shape:
@@ -3068,6 +3186,7 @@ def main() -> int:
             "pod_entries": sum(len(p) for p, _ in sw["sets"]),
             "repack_shape": {"S": S_s, "C": C_s, "N": N_s, "R": ops[2].shape[1]},
             "feasible_classes": int(ops[1].any(1).sum()), "launches": sweep_launches[name],
+            "kernel_b_entry": ops.entry, "density": repack_density(kb, ops),
             "actions": {a: actions.get(a, 0) for a in ("delete", "replace-cheaper", "blocked")},
             "replacement_pools": dict(collections.Counter(
                 v.nodepool for v in verdicts if v.nodepool is not None)),
@@ -3457,8 +3576,10 @@ def main() -> int:
         checks_w["convex a: tick 1"] = sig(r) == sig(ref_cx) and norm_convex(lc_w) == ref_cx_lc
         r = counted("rampdown-sweep spot-od", lambda: w_engine.evaluate(
             wire_sweep["nodes"], wire_sweep["sets"], **wire_sweep["kw"]), ("disrupt_repack",))
-        checks_w["rampdown-sweep spot-od"] = ([repr(v) for v in r] == ref_sweep
-                                              and w_engine.last_dispatch["path"] == "wire")
+        checks_w["rampdown-sweep spot-od"] = (
+            [repr(v) for v in r] == ref_sweep and w_engine.last_dispatch["path"] == "wire"
+            and [o.entry for o in wire_ops[f"{transport} rampdown-sweep spot-od"]["disrupt_repack"]]
+            == ["leftover"])
         if not all(checks_w.values()):
             raise AssertionError(f"wire {transport}: a result differs from in process: {checks_w}")
         # times: warm tick walls over the wire against in process (median
@@ -3719,14 +3840,22 @@ def main() -> int:
     ops_fit = fit_rec["ffd_scan"][0]
 
     def repack_bound(ops):
-        outs = kb.disrupt_repack(*ops)
-        S, _ = ops[4].shape
-        R = ops[2].shape[1]
-        # a class with an empty feasibility row reads no request and fits nowhere
-        feasible = ops[1].to(torch.bool)
-        idle = int((~feasible.any(1)).sum())
-        return bound(nbytes(ops) - idle * nbytes([ops[2][0]]) + nbytes(outs),
-                     S * int(feasible.sum()) * (3 * R + 4))
+        """Kernel B's bound for the entry that got `ops`: the outputs it
+        writes (no takes for the sweep's entry); the operations of the
+        (set, class) pairs that take a step, each over the nodes its answer
+        needs (`kb.walked_nodes`: the nodes where a pod of the class may
+        fit, and for a count the span bounds only those up to where the
+        first-fit prefix reaches it); the bytes of the headroom, members and
+        requests, and of the feasibility rows of the classes and the
+        exclusions of the sets that take a step."""
+        out = repack_entry(kb, ops)(*ops)
+        outs = out if isinstance(out, tuple) else (out,)
+        N, R = ops[0].shape
+        step = stepping_pairs(kb, ops)
+        n_ops = int(kb.walked_nodes(*ops).sum()) * (3 * R + 4)
+        bytes_in = (nbytes([ops[0], ops[2], ops[3]]) + int(step.any(0).sum()) * N * ops[1].element_size()
+                    + int(step.any(1).sum()) * N * ops[4].element_size())
+        return bound(bytes_in + nbytes(outs), n_ops)
 
     bound_b, by_b = repack_bound(ops_b)
     S, N = ops_b[4].shape
@@ -3784,14 +3913,21 @@ def main() -> int:
         if name == "tick 2":
             ms, plain, (b_ms, b_by) = ms_b, plain_b, (bound_b, by_b)
         else:
-            ms = cuda_ms(lambda: kb.disrupt_repack(*ops), reps=50)
-            plain = cuda_ms(lambda: kb.repack_reference(*ops), reps=5, warmup=1, batch=1)
+            ms = cuda_ms(lambda: repack_entry(kb, ops)(*ops), reps=50)
+            plain = cuda_ms(lambda: repack_plain(kb, ops)(*ops), reps=5, warmup=1, batch=1)
             b_ms, b_by = repack_bound(ops)
-        shape_rows["disrupt_repack"].append({
+        row = {
             "path": name, "shape": {"S": ops[4].shape[0], "C": ops[2].shape[0],
                                     "N": ops[4].shape[1], "R": ops[2].shape[1]},
-            "feasible_classes": int(ops[1].any(1).sum()),
-            "launches": n, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by})
+            "feasible_classes": int(ops[1].any(1).sum()), "entry": getattr(ops, "entry", "full"),
+            "density": repack_density(kb, ops), "kernel": repack_kernel_of(kb, ops),
+            "launches": n, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        row["device_ms"] = device_ms(lambda: repack_entry(kb, ops)(*ops))
+        if row["entry"] == "leftover":
+            # the full entry (takes written) at the same shape, for the record
+            row["full_entry_ms"] = cuda_ms(lambda: kb.disrupt_repack(*ops), reps=20)
+            row["full_entry_device_ms"] = device_ms(lambda: kb.disrupt_repack(*ops))
+        shape_rows["disrupt_repack"].append(row)
 
     # kernel A's scratch layout against the lean one at K=1280 (the merged
     # world's operands), in turns: lean, scratch, scratch, lean
@@ -3814,7 +3950,7 @@ def main() -> int:
     sweep_times = {}
     for name, sw in sweeps.items():
         enc = engine._encode_sets(sw["nodes"], sw["sets"])
-        leftover = kb.disrupt_repack(*sweep_ops[name]["disrupt_repack"][0])[0]
+        leftover = kb.disrupt_repack_leftover(*sweep_ops[name]["disrupt_repack"][0])
         replace_ms = {}
         for ctx in engine._pool_contexts(enc, sw["kw"]["pools"], sw["kw"]["catalogs"],
                                          sw["kw"]["daemon_overhead"]):
@@ -3992,32 +4128,56 @@ def main() -> int:
                 raise AssertionError(f"kernel A differs from its plain version: {label}")
             return want
 
-        def check_repack(label, ops, scratch=False):
-            """Kernel B against its plain version; `scratch` runs the layout
-            with the headroom in device memory."""
+        def check_repack(label, ops, kernel=None):
+            """Kernel B's two entries against the plain version: the full
+            one (leftovers and takes) and the sweep's leftover-only one;
+            `kernel` "block" runs the block kernel alone on a shape the
+            sweep kernel takes, "block scratch" with the headroom in device
+            memory, "sweep alone" the sweep kernel with no hand-off."""
             nonlocal err_b
-            got = kb._launch(*ops, resident=False) if scratch else kb.disrupt_repack(*ops)
+            if kernel is not None:
+                kw = {"block": dict(sweep=False), "block scratch": dict(sweep=False, resident=False),
+                      "sweep alone": dict(sweep=True)}[kernel]
+                full = kb._launch(*ops, **kw)
+                left = kb._launch(*ops, with_takes=False, **kw)[0]
+            else:
+                full, left = kb.disrupt_repack(*ops), kb.disrupt_repack_leftover(*ops)
             want = kb.repack_reference(*ops)
             torch.cuda.synchronize()
-            err = max_abs_diff(got, want)
+            err = max(max_abs_diff(full, want), max_abs_diff((left,), want[:1]))
             err_b = max(err_b, err)
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            checks.append({"kernel": "disrupt_repack", "case": label, "equal": same, "max_abs_err": err})
+            same = all(torch.equal(a, b) for a, b in zip(full, want)) and torch.equal(left, want[0])
+            checks.append({"kernel": "disrupt_repack", "case": label, "entries": "full, leftover",
+                           "launched": kernel or repack_kernel_of(kb, ops), "equal": same,
+                           "max_abs_err": err})
             if not same:
                 raise AssertionError(f"kernel B differs from its plain version: {label}")
             return want
+
+        def check_sweep_cases(label, ops):
+            """`cases.sweep_cases` on a sweep's operands, through the sweep
+            kernel and the block kernel's scratch layout; the class that
+            requests nothing at member 0 must take its step."""
+            for case, c_ops in cases.sweep_cases(ops).items():
+                for kernel in (None, "block scratch"):
+                    want = check_repack(f"{label}, {case}, {kernel or 'sweep'} kernel", c_ops, kernel)
+                    if case == "zero-request class, member 0":
+                        c = int(torch.nonzero((c_ops[2] == 0).all(1) & c_ops[1].all(1))[0])
+                        if not bool((want[0][:, c] < 0).any()):
+                            raise AssertionError(f"{label}: the zero-request class placed no pod")
 
         @contextlib.contextmanager
         def plain_kernels():
             """Both wrappers swapped for their plain versions (the reference
             run: not the main path, and not counted)."""
-            saved = ka.fused_scan, kb.disrupt_repack
+            saved = ka.fused_scan, kb.disrupt_repack, kb.disrupt_repack_leftover
             ka.fused_scan = ka.fused_scan_reference
             kb.disrupt_repack = kb.repack_reference
+            kb.disrupt_repack_leftover = kb.repack_leftover_reference
             try:
                 yield
             finally:
-                ka.fused_scan, kb.disrupt_repack = saved
+                ka.fused_scan, kb.disrupt_repack, kb.disrupt_repack_leftover = saved
 
         nnz1 = ffd.nnz_budget(cs1.c_pad, G_MAX)
         for objective in ("price", "fit"):
@@ -4111,7 +4271,7 @@ def main() -> int:
 
         check_repack("tick2 pre-pass S=1", ops_b)
         check_repack("tick2 pre-pass, infeasible rows between real classes S=1", cases.gap_repack(ops_b))
-        check_repack("tick2 pre-pass, scratch layout", ops_b, scratch=True)
+        check_repack("tick2 pre-pass, scratch layout", ops_b, "block scratch")
         zr = tuple(t.clone() for t in ops_b)
         zr[2][3] = 0.0
         zr[1][3] = True
@@ -4126,7 +4286,11 @@ def main() -> int:
                 rng.integers(0, 40, (s_, c_)), rng.random((s_, n_)) < 0.2,
             )
             ops = dk.repack_from_numpy(*world, dev)
+            # dense sets whose walks run long: the sweep kernel hands them to
+            # the block kernel
             check_repack(f"random world S=64 seed {s}", ops)
+            check_repack(f"random world S=64 seed {s}", ops, "sweep alone")
+            check_repack(f"random world S=64 seed {s}", ops, "block")
             check_repack(f"random world S=64 seed {s}, infeasible rows between", cases.gap_repack(ops, s))
         check_repack("exact quotient 6/3", dk.repack_from_numpy(
             np.full((2, 1), 6.0), np.ones((1, 2), bool), np.full((1, 1), 3.0),
@@ -4143,10 +4307,14 @@ def main() -> int:
             check_scan(f"convex {name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
         check_repack("spread tick 2 pre-pass, zone-pinned rows",
                      world_ops["spread tick 2"]["disrupt_repack"][0])
-        # each sweep's own repack: one block per candidate set
+        # each sweep's own repack: one block per candidate set; on the
+        # sweeps' operands the member-sparse and guard cases, both layouts
         for name in sweeps:
             ops = sweep_ops[name]["disrupt_repack"][0]
             check_repack(f"{name} S={ops[4].shape[0]} C={ops[2].shape[0]} N={ops[4].shape[1]}", ops)
+            check_repack(f"{name}, block kernel", ops, "block")
+            check_repack(f"{name}, block kernel, scratch layout", ops, "block scratch")
+        check_sweep_cases("rampdown-sweep default", sweep_ops["rampdown-sweep default"]["disrupt_repack"][0])
         # the sidecar's own launches in phase `wire`: kernel A behind the ops
         # solve_delta (ticks) and solve_convex, kernel B behind solve_disrupt
         for name in ("shm tick 1", "shm delta tick", "tcp merged tainted", "shm convex a: tick 1"):
@@ -4160,6 +4328,8 @@ def main() -> int:
             check_scan(f"{name} scan C={ops[0].shape[0]} K={ops[9].shape[0]}", ops, "price")
         for name, (ops, _) in operator_ops["disrupt_repack"].items():
             check_repack(f"{name} S={ops[4].shape[0]} C={ops[2].shape[0]} N={ops[4].shape[1]}", ops)
+        check_sweep_cases("operator disruption sweep (widest)",
+                          operator_ops["disrupt_repack"]["operator sweep (widest)"][0])
         # the warm-up ladder's armed CUDA graphs against the ordinary dispatch,
         # byte for byte: every tier-0 bucket on real class rows (the C=256
         # world's classes, repeated past 256), the tier-3 pre-pass floor shape

@@ -12,7 +12,8 @@ nvcc flags into karpenter_tpu_torch/build/forks/, checks each against
 `--rounds` times; CUDA events around 10 back-to-back launches, median of
 10) on the provisioning solve's pre-pass operands (tick 2 of
 chip_smoke.py: S=1, C=128, N=1024, R=9) and on a random S=64 world of
-the same C and N. Prints one JSON line per phase; the last holds the
+the same C and N, both through the block kernel alone (`sweep=False`:
+the wrapper gives several sets to the sweep kernel first). Prints one JSON line per phase; the last holds the
 medians, ranges and the card's `nvidia-smi` name and power limit.
 """
 from __future__ import annotations
@@ -40,8 +41,7 @@ from karpenter_tpu_torch.solver.service import TorchSolver  # noqa: E402
 
 SEED = 20_260_101   # chip_smoke.py's worlds
 VEC16 = ("const int vec16 = N % 16 == 0 && ((uintptr_t)feas & 15u) == 0;", "const int vec16 = 0;")
-RT9 = ("auto kernel = R == 9 ? disrupt_repack_kernel<9> : disrupt_repack_kernel<0>;",
-       "auto kernel = disrupt_repack_kernel<0>;")
+RT9 = ("const int rt9 = R == 9;", "const int rt9 = 0;")
 VARIANTS = {"vec16+R9": [], "ballot+R9": [VEC16], "vec16+runtimeR": [RT9], "ballot+runtimeR": [VEC16, RT9]}
 
 
@@ -63,6 +63,11 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 3, batch: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
+
+
+def block(ops):
+    """Kernel B's full entry through the block kernel alone."""
+    return kb._launch(*ops, sweep=False)
 
 
 def build_variants() -> dict:
@@ -90,7 +95,7 @@ def build_variants() -> dict:
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
         lib = ctypes.CDLL(str(path))
-        lib.disrupt_repack_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.disrupt_repack_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.disrupt_repack_launch.restype = ctypes.c_int
         lib.disrupt_repack_max_r.argtypes = []
         lib.disrupt_repack_max_r.restype = ctypes.c_int
@@ -134,7 +139,7 @@ def main() -> int:
         kb._library = lambda lib=lib: lib
         for case, ops in cases.items():
             equal[f"{name} {case}"] = all(
-                torch.equal(a, b) for a, b in zip(kb.disrupt_repack(*ops), kb.repack_reference(*ops)))
+                torch.equal(a, b) for a, b in zip(block(ops), kb.repack_reference(*ops)))
     emit({"phase": "equal", "equal": equal})
     if not all(equal.values()):
         raise AssertionError("a variant differs from the plain version")
@@ -144,7 +149,7 @@ def main() -> int:
         for name, lib in order + order[::-1]:
             kb._library = lambda lib=lib: lib
             for case, ops in cases.items():
-                raw[case][name].append(cuda_ms(lambda: kb.disrupt_repack(*ops)))
+                raw[case][name].append(cuda_ms(lambda: block(ops)))
     summary = {case: {name: {"median": statistics.median(v), "min": min(v), "max": max(v), "runs": len(v)}
                       for name, v in per.items()} for case, per in raw.items()}
     emit({"phase": "times", "timing": "CUDA events around 10 back-to-back launches, median of 10; "

@@ -94,13 +94,16 @@ KERNEL_TWINS: Dict[Tuple[str, str], Tuple[str, str]] = {
         ("karpenter_tpu_torch/solver/kernels/ffd_scan.py", "fused_scan_reference"),
     ("karpenter_tpu_torch/solver/kernels/disrupt_repack.py", "disrupt_repack"):
         ("karpenter_tpu_torch/solver/kernels/disrupt_repack.py", "repack_reference"),
+    ("karpenter_tpu_torch/solver/kernels/disrupt_repack.py", "disrupt_repack_leftover"):
+        ("karpenter_tpu_torch/solver/kernels/disrupt_repack.py", "repack_leftover_reference"),
 }
 
 # kernel entry -> the edge-case builders of solver/kernels/cases.py that
 # hold it against its twin (tests and chip_smoke.py share them)
 KERNEL_CASES: Dict[str, Tuple[str, ...]] = {
     "fused_scan": ("padded_between", "zero_request"),
-    "disrupt_repack": ("gap_repack",),
+    "disrupt_repack": ("gap_repack", "sparse_members"),
+    "disrupt_repack_leftover": ("gap_repack", "sparse_members"),
 }
 
 # -- the device hot-path manifest ------------------------------------------------
@@ -142,7 +145,8 @@ DEVICE_HOT_PATH: Dict[str, Tuple[Tuple[str, ...], Dict[str, Tuple[str, ...]]]] =
     # (_fetch_multiprocess, sanctioned)
     "karpenter_tpu_torch/parallel/mesh.py": (
         ("run_shards", "shard_inputs", "sharded_scan_columns", "sharded_solve",
-         "sharded_rates", "sharded_price_bound", "sharded_repack", "sharded_replace",
+         "sharded_rates", "sharded_price_bound", "sharded_repack", "sharded_repack_leftover",
+         "_sharded_repack", "sharded_replace",
          "_fetch_multiprocess"),
         {},
     ),
@@ -152,7 +156,8 @@ DEVICE_HOT_PATH: Dict[str, Tuple[Tuple[str, ...], Dict[str, Tuple[str, ...]]]] =
     "karpenter_tpu_torch/fleet/shard.py": (
         (),
         {"MeshSolveEngine": ("solve_fused", "solve_compact", "solve_dense",
-                             "price_bound", "repack", "replace", "fetch")},
+                             "price_bound", "repack", "repack_leftover", "_repack", "replace",
+                             "fetch")},
     ),
 }
 

@@ -381,14 +381,27 @@ class MeshSolveEngine:
         """Disrupt candidate-pool repack, set axis split over every shard
         (kernel B once per shard; the results concatenate on the primary
         device). Host arrays upload through the pinned path."""
+        return self._repack((headroom, feas, req, member, excl), epoch, leftover_only=False)
+
+    def repack_leftover(self, headroom, feas, req, member, excl, *, epoch: Optional[int] = None):
+        """`repack`'s [S, C] leftovers alone (the sweep's, as the sidecar's
+        ``solve_disrupt`` op serves it): kernel B's leftover-only entry, no
+        [S, C, N] takes on any shard. Dispatched and counted as `repack`."""
+        return self._repack((headroom, feas, req, member, excl), epoch, leftover_only=True)
+
+    def _repack(self, arrays, epoch: Optional[int], *, leftover_only: bool):
         from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
 
         def run():
             if self.mesh is None:
-                return disrupt_kernel.disrupt_repack(*disrupt_kernel.repack_from_numpy(
-                    headroom, feas, req, member, excl, self.device))
+                ops = disrupt_kernel.repack_from_numpy(*arrays, self.device)
+                if leftover_only:
+                    return disrupt_kernel.disrupt_repack_leftover(*ops)
+                return disrupt_kernel.disrupt_repack(*ops)
             self._note("repack", ())
-            return mesh_mod.sharded_repack(self.mesh, headroom, feas, req, member, excl)
+            if leftover_only:
+                return mesh_mod.sharded_repack_leftover(self.mesh, *arrays)
+            return mesh_mod.sharded_repack(self.mesh, *arrays)
 
         return self._dispatch("repack", epoch, run)
 

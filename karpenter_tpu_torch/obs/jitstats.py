@@ -47,14 +47,24 @@ from karpenter_tpu_torch.metrics import (  # noqa: F401  -- the JAX module's nam
 # module -> device entry names: the JAX package's jit entries the port has
 # (ffd_solve, ffd_solve_compact, ffd_solve_fused, disrupt_repack,
 # disrupt_replace, fractional_price_bound, convex_relax) under the same
-# module paths, and the two kernel wrappers (the Pallas entries' places)
+# module paths, and the kernel wrappers (the Pallas entries' places)
 JIT_ENTRY_FUNCTIONS: Dict[str, tuple] = {
     "karpenter_tpu_torch.solver.ffd": ("ffd_solve", "ffd_solve_compact", "ffd_solve_fused"),
     "karpenter_tpu_torch.solver.disrupt.kernel": ("disrupt_repack", "disrupt_replace"),
     "karpenter_tpu_torch.solver.bound": ("fractional_price_bound",),
     "karpenter_tpu_torch.solver.convex.relax": ("convex_relax",),
     "karpenter_tpu_torch.solver.kernels.ffd_scan": ("fused_scan",),
-    "karpenter_tpu_torch.solver.kernels.disrupt_repack": ("disrupt_repack",),
+    "karpenter_tpu_torch.solver.kernels.disrupt_repack": ("disrupt_repack", "disrupt_repack_leftover"),
+}
+
+# (module, function) probed and booked on another entry's row: the sweep's
+# leftover-only repack runs kernel B as `disrupt_repack` does, and the JAX
+# package serves the sweep by `disrupt_repack` itself
+BOOKED_AS: Dict[tuple, str] = {
+    ("karpenter_tpu_torch.solver.disrupt.kernel", "disrupt_repack_leftover"):
+        "karpenter_tpu_torch.solver.disrupt.kernel.disrupt_repack",
+    ("karpenter_tpu_torch.solver.kernels.disrupt_repack", "disrupt_repack_leftover"):
+        "karpenter_tpu_torch.solver.kernels.disrupt_repack.disrupt_repack",
 }
 
 # kernel wrapper entry -> the library its kernel lives in
@@ -112,18 +122,19 @@ def install() -> int:
     number of probes installed. Idempotent. Imports the solver modules --
     callers are the operator (which already built a solver) and scripts."""
     installed = 0
-    for modname, fns in JIT_ENTRY_FUNCTIONS.items():
+    targets = [(modname, fn_name) for modname, fns in JIT_ENTRY_FUNCTIONS.items() for fn_name in fns]
+    targets += [key for key in BOOKED_AS if key not in targets]
+    for modname, fn_name in targets:
         mod = importlib.import_module(modname)
         saved = _originals.setdefault(modname, {})
-        for fn_name in fns:
-            if fn_name in saved:
-                continue
-            fn = getattr(mod, fn_name, None)
-            if fn is None or getattr(fn, "_karpenter_jit_probe", False):
-                continue
-            saved[fn_name] = fn
-            setattr(mod, fn_name, _probe(f"{modname}.{fn_name}", fn))
-            installed += 1
+        if fn_name in saved:
+            continue
+        fn = getattr(mod, fn_name, None)
+        if fn is None or getattr(fn, "_karpenter_jit_probe", False):
+            continue
+        saved[fn_name] = fn
+        setattr(mod, fn_name, _probe(BOOKED_AS.get((modname, fn_name), f"{modname}.{fn_name}"), fn))
+        installed += 1
     return installed
 
 
@@ -198,6 +209,8 @@ def entry_cache_sizes() -> Dict[str, int]:
     armed = aot_mod.armed_by_entry() if aot_mod is not None else {}
     for modname, saved in list(_originals.items()):
         for fn_name in saved:
+            if (modname, fn_name) in BOOKED_AS:
+                continue    # its row's own entry says what the row holds
             entry = f"{modname}.{fn_name}"
             lib = _KERNEL_LIBRARIES.get(entry)
             sizes[entry] = int(lib in build._LIBS) if lib else armed.get(fn_name, 0)

@@ -507,15 +507,28 @@ def sharded_repack(mesh: Mesh, headroom, feas, req, member, excl,
     staging buffers until the caller's barrier); on a multi-process mesh
     every rank builds its shards from the same full host copy (each
     encodes the same inputs, as the controller does)."""
+    return _sharded_repack(mesh, (headroom, feas, req, member, excl), hold, leftover_only=False)
+
+
+def sharded_repack_leftover(mesh: Mesh, headroom, feas, req, member, excl,
+                            hold: Optional[list] = None) -> torch.Tensor:
+    """`sharded_repack`'s [S, C] leftovers alone, the sweep's: each shard
+    launches kernel B's leftover-only entry, so no shard allocates [S, C,
+    N] takes and only the leftovers concatenate on the primary."""
+    return _sharded_repack(mesh, (headroom, feas, req, member, excl), hold, leftover_only=True)[0]
+
+
+def _sharded_repack(mesh: Mesh, arrays, hold: Optional[list], *, leftover_only: bool) -> tuple:
     from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
 
-    h, f, r, m, x = disrupt_kernel.repack_from_numpy(
-        headroom, feas, req, member, excl, mesh.primary, hold)
+    h, f, r, m, x = disrupt_kernel.repack_from_numpy(*arrays, mesh.primary, hold)
 
     def work(s0, s1, sdev):
-        return disrupt_kernel.disrupt_repack(
-            _held_on(h, sdev), _held_on(f, sdev), _held_on(r, sdev),
-            _held_on(m[s0:s1], sdev), _held_on(x[s0:s1], sdev))
+        ops = (_held_on(h, sdev), _held_on(f, sdev), _held_on(r, sdev),
+               _held_on(m[s0:s1], sdev), _held_on(x[s0:s1], sdev))
+        if leftover_only:
+            return (disrupt_kernel.disrupt_repack_leftover(*ops),)
+        return disrupt_kernel.disrupt_repack(*ops)
 
     return _over_sets(mesh, int(m.shape[0]), work)
 

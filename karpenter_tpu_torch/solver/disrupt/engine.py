@@ -2,7 +2,8 @@
 
 Copy of karpenter_tpu/solver/disrupt/engine.py. Host side of the consolidation solve: encode the candidate sets
 once ([S, C] membership, [S, N] exclusions, [C, N] feasibility, [N, R]
-headroom), run the repack (kernel B, one block per candidate set) and the
+headroom), run the repack (kernel B's leftover-only entry, one block per
+candidate set; the sweep reads no per-node placements) and the
 per-pool replacement search (solver/disrupt/kernel.py), and assemble
 per-set verdicts. Two routes, chosen as the JAX engine chooses them:
 
@@ -17,7 +18,7 @@ per-set verdicts. Two routes, chosen as the JAX engine chooses them:
   at once (``breaker-open``, ``feature-missing``);
 - local: kernel B and the replacement search on the engine's device;
   with ``mesh=`` the repack's candidate-set axis splits over the mesh's
-  shards (parallel/mesh.py ``sharded_repack``: kernel B once per shard,
+  shards (parallel/mesh.py ``sharded_repack_leftover``: kernel B once per shard,
   S padded to a multiple of the mesh size), its operands uploaded through
   the pinned path.
 
@@ -185,7 +186,7 @@ class DisruptEngine:
     (a TorchSolver) lends its device and its catalog cache: the sweep
     reads the same staged catalog the provisioning solve runs against.
     ``mesh`` (a parallel.mesh.Mesh) splits the local repack's
-    candidate-set axis across the shards (parallel/mesh.sharded_repack),
+    candidate-set axis across the shards (parallel/mesh.sharded_repack_leftover),
     as the JAX engine's does."""
 
     def __init__(self, device=None, solver=None, mesh=None):
@@ -423,17 +424,17 @@ class DisruptEngine:
         CPU; once per shard with a mesh); the [S, C] leftover stays on the
         device for the replacement passes."""
         if self.mesh is not None:
-            from karpenter_tpu_torch.parallel.mesh import sharded_repack
+            from karpenter_tpu_torch.parallel.mesh import sharded_repack_leftover
 
             # the pinned uploads' staging buffers live until the fetch below
             hold: list = []
-            leftover, _ = sharded_repack(
+            leftover = sharded_repack_leftover(
                 self.mesh, enc.headroom, enc.feas, enc.req, enc.member, enc.excl, hold=hold)
             self._leftover = leftover
             return leftover.sum(dim=1).cpu().numpy()
         ops = kernel.repack_from_numpy(
             enc.headroom, enc.feas, enc.req, enc.member, enc.excl, self.device)
-        leftover, _ = kernel.disrupt_repack(*ops)
+        leftover = kernel.disrupt_repack_leftover(*ops)
         self._leftover = leftover
         return leftover.sum(dim=1).cpu().numpy()
 

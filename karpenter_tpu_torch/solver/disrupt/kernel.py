@@ -5,7 +5,11 @@ Counterpart of karpenter_tpu/solver/disrupt/kernel.py:
 - ``disrupt_repack``: the repack simulation over candidate sets, carried
   by kernel B (solver/kernels/disrupt_repack.py). The provisioning solve
   calls it with one candidate set to pack pending pods onto existing
-  nodes; the consolidation engine (engine.py) with one set per candidate.
+  nodes, and reads the per-node placements.
+- ``disrupt_repack_leftover``: its leftovers alone, the same kernel with
+  no [S, C, N] placements allocated or written: the consolidation
+  engine (engine.py), the mesh, the sidecar's ``solve_disrupt`` op, one
+  set per candidate.
 - ``disrupt_replace``: the one-new-node replacement search, a masked min
   over the (type, zone, captype) price tensor. It is a jit entry of the
   JAX package, not a Pallas kernel, so it is plain torch code here; the
@@ -36,6 +40,18 @@ def disrupt_repack(
     class c in set s packed first-fit onto the surviving nodes (node
     order = oracle order); leftover did not fit anywhere."""
     return repack_kernel.disrupt_repack(headroom0, feas, req, member, excl)
+
+
+def disrupt_repack_leftover(
+    headroom0: torch.Tensor,   # [N, R] f32
+    feas: torch.Tensor,        # [C, N] bool
+    req: torch.Tensor,         # [C, R] f32
+    member: torch.Tensor,      # [S, C] i32
+    excl: torch.Tensor,        # [S, N] bool
+) -> torch.Tensor:
+    """[S, C] i32 leftovers of `disrupt_repack` (the sweep reads only
+    these): no [S, C, N] placements are allocated."""
+    return repack_kernel.disrupt_repack_leftover(headroom0, feas, req, member, excl)
 
 
 def repack_from_numpy(headroom0, feas, req, member, excl, device,

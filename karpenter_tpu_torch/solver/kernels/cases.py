@@ -133,3 +133,53 @@ def gap_repack(ops, seed=0):
     g = torch.Generator().manual_seed(seed)
     member.copy_(torch.randint(1, 40, tuple(member.shape), generator=g, dtype=torch.int32))
     return headroom0, feas, req, member, excl
+
+
+def sparse_members(ops, density=0.07, pad=0.41, one_every=4, seed=0):
+    """Kernel B's operands with a consolidation sweep's member counts: a
+    (set, class) pair holds 1-5 pods with probability `density` (the
+    `rampdown-sweep`'s stepping pairs are ~7 % of its real sets'), every
+    `one_every`-th set holds pods of one class only, and the last `pad`
+    share of the sets (the S bucket's padding) holds none. Members drawn
+    from `seed`."""
+    headroom0, feas, req, member, excl = (t.clone() for t in ops)
+    S, C = member.shape
+    g = torch.Generator().manual_seed(seed)
+    pods = torch.randint(1, 6, (S, C), generator=g, dtype=torch.int32)
+    keep = torch.rand((S, C), generator=g) < density
+    single = torch.arange(S) % one_every == one_every - 1
+    keep[single] = False
+    keep[single, torch.randint(0, C, (S,), generator=g)[single]] = True
+    keep[S - int(S * pad):] = False
+    member.copy_(torch.where(keep, pods, 0))
+    return headroom0, feas, req, member, excl
+
+
+def sweep_cases(ops, seed=0):
+    """name -> kernel B's operands for the sweep's edge cases, built from
+    `ops` (S > 1 sets, a pods axis every class requests): the member-sparse
+    world of `sparse_members`; padding sets only; one class a set; a class
+    that requests nothing with member 0 in every set, feasible everywhere
+    (its fits saturate, the prefix sum wraps and it places pods: it must
+    take its step); a class with a negative request on every axis some
+    class requests (no axis bounds any class's fits); member counts below
+    zero, INT32_MIN among them (member - before wraps)."""
+    sparse = sparse_members(ops, seed=seed)
+    out = {"rampdown-like density": sparse,
+           "padding sets only": sparse_members(ops, pad=1.0, seed=seed),
+           "one class a set": sparse_members(ops, density=0.0, one_every=1, seed=seed)}
+    headroom0, feas, req, member, excl = (t.clone() for t in sparse)
+    c = int(torch.nonzero(feas.any(1)).flatten()[0])
+    req[c] = 0.0
+    feas[c] = True
+    member[:, c] = 0
+    out["zero-request class, member 0"] = (headroom0, feas, req, member, excl)
+    headroom0, feas, req, member, excl = (t.clone() for t in sparse)
+    req[c] = torch.where(req.amax(0) > 0, -2.0, 0.0)
+    out["negative request axes"] = (headroom0, feas, req, member, excl)
+    headroom0, feas, req, member, excl = (t.clone() for t in sparse)
+    member[0::3, c] = -3
+    member[1::5] = torch.where(member[1::5] > 0, -member[1::5], member[1::5])
+    member[2, :] = -2**31
+    out["members below zero"] = (headroom0, feas, req, member, excl)
+    return out

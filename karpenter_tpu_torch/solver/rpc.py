@@ -1102,10 +1102,10 @@ class SolverServer:
         if "member" in t:  # the repack half
             with wt.stage("device", op="solve_disrupt"):
                 if self._mesh is not None:
-                    left_dev, _ = self._mesh.repack(
+                    left_dev = self._mesh.repack_leftover(
                         t["headroom"], t["feas"], t["req"], t["member"], t["excl"])
                 else:
-                    left_dev, _ = disrupt_kernel.disrupt_repack(
+                    left_dev = disrupt_kernel.disrupt_repack_leftover(
                         self._put(t["headroom"], np.float32), self._put(t["feas"], bool),
                         self._put(t["req"], np.float32), self._put(t["member"], np.int32),
                         self._put(t["excl"], bool),

@@ -355,6 +355,174 @@ class TestRepackKernel:
         assert takes.cpu().tolist() == [[[2, 2]]] and left.cpu().tolist() == [[1]]
 
 
+SWEEP_CASES = ("rampdown-like density", "padding sets only", "one class a set",
+               "zero-request class, member 0", "negative request axes", "members below zero")
+
+
+def assert_both_entries(ops, **kw):
+    """Kernel B's full and leftover-only entries equal `repack_reference`
+    on every output (with `repack._launch`'s keywords: the kernel and the
+    layout); returns it."""
+    want = repack.repack_reference(*ops)
+    before = repack.launches
+    if not kw:
+        full, left = repack.disrupt_repack(*ops), repack.disrupt_repack_leftover(*ops)
+    else:
+        full = repack._launch(*ops, **kw)
+        left, none = repack._launch(*ops, with_takes=False, **kw)
+        assert none is None
+    torch.cuda.synchronize()
+    assert repack.launches == before + 2
+    assert torch.equal(full[0].cpu(), want[0].cpu()) and torch.equal(full[1].cpu(), want[1].cpu())
+    assert torch.equal(left.cpu(), want[0].cpu())
+    return want
+
+
+@pytest.fixture(scope="module")
+def sweep_operands(cuda, items):
+    """Kernel B's operands as the sweep launches them on the card, at
+    S=512 (the ramp-down sweep of a 50k-pod tick, 256 candidates) and
+    S=1024 (500 candidates)."""
+    from karpenter_tpu_torch.solver.disrupt import DisruptEngine
+
+    solver = TorchSolver(g_max=1024)
+    pods = workload.synth_pods(np.random.default_rng(20_260_101), workload.ZONES, 50_000, salt=1)
+    tick = solver.solve(NodePool("default"), items, pods)
+    out = {}
+    for n_cand in (256, 500):
+        spec = workload.rampdown_sweep_spec(tick, np.random.default_rng(3), n_cand=n_cand)
+        nodes, sets = workload.sweep_world(spec)
+        pools, ovh = workload.sweep_pools("spot-od")
+        rec = []
+        entry = repack.disrupt_repack_leftover
+
+        def recording(*ops):
+            rec.append(ops)
+            return entry(*ops)
+
+        repack.disrupt_repack_leftover = recording
+        try:
+            DisruptEngine(solver=solver).evaluate(
+                nodes, sets, pools=pools, catalogs={p.name: items for p in pools},
+                daemon_overhead=ovh)
+        finally:
+            repack.disrupt_repack_leftover = entry
+        assert len(rec) == 1
+        out[int(rec[0][3].shape[0])] = rec[0]
+    assert sorted(out) == [512, 1024]
+    return out
+
+
+class TestSweepRepackKernel:
+    """Kernel B as the consolidation sweep runs it: member-sparse sets,
+    the span guard's edges, both entries, both layouts, the block sizes."""
+
+    @pytest.fixture(scope="class")
+    def base(self, cuda):
+        rng = np.random.default_rng(12)
+        s_, c_, n_ = 64, 48, 200
+        world = (
+            rng.integers(0, 64, (n_, 9)).astype(np.float32), rng.random((c_, n_)) < 0.7,
+            rng.integers(0, 5, (c_, 9)).astype(np.float32), np.zeros((s_, c_), np.int32),
+            rng.random((s_, n_)) < 0.1,
+        )
+        world[2][:, 3] = 1.0   # the pods axis
+        world[2][c_ - 4:] = 0.0
+        world[1][c_ - 4:] = False
+        return disrupt_kernel.repack_from_numpy(*world, cuda)
+
+    @pytest.mark.parametrize("case", SWEEP_CASES)
+    @pytest.mark.parametrize("kernel", ["sweep", "block", "block scratch"])
+    def test_cases_both_entries(self, base, case, kernel):
+        kw = {"sweep": dict(sweep=True), "block": dict(sweep=False),
+              "block scratch": dict(sweep=False, resident=False)}[kernel]
+        assert_both_entries(cases.sweep_cases(base)[case], **kw)
+
+    def test_zero_request_class_at_member_zero_takes_its_step(self, base):
+        ops = cases.sweep_cases(base)["zero-request class, member 0"]
+        c = int(torch.nonzero((ops[2] == 0).all(1) & ops[1].all(1))[0])
+        assert not bool(ops[3][:, c].any())
+        want = assert_both_entries(ops)
+        assert bool((want[0][:, c] < 0).any())
+
+    @pytest.mark.parametrize("s_", [512, 1024])
+    @pytest.mark.parametrize("kernel", ["sweep", "block", "block scratch"])
+    def test_sweep_operands(self, sweep_operands, s_, kernel):
+        kw = {"sweep": dict(sweep=True), "block": dict(sweep=False),
+              "block scratch": dict(sweep=False, resident=False)}[kernel]
+        ops = sweep_operands[s_]
+        assert_both_entries(ops, **kw)
+        assert_both_entries(cases.sweep_cases(ops)["members below zero"], **kw)
+
+    @pytest.mark.parametrize("sets_per_block", [1, 2, 4, 6])
+    def test_sets_a_block(self, cuda, sweep_operands, sets_per_block):
+        """The sweep kernel holds as many sets a block as shared memory
+        takes: 6 at N=1024 (the sweep's operands), 4, 2 and 1 at wider N."""
+        n_ = {1: 6000, 2: 3000, 4: 1500, 6: 1024}[sets_per_block]
+        assert repack.sweep_sets_per_block(n_, 9) == sets_per_block
+        if n_ == 1024:
+            assert_both_entries(sweep_operands[512], sweep=True)
+            return
+        rng = np.random.default_rng(14 + sets_per_block)
+        s_, c_ = 40, 24
+        world = (
+            rng.integers(0, 64, (n_, 9)).astype(np.float32), rng.random((c_, n_)) < 0.5,
+            rng.integers(0, 5, (c_, 9)).astype(np.float32), np.zeros((s_, c_), np.int32),
+            rng.random((s_, n_)) < 0.1,
+        )
+        world[2][:, 3] = 1.0   # the pods axis
+        ops = disrupt_kernel.repack_from_numpy(*world, cuda)
+        for case in ("rampdown-like density", "members below zero"):
+            assert_both_entries(cases.sweep_cases(ops)[case], sweep=True)
+
+    @pytest.mark.parametrize("kernel", ["hand-off", "hand-off, mixed", "sweep", "block"])
+    def test_dense_sets(self, cuda, kernel):
+        """Every class of every set holds pods and the walks run long: the
+        sweep kernel hands such sets to the block kernel (S=64 sets are one
+        block-kernel wave); "mixed" keeps one class in every other set, so
+        one launch hands off some sets and finishes the others; each kernel
+        alone gives the same."""
+        rng = np.random.default_rng(7)
+        s_, c_, n_ = 64, 128, 1024
+        world = (
+            rng.integers(0, 64, (n_, 9)).astype(np.float32), rng.random((c_, n_)) < 0.7,
+            rng.integers(0, 5, (c_, 9)).astype(np.float32), rng.integers(0, 40, (s_, c_)).astype(np.int32),
+            rng.random((s_, n_)) < 0.2,
+        )
+        if kernel == "hand-off, mixed":
+            world[3][1::2, 1:] = 0
+        ops = disrupt_kernel.repack_from_numpy(*world, cuda)
+        assert_both_entries(ops, **{"sweep": dict(sweep=True), "block": dict(sweep=False)}.get(kernel, {}))
+
+    def test_one_set_takes_the_sweep_kernel_too(self, base):
+        ops = tuple(t[:1].contiguous() if i in (3, 4) else t
+                    for i, t in enumerate(cases.sweep_cases(base)["rampdown-like density"]))
+        assert_both_entries(ops, sweep=True)
+
+    @pytest.mark.parametrize("kernel", ["sweep", "block"])
+    def test_more_than_1024_nodes(self, cuda, kernel):
+        """N=1500: a class's room bits span two 32-word groups, so a walk
+        reads the second group's words as it reaches them."""
+        rng = np.random.default_rng(13)
+        s_, c_, n_ = 24, 40, 1500
+        world = (
+            rng.integers(0, 64, (n_, 9)).astype(np.float32), rng.random((c_, n_)) < 0.3,
+            rng.integers(0, 5, (c_, 9)).astype(np.float32), np.zeros((s_, c_), np.int32),
+            rng.random((s_, n_)) < 0.1,
+        )
+        world[2][:, 3] = 1.0
+        world[0][: n_ - 200] = 0.0   # room only on the last 200 nodes
+        ops = disrupt_kernel.repack_from_numpy(*world, cuda)
+        for case in ("rampdown-like density", "zero-request class, member 0"):
+            want = assert_both_entries(cases.sweep_cases(ops)[case], sweep=kernel == "sweep")
+            assert bool((want[0] != cases.sweep_cases(ops)[case][3]).any())
+
+    def test_padding_sets_write_their_members(self, base):
+        ops = cases.sweep_cases(base)["padding sets only"]
+        left = repack.disrupt_repack_leftover(*ops)
+        assert torch.equal(left.cpu(), ops[3].cpu())
+
+
 class TestSolverOnTheCard:
     def test_two_ticks_match_the_cpu(self, cuda, items):
         pool = NodePool("default")

@@ -481,17 +481,18 @@ def test_evaluator_with_mesh_matches_without(tengine):
             for v in jconsolidate.ConsolidationEvaluator(mesh=jmake_mesh(8)).evaluate(jn, js)]
     plain = tconsolidate.ConsolidationEvaluator(device="cpu").evaluate(tn, ts)
     calls = []
-    kernel = tdk.disrupt_repack
+    # the sweep's entry: leftovers only, no takes on any shard
+    kernel = tdk.disrupt_repack_leftover
 
     def counted(*a):
         calls.append(int(a[3].shape[0]))
         return kernel(*a)
 
-    tdk.disrupt_repack = counted
+    tdk.disrupt_repack_leftover = counted
     try:
         meshy = tconsolidate.ConsolidationEvaluator(mesh=tengine.mesh).evaluate(tn, ts)
     finally:
-        tdk.disrupt_repack = kernel
+        tdk.disrupt_repack_leftover = kernel
     assert [(v.can_delete, v.leftover) for v in plain] == want
     assert [(v.can_delete, v.leftover) for v in meshy] == want
     assert calls == [2] * 8
