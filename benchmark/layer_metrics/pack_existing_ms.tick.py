@@ -1,0 +1,11 @@
+"""Mean self time (ms) a tick of the program's `pack_existing` spans: the
+host's [C, N] feasibility over the standing nodes, kernel B's full entry
+and the assignment of its takes to pods."""
+
+
+def read(trace):
+    from harness import span_ms
+
+    if not trace.calls:
+        return None
+    return sum(span_ms(c["root"], "pack_existing", True) for c in trace.calls) / len(trace.calls)
