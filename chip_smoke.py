@@ -3706,7 +3706,7 @@ def main() -> int:
         return ffd.scan_operands(inp, entry.offsets, entry.words, objective)
 
     ops_a = scan_ops(cs1, "price", True)
-    ops_b = solver._repack_operands(classes2, nodes)
+    ops_b = dk.repack_from_numpy(*solver._repack_operands(classes2, nodes), dev)
     # tick 2's scan operands: counts net of the pre-pass (a kernel B launch
     # outside the counted main path), C bucketed to 128 with 63 padded rows
     placed2 = solver._pack_existing(classes2, nodes, SchedulingResult())

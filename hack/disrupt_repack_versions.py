@@ -198,7 +198,8 @@ def operands(dev) -> dict:
     tick1 = solver.solve(pool, items, pods1)
     nodes = workload.nodes_from_result(tick1)
     classes2 = encode.group_pods(pods2, extra_requirements=pool.requirements())
-    out = {"tick 2 pre-pass": solver._repack_operands(classes2, nodes)}
+    out = {"tick 2 pre-pass": disrupt_kernel.repack_from_numpy(
+        *solver._repack_operands(classes2, nodes), dev)}
     # the same pre-pass with room for every class on every node it may use:
     # every feasible class with pods steps (no step is proven a no-op)
     h, f, q, m, x = out["tick 2 pre-pass"]

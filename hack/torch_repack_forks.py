@@ -112,7 +112,7 @@ def operands(dev) -> dict:
     pods2 = workload.synth_pods(np.random.default_rng(SEED + 1), workload.ZONES, 10_000, salt=2)
     nodes = workload.nodes_from_result(solver.solve(pool, items, pods1))
     classes2 = encode.group_pods(pods2, extra_requirements=pool.requirements())
-    tick2 = solver._repack_operands(classes2, nodes)
+    tick2 = disrupt_kernel.repack_from_numpy(*solver._repack_operands(classes2, nodes), dev)
     C, N = tick2[1].shape
     rng = np.random.default_rng(7)
     s64 = disrupt_kernel.repack_from_numpy(

@@ -13,7 +13,9 @@ activity -- every kernel the process launches, the hand-written ones
 loaded through ctypes included -- and exports one Chrome trace per
 capture to ``$KARPENTER_TPU_PROFILE_DIR/capture-<n>/trace.json``
 (default directory ``profiles/``), readable in chrome://tracing or
-Perfetto.
+Perfetto. With tracing on, a capture also carries the program's stages:
+every span of a captured tick is a ``karpenter::<span name>`` range
+(tracing.py), on the capture's own clock and nested as the tick's tree.
 """
 from __future__ import annotations
 

@@ -29,6 +29,12 @@ JAX engine, the local route's kernel B call is not counted in
 own, and ``{path="local"}`` counts the engine's one kernel B run per
 evaluate.
 
+Traced, an evaluate opens under its caller's span, in order:
+``encode_sets``, ``pool_contexts``, ``repack`` (kernel B and the fetch of
+its totals, or the wire's repack op), ``replace`` (one per pool's pass)
+and ``assemble`` (the verdicts). The JAX engine opens none of them
+(tracing.PORT_SPANS).
+
 Scope: candidate sets whose pods carry stateful constraints (hard
 topology spread, affinity terms, multi-term node affinity) are routed to
 the Python oracle by the disruption controller; for everything else the
@@ -47,7 +53,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from karpenter_tpu_torch import metrics
+from karpenter_tpu_torch import metrics, tracing
 from karpenter_tpu_torch.apis import NodePool, Pod, labels as wk
 from karpenter_tpu_torch.scheduling import Resources, tolerates_all
 from karpenter_tpu_torch.solver import encode
@@ -331,16 +337,18 @@ class DisruptEngine:
         if not sets:
             return []
         t0 = time.perf_counter()
-        enc = self._encode_sets(nodes, sets)
+        with tracing.span("encode_sets", sets=len(sets)):
+            enc = self._encode_sets(nodes, sets)
         if enc is None:
             self.last_dispatch = {"path": "none", "sets": len(sets), "ms": 0.0}
             return [
                 SetVerdict(True, 0, float("inf"), float("inf"), None, None) for _ in sets
             ]
-        ctxs = (
-            self._pool_contexts(enc, pools, catalogs, daemon_overhead)
-            if pools and catalogs else []
-        )
+        with tracing.span("pool_contexts"):
+            ctxs = (
+                self._pool_contexts(enc, pools, catalogs, daemon_overhead)
+                if pools and catalogs else []
+            )
         path = "local"
         client = self.solver.client if self.solver is not None else None
         if client is not None:
@@ -363,8 +371,6 @@ class DisruptEngine:
                     if self.solver.breaker is not None:
                         self.solver.breaker.record_failure()
                     metrics.DISRUPTION_DEVICE_FALLBACKS.inc(reason="rpc-down")
-                    from karpenter_tpu_torch import tracing
-
                     tracing.annotate(disrupt_fallback=f"{type(e).__name__}")
                     verdicts = self._evaluate_local(enc, ctxs)
             else:
@@ -385,37 +391,45 @@ class DisruptEngine:
     ) -> List[SetVerdict]:
         """Shared verdict assembly: per-pool replacement passes in weight
         order, first feasible pool wins per set; ``replace(ctx)`` returns
-        (best, best_od, best_k) numpy arrays for the current leftover."""
-        verdicts = [
-            SetVerdict(
-                can_delete=bool(left_total[si] == 0),
-                leftover=int(left_total[si]),
-                replace_price=float("inf"),
-                replace_od_price=float("inf"),
-                replace_type=None,
-                nodepool=None,
-            )
-            for si in range(enc.n_sets)
-        ]
+        (best, best_od, best_k) numpy arrays for the current leftover.
+        Each pool's pass is a ``replace`` span, the verdicts one
+        ``assemble`` span after them."""
+        won: Dict[int, tuple] = {}      # set -> (pool context, its pass's arrays)
         pending = [si for si in range(enc.n_sets) if left_total[si] > 0]
         for ctx in ctxs:
             if not pending:
                 break
-            best, best_od, best_k = replace(ctx)
-            still = []
-            for si in pending:
-                if np.isfinite(best[si]):
-                    verdicts[si] = SetVerdict(
+            with tracing.span("replace", pool=ctx.pool.name):
+                best, best_od, best_k = replace(ctx)
+                still = []
+                for si in pending:
+                    if np.isfinite(best[si]):
+                        won[si] = (ctx, best, best_od, best_k)
+                    else:
+                        still.append(si)
+                pending = still
+        with tracing.span("assemble"):
+            verdicts = []
+            for si in range(enc.n_sets):
+                if si in won:
+                    ctx, best, best_od, best_k = won[si]
+                    verdicts.append(SetVerdict(
                         can_delete=False,
                         leftover=int(left_total[si]),
                         replace_price=float(best[si]),
                         replace_od_price=float(best_od[si]),
                         replace_type=ctx.catalog.names[int(best_k[si])],
                         nodepool=ctx.pool.name,
-                    )
+                    ))
                 else:
-                    still.append(si)
-            pending = still
+                    verdicts.append(SetVerdict(
+                        can_delete=bool(left_total[si] == 0),
+                        leftover=int(left_total[si]),
+                        replace_price=float("inf"),
+                        replace_od_price=float("inf"),
+                        replace_type=None,
+                        nodepool=None,
+                    ))
         return verdicts
 
     # -- local route ----------------------------------------------------------
@@ -439,7 +453,8 @@ class DisruptEngine:
         return leftover.sum(dim=1).cpu().numpy()
 
     def _evaluate_local(self, enc: _Encoded, ctxs: List[_PoolCtx]) -> List[SetVerdict]:
-        left_total = self._dispatch_local(enc)
+        with tracing.span("repack"):
+            left_total = self._dispatch_local(enc)
         od_col = int(encode.CAPTYPE_INDEX[wk.CAPACITY_TYPE_ON_DEMAND])
 
         def put(a):
@@ -475,17 +490,18 @@ class DisruptEngine:
             }
 
         first = ctxs[0] if ctxs else None
-        depoch, out = client.solve_disrupt_repack(
-            {
-                "headroom": enc.headroom, "feas": enc.feas, "req": enc.req,
-                "member": enc.member, "excl": enc.excl,
-            },
-            seqnum=first.seqnum if first is not None else None,
-            catalog=first.catalog if first is not None else None,
-            replace=replace_tensors(first) if first is not None else None,
-        )
-        leftover = np.asarray(out["leftover"])
-        left_total = leftover.sum(axis=1)
+        with tracing.span("repack"):
+            depoch, out = client.solve_disrupt_repack(
+                {
+                    "headroom": enc.headroom, "feas": enc.feas, "req": enc.req,
+                    "member": enc.member, "excl": enc.excl,
+                },
+                seqnum=first.seqnum if first is not None else None,
+                catalog=first.catalog if first is not None else None,
+                replace=replace_tensors(first) if first is not None else None,
+            )
+            leftover = np.asarray(out["leftover"])
+            left_total = leftover.sum(axis=1)
         first_result = (
             (np.asarray(out["best"]), np.asarray(out["best_od"]), np.asarray(out["best_k"]))
             if "best" in out else None

@@ -160,6 +160,21 @@ def _impl(t: torch.Tensor) -> str:
     return "cuda" if t.is_cuda else "plain"
 
 
+def _note_dispatch(entry: str, impl: str) -> None:
+    """Stamp a kernel dispatch on the current span: its `dispatch`
+    attribute maps each entry the span dispatched to the implementation
+    that ran (`aot`: an armed graph replayed), so a traced tick shows a
+    kernel built or launched outside the warm-up ladder."""
+    cur = tracing.TRACER.current()
+    if cur is not None:
+        cur.attributes.setdefault("dispatch", {})[entry] = impl
+
+
+def _count_dispatch(entry: str, impl: str) -> None:
+    metrics.SOLVER_KERNEL_DISPATCHES.inc(entry=entry, impl=impl)
+    _note_dispatch(entry, impl)
+
+
 def _spread_keys(classes) -> set:
     """Topology-spread identity per class representative -- spread counts
     are global per (topology key, selector), so two partitions sharing a
@@ -863,19 +878,20 @@ class TorchSolver:
     def _group(self, pods: Sequence[Pod]) -> List:
         """The tick's grouping pass: the cross-tick cache when incremental
         mode is on, a fresh group_pods otherwise (the same classes)."""
-        if not self.incremental:
-            return encode.group_pods(pods)
-        classes = self._grouper.group(pods)
-        st = self._grouper.last_stats
-        self.last_group_stats = st
-        if not st.get("full_rebuild"):
-            metrics.DELTA_DIRTY_FRACTION.observe(st["dirty_fraction"])
-        tracing.annotate(
-            group_classes=st["classes"],
-            group_dirty=st["dirty_classes"],
-            group_dirty_fraction=round(st["dirty_fraction"], 4),
-        )
-        return classes
+        with tracing.span("group"):
+            if not self.incremental:
+                return encode.group_pods(pods)
+            classes = self._grouper.group(pods)
+            st = self._grouper.last_stats
+            self.last_group_stats = st
+            if not st.get("full_rebuild"):
+                metrics.DELTA_DIRTY_FRACTION.observe(st["dirty_fraction"])
+            tracing.annotate(
+                group_classes=st["classes"],
+                group_dirty=st["dirty_classes"],
+                group_dirty_fraction=round(st["dirty_fraction"], 4),
+            )
+            return classes
 
     # -- entry point (Provisioner contract) ---------------------------------
     def schedule(self, scheduler: Scheduler, pods: Sequence[Pod]) -> SchedulingResult:
@@ -883,8 +899,10 @@ class TorchSolver:
         base_classes = self._group(pods)
         pools = scheduler.nodepools
         self.last_route = {"device_pods": len(pods), "oracle_pods": 0, "path": "device"}
-        overlap = len(pools) > 1 and self._pools_overlap(pools, pods, classes=base_classes)
-        if not self.supports(scheduler, pods, classes=base_classes, overlap=overlap):
+        with tracing.span("route"):
+            overlap = len(pools) > 1 and self._pools_overlap(pools, pods, classes=base_classes)
+            supported = self.supports(scheduler, pods, classes=base_classes, overlap=overlap)
+        if not supported:
             # the oracle packs with THIS solver's objective
             scheduler.objective = self.objective
             self.last_route = {"device_pods": 0, "oracle_pods": len(pods), "path": "oracle"}
@@ -903,19 +921,21 @@ class TorchSolver:
         # oracle suffix: affinity/preference classes sort last in the
         # canonical order, so the device solves the plain prefix and the
         # oracle continues the same pass over the suffix
-        aff_pods: List[Pod] = []
-        aff_classes = self._suffix_classes(base_classes)
-        if aff_classes:
-            aff_ids = {id(pc) for pc in aff_classes}
-            aff_pods = [p for pc in aff_classes for p in pc.pods]
-            base_classes = [pc for pc in base_classes if id(pc) not in aff_ids]
-            pods = [p for pc in base_classes for p in pc.pods]
-            self.last_route = {
-                "device_pods": len(pods), "oracle_pods": len(aff_pods), "path": "device+suffix",
-            }
-        # minValues prefix: those classes run on the oracle first and book
-        # the shared existing-node capacity the device pass then sees
-        mv_classes = self._mv_classes(scheduler, base_classes)
+        with tracing.span("route"):
+            aff_pods: List[Pod] = []
+            aff_classes = self._suffix_classes(base_classes)
+            if aff_classes:
+                aff_ids = {id(pc) for pc in aff_classes}
+                aff_pods = [p for pc in aff_classes for p in pc.pods]
+                base_classes = [pc for pc in base_classes if id(pc) not in aff_ids]
+                pods = [p for pc in base_classes for p in pc.pods]
+                self.last_route = {
+                    "device_pods": len(pods), "oracle_pods": len(aff_pods),
+                    "path": "device+suffix",
+                }
+            # minValues prefix: those classes run on the oracle first and book
+            # the shared existing-node capacity the device pass then sees
+            mv_classes = self._mv_classes(scheduler, base_classes)
         mv_result = None
         if mv_classes:
             mv_ids = {id(pc) for pc in mv_classes}
@@ -986,15 +1006,16 @@ class TorchSolver:
         device pipelines; every other route completes inside this call."""
         base_classes = self._group(pods)
         pools = scheduler.nodepools
-        overlap = len(pools) > 1 and self._pools_overlap(pools, pods, classes=base_classes)
         items = scheduler.instance_types.get(pools[0].name, []) if pools else []
-        pipelinable = (
-            len(pools) == 1
-            and bool(items)
-            and self.supports(scheduler, pods, classes=base_classes, overlap=overlap)
-            and not self._suffix_classes(base_classes)
-            and not self._mv_classes(scheduler, base_classes)
-        )
+        with tracing.span("route"):
+            overlap = len(pools) > 1 and self._pools_overlap(pools, pods, classes=base_classes)
+            pipelinable = (
+                len(pools) == 1
+                and bool(items)
+                and self.supports(scheduler, pods, classes=base_classes, overlap=overlap)
+                and not self._suffix_classes(base_classes)
+                and not self._mv_classes(scheduler, base_classes)
+            )
         if not pipelinable:
             return _PendingSolve(done=self.schedule(scheduler, pods))
         pool = pools[0]
@@ -1196,29 +1217,30 @@ class TorchSolver:
         call_kwargs = dict(nodepool_usage=nodepool_usage, existing_nodes=existing_nodes,
                            zones=zones, spread_seeds=spread_seeds, classes=classes,
                            daemon_overhead=daemon_overhead)
-        pool_reqs = pool.requirements()
-        # per-fresh-node daemonset reserve, scaled to the solver's exact
-        # small-int float32 vector; None/zero = no reserve
-        overhead_vec = None
-        if daemon_overhead is not None and any(daemon_overhead.to_vector()):
-            overhead_vec = encode.scale_vector(daemon_overhead.to_vector()).astype(np.float32)
-        if classes is None:
-            classes = encode.group_pods(pods, extra_requirements=pool_reqs)
-        else:
-            # pre-grouped by schedule(): merge the pool's requirements per class
-            classes = encode.with_extra_requirements(classes, pool_reqs)
-        # spread constraints are part of class identity, so one pod per
-        # class decides for the class
-        if not spread.spread_eligible([pc.pods[0] for pc in classes]):
-            raise ValueError(
-                "TorchSolver.solve: pods carry out-of-scope spread constraints "
-                "(hostname or multiple hard constraints); call schedule() so "
-                "routing can fall back to the oracle")
-        if self._suffix_classes(classes):
-            raise ValueError(
-                "TorchSolver.solve: pods carry (anti-)affinity or preference "
-                "terms the device kernels do not model; call schedule() so "
-                "routing can carve them to the oracle suffix")
+        with tracing.span("prepare"):
+            pool_reqs = pool.requirements()
+            # per-fresh-node daemonset reserve, scaled to the solver's exact
+            # small-int float32 vector; None/zero = no reserve
+            overhead_vec = None
+            if daemon_overhead is not None and any(daemon_overhead.to_vector()):
+                overhead_vec = encode.scale_vector(daemon_overhead.to_vector()).astype(np.float32)
+            if classes is None:
+                classes = encode.group_pods(pods, extra_requirements=pool_reqs)
+            else:
+                # pre-grouped by schedule(): merge the pool's requirements per class
+                classes = encode.with_extra_requirements(classes, pool_reqs)
+            # spread constraints are part of class identity, so one pod per
+            # class decides for the class
+            if not spread.spread_eligible([pc.pods[0] for pc in classes]):
+                raise ValueError(
+                    "TorchSolver.solve: pods carry out-of-scope spread constraints "
+                    "(hostname or multiple hard constraints); call schedule() so "
+                    "routing can fall back to the oracle")
+            if self._suffix_classes(classes):
+                raise ValueError(
+                    "TorchSolver.solve: pods carry (anti-)affinity or preference "
+                    "terms the device kernels do not model; call schedule() so "
+                    "routing can carve them to the oracle suffix")
         result = SchedulingResult()
 
         # phase 0 (host): the zone-spread split runs before the existing-
@@ -1394,16 +1416,16 @@ class TorchSolver:
         if self.mesh_engine is not None:
             with self._dispatch_lock:
                 buf = self.mesh_engine.solve_fused(inp, epoch=epoch, **common)
-            metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="ffd_solve_fused", impl=_impl(inp.req))
+            _count_dispatch("ffd_solve_fused", _impl(inp.req))
             return buf
         with self._dispatch_lock:
             if self._aot is not None:
                 hit, buf = self._aot.try_call("ffd_solve_fused", (inp,), common)
                 if hit:
-                    metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="ffd_solve_fused", impl="aot")
+                    _count_dispatch("ffd_solve_fused", "aot")
                     return buf
             buf = ffd.ffd_solve_fused(inp, **common)
-        metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="ffd_solve_fused", impl=_impl(inp.req))
+        _count_dispatch("ffd_solve_fused", _impl(inp.req))
         return buf
 
     # -- the convex tier and the quality bound --------------------------------
@@ -1483,18 +1505,24 @@ class TorchSolver:
         sharded entry when configured, else an armed graph when one
         matches, else the ordinary dispatch; the [R] totals stay there
         until fetch_bound. The `placed` upload is pinned and non_blocking,
-        its buffer kept in `hold` (see ffd._to_device)."""
+        its buffer kept in `hold` (see ffd._to_device). Uncounted, as in
+        the JAX package; the current span records it all the same."""
         placed_t = ffd._to_device(placed, inp.req.device, hold)
         statics = dict(word_offsets=offsets, words=words)
         if self.mesh_engine is not None:
             with self._dispatch_lock:
-                return self.mesh_engine.price_bound(inp, placed_t, epoch=epoch, **statics)
+                totals = self.mesh_engine.price_bound(inp, placed_t, epoch=epoch, **statics)
+            _note_dispatch("fractional_price_bound", _impl(inp.req))
+            return totals
         with self._dispatch_lock:
             if self._aot is not None:
                 hit, totals = self._aot.try_call("fractional_price_bound", (inp, placed_t), statics)
                 if hit:
+                    _note_dispatch("fractional_price_bound", "aot")
                     return totals
-            return bound.fractional_price_bound(inp, placed_t, **statics)
+            totals = bound.fractional_price_bound(inp, placed_t, **statics)
+        _note_dispatch("fractional_price_bound", _impl(inp.req))
+        return totals
 
     def _begin_quality(self, pending: _PendingSolve, dense) -> Optional[torch.Tensor]:
         """Enqueue the bound for the decision just chosen, before decode,
@@ -1697,13 +1725,15 @@ class TorchSolver:
         # groups are the chosen placement (and the bound bills its takes)
         if pending.cx is not None:
             dense, cx_lower = self._finish_convex(pending, dense)
-        qtotals = self._begin_quality(pending, dense)
+        with tracing.span("bound"):
+            qtotals = self._begin_quality(pending, dense)
         with tracing.span("decode"):
             out = self._decode(
                 pending.pool, entry, class_set, dense, pending.nodepool_usage,
                 result=pending.result, class_offset=pending.placed_existing,
             )
-        self._finish_quality(out, qtotals, lb_convex=cx_lower)
+        with tracing.span("quality"):
+            self._finish_quality(out, qtotals, lb_convex=cx_lower)
         # every fetch above has waited for the stream: the uploads are done
         pending.uploads = None
         return out
@@ -1843,25 +1873,28 @@ class TorchSolver:
             )
         return dense
 
-    def _repack_operands(self, classes, existing_nodes) -> Tuple[torch.Tensor, ...]:
-        """Kernel B's operands for packing `classes` onto `existing_nodes`:
-        one candidate set, nothing excluded, C and N padded to buckets;
-        a spread sub-class's pinned zone gates the nodes it may use."""
+    def _repack_operands(self, classes, existing_nodes) -> Tuple[np.ndarray, ...]:
+        """Kernel B's operands, on the host, for packing `classes` onto
+        `existing_nodes`: one candidate set, nothing excluded, C and N
+        padded to buckets; a spread sub-class's pinned zone gates the
+        nodes it may use. (headroom, feas, req, member, excl), the
+        arguments of disrupt_kernel.repack_from_numpy."""
         C = _bucket(len(classes), _C_PAD_MIN)
         N = _bucket(len(existing_nodes), 16)
-        req = np.zeros((C, encode.R), dtype=np.float32)
-        member = np.zeros((1, C), dtype=np.int32)
-        for i, pc in enumerate(classes):
-            req[i] = pc.requests
-            member[0, i] = len(pc.pods)
-        feas = np.zeros((C, N), dtype=bool)
-        feas[: len(classes), : len(existing_nodes)] = disrupt_engine._node_feasibility(
-            classes, existing_nodes, class_zone_pins=True)
-        headroom = np.zeros((N, encode.R), dtype=np.float32)
-        for ni, node in enumerate(existing_nodes):
-            headroom[ni] = encode.scale_vector(node.remaining().to_vector())
-        return disrupt_kernel.repack_from_numpy(
-            headroom, feas, req, member, np.zeros((1, N), dtype=bool), self.device)
+        with tracing.span("pack_feasibility", classes=len(classes), nodes=len(existing_nodes)):
+            req = np.zeros((C, encode.R), dtype=np.float32)
+            member = np.zeros((1, C), dtype=np.int32)
+            for i, pc in enumerate(classes):
+                req[i] = pc.requests
+                member[0, i] = len(pc.pods)
+            feas = np.zeros((C, N), dtype=bool)
+            feas[: len(classes), : len(existing_nodes)] = disrupt_engine._node_feasibility(
+                classes, existing_nodes, class_zone_pins=True)
+        with tracing.span("pack_headroom"):
+            headroom = np.zeros((N, encode.R), dtype=np.float32)
+            for ni, node in enumerate(existing_nodes):
+                headroom[ni] = encode.scale_vector(node.remaining().to_vector())
+        return headroom, feas, req, member, np.zeros((1, N), dtype=bool)
 
     def _dispatch_disrupt_repack(self, headroom, feas, req, member, excl):
         """Kernel B through the armed-graph rung (the pre-pass's S=1 floor
@@ -1872,27 +1905,31 @@ class TorchSolver:
             if self._aot is not None:
                 hit, out = self._aot.try_call("disrupt_repack", args, {})
                 if hit:
-                    metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="disrupt_repack", impl="aot")
+                    _count_dispatch("disrupt_repack", "aot")
                     return out
             out = disrupt_kernel.disrupt_repack(*args)
-        metrics.SOLVER_KERNEL_DISPATCHES.inc(entry="disrupt_repack", impl=_impl(headroom))
+        _count_dispatch("disrupt_repack", _impl(headroom))
         return out
 
     def _pack_existing(self, classes, existing_nodes, result: SchedulingResult) -> np.ndarray:
         """First-fit pods onto live/in-flight nodes with kernel B; fills
         result.existing_assignments and returns per-class placed counts."""
-        ops = self._repack_operands(classes, existing_nodes)
-        _, takes = self._dispatch_disrupt_repack(*ops)
-        takes = takes[0].cpu().numpy()                     # [C, N]
-        placed = np.zeros((len(classes),), dtype=np.int64)
-        for c, pc in enumerate(classes):
-            cursor = 0
-            for ni, node in enumerate(existing_nodes):
-                n = int(takes[c, ni])
-                for p in pc.pods[cursor: cursor + n]:
-                    result.existing_assignments[p.metadata.name] = node.name
-                cursor += n
-            placed[c] = cursor
+        arrays = self._repack_operands(classes, existing_nodes)
+        with tracing.span("pack_device"):
+            ops = disrupt_kernel.repack_from_numpy(*arrays, self.device)
+            _, takes = self._dispatch_disrupt_repack(*ops)
+            takes = takes[0].cpu().numpy()                     # [C, N]
+        with tracing.span("pack_assign") as assign_sp:
+            placed = np.zeros((len(classes),), dtype=np.int64)
+            for c, pc in enumerate(classes):
+                cursor = 0
+                for ni, node in enumerate(existing_nodes):
+                    n = int(takes[c, ni])
+                    for p in pc.pods[cursor: cursor + n]:
+                        result.existing_assignments[p.metadata.name] = node.name
+                    cursor += n
+                placed[c] = cursor
+            assign_sp.set(placed=int(placed.sum()))
         return placed
 
     def _decode(

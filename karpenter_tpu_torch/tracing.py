@@ -1,8 +1,8 @@
 """Tick tracing: span trees and the slow-tick flight recorder.
 
 Copy of karpenter_tpu/tracing.py: ``Span``, ``Tracer`` (with the
-thread-local current span, tail-biased sampling and per-span-name
-stats), ``trace``/``span``/``annotate``, the slow-tick
+thread-local current span and tail-biased sampling),
+``trace``/``span``/``annotate``, the slow-tick
 ``FlightRecorder``, and the wire half -- ``WireTrace`` (the sidecar's
 per-request stage recorder, echoed in the reply header) and the
 tracer's ``inject``/``graft`` (the client ships its trace context and
@@ -15,7 +15,19 @@ JAX package's call sites and under its names -- ``spread``,
 ``pack_existing``, ``encode``, ``dispatch_device``, ``dispatch_convex``,
 ``device``, ``convex_fetch``, ``convex_round``, ``decode`` -- so a tick's
 tree reads the same in both packages and the flight recorder
-(obs/flight.py) keys the same stages.
+(obs/flight.py) keys the same stages. The port opens more spans than the
+JAX package, all named in ``PORT_SPANS`` (none of them a flight-record
+stage): the tick's host stages the JAX tree leaves inside a parent or
+outside every span, and the consolidation engine's stages. Take them out
+of a port tree, lifting each one's children into its parent in place,
+and it is the JAX tree.
+
+One clock with the device trace: while a ``torch.profiler`` capture
+records, every span a tracer starts also opens a profiler range named
+``karpenter::<span name>`` (``RANGE_PREFIX``), closed when the span
+finishes, so the capture holds the program's stages on its own clock,
+nested as the tree is. Grafted remote spans (the sidecar's clock) are
+not mirrored.
 
 Zero-cost-when-disabled: ``span()``/``trace()`` return a shared no-op
 singleton after one attribute check; nothing allocates, nothing locks.
@@ -26,12 +38,35 @@ from __future__ import annotations
 import itertools
 import json
 import random
+import sys
 import threading
 import time
 import uuid
 from collections import deque
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
+
+# the port's own spans, which the JAX tree lacks: the provisioning tick's
+# host stages, then the consolidation engine's (solver/disrupt/engine.py)
+PORT_SPANS = (
+    "group", "route", "prepare",
+    "pack_feasibility", "pack_headroom", "pack_device", "pack_assign",
+    "bound", "quality",
+    "encode_sets", "pool_contexts", "repack", "replace", "assemble",
+)
+RANGE_PREFIX = "karpenter::"
+
+
+def _profiler_range(name: str):
+    """The profiler range mirroring span `name`, opened, while a
+    torch.profiler capture records; else None. No capture can record
+    in a process that has not imported torch."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(RANGE_PREFIX + name)
+    rf.__enter__()
+    return rf
 
 
 class Span:
@@ -41,7 +76,7 @@ class Span:
 
     __slots__ = (
         "name", "trace_id", "span_id", "parent_id", "start", "end",
-        "attributes", "children", "sampled", "_tracer", "_prev",
+        "attributes", "children", "sampled", "_tracer", "_prev", "_range",
     )
 
     def __init__(self, name: str, trace_id: str, span_id: str,
@@ -57,10 +92,11 @@ class Span:
         self.children: List[Span] = []
         # sampled-out trees still BUILD (so the flight recorder can catch
         # a slow tick regardless of the sample rate) but do not feed the
-        # per-span stats/metrics volume -- see Tracer.trace()
+        # per-span metrics volume -- see Tracer.trace()
         self.sampled = sampled
         self._tracer = tracer
         self._prev: Optional[Span] = None
+        self._range = None          # the open profiler range, if a capture records
 
     def set(self, **attrs) -> "Span":
         self.attributes.update(attrs)
@@ -189,10 +225,6 @@ class Tracer:
         # controller and sidecar processes when grafted into one tree
         self._id_prefix = uuid.uuid4().hex[:8]
         self._ids = itertools.count(1)
-        # per-span-name duration samples (seconds), bounded like the
-        # metrics Histogram reservoir
-        self._stats: Dict[str, List[float]] = {}
-        self._stats_lock = threading.Lock()
 
     # -- configuration -------------------------------------------------------
     def configure(self, enabled: Optional[bool] = None,
@@ -225,7 +257,7 @@ class Tracer:
 
     def set_throttled(self, throttled: bool) -> None:
         """Brownout ladder rung 2 (karpenter_tpu_torch/overload.py): stop the
-        per-span stats/metrics volume without forgetting the configured
+        per-span metrics volume without forgetting the configured
         sample rate. Throttled tracing still BUILDS trees -- the flight
         recorder must keep catching the slow ticks that caused the
         brownout; only the sampled-in volume stops."""
@@ -238,9 +270,7 @@ class Tracer:
             self.sample = self._base_sample
 
     def reset(self) -> None:
-        """Drop stats + recorder state (tests, bench segments)."""
-        with self._stats_lock:
-            self._stats.clear()
+        """Drop the recorder's state (tests, bench segments)."""
         self.recorder.clear()
         self._local.cur = None
 
@@ -254,7 +284,7 @@ class Tracer:
         the tree always builds (measured ~0.1 ms per full tick tree, so a
         slow tick is NEVER invisible to the flight recorder -- head-based
         sampling would miss 1-sample of them), and the sample rate gates
-        only the per-span stats/metrics volume. Disabled tracing returns
+        only the per-span metrics volume. Disabled tracing returns
         the no-op singleton and costs one attribute check."""
         cur = getattr(self._local, "cur", None)
         if cur is not None:
@@ -314,14 +344,17 @@ class Tracer:
         if parent is not None:
             parent.children.append(sp)
         sp._prev = parent
+        sp._range = _profiler_range(name)
         self._local.cur = sp
         return sp
 
     def _finish(self, sp: Span) -> None:
         sp.end = self._clock()
+        if sp._range is not None:
+            sp._range.__exit__(None, None, None)
+            sp._range = None
         self._local.cur = sp._prev
         if sp.sampled:
-            self._observe(sp.name, sp.end - sp.start)
             from karpenter_tpu_torch import metrics
 
             metrics.TRACE_SPANS.inc(name=sp.name)
@@ -385,40 +418,10 @@ class Tracer:
             cur.children.append(sp)
             if cur.sampled:
                 # grafted remote stages count exactly like locally finished
-                # spans: stats AND the per-name span counter
-                self._observe(name, dur_ms / 1e3)
+                # spans in the per-name span counter
                 from karpenter_tpu_torch import metrics
 
                 metrics.TRACE_SPANS.inc(name=name)
-
-    # -- stats ---------------------------------------------------------------
-    def _observe(self, name: str, seconds: float) -> None:
-        with self._stats_lock:
-            samples = self._stats.setdefault(name, [])
-            samples.append(seconds)
-            if len(samples) > 4096:
-                del samples[: len(samples) // 2]
-
-    def stats(self) -> Dict[str, dict]:
-        """Per-span-name {p50_ms, p99_ms, count} over everything observed
-        since the last reset() -- the bench artifact's stage breakdown."""
-        with self._stats_lock:
-            snapshot = {k: list(v) for k, v in self._stats.items()}
-        out: Dict[str, dict] = {}
-        for name, samples in snapshot.items():
-            samples.sort()
-            n = len(samples)
-
-            def q(p: float) -> float:
-                idx = min(n - 1, max(0, int(p / 100.0 * n + 0.999999) - 1))
-                return samples[idx] * 1e3
-
-            out[name] = {
-                "p50_ms": round(q(50), 3),
-                "p99_ms": round(q(99), 3),
-                "count": n,
-            }
-        return out
 
 
 class WireTrace:

@@ -9,7 +9,12 @@
   values in both packages (convex counters, quality gauges, the
   consolidation engine's counters);
 - a traced `solve()` and a traced convex `solve()` build span trees whose
-  names, in tree order, are the JAX tracer's for the same call;
+  names, in tree order, are the JAX tracer's for the same call, once the
+  port's own spans (`tracing.PORT_SPANS`) are taken out and their
+  children lifted into their parents; under a live `torch.profiler`
+  capture each span is a `karpenter::<name>` range nested as the tree
+  is, and with none live no range opens; a traced consolidation sweep
+  opens the engine's spans in order;
 - obs/hbm.py with an injected stats provider (the pressure eviction of
   TorchSolver's catalog LRU included), obs/profiler.py's capture,
   obs/flight.py's tick record and black box, and the sync witness's
@@ -57,6 +62,7 @@ from tests.test_torch_catalog import (  # noqa: F401
 )
 from tests.test_torch_consolidate import jax_sweep, sweep_pools
 from tests.test_torch_convex import world
+from tests.test_torch_oracle import build, fuzz_spec, small_items  # noqa: F401
 from tests.test_torch_quality import both_pods
 from karpenter_tpu.analysis import errwitness as jerrwitness
 from karpenter_tpu.analysis import jax_witness as jjax_witness
@@ -408,6 +414,33 @@ def tree(root):
     return out
 
 
+def lifted(root, drop=ttracing.PORT_SPANS):
+    """tree(root) with the spans named in `drop` taken out, each one's
+    children lifted into its parent in place."""
+    out = []
+
+    def walk(sp, depth):
+        if sp.name in drop:
+            for child in sp.children:
+                walk(child, depth)
+            return
+        out.append((depth, sp.name))
+        for child in sp.children:
+            walk(child, depth + 1)
+
+    walk(root, 0)
+    return out
+
+
+def spans(root):
+    out, stack = [], [root]
+    while stack:
+        sp = stack.pop()
+        out.append(sp)
+        stack.extend(sp.children)
+    return out
+
+
 def traced(tracing_mod, fn):
     with tracing_mod.trace("tick", force=True) as root:
         fn()
@@ -430,14 +463,20 @@ class TestSpans:
             kw_j, kw_t = dict(existing_nodes=jax_nodes(specs)), dict(existing_nodes=port_nodes(specs))
         jroot = traced(jtracing, lambda: js.solve(JNodePool("default"), catalog_items, jp, **kw_j))
         troot = traced(ttracing, lambda: ts.solve(TNodePool("default"), port_items, tp, **kw_t))
-        assert tree(troot) == tree(jroot)
+        assert lifted(troot) == tree(jroot)
         names = {name for _, name in tree(troot)}
         assert {"encode", "dispatch_device", "device", "decode"} <= names
+        assert {"prepare", "bound", "quality"} <= names
         if tier == "convex":
             assert {"dispatch_convex", "convex_fetch", "convex_round"} <= names
             assert troot.attributes["convex_winner"] == jroot.attributes["convex_winner"] == "convex"
         if case == "existing nodes":
-            assert "pack_existing" in names
+            pack = next(sp for sp in troot.children if sp.name == "pack_existing")
+            assert [c.name for c in pack.children] == [
+                "pack_feasibility", "pack_headroom", "pack_device", "pack_assign"]
+            assert pack.children[2].attributes["dispatch"] == {"disrupt_repack": "plain"}
+        dispatch = next(sp for sp in troot.children if sp.name == "dispatch_device")
+        assert dispatch.attributes["dispatch"] == {"ffd_solve_fused": "plain"}
 
     def test_wire_span_tree_equals_jax(self, catalog_items, port_items, tmp_path):  # noqa: F811
         """A traced wire solve: the server's echoed "device" and "fetch"
@@ -464,11 +503,134 @@ class TestSpans:
             for srv in servers:
                 srv.stop()
                 srv._thread.join(timeout=10)
-        assert tree(troot) == tree(jroot)
+        assert lifted(troot) == tree(jroot)
         wire = [c for c in troot.children if c.name == "wire"]
         assert wire and [g.name for g in wire[0].children] == ["device", "fetch"]
         assert all(g.attributes["remote"] for g in wire[0].children)
         assert {"wire_dispatch", "encode", "decode"} <= {name for _, name in tree(troot)}
+
+    def test_schedule_groups_and_routes_at_the_root(self, small_items):  # noqa: F811
+        w = build("torch", fuzz_spec(2, spread=0.0, nodes=3), small_items)
+        ts = TorchSolver(device="cpu", g_max=G)
+        root = traced(ttracing, lambda: ts.schedule(w.scheduler("price"), list(w.pods)))
+        assert ts.last_route["path"] == "device"
+        names = [c.name for c in root.children]
+        assert names[:2] == ["group", "route"] and names.count("route") == 2, names
+        group = root.children[0]
+        assert {"group_classes", "group_dirty", "group_dirty_fraction"} <= set(group.attributes)
+        assert group.attributes["group_classes"] == ts.last_group_stats["classes"]
+        assert not any(k.startswith("group_") for k in root.attributes)
+        assert "prepare" in names and "pack_existing" in names
+
+    def test_a_span_keeps_every_dispatch(self):
+        from karpenter_tpu_torch.solver import service
+
+        with ttracing.trace("tick", force=True) as root:
+            with ttracing.span("dispatch_device") as sp:
+                service._note_dispatch("ffd_solve_fused", "aot")
+                service._note_dispatch("convex_relax", "cuda")
+            service._note_dispatch("disrupt_repack", "plain")
+        service._note_dispatch("ffd_solve_fused", "plain")         # no trace: nothing
+        assert sp.attributes["dispatch"] == {"ffd_solve_fused": "aot", "convex_relax": "cuda"}
+        assert root.attributes["dispatch"] == {"disrupt_repack": "plain"}
+
+    def test_port_spans_are_not_flight_stages(self):
+        assert not set(ttracing.PORT_SPANS) & set(tflight.STAGE_NAMES)
+        assert len(set(ttracing.PORT_SPANS)) == len(ttracing.PORT_SPANS)
+
+    def test_spans_mirror_as_profiler_ranges(self, port_items, tmp_path):  # noqa: F811
+        """Under a live capture every local span is one karpenter::<name>
+        range, each child's interval inside its parent's."""
+        from torch.profiler import ProfilerActivity, profile
+
+        ts = TorchSolver(device="cpu", g_max=G)
+        nodes = workload.nodes_from_result(ts.solve(TNodePool("default"), port_items,
+                                                    both_pods(3)[1]))
+        tp = both_pods(4)[1]
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            root = traced(ttracing, lambda: ts.solve(TNodePool("default"), port_items, tp,
+                                                     existing_nodes=nodes))
+        prof.export_chrome_trace(str(tmp_path / "trace.json"))
+        with open(tmp_path / "trace.json") as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                      and e.get("name", "").startswith(ttracing.RANGE_PREFIX)]
+        events.sort(key=lambda e: (float(e["ts"]), -float(e["dur"])))
+        # tree order is start order
+        order = []
+
+        def walk(sp):
+            order.append(sp)
+            for child in sp.children:
+                walk(child)
+
+        walk(root)
+        assert "pack_feasibility" in {sp.name for sp in order}
+        assert [e["name"] for e in events] == [ttracing.RANGE_PREFIX + sp.name for sp in order]
+        of = {id(sp): e for sp, e in zip(order, events)}
+        eps = 0.01      # us: the export rounds start and length to the ns
+        for sp in order:
+            pa = of[id(sp)]
+            for child in sp.children:
+                ch = of[id(child)]
+                assert float(pa["ts"]) - eps <= float(ch["ts"])
+                assert (float(ch["ts"]) + float(ch["dur"])
+                        <= float(pa["ts"]) + float(pa["dur"]) + eps), (sp.name, child.name)
+        assert all(sp._range is None for sp in order)
+
+    def test_no_capture_no_range(self, port_items, monkeypatch):  # noqa: F811
+        """Tracing on and no capture live: not one profiler range opens;
+        with a capture live, one a span."""
+        from torch.autograd import profiler as autograd_profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        opened = []
+        real = autograd_profiler.record_function
+
+        class Counting(real):
+            def __enter__(self):
+                opened.append(self.name)
+                return super().__enter__()
+
+        monkeypatch.setattr(autograd_profiler, "record_function", Counting)
+        ts = TorchSolver(device="cpu", g_max=G)
+        nodes = workload.nodes_from_result(ts.solve(TNodePool("default"), port_items,
+                                                    both_pods(3)[1]))
+        tp = both_pods(4)[1]
+        root = traced(ttracing, lambda: ts.solve(TNodePool("default"), port_items, tp,
+                                                 existing_nodes=nodes))
+        assert len(spans(root)) > 10 and opened == []
+        with profile(activities=[ProfilerActivity.CPU]):
+            root = traced(ttracing, lambda: ts.solve(TNodePool("default"), port_items, tp,
+                                                     existing_nodes=nodes))
+        assert sorted(opened) == sorted(ttracing.RANGE_PREFIX + sp.name for sp in spans(root))
+
+    def test_sweep_spans_in_order(self, port_items):  # noqa: F811
+        """A traced evaluate opens the engine's stages under its caller's
+        span, in order, and decides as an untraced one."""
+        ts = TorchSolver(device="cpu", g_max=G)
+        tick1 = ts.solve(TNodePool("default"), port_items, both_pods(4)[1])
+        spec = workload.rampdown_sweep_spec(tick1, np.random.default_rng(1), n_cand=8)
+        s_nodes, s_sets = workload.sweep_world(spec)
+        pools, ovh = workload.sweep_pools("spot-od")
+        engine = TEngine(solver=ts)
+
+        def sweep():
+            return engine.evaluate(s_nodes, s_sets, pools=pools,
+                                   catalogs={p.name: port_items for p in pools},
+                                   daemon_overhead=ovh)
+
+        plain = sweep()
+        got = []
+        with ttracing.trace("tick", force=True) as root:
+            with ttracing.span("disruption") as caller:
+                got.append(sweep())
+        assert got[0] == plain
+        assert [c.name for c in root.children] == ["disruption"]
+        names = [c.name for c in caller.children]
+        assert names[:3] == ["encode_sets", "pool_contexts", "repack"], names
+        assert names[-1] == "assemble" and len(names) >= 5
+        assert set(names[3:-1]) == {"replace"} and len(names) - 4 <= len(pools)
 
     def test_disabled_tracing_builds_nothing(self, port_items):  # noqa: F811
         assert not ttracing.TRACER.enabled
@@ -480,12 +642,13 @@ class TestSpans:
     def test_slow_tick_recorder_and_stats(self):
         t = [0.0]
         tracer = ttracing.Tracer(enabled=True, clock=lambda: t[0], slow_ms=5.0)
+        before = tmetrics.TRACE_SPANS.value(name="encode")
         with tracer.trace("tick"):
             with tracer.span("encode"):
                 t[0] += 0.010
         dump = tracer.recorder.dump()
         assert len(dump["slow"]) == 1 and dump["worst"]["name"] == "tick"
-        assert tracer.stats()["encode"]["count"] == 1
+        assert tmetrics.TRACE_SPANS.value(name="encode") == before + 1
 
 
 # -- obs/hbm.py -------------------------------------------------------------------------
@@ -711,11 +874,18 @@ class TestSyncWitness:
 
 
 def test_decisions_unchanged_by_tracing(port_items):  # noqa: F811
-    """Tracing on or off, the tick decides the same."""
+    """Tracing on or off, under a live profiler capture or not, the tick
+    decides the same."""
+    from torch.profiler import ProfilerActivity, profile
+
     _, tp = both_pods(11)
     ts = TorchSolver(device="cpu", g_max=G)
     plain = decision_sig(ts.solve(TNodePool("default"), port_items, tp))
     with ttracing.trace("tick", force=True):
         traced_sig = decision_sig(ts.solve(TNodePool("default"), port_items, tp))
     assert traced_sig == plain
+    with profile(activities=[ProfilerActivity.CPU]):
+        with ttracing.trace("tick", force=True):
+            profiled_sig = decision_sig(ts.solve(TNodePool("default"), port_items, tp))
+    assert profiled_sig == plain
 
