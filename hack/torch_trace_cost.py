@@ -20,8 +20,9 @@ off, on, and on under a live capture): µs a span. The last line holds,
 over the traced calls of the plain phase, the spans a call opens, each
 span name's mean total ms a call, the root's time outside its child
 spans by where it sits (`before <span>`, `after the last span`), the
-dispatches the spans recorded (`entry:impl` -> count), the card's
-`nvidia-smi` name and power limit, and the three phases again.
+dispatches the spans recorded (`entry:impl` -> count), what the
+feasibility spans recorded (`feas_node_rows`, `feas_pairs` -> count), the
+card's `nvidia-smi` name and power limit, and the three phases again.
 """
 from __future__ import annotations
 
@@ -94,7 +95,7 @@ def span_us(tracing, n: int) -> dict:
 def where(roots) -> dict:
     """Each span name's mean total ms a call, the root's own time by
     where it sits among its children, and the recorded dispatches."""
-    total, gaps, dispatch = {}, {}, {}
+    total, gaps, dispatch, feasibility = {}, {}, {}, {}
     opened = 0
     for r in roots:
         stack = list(r.children)
@@ -106,6 +107,11 @@ def where(roots) -> dict:
             for entry, impl in (sp.attributes.get("dispatch") or {}).items():
                 key = f"{entry}:{impl}"
                 dispatch[key] = dispatch.get(key, 0) + 1
+            if "feas_node_rows" in sp.attributes:
+                a = sp.attributes
+                key = (f"{sp.name}: {a.get('classes')} classes x {a.get('nodes')} nodes -> "
+                       f"{a['feas_node_rows']} node rows, {a['feas_pairs']} pairs")
+                feasibility[key] = feasibility.get(key, 0) + 1
         prev = r.start
         for ch in sorted(r.children, key=lambda s: s.start):
             key = f"before {ch.name}"
@@ -121,6 +127,7 @@ def where(roots) -> dict:
         "span_total_ms": {k: 1e3 * v / n for k, v in sorted(total.items(), key=lambda kv: -kv[1])},
         "outside_spans_ms": {k: 1e3 * v / n for k, v in sorted(gaps.items(), key=lambda kv: -kv[1])},
         "dispatches": dispatch,
+        "feasibility": feasibility,
     }
 
 

@@ -135,27 +135,56 @@ def _node_feasibility(
     `class_zone_pins`, a SPREAD SUB-CLASS's pinned zone (the split pass
     marks these env_count == 0) additionally gates the node's zone.
     Ordinary classes stay pool-agnostic: a pool-derived zone requirement
-    must not block packing onto live capacity the oracle would use."""
-    C, N = len(classes), len(nodes)
-    out = np.zeros((C, N), dtype=bool)
-    for ci, pc in enumerate(classes):
+    must not block packing onto live capacity the oracle would use.
+
+    Each predicate reads only part of a node: the alternatives their own
+    label keys, the zone pin the zone label, the tolerations the taints.
+    So the predicates run once per (distinct class row, distinct node
+    signature) -- a node's values on the label keys any class reads, and
+    its taints -- on one representative node, and the [rows, U] table is
+    gathered out to [C, N]. Classes fold by their alternatives,
+    tolerations and zone pin (Requirement equality is the fields
+    `matches` reads). The span open at the call gets `feas_node_rows`
+    (U) and `feas_pairs` (predicate evaluations)."""
+    rows: Dict[tuple, int] = {}
+    preds = []          # (alternatives, tolerations, zone pin) of each row
+    class_row = []
+    for pc in classes:
         pod = pc.pods[0]
         zreq = (
             pc.requirements.get(wk.ZONE_LABEL)
             if class_zone_pins and pc.env_count == 0
             else None
         )
-        for ni, node in enumerate(nodes):
-            if not tolerates_all(pod.tolerations, node.taints):
+        alts = pod.scheduling_requirements()
+        key = (tuple(frozenset(alt) for alt in alts), tuple(pod.tolerations), zreq)
+        ri = rows.setdefault(key, len(rows))
+        if ri == len(preds):
+            preds.append((alts, pod.tolerations, zreq))
+        class_row.append(ri)
+    keys = sorted({k for alts, _, _ in preds for alt in alts for k in alt.keys()}
+                  | {wk.ZONE_LABEL for _, _, zreq in preds if zreq is not None})
+    sigs: Dict[tuple, int] = {}
+    reps: List[ExistingNode] = []
+    node_row = []
+    for node in nodes:
+        sig = (tuple([node.labels.get(k) for k in keys]), tuple(node.taints))
+        u = sigs.setdefault(sig, len(sigs))
+        if u == len(reps):
+            reps.append(node)
+        node_row.append(u)
+    table = np.zeros((len(preds), len(reps)), dtype=bool)
+    for ri, (alts, tolerations, zreq) in enumerate(preds):
+        for ui, node in enumerate(reps):
+            if not tolerates_all(tolerations, node.taints):
                 continue
             if zreq is not None:
                 node_zone = node.labels.get(wk.ZONE_LABEL)
                 if node_zone is None or not zreq.matches(node_zone):
                     continue
-            out[ci, ni] = any(
-                alt.matches_labels(node.labels) for alt in pod.scheduling_requirements()
-            )
-    return out
+            table[ri, ui] = any(alt.matches_labels(node.labels) for alt in alts)
+    tracing.annotate(feas_node_rows=len(reps), feas_pairs=table.size)
+    return table[np.ix_(class_row, node_row)]
 
 
 def _with_pool_requirements(classes: Sequence[encode.PodClass], pool: NodePool) -> List[encode.PodClass]:

@@ -475,6 +475,9 @@ class TestSpans:
             assert [c.name for c in pack.children] == [
                 "pack_feasibility", "pack_headroom", "pack_device", "pack_assign"]
             assert pack.children[2].attributes["dispatch"] == {"disrupt_repack": "plain"}
+            feas = pack.children[0].attributes
+            assert 1 <= feas["feas_node_rows"] < feas["nodes"]
+            assert feas["feas_pairs"] <= feas["classes"] * feas["feas_node_rows"]
         dispatch = next(sp for sp in troot.children if sp.name == "dispatch_device")
         assert dispatch.attributes["dispatch"] == {"ffd_solve_fused": "plain"}
 
@@ -629,6 +632,9 @@ class TestSpans:
         assert [c.name for c in root.children] == ["disruption"]
         names = [c.name for c in caller.children]
         assert names[:3] == ["encode_sets", "pool_contexts", "repack"], names
+        encode_sets = caller.children[0].attributes
+        assert 1 <= encode_sets["feas_node_rows"] <= len(s_nodes)
+        assert encode_sets["feas_pairs"] % encode_sets["feas_node_rows"] == 0
         assert names[-1] == "assemble" and len(names) >= 5
         assert set(names[3:-1]) == {"replace"} and len(names) - 4 <= len(pools)
 
