@@ -1,7 +1,9 @@
 """Faults planted under the timed path, for the correctness check to
 catch: a step that leaves its state unchanged, half of the batch left
-out, an answer altered where it is produced. One card, so no exchange
-between chips to leave out.
+out, an answer altered where it is produced, and in the merged route of
+several NodePools a node opened in the wrong pool or sized without its
+pool's daemonset reserve. One card, so no exchange between chips to
+leave out.
 
     python3 benchmark/faults.py --workload np1-50k.wave \\
         --faults none full_repack_unchanged --seeds 1 2 3 --seconds 10
@@ -82,8 +84,24 @@ def _replace_altered(orig):
     return replace
 
 
+def _pools_reversed(orig):
+    """The merged route opens each class in the lightest pool that admits
+    it, not the heaviest."""
+    def open_allowed_mask(classes, admitted_all, *a, **kw):
+        return orig(classes, [list(reversed(adm)) for adm in admitted_all], *a, **kw)
+    return open_allowed_mask
+
+
+def _reserve_dropped(orig):
+    """The merged catalog's columns leave out their pools' daemonset reserves."""
+    def build_merged(pools, catalogs, overheads=()):
+        return orig(pools, catalogs)
+    return build_merged
+
+
 def targets() -> dict:
     """fault -> (owner, attribute, wrapper of the original)."""
+    from karpenter_tpu_torch.solver import multipool
     from karpenter_tpu_torch.solver.disrupt import engine, kernel
     from karpenter_tpu_torch.solver.kernels import ffd_scan
     from karpenter_tpu_torch.solver.service import TorchSolver
@@ -97,6 +115,8 @@ def targets() -> dict:
         "repack_unchanged": (kernel, "disrupt_repack_leftover", _repack_unchanged),
         "sets_half": (engine.DisruptEngine, "evaluate", _evaluate_half),
         "replace_altered": (kernel, "disrupt_replace", _replace_altered),
+        "pools_reversed": (multipool, "open_allowed_mask", _pools_reversed),
+        "reserve_dropped": (multipool, "build_merged", _reserve_dropped),
     }
 
 

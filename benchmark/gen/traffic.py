@@ -65,12 +65,12 @@ def standing(catalog: common.Catalog, entries, templates, pods, config: dict,
              prefix: str = "node") -> List[dict]:
     """The nodes one plain tick of (template, name) `pods` opens, each in
     its pool with that pool's reserve (gen/sweep.py `cluster`)."""
-    reserve = np.zeros_like(catalog.alloc[0])
+    reserve: Dict[str, float] = {}
     for pool in config["pools"]:
-        reserve = np.maximum(reserve, (common.vector(pool["overhead"]) * common.SCALE)
-                             .astype(np.float32))
+        for axis, v in pool["overhead"].items():
+            reserve[axis] = max(reserve.get(axis, 0.0), v)
     decision = ffd.tick(catalog, classes(templates, pods), g_max=config["g_max"],
-                        objective=config["objective"], node_overhead=reserve)
+                        objective=config["objective"], pools=[ffd.Pool("standing", reserve=reserve)])
     return gs.cluster(entries, decision, {n: t for t, n in pods}, templates, config["pools"],
                       prefix=prefix)
 

@@ -89,12 +89,12 @@ class Provision:
         cat: common.Catalog = inputs["catalog"]
         self.zones = cat.zones
         self.n_calls = len(inputs["calls"])
+        self.pools_plain = ffd.pools(config)
+        self.routes: Dict[str, int] = {}      # the solver's route of each call, by path
         if device is None:
             return
         self.items = program.instance_types(inputs["entries"])
         self.pools = program.nodepools(config)
-        if len(self.pools) != 1:
-            raise ValueError("the provisioning reference models one NodePool")
         self.overhead = program.daemon_overhead(config) or None
         factory = program.PodFactory(inputs["templates"])
         self.batches = [factory.pods(c["pods"]) for c in inputs["calls"]]
@@ -109,11 +109,18 @@ class Provision:
         program.warm(self.solver, self.ladder, self.items)
         for i in range(len(self.batches)):
             self.call(i)()
+        self.routes.clear()
 
     def call(self, i: int):
         pods = self.batches[i % len(self.batches)]
         sched = program.scheduler(self.pools, self.items, self.zones, self.standing, self.overhead)
-        return lambda: self.solver.schedule(sched, pods)
+
+        def schedule():
+            out = self.solver.schedule(sched, pods)
+            path = self.solver.last_route["path"]
+            self.routes[path] = self.routes.get(path, 0) + 1
+            return out
+        return schedule
 
     def work(self, i: int) -> int:
         return len(self.inputs["calls"][i % self.n_calls]["pods"])
@@ -131,20 +138,23 @@ class Provision:
         if self.inputs["standing"]:
             where, placed = ffd.pack_existing(classes, self.inputs["standing"], precision, walked)
         out = ffd.tick(self.inputs["catalog"], classes, g_max=self.config["g_max"],
-                       objective=self.config["objective"], precision=precision,
-                       placed=placed, joined=joined)
+                       objective=self.config["objective"], pools=self.pools_plain,
+                       precision=precision, placed=placed, joined=joined)
         out["existing"] = where
         return out
 
     def compare(self, got: dict, want: dict, i: int) -> Dict[str, float]:
-        return ffd.compare(self.inputs["catalog"], got, want, self.work(i))
+        return ffd.compare(self.inputs["catalog"], got, want, self.work(i), self.pools_plain)
 
     def bounds(self, i: int) -> Dict[str, float]:
+        """Kernel A over the columns the reference scanned (one a (pool,
+        type) pair: the merged catalog under several pools) and the pairs
+        it joined; kernel B's full entry over the nodes it walked."""
         joined: list = []
         walked: list = []
-        self.reference(i, joined=joined, walked=walked)
-        out = {"ffd_scan": counts.ffd_scan_ms(joined, len(joined), self.inputs["catalog"].K,
-                                              common.R, self.config["g_max"])}
+        scanned = self.reference(i, joined=joined, walked=walked)["columns"]
+        out = {"ffd_scan": counts.ffd_scan_ms(joined, len(joined), scanned, common.R,
+                                              self.config["g_max"])}
         if walked:
             w, member, n_nodes = walked[0]
             out["disrupt_repack"] = counts.disrupt_repack_ms(
@@ -161,6 +171,7 @@ class Sweep:
         self.n_calls = len(inputs["calls"])
         self.pools_plain = [(p["name"], p["captype"], p["weight"], p["overhead"])
                             for p in config["pools"]]
+        self.routes: Dict[str, int] = {}
         if device is None:
             return
         from karpenter_tpu_torch.solver.disrupt.engine import DisruptEngine
@@ -229,12 +240,17 @@ class Trace:
     """What the per-layer readers read from one traced window."""
 
     def __init__(self, calls: List[dict], kernels: List[tuple], busy_us: float,
-                 window_us: float, bounds: List[Dict[str, float]]):
+                 window_us: float, bounds: List[Dict[str, float]],
+                 marks: Optional[List[tuple]] = None):
         self.calls = calls            # per call: wall_s, root span (program spans below it)
         self.kernels = kernels        # (name, start_us, dur_us) of every kernel launch
         self.busy_us = busy_us        # union of kernel and copy intervals
         self.window_us = window_us    # first call's start to last call's end
         self.bounds = bounds          # per call: kernel -> least time (ms)
+        # per call: (start_us, end_us) of its marker on the kernels' clock;
+        # a call's kernels start inside it (the call ends in a sync). None
+        # when the profile's markers do not match the calls one for one
+        self.marks = marks
 
 
 def span_ms(root, name: str, self_time: bool) -> float:
@@ -321,6 +337,7 @@ def _read_profile(prof, roots, out) -> dict:
         ops[name] = ops.get(name, 0.0) + dur / 1e6
     top = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]  # noqa: E731
     return {"kernels": kernels, "busy_us": busy_us, "window_us": w1 - w0,
+            "marks": marks if len(marks) == len(roots) else None,
             "breakdown": {"device_ops": top(ops), "idle_gaps": top(gaps)}}
 
 
@@ -423,6 +440,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
     by_input: Dict[int, List[float]] = {}
     for c in calls:
         by_input.setdefault(c["index"] % driver.n_calls, []).append(c["wall_s"])
+    if driver.routes:
+        print(f"routes: {json.dumps(driver.routes)}", file=out)
     print("median ms by call input: " + json.dumps(
         {k: round(1e3 * sorted(v)[len(v) // 2], 3) for k, v in sorted(by_input.items())}), file=out)
     if len(walls) >= 10:
@@ -443,7 +462,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
     if trace:
         traced = [c for c in calls if c["root"] is not None]
         prof_doc = _read_profile(prof, [c["root"] for c in traced], out) if on_card else {
-            "kernels": [], "busy_us": 0.0, "window_us": window_s * 1e6, "breakdown": None}
+            "kernels": [], "busy_us": 0.0, "window_us": window_s * 1e6, "marks": None,
+            "breakdown": None}
         bound_of: Dict[int, Dict[str, float]] = {}
         for c in traced:
             key = c["index"] % driver.n_calls
@@ -451,7 +471,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
                 bound_of[key] = driver.bounds(c["index"])
         tr = Trace(traced, prof_doc["kernels"], prof_doc["busy_us"],
                    prof_doc["window_us"], [bound_of[c["index"] % driver.n_calls]
-                                           for c in traced])
+                                           for c in traced], prof_doc["marks"])
         for m in doc["per_layer"]:
             if workload not in m.get("workloads", [workload]):
                 continue

@@ -44,14 +44,18 @@ def instance_types(entries: Sequence[dict]) -> list:
 
 
 def nodepools(config: dict) -> list:
-    """The config's NodePools; a pool with a capacity type requires it."""
+    """The config's NodePools; a pool with a capacity type requires it, and
+    carries its taints ((key, value, effect)) on its template."""
     from karpenter_tpu_torch.apis import NodePool
-    from karpenter_tpu_torch.scheduling import Requirement
+    from karpenter_tpu_torch.apis.nodepool import NodeClaimTemplate
+    from karpenter_tpu_torch.scheduling import Requirement, Taint
 
     out = []
     for p in config["pools"]:
         reqs = [Requirement(CAPACITY_TYPE_LABEL, "In", [p["captype"]])] if p["captype"] else []
-        out.append(NodePool(p["name"], weight=p["weight"], requirements=reqs))
+        template = NodeClaimTemplate(taints=[Taint(key, effect, value)
+                                             for key, value, effect in p.get("taints", ())])
+        out.append(NodePool(p["name"], weight=p["weight"], requirements=reqs, template=template))
     return out
 
 
@@ -139,7 +143,8 @@ def scheduler(pools, items, zones, existing=(), overhead=None):
 
 
 def decision(result, zones: Sequence[str]) -> dict:
-    """A SchedulingResult in the reference's plain form."""
+    """A SchedulingResult in the reference's plain form, each new node's
+    NodePool beside it."""
     nodes = []
     for g in result.new_groups:
         zr = g.requirements.get(ZONE_LABEL)
@@ -150,7 +155,8 @@ def decision(result, zones: Sequence[str]) -> dict:
             frozenset(z for z in zones if zr is None or zr.matches(z)),
             frozenset(c for c in CAPTYPES if cr is None or cr.matches(c)),
         ))
-    return {"nodes": nodes, "unschedulable": sorted(result.unschedulable),
+    return {"nodes": nodes, "pools": [g.nodepool.name for g in result.new_groups],
+            "unschedulable": sorted(result.unschedulable),
             "existing": dict(result.existing_assignments)}
 
 

@@ -159,8 +159,9 @@ def group(specs) -> List[PodClass]:
 def admits(pc: PodClass, catalog: Catalog, pool_captype: str = "") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(compat [K] bool, allowed zones [Z] bool, allowed captypes [CT] bool)
     of one class on a pool that admits every capacity type, or only
-    `pool_captype`. No pool here carries taints, so every class is
-    schedulable on each."""
+    `pool_captype`. `catalog` may be a catalog or ffd.Columns. Taints are
+    the caller's: the provisioning tick gates them per pool, the sweep's
+    pools carry none."""
     zone = pc.selector.get(ZONE_LABEL)
     azone = np.array([zone is None or z == zone for z in catalog.zones])
     ct = pc.selector.get(CAPACITY_TYPE_LABEL)

@@ -1,20 +1,36 @@
-"""Plain reference of a provisioning tick on one NodePool: which new nodes
-open, of which types, zones and capacity types, and which pods each holds.
+"""Plain reference of a provisioning tick over weighted NodePools: which new
+nodes open, in which pool, of which types, zones and capacity types, and
+which pods each holds.
 
-The semantics, worked out here from the plain inputs:
+The semantics (Karpenter's provisioning simulation: karpenter.sh,
+"NodePools", "Weighted NodePools"), worked out here from the plain inputs:
+- a pool offers one column per type it admits: the type's offerings of
+  the pool's capacity type (all of them for a pool without one), and the
+  type's allocatable less the pool's daemonset reserve. Pools come in
+  weight order, heaviest first;
 - classes in first-fit-decreasing order (common.group); for each class,
-  its pods first fill the open nodes in the order they opened, each node
-  taking as many as fit the tightest of its surviving types;
-- what is left opens new nodes. Under the price objective a class sizes
-  them by its price envelope: among the types a fresh node may open with,
-  the one that serves the class's remaining pods at the least price
-  (price x nodes needed; a type serving under half the largest fit is
-  not eligible); the new nodes keep every type at least as big and no
-  dearer. Pods then go to the new nodes, as many as that size each;
-- a node's surviving types are those that still hold everything placed on
-  it, in the zones and capacity types every class on it admits;
-- a node is reported with its surviving types, cheapest offering first,
-  and the pods of each class in the order the class lists them.
+  its pods first fill the open nodes in the order they opened, whatever
+  their pool, each node taking as many as fit the tightest of its
+  surviving columns. A class may use a column when it tolerates the
+  pool's taints and the type offers a zone and a capacity type the class
+  admits; keys a pool leaves undefined do not bind;
+- what is left opens new nodes, only in the class's opening pool: the
+  first pool in weight order that admits the class (its capacity type
+  compatible with the class's selector, its taints tolerated) and where
+  a fresh node of some column holds one pod. Under the price objective a
+  class sizes them by its price envelope: among the columns a fresh node
+  may open with, the one that serves the class's remaining pods at the
+  least price (price x nodes needed; a column serving under half the
+  largest fit is not eligible); the new nodes keep every column at least
+  as big and no dearer. Classes whose requirements coincide once the
+  opening pool's merge in share one envelope. Pods then go to the new
+  nodes, as many as that size each;
+- a node's surviving columns are those that still hold everything placed
+  on it, in the zones and capacity types every class on it admits; they
+  are all of the pool it opened in;
+- a node is reported with its pool, its surviving types, cheapest
+  offering first, and the pods of each class in the order the class
+  lists them.
 
 `tick` returns the decision in the plain form `compare` reads; the same
 form is what the benchmark makes of the program's result.
@@ -25,11 +41,87 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from gen.catalog import CAPACITY_TYPE_LABEL
 from reference.common import (
-    CAPTYPES, Catalog, PodClass, Precision, admits, bits, joint_ok,
+    CAPTYPES, SCALE, Catalog, PodClass, Precision, admits, bits, joint_ok, vector,
 )
 
 F32 = np.float32
+BLOCKING = ("NoSchedule", "NoExecute")
+
+
+class Pool:
+    """A NodePool as the reference reads it: name, weight, the capacity
+    type it requires ("" for none), its daemonset reserve (base units by
+    axis name) and its taints as (key, value, effect)."""
+
+    __slots__ = ("name", "weight", "captype", "reserve", "taints")
+
+    def __init__(self, name: str, weight: int = 0, captype: str = "",
+                 reserve: Optional[Dict[str, float]] = None, taints=()):
+        self.name, self.weight, self.captype = name, weight, captype
+        self.reserve = vector(reserve or {})
+        self.taints = tuple(tuple(t) for t in taints)
+
+    def admits(self, pc: PodClass) -> bool:
+        """The pool may open a node for the class: its capacity type does
+        not contradict the class's selector, and the class tolerates its
+        taints."""
+        ct = pc.selector.get(CAPACITY_TYPE_LABEL)
+        return (not self.captype or ct in (None, self.captype)) and tolerates(
+            pc.tolerations, self.taints)
+
+
+def pools(config: dict) -> List[Pool]:
+    """The configuration's NodePools in weight order (ties keep the file's)."""
+    out = [Pool(p["name"], p["weight"], p["captype"], p["overhead"], p.get("taints", ()))
+           for p in config["pools"]]
+    return sorted(out, key=lambda q: -q.weight)
+
+
+def tolerates(tolerations, taints) -> bool:
+    """Kubernetes' rule: each taint that blocks scheduling is tolerated by
+    some (key, operator, value, effect) toleration."""
+    def one(tol, taint) -> bool:
+        key, op, value, effect = tol
+        if effect and effect != taint[2]:
+            return False
+        if op == "Exists":
+            return key in ("", taint[0])
+        return key == taint[0] and value == taint[1]
+
+    return all(t[2] not in BLOCKING or any(one(tol, t) for tol in tolerations) for t in taints)
+
+
+class Columns:
+    """The columns a tick scans: one per (pool, type the pool offers), the
+    pools in weight order, types in catalog order. Read by common.admits
+    as a catalog: allocatable [K, R] (scaled, float32, less the pool's
+    reserve, rounded once), arch, zone|captype bits, the price tensor
+    [K, Z, CT] (+inf where the pool does not offer), the decode order
+    (columns by their cheapest offering, stable), each column's pool and
+    type, and the capacity types each pool admits [P, CT]."""
+
+    def __init__(self, catalog: Catalog, pools: Sequence[Pool]):
+        self.zones = catalog.zones
+        self.captypes = ct_ok = np.array([[not q.captype or c == q.captype for c in CAPTYPES]
+                                          for q in pools])
+        offered = np.isfinite(catalog.price)[None, :, :, :] & ct_ok[:, None, None, :]
+        self.pool, self.type = np.nonzero(offered.any(axis=(2, 3)))
+        self.K = len(self.type)
+        self.price = np.where(ct_ok[self.pool][:, None, :], catalog.price[self.type],
+                              F32(np.inf)).astype(F32)
+        has = np.isfinite(self.price)
+        self.tzc = bits(has.any(axis=2), has.any(axis=1))
+        reserve = np.stack([q.reserve for q in pools])
+        self.alloc = ((catalog.alloc64[self.type] - reserve[self.pool]) * SCALE).astype(F32)
+        self.arch = catalog.arch[self.type]
+        self.names = [catalog.names[k] for k in self.type]
+        admitted = [tuple(CAPTYPES[i] for i in np.nonzero(row)[0]) for row in ct_ok]
+        cheapest = np.array([min(o[3] for o in catalog.entries[k]["offerings"]
+                                 if o[0] in admitted[q])
+                             for q, k in zip(self.pool, self.type)])
+        self.order = np.argsort(cheapest, kind="stable")
 
 
 def fit_counts(cap: np.ndarray, accum: np.ndarray, req: np.ndarray, p: Precision) -> np.ndarray:
@@ -51,59 +143,99 @@ def to_i(x) -> np.ndarray:
     return np.clip(x, -(2**31), 2**31 - 1).astype(np.int64)
 
 
-def envelopes(classes: Sequence[PodClass]) -> np.ndarray:
-    """Price-envelope pod counts: classes whose requirements coincide under
-    the pool share one envelope (the first counts the later ones' pods in,
-    the later ones are pinned to the whole); -1 is the class's own
-    remaining pods. On one pool without requirements of its own, classes
-    coincide only if they are the same class, so every envelope is -1."""
+def envelope_key(pc: PodClass, pool: Pool) -> tuple:
+    """The class's requirements with the pool's merged in: requests,
+    node selector (the pool's capacity type added; a contradiction kept
+    as both values), tolerations."""
+    selector = dict(pc.selector)
+    if pool.captype:
+        ct = selector.get(CAPACITY_TYPE_LABEL, pool.captype)
+        selector[CAPACITY_TYPE_LABEL] = pool.captype if ct == pool.captype else (ct, pool.captype)
+    return (tuple(pc.req.tolist()), tuple(sorted(selector.items())), pc.tolerations)
+
+
+def envelopes(classes: Sequence[PodClass], opening: Sequence[int],
+              pools: Sequence[Pool]) -> np.ndarray:
+    """Price-envelope pod counts. Keyed by (opening pool, class key under
+    it): the first class of a key counts in the pods of every later class
+    whose key under that pool coincides (-(1 + those pods)), and a later
+    class of the same key and pool is pinned to the whole from the first
+    on; -1 is the class's own remaining pods. On one pool without
+    requirements of its own, classes coincide only if they are the same
+    class, so every envelope is -1."""
     env = np.full((len(classes),), -1, dtype=np.int64)
+    keys_under: Dict[int, list] = {}
     first: Dict[tuple, int] = {}
-    keys = [(tuple(pc.req.tolist()), tuple(sorted(pc.selector.items())), pc.tolerations)
-            for pc in classes]
-    for c, key in enumerate(keys):
-        f = first.get(key)
+    for c in range(len(classes)):
+        q = opening[c]
+        if q < 0:
+            continue
+        if q not in keys_under:
+            keys_under[q] = [envelope_key(pc, pools[q]) for pc in classes]
+        keys = keys_under[q]
+        f = first.get((q, keys[c]))
         if f is None:
-            first[key] = c
-            tail = sum(len(classes[j].pods) for j in range(c + 1, len(classes)) if keys[j] == key)
+            first[(q, keys[c])] = c
+            tail = sum(len(classes[j].pods) for j in range(c + 1, len(classes)) if keys[j] == keys[c])
             if tail:
                 env[c] = -(1 + tail)
         else:
-            env[c] = sum(len(classes[j].pods) for j in range(f, len(classes)) if keys[j] == key)
+            env[c] = sum(len(classes[j].pods) for j in range(f, len(classes)) if keys[j] == keys[c])
     return env
 
 
 def tick(catalog: Catalog, classes: Sequence[PodClass], *, g_max: int, objective: str = "price",
-         node_overhead: Optional[np.ndarray] = None, placed: Optional[np.ndarray] = None,
+         pools: Optional[Sequence[Pool]] = None, placed: Optional[np.ndarray] = None,
          precision: Precision = Precision(), joined: Optional[list] = None) -> dict:
-    """The new nodes for `classes` on an empty pool (after `placed[c]` pods
-    of class c went to existing nodes). `joined`, when given, gets for each
-    class step the (open node, type) pairs that join, the nodes open
-    before it and whether the class has a type: the scan's work, for the
+    """The new nodes for `classes` over `pools` in weight order (one pool
+    without requirements or reserve when None), after `placed[c]` pods of
+    class c went to existing nodes. `joined`, when given, gets for each
+    class step the (open node, column) pairs that join, the nodes open
+    before it and whether the class has a column: the scan's work, for the
     roofline counts."""
     p = precision
-    C, K = len(classes), catalog.K
-    ovh = np.zeros_like(catalog.alloc[0]) if node_overhead is None else node_overhead
-    cap = p.q(np.maximum(catalog.alloc - ovh[None, :], F32(0)))
+    pools = list(pools) if pools else [Pool("")]
+    cols = Columns(catalog, pools)
+    C, K = len(classes), cols.K
+    cap = p.q(np.maximum(cols.alloc, F32(0)))
     placed = np.zeros((C,), dtype=np.int64) if placed is None else placed
+    # what a class may use and where it opens depend on the class alone
+    compat_all, azc_all, price_all, n_fresh_all, opening = [], [], [], [], []
+    for pc in classes:
+        compat, azone, acap = admits(pc, cols)
+        tolerated = np.array([tolerates(pc.tolerations, q.taints) for q in pools])
+        compat = compat & tolerated[cols.pool]
+        n_fresh = np.where(compat, fit_counts(cap, np.zeros((1, cap.shape[1]), F32),
+                                              p.q(pc.req), p)[0], F32(0))
+        room = compat & (n_fresh >= 1)
+        opening.append(next((qi for qi, q in enumerate(pools)
+                             if q.admits(pc) and room[cols.pool == qi].any()), -1))
+        azc_all.append((azone, acap))
+        compat_all.append(compat)
+        n_fresh_all.append(n_fresh)
+        price_all.append(p.q(np.where(
+            compat, cols.price[:, azone][:, :, acap].min(axis=(1, 2), initial=np.inf),
+            np.inf).astype(F32)))
     G = g_max
     accum = np.zeros((G, cap.shape[1]), dtype=F32)
     gmask = np.zeros((G, K), dtype=bool)
     gzc = np.zeros((G,), dtype=np.int64)
+    gpool = np.zeros((G,), dtype=np.int64)
     take = np.zeros((C, G), dtype=np.int64)
     unplaced = np.zeros((C,), dtype=np.int64)
-    env_all = envelopes(classes)
+    env_all = envelopes(classes, opening, pools)
     n_open = 0
     for c, pc in enumerate(classes):
-        compat, azone, acap = admits(pc, catalog)
+        compat, n_fresh, price = compat_all[c], n_fresh_all[c], price_all[c]
+        azone, acap = azc_all[c]
         azc = bits(azone, acap)
         req = p.q(pc.req)
         count = len(pc.pods) - int(placed[c])
         env = int(env_all[c])
-        # the open nodes first
+        # the open nodes first, in any pool
         n = n_open
         gzc_new = gzc[:n] & azc
-        m = gmask[:n] & compat[None, :] & joint_ok(gzc_new[:, None] & catalog.tzc[None, :])
+        m = gmask[:n] & compat[None, :] & joint_ok(gzc_new[:, None] & cols.tzc[None, :])
         if joined is not None:
             joined.append((int(m.sum()), n, bool(compat.any())))
         n_fit = fit_counts(cap, accum[:n], req, p)
@@ -111,11 +243,9 @@ def tick(catalog: Catalog, classes: Sequence[PodClass], *, g_max: int, objective
         cum_before = np.cumsum(n_grp) - n_grp
         t_old = np.minimum(np.maximum(count - cum_before, 0), n_grp)
         leftover = count - int(t_old.sum())
-        # then fresh nodes
-        n_fresh = np.where(compat, fit_counts(cap, np.zeros((1, cap.shape[1]), F32), req, p)[0], F32(0))
-        fresh = compat
-        price = p.q(np.where(compat, catalog.price[:, azone][:, :, acap].min(axis=(1, 2), initial=np.inf),
-                             np.inf).astype(F32))
+        # then fresh nodes, in the opening pool only
+        q = opening[c]
+        fresh = compat & (cols.pool == q)
         max_fit_f = np.where(fresh, n_fresh, F32(0)).max(initial=F32(0))
         per_new_fit = int(to_i(max_fit_f))
         if objective == "price":
@@ -146,17 +276,23 @@ def tick(catalog: Catalog, classes: Sequence[PodClass], *, g_max: int, objective
         new = slice(n_open, n_open + n_new)
         accum[new] = p.q(t_new.astype(F32)[:, None] * req[None, :])
         gmask[new] = open_mask[None, :] & (t_new.astype(F32)[:, None] <= n_fresh[None, :])
-        gzc[new] = azc
+        if n_new:
+            gzc[new] = bits(azone, acap & cols.captypes[q])
+            gpool[new] = q
         take[c, :n] = t_old
         take[c, new] = t_new
         n_open += n_new
-    return decode(catalog, classes, take, unplaced, n_open, gmask, gzc, placed)
+    out = decode(cols, classes, take, unplaced, n_open, gmask, gzc, placed,
+                 [pools[q].name for q in gpool])
+    out["columns"] = K
+    return out
 
 
-def decode(catalog: Catalog, classes, take, unplaced, n_open, gmask, gzc, placed) -> dict:
+def decode(cols: Columns, classes, take, unplaced, n_open, gmask, gzc, placed, pool_of) -> dict:
     """The decision in plain form: `nodes` as (type names cheapest first,
-    pod names, zones, capacity types), `unschedulable` pod names."""
-    nodes = []
+    pod names, zones, capacity types), the `pools` they open in (node slot
+    g in pool_of[g]), `unschedulable` pod names."""
+    nodes, node_pools = [], []
     unsched: List[str] = []
     offset = placed.astype(np.int64).copy()
     for g in range(n_open):
@@ -167,24 +303,28 @@ def decode(catalog: Catalog, classes, take, unplaced, n_open, gmask, gzc, placed
             offset[c] += n
         if not pods:
             continue
-        types = [catalog.names[k] for k in catalog.order if gmask[g, k]]
+        types = [cols.names[k] for k in cols.order if gmask[g, k]]
         if not types:
             unsched.extend(pods)
             continue
-        zones = frozenset(z for i, z in enumerate(catalog.zones) if gzc[g] >> i & 1)
+        zones = frozenset(z for i, z in enumerate(cols.zones) if gzc[g] >> i & 1)
         captypes = frozenset(ct for i, ct in enumerate(CAPTYPES) if gzc[g] >> (8 + i) & 1)
         nodes.append((tuple(types), tuple(pods), zones, captypes))
+        node_pools.append(pool_of[g])
     for c in np.nonzero(unplaced > 0)[0]:
         unsched.extend(classes[c].pods[offset[c]: offset[c] + int(unplaced[c])])
-    return {"nodes": nodes, "unschedulable": sorted(unsched), "n_open": n_open}
+    return {"nodes": nodes, "pools": node_pools, "unschedulable": sorted(unsched),
+            "n_open": n_open}
 
 
-def node_price(catalog: Catalog, node) -> float:
+def node_price(catalog: Catalog, node, captype: str = "") -> float:
     """$/h of the node a decision launches: the cheapest offering of its
-    first type in a zone and capacity type it admits."""
+    first type in a zone and capacity type it admits, of its pool's
+    capacity type `captype` ("" for any)."""
     types, _, zones, captypes = node
     k = catalog.names.index(types[0])
-    offers = [o[3] for o in catalog.entries[k]["offerings"] if o[1] in zones and o[0] in captypes]
+    offers = [o[3] for o in catalog.entries[k]["offerings"]
+              if o[1] in zones and o[0] in captypes and captype in ("", o[0])]
     return min(offers) if offers else float("inf")
 
 
@@ -194,7 +334,6 @@ def pack_existing(classes: Sequence[PodClass], nodes: Sequence[dict],
     order and node order, before any new node opens: (pod -> node name,
     pods placed of each class). `walked`, when given, gets the repack's
     (nodes walked [1, C], members [1, C], nodes)."""
-    from reference.common import SCALE, vector
     from reference.sweep import node_feasible, repack
 
     p = precision
@@ -222,13 +361,17 @@ def pack_existing(classes: Sequence[PodClass], nodes: Sequence[dict],
     return where, placed
 
 
-def compare(catalog: Catalog, got: dict, want: dict, n_pods: int) -> Dict[str, float]:
+def compare(catalog: Catalog, got: dict, want: dict, n_pods: int,
+            pools: Sequence[Pool] = ()) -> Dict[str, float]:
     """The numbers a provisioning check holds at 0: pods placed on another
-    standing node; new nodes that differ in position, type list, pods,
-    zones or capacity types; pods not decided exactly once; the relative
-    gap of the fleet's price."""
+    standing node; new nodes that differ in position, pool, type list,
+    pods, zones or capacity types; pods not decided exactly once; the
+    relative gap of the fleet's price, each node priced in its pool."""
     g, w = got["nodes"], want["nodes"]
-    nodes_diff = sum(1 for a, b in zip(g, w) if a != b) + abs(len(g) - len(w))
+    g_pools = got.get("pools") or [None] * len(g)
+    w_pools = want.get("pools") or [None] * len(w)
+    nodes_diff = sum(1 for a, b, pa, pb in zip(g, w, g_pools, w_pools) if a != b or pa != pb)
+    nodes_diff += abs(len(g) - len(w))
     got_ex, want_ex = got.get("existing", {}), want.get("existing", {})
     existing_diff = len(set(got_ex.items()) ^ set(want_ex.items()))
     seen: Dict[str, int] = {}
@@ -240,8 +383,9 @@ def compare(catalog: Catalog, got: dict, want: dict, n_pods: int) -> Dict[str, f
     once = sum(1 for v in seen.values() if v == 1)
     pods_off = (n_pods - once) + sum(1 for v in seen.values() if v != 1)
     pods_off += abs(len(set(got["unschedulable"]) ^ set(want["unschedulable"])))
-    price_g = sum(node_price(catalog, n) for n in g)
-    price_w = sum(node_price(catalog, n) for n in w)
+    captype = {q.name: q.captype for q in pools}
+    price_g = sum(node_price(catalog, n, captype.get(q, "")) for n, q in zip(g, g_pools))
+    price_w = sum(node_price(catalog, n, captype.get(q, "")) for n, q in zip(w, w_pools))
     gap = abs(price_g - price_w) / price_w if price_w else float(price_g != price_w)
     return {"existing_differ": float(existing_diff), "nodes_differ": float(nodes_diff),
             "pods_not_once": float(pods_off), "price_gap": float(gap)}

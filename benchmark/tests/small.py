@@ -1,7 +1,8 @@
 """A manifest with test-sized cells beside the real ones: the same mixes
 over configurations cut to 3,000 and 5,000 pods (tests/data), the wave cut with them
 (tests/data/wave-small.json: 600-pod waves against the nodes of a
-3,000-pod tick)."""
+3,000-pod tick). The spot-od-small provisioning cells take the merged
+route of two weighted pools."""
 import copy
 import json
 from pathlib import Path
@@ -22,7 +23,8 @@ def manifest() -> dict:
     return doc
 
 
-CELLS = ("np1-small.burst", "np1-small.wave", "spot-od-small.steady")
+CELLS = ("np1-small.burst", "np1-small.wave", "spot-od-small.steady", "spot-od-small.burst",
+         "spot-od-small.wave")
 # mixes of the test-sized cells that are not the real cells' own
 # (the harness reads benchmark/traffic/<mix>.json)
 MIXES = {"wave": "../tests/data/wave-small"}

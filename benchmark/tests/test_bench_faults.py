@@ -1,7 +1,10 @@
 """A whole run on the CPU (the harness past its look for a card) comes
 out correct, and comes out not correct with the timed path broken
 underneath by each fault of benchmark/faults.py."""
+import copy
 import io
+import json
+from pathlib import Path
 
 import pytest
 
@@ -36,3 +39,36 @@ def test_a_broken_path_is_not_correct(fault):
     with faults.planted(fault):
         doc = run(CELL_OF[fault])
     assert not doc["correct"], doc["checks"]
+
+
+@pytest.mark.parametrize("cell", ["spot-od-small.burst", "spot-od-small.wave"])
+def test_two_pool_runs_take_the_merged_route_and_are_correct(cell):
+    log = io.StringIO()
+    doc = harness.run(cell, 2**31 + 29, 1.0, False, device="cpu", doc=DOC, out=log)
+    assert doc["correct"], doc["checks"]
+    assert all(v["value"] == 0 for v in doc["checks"].values())
+    routes = json.dumps({"merged": doc["attempted"]})
+    assert f"routes: {routes}" in log.getvalue()
+
+
+@pytest.mark.parametrize("fault", ["pools_reversed", "reserve_dropped"])
+def test_a_broken_merged_route_moves_nodes(fault):
+    harness.program.load(harness.cache_dirs())
+    with faults.planted(fault):
+        doc = run("spot-od-small.burst")
+    assert doc["checks"]["nodes_differ"]["value"] > 0, doc["checks"]
+
+
+def test_a_tainted_pool_run_is_correct(tmp_path):
+    """The spot pool tainted: only classes that tolerate it open there, and
+    the merged route gates joins by the taint as the reference does."""
+    config = json.loads((Path(__file__).parent / "data" / "spot-od-small.json").read_text())
+    config["pools"][0]["taints"] = [["dedicated", "", "NoSchedule"]]
+    (tmp_path / "tainted.json").write_text(json.dumps(config))
+    doc = copy.deepcopy(DOC)
+    doc["configs"].append({"name": "tainted", "file": str(tmp_path / "tainted.json")})
+    doc["workloads"].append({"name": "tainted.burst", "config": "tainted", "traffic": "burst",
+                             "chips": 1})
+    got = harness.run("tainted.burst", 2**31 + 3, 1.0, False, device="cpu", doc=doc,
+                      out=io.StringIO())
+    assert got["correct"], got["checks"]

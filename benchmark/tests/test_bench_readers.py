@@ -91,3 +91,25 @@ def test_none_without_its_spans(metric):
     # read there, the same quantities
     assert got == {"untraced_ms.tick": pytest.approx(1.0),
                    "pack_existing_total_ms.tick": pytest.approx(9.0)}.get(metric)
+
+
+def test_kernel_a_roofline_counts_each_launch_of_a_tick():
+    """Tick 0 launches kernel A once, tick 1 twice (the dense refetch): the
+    least time counts once per launch, against the launches' time."""
+    marks = [(0.0, 100.0), (200.0, 300.0)]
+    kernels = [("ffd_scan_kernel", 10.0, 2.0), ("other", 20.0, 5.0),
+               ("ffd_scan_kernel", 210.0, 3.0), ("ffd_scan_kernel", 250.0, 3.0)]
+    bounds = [{"ffd_scan": 0.001}, {"ffd_scan": 0.002}]
+    read = harness.reader("ffd_scan_roofline.tick")
+    tr = harness.Trace([{}, {}], kernels, 13.0, 300.0, bounds, marks)
+    assert read(tr) == pytest.approx(100.0 * (0.001 + 2 * 0.002) / (8.0 / 1e3))
+    # a tick without a launch in the trace, or markers that do not match the ticks
+    assert read(harness.Trace([{}, {}], kernels[:2], 7.0, 300.0, bounds, marks)) is None
+    assert read(harness.Trace([{}, {}], kernels, 13.0, 300.0, bounds, None)) is None
+
+
+def test_pack_existing_reads_nothing_without_standing_nodes():
+    """A burst tick on an empty cluster opens no `pack_existing` span."""
+    read = harness.reader("pack_existing_ms.tick")
+    assert read(trace_of([("encode", 1.0, {}, []), ("decode", 2.0, {}, [])], [1.0])) is None
+    assert read(trace_of(PARENT, [1.0])) == pytest.approx(9.0)

@@ -73,6 +73,73 @@ def test_pack_existing_first_fit_in_node_order():
     assert ffd.tick(CATALOG, cls, g_max=8, placed=placed)["nodes"] == []
 
 
+# two weighted pools over types offered on-demand and spot: spot first
+# (weight 100) with a 500-millicore daemonset reserve, on-demand after
+def entry2(name, cpu, price_od, price_spot):
+    e = entry(name, cpu, 8192, 20, price_od)
+    e["offerings"].append(("spot", Z, "z1", price_spot))
+    return e
+
+
+CATALOG2 = common.Catalog([entry2("small", 2000, 1.0, 0.4), entry2("big", 4000, 1.5, 0.6)])
+SPOT = {"name": "spot", "weight": 100, "captype": "spot", "overhead": {"cpu": 500.0}}
+OD = {"name": "on-demand", "weight": 10, "captype": "on-demand", "overhead": {}}
+OD_SEL = {CAPACITY_TYPE_LABEL: "on-demand"}
+
+
+def pods(prefix, n, cpu, selector=None, tolerations=()):
+    return [(f"{prefix}{i}", {"cpu": cpu, "memory": 1024.0 * 2**20}, selector or {},
+             list(tolerations)) for i in range(n)]
+
+
+def test_weighted_pools_open_join_and_record_the_pool():
+    """P (1 cpu, pinned on-demand) opens in the lighter pool: small holds 2
+    at $1.0. U (0.5 cpu, either capacity type) comes later: two pods join
+    P's on-demand node, the third opens in the heavier spot pool, where
+    small holds 3 under the reserve at $0.4."""
+    cls = common.group(pods("p", 1, 1000.0, OD_SEL) + pods("u", 3, 500.0))
+    pools = ffd.pools({"pools": [OD, SPOT]})
+    assert [q.name for q in pools] == ["spot", "on-demand"]
+    d = ffd.tick(CATALOG2, cls, g_max=8, pools=pools)
+    assert d["nodes"] == [
+        (("small",), ("p0", "u0", "u1"), frozenset({Z}), frozenset({"on-demand"})),
+        (("small",), ("u2",), frozenset({Z}), frozenset({"spot"})),
+    ]
+    assert d["pools"] == ["on-demand", "spot"] and d["unschedulable"] == []
+    assert d["columns"] == 4
+    # the same nodes in swapped pools both differ; a node is priced in its pool
+    assert ffd.compare(CATALOG2, dict(d, pools=["spot", "on-demand"]), d, 4, pools)[
+        "nodes_differ"] == 2
+    assert ffd.compare(CATALOG2, d, d, 4, pools)["nodes_differ"] == 0
+    either = (("small",), ("u2",), frozenset({Z}), frozenset({"spot", "on-demand"}))
+    assert [ffd.node_price(CATALOG2, either, ct) for ct in ("", "spot", "on-demand")] == [
+        0.4, 0.4, 1.0]
+
+
+def test_a_pools_reserve_changes_the_type_a_node_keeps():
+    """2 pods of 1 cpu: without a reserve small holds both ($0.4, one
+    node); the spot pool's 0.5 cpu reserve leaves small room for one, so
+    big (3 a node, $0.6) serves them cheaper and is the type kept."""
+    cls = common.group(pods("v", 2, 1000.0))
+    bare = ffd.tick(CATALOG2, cls, g_max=8, pools=ffd.pools({"pools": [dict(SPOT, overhead={})]}))
+    reserved = ffd.tick(CATALOG2, cls, g_max=8, pools=ffd.pools({"pools": [SPOT]}))
+    assert [n[0] for n in bare["nodes"]] == [("small",)]
+    assert [n[0] for n in reserved["nodes"]] == [("big",)]
+    assert bare["pools"] == reserved["pools"] == ["spot"]
+
+
+def test_a_tainted_pool_opens_only_for_classes_that_tolerate_it():
+    tainted = dict(SPOT, taints=[["dedicated", "", "NoSchedule"]])
+    pools = ffd.pools({"pools": [tainted, OD]})
+    toleration = ("dedicated", "Exists", "", "")
+    cls = common.group(pods("a", 1, 1000.0, tolerations=[toleration]) + pods("b", 1, 900.0))
+    d = ffd.tick(CATALOG2, cls, g_max=8, pools=pools)
+    assert d["pools"] == ["spot", "on-demand"]
+    assert [n[1] for n in d["nodes"]] == [("a0",), ("b0",)]
+    assert not ffd.tolerates([], [("dedicated", "", "NoSchedule")])
+    assert ffd.tolerates([], [("dedicated", "", "PreferNoSchedule")])
+
+
 def world(used_n1_cpu):
     alloc = {"cpu": 4000.0, "memory": 8192.0 * 2**20, "pods": 20.0}
     node = lambda name, cpu: {  # noqa: E731
