@@ -367,9 +367,13 @@ def solve_scan(inp: SolveInputs, *, g_max: int, word_offsets, words, objective: 
 
 
 def nnz_budget(c_pad: int, g_max: int) -> int:
-    """Static sparse-take budget (the JAX package's formula): FFD
-    placements are near-diagonal, so c_pad + 4*g_max never trips in
-    practice; an overflow refetches densely."""
+    """Static sparse-take budget (the JAX package's formula, which the
+    wire client shares): FFD placements are near-diagonal, so c_pad +
+    4*g_max (class, group) pairs mostly suffice. It does trip: one of the
+    8 batches of the benchmark cell `spot-od-50k.burst` places 4,194
+    pairs against 4,160. An overflow refetches densely; the `device`
+    spans carry `take_pairs` and `take_budget`, and the per-layer metric
+    `dense_refetch.tick` counts the calls that overflow."""
     return c_pad + 4 * g_max
 
 

@@ -899,9 +899,20 @@ class TorchSolver:
         base_classes = self._group(pods)
         pools = scheduler.nodepools
         self.last_route = {"device_pods": len(pods), "oracle_pods": 0, "path": "device"}
-        with tracing.span("route"):
+        with tracing.span("route") as route_sp:
             overlap = len(pools) > 1 and self._pools_overlap(pools, pods, classes=base_classes)
             supported = self.supports(scheduler, pods, classes=base_classes, overlap=overlap)
+        result = self._schedule_routed(scheduler, pods, base_classes, overlap, supported)
+        # the route taken, once known: a merged solve may still end on the oracle
+        route_sp.set(path=self.last_route["path"])
+        return result
+
+    def _schedule_routed(self, scheduler: Scheduler, pods: Sequence[Pod], base_classes,
+                         overlap: bool, supported: bool) -> SchedulingResult:
+        """schedule() past its routing checks: the oracle, the merged
+        solve, or the device solve per pool with the oracle's prefix and
+        suffix; sets last_route."""
+        pools = scheduler.nodepools
         if not supported:
             # the oracle packs with THIS solver's objective
             scheduler.objective = self.objective
@@ -1628,34 +1639,39 @@ class TorchSolver:
             # first feasible pool in weight order (the oracle's
             # _open_group pool iteration); joins stay free across all
             # admitted columns
-            compat_h = encode.compat_matrix(catalog, class_set)[: len(classes)]
-            cap_h = catalog.cap
-            if overhead_vec is not None:
-                cap_h = np.maximum(cap_h - overhead_vec[None, :], np.float32(0.0))
-            fits_one_h = np.all(cap_h[None, :, :] >= class_set.req[: len(classes), None, :], axis=-1)
-            admitted_all = [multipool.admitted_pools(pc, entry.pools) for pc in classes]
-            class_set.open_allowed, open_pool_idx = multipool.open_allowed_mask(
-                classes, admitted_all, entry.col_pools, compat_h, fits_one_h,
-                class_set.c_pad, catalog.k_pad,
-            )
-            # per-pool TAINTS gate joins per column (merged groups are
-            # single-pool by construction); untainted pools need no mask
-            if any(p.template.taints for p in entry.pools):
-                class_set.join_allowed = multipool.join_allowed_mask(
-                    classes, entry.pools, entry.col_pools, class_set.c_pad, catalog.k_pad)
-            if self.objective == "price":
+            with tracing.span("merge_masks", pools=len(entry.pools),
+                              columns=int(entry.col_pools.shape[0]), classes=len(classes)):
+                compat_h = encode.compat_matrix(catalog, class_set)[: len(classes)]
+                cap_h = catalog.cap
+                if overhead_vec is not None:
+                    cap_h = np.maximum(cap_h - overhead_vec[None, :], np.float32(0.0))
+                fits_one_h = np.all(cap_h[None, :, :] >= class_set.req[: len(classes), None, :],
+                                    axis=-1)
+                admitted_all = [multipool.admitted_pools(pc, entry.pools) for pc in classes]
+                class_set.open_allowed, open_pool_idx = multipool.open_allowed_mask(
+                    classes, admitted_all, entry.col_pools, compat_h, fits_one_h,
+                    class_set.c_pad, catalog.k_pad,
+                )
+                # per-pool TAINTS gate joins per column (merged groups are
+                # single-pool by construction); untainted pools need no mask
+                if any(p.template.taints for p in entry.pools):
+                    class_set.join_allowed = multipool.join_allowed_mask(
+                        classes, entry.pools, entry.col_pools, class_set.c_pad, catalog.k_pad)
+
+            def pool_of(c):
                 # envelopes unify under each class's OPENING pool -- the
                 # same choice the open mask encodes
-                self._unify_envelopes(
-                    classes, class_set,
-                    lambda c: None if open_pool_idx[c] < 0 else (
-                        entry.pools[open_pool_idx[c]].name,
-                        entry.pools[open_pool_idx[c]].requirements(),
-                    ),
-                )
-        elif self.objective == "price":
-            # single pool: class requirements already carry the pool's
-            self._unify_envelopes(classes, class_set, lambda c: (pool.name, None))
+                if open_pool_idx[c] < 0:
+                    return None
+                opening = entry.pools[open_pool_idx[c]]
+                return opening.name, opening.requirements()
+        else:
+            def pool_of(c):
+                # single pool: class requirements already carry the pool's
+                return pool.name, None
+        if self.objective == "price":
+            with tracing.span("envelopes"):
+                self._unify_envelopes(classes, class_set, pool_of)
         counts = class_set.count.copy()
         counts[: len(classes)] -= placed_existing.astype(counts.dtype)
         class_set.count = counts
@@ -1693,16 +1709,19 @@ class TorchSolver:
                 # catalog change
                 return self._stale_topology(self.solve, pending.call_args,
                                             pending.call_kwargs)
-            with tracing.span("device"):
+            with tracing.span("device") as dev_sp:
                 # THE host barrier of the tick (sync_witness SANCTIONED_FETCH)
                 host_buf = ffd.fetch_fused(pending.buf)
+                # the sparse take's true (class, group) pairs against its budget
+                take = dict(take_pairs=int(host_buf[0]), take_budget=pending.nnz_max)
+                dev_sp.set(**take)
             dense = ffd.expand_fused(
                 host_buf, class_set.c_pad, self.g_max,
                 entry.tensors.k_pad, encode.Z_PAD, encode.CT, pending.nnz_max,
             )
             if dense is None:
                 # sparse budget overflow: refetch the dense decision
-                with tracing.span("device", refetch="dense"):
+                with tracing.span("device", refetch="dense", **take):
                     if self.mesh_engine is not None:
                         try:
                             out = self.mesh_engine.solve_dense(

@@ -8,10 +8,13 @@
 - after the same solves and sweeps, the shared families hold the same
   values in both packages (convex counters, quality gauges, the
   consolidation engine's counters);
-- a traced `solve()` and a traced convex `solve()` build span trees whose
-  names, in tree order, are the JAX tracer's for the same call, once the
-  port's own spans (`tracing.PORT_SPANS`) are taken out and their
-  children lifted into their parents; under a live `torch.profiler`
+- a traced `solve()`, a traced convex `solve()` and a traced `schedule()`
+  on each route build span trees whose names, in tree order, are the JAX
+  tracer's for the same call, once the port's own spans
+  (`tracing.PORT_SPANS`) are taken out and their children lifted into
+  their parents (the merged route's `merge_masks`, the `envelopes`, the
+  route taken on `route`, the sparse take's counters on `device` and a
+  forced dense refetch that decides alike); under a live `torch.profiler`
   capture each span is a `karpenter::<name>` range nested as the tree
   is, and with none live no range opens; a traced consolidation sweep
   opens the engine's spans in order;
@@ -62,7 +65,10 @@ from tests.test_torch_catalog import (  # noqa: F401
 )
 from tests.test_torch_consolidate import jax_sweep, sweep_pools
 from tests.test_torch_convex import world
-from tests.test_torch_oracle import build, fuzz_spec, small_items  # noqa: F401
+from tests.test_torch_oracle import (  # noqa: F401
+    TAINTED_POOLS, build, fuzz_spec, result_sig, small_items,
+)
+from tests.test_torch_schedule import ROUTE_WORLDS
 from tests.test_torch_quality import both_pods
 from karpenter_tpu.analysis import errwitness as jerrwitness
 from karpenter_tpu.analysis import jax_witness as jjax_witness
@@ -441,6 +447,30 @@ def spans(root):
     return out
 
 
+def in_order(root, name):
+    """The spans called `name` under `root`, in tree (start) order."""
+    out = []
+
+    def walk(sp):
+        if sp.name == name:
+            out.append(sp)
+        for child in sp.children:
+            walk(child)
+
+    walk(root)
+    return out
+
+
+# schedule() worlds by route: the tests/test_torch_schedule.py worlds, and
+# the merged one with a tainted pool (the join mask inside `merge_masks`)
+SCHEDULE_WORLDS = {
+    "device": ROUTE_WORLDS["device"],
+    "merged": ROUTE_WORLDS["merged"],
+    "merged tainted": dict(seed=8, pools=TAINTED_POOLS, spread=0.3, nodes=2, n_templates=8),
+    "oracle": ROUTE_WORLDS["oracle"],
+}
+
+
 def traced(tracing_mod, fn):
     with tracing_mod.trace("tick", force=True) as root:
         fn()
@@ -524,6 +554,77 @@ class TestSpans:
         assert group.attributes["group_classes"] == ts.last_group_stats["classes"]
         assert not any(k.startswith("group_") for k in root.attributes)
         assert "prepare" in names and "pack_existing" in names
+
+    @pytest.mark.parametrize("case", list(SCHEDULE_WORLDS))
+    def test_schedule_span_tree_equals_jax(self, case, small_items):  # noqa: F811
+        """A traced schedule() on each route: the JAX tree once the port's
+        spans are lifted out; `route` names the path taken; the merged
+        route's masks open under `encode` with its pools, columns and
+        classes, and every price solve unifies envelopes under `encode`."""
+        path = case.split()[0]
+        kw = dict(SCHEDULE_WORLDS[case])
+        spec = fuzz_spec(kw.pop("seed"), **kw)
+        j, t = build("jax", spec, small_items), build("torch", spec, small_items)
+        js, ts = TPUSolver(g_max=G), TorchSolver(device="cpu", g_max=G)
+        jroot = traced(jtracing, lambda: js.schedule(j.scheduler("price"), list(j.pods)))
+        troot = traced(ttracing, lambda: ts.schedule(t.scheduler("price"), list(t.pods)))
+        assert lifted(troot) == tree(jroot)
+        assert ts.last_route["path"] == js.last_route["path"] == path
+        routes = [sp for sp in troot.children if sp.name == "route"]
+        assert routes[0].attributes["path"] == path
+        assert not any("path" in sp.attributes for sp in routes[1:])
+        encodes = [sp for sp in spans(troot) if sp.name == "encode"]
+        masks = [sp for sp in spans(troot) if sp.name == "merge_masks"]
+        envelopes = [sp for sp in spans(troot) if sp.name == "envelopes"]
+        assert len(encodes) == (0 if path == "oracle" else 1)
+        assert [[c.name for c in sp.children if c.name == "envelopes"] for sp in encodes] == [
+            ["envelopes"] for _ in encodes]
+        assert len(envelopes) == len(encodes)
+        if path != "merged":
+            assert masks == []
+            return
+        # one column a (pool, type) the pool's capacity type offers
+        items = small_items["torch"]
+        columns = sum(any(o.capacity_type == ct and o.available for o in it.offerings)
+                      for ct in ("spot", "on-demand") for it in items)
+        assert [c.name for c in encodes[0].children] == ["merge_masks", "envelopes"]
+        assert masks[0].attributes == {"pools": 2, "columns": columns,
+                                       "classes": encodes[0].attributes["classes"]}
+
+    @pytest.mark.parametrize("route", ["device", "merged"])
+    def test_dense_refetch_counts_and_decides_alike(self, route, small_items, monkeypatch):  # noqa: F811
+        """Every `device` span carries the sparse take's true pairs and its
+        budget; a budget forced below them refetches densely (a second
+        `device` span, `refetch="dense"`, the same counters) and decides
+        as the run within budget."""
+        from karpenter_tpu_torch.solver import ffd as tffd
+
+        kw = dict(ROUTE_WORLDS[route])
+        spec = fuzz_spec(kw.pop("seed"), **kw)
+        w = build("torch", spec, small_items)
+
+        def run():
+            ts = TorchSolver(device="cpu", g_max=G)
+            out = []
+            root = traced(ttracing, lambda: out.append(ts.schedule(w.scheduler("price"),
+                                                                   list(w.pods))))
+            return result_sig(out[0]), ts.last_route, root
+
+        sig, last_route, root = run()
+        with monkeypatch.context() as m:
+            m.setattr(tffd, "nnz_budget", lambda c_pad, g_max: 1)
+            forced_sig, forced_route, forced = run()
+        assert forced_sig == sig and forced_route == last_route
+        assert last_route["path"] == route
+        (dev,) = [sp for sp in spans(root) if sp.name == "device"]
+        (enc,) = [sp for sp in spans(root) if sp.name == "encode"]
+        budget = tffd.nnz_budget(enc.attributes["c_pad"], G)
+        assert dev.attributes == {"take_pairs": dev.attributes["take_pairs"], "take_budget": budget}
+        assert 1 < dev.attributes["take_pairs"] <= budget
+        first, refetch = in_order(forced, "device")
+        counters = {"take_pairs": dev.attributes["take_pairs"], "take_budget": 1}
+        assert first.attributes == counters
+        assert refetch.attributes == dict(counters, refetch="dense")
 
     def test_a_span_keeps_every_dispatch(self):
         from karpenter_tpu_torch.solver import service
