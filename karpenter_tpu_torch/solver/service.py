@@ -1939,16 +1939,25 @@ class TorchSolver:
             _, takes = self._dispatch_disrupt_repack(*ops)
             takes = takes[0].cpu().numpy()                     # [C, N]
         with tracing.span("pack_assign") as assign_sp:
-            placed = np.zeros((len(classes),), dtype=np.int64)
-            for c, pc in enumerate(classes):
-                cursor = 0
-                for ni, node in enumerate(existing_nodes):
-                    n = int(takes[c, ni])
-                    for p in pc.pods[cursor: cursor + n]:
-                        result.existing_assignments[p.metadata.name] = node.name
-                    cursor += n
-                placed[c] = cursor
-            assign_sp.set(placed=int(placed.sum()))
+            # the real region's non-zero pairs in row-major order: class,
+            # then node ascending, first fit's order (a flat bool mask takes
+            # numpy's fast nonzero path; a 2-D int one is ~5x slower). Each
+            # pair's node name repeats once per pod it takes (takes are
+            # counts), so a class's run of names lines up with its pods;
+            # zip clips a run past them.
+            real = takes[: len(classes), : len(existing_nodes)]
+            rows, cols = np.divmod(np.flatnonzero(real != 0), real.shape[1])
+            names = np.repeat(
+                np.array([existing_nodes[ni].name for ni in cols.tolist()], dtype=object),
+                real[rows, cols]).tolist()
+            placed = real.sum(axis=1, dtype=np.int64)
+            start = 0
+            for c in np.flatnonzero(placed).tolist():
+                n = int(placed[c])
+                result.existing_assignments.update(
+                    zip([p.metadata.name for p in classes[c].pods[:n]], names[start:start + n]))
+                start += n
+            assign_sp.set(placed=int(placed.sum()), pairs=len(cols))
         return placed
 
     def _decode(
