@@ -72,6 +72,7 @@ JITSTATS_REL = "karpenter_tpu_torch/obs/jitstats.py"
 DISPATCH_LAYER = (
     "karpenter_tpu_torch/solver/service.py",
     "karpenter_tpu_torch/solver/rpc.py",
+    "karpenter_tpu_torch/solver/device_engine.py",
     "karpenter_tpu_torch/solver/disrupt/engine.py",
     "karpenter_tpu_torch/solver/aot.py",
 )

@@ -129,6 +129,14 @@ DEVICE_HOT_PATH: Dict[str, Tuple[Tuple[str, ...], Dict[str, Tuple[str, ...]]]] =
         (),
         {"TorchSolver": ("solve_begin", "solve_finish", "_pack_existing", "_decode")},
     ),
+    # the single-device back end: every kernel entry's dispatch (the
+    # dense refetch reads inside ffd.solve_dense_tuple, sanctioned)
+    "karpenter_tpu_torch/solver/device_engine.py": (
+        (),
+        {"DeviceEngine": ("solve_fused", "solve_compact", "solve_dense", "refetch_dense",
+                          "price_bound", "convex_relax", "_repack_ops", "repack",
+                          "repack_leftover", "replace")},
+    ),
     "karpenter_tpu_torch/solver/disrupt/engine.py": (
         (),
         # `replace` is _evaluate_local's per-pool pass (a nested function)
@@ -155,9 +163,9 @@ DEVICE_HOT_PATH: Dict[str, Tuple[Tuple[str, ...], Dict[str, Tuple[str, ...]]]] =
     # construction; its one designed barrier is `fetch` (sanctioned)
     "karpenter_tpu_torch/fleet/shard.py": (
         (),
-        {"MeshSolveEngine": ("solve_fused", "solve_compact", "solve_dense",
+        {"MeshSolveEngine": ("solve_fused", "solve_compact", "solve_dense", "refetch_dense",
                              "price_bound", "repack", "repack_leftover", "_repack", "replace",
-                             "fetch")},
+                             "_scan", "_rung", "fetch")},
     ),
 }
 

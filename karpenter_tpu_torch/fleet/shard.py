@@ -50,6 +50,7 @@ from karpenter_tpu_torch.fleet import topology as topo_mod
 from karpenter_tpu_torch.parallel import mesh as mesh_mod
 from karpenter_tpu_torch.parallel.mesh import Mesh
 from karpenter_tpu_torch.solver import ffd
+from karpenter_tpu_torch.solver.device_engine import DeviceEngine
 
 # mesh layout for the production solve: "8" -> flat 8-device mesh,
 # "2x4" -> (hosts, types); unset/empty/"0"/"1" -> single-device path
@@ -111,10 +112,14 @@ class MeshSolveEngine:
     """Sharded dispatch for every production solve entry.
 
     One engine per mesh; TorchSolver (in-process) and SolverServer (the
-    sidecar) both hold one and route their dispatches through it.
+    sidecar) both hold one and route their dispatches through it. Its
+    dispatch surface is DeviceEngine's (solver/device_engine.py), and its
+    unsharded rung is a DeviceEngine on the first healthy device.
     Decisions are byte-identical to the single-device entries (the split
     only moves work, never decisions) -- differential-asserted in
     tests/test_torch_mesh.py and by the ``mesh`` sim backend's digests."""
+
+    replayed = False    # mesh entries take no armed graph (DeviceEngine.replayed)
 
     def __init__(self, mesh):
         if isinstance(mesh, int):
@@ -129,7 +134,7 @@ class MeshSolveEngine:
         self.topology = topo_mod.TopologyTracker.from_mesh(mesh)
         self._full_mesh = mesh
         # reshard is a swap of the engine's mesh: one writer at a time,
-        # re-entrant because stage_catalog holds it across _sync_topology
+        # re-entrant because stage_catalog_versioned holds it across _sync_topology
         self._topo_lock = threading.RLock()
         self._watchdog = None      # ShardStragglerWatchdog, attached by the owner
         self._apply_mesh(mesh)
@@ -140,12 +145,9 @@ class MeshSolveEngine:
         the degrade ladder -- dispatches fall through to the proven
         single-device entries on the first healthy device."""
         self.mesh = mesh
-        if mesh is None:
-            self._multiproc = False
-            metrics.MESH_DEVICES.set(1.0)
-            return
-        self._multiproc = mesh_mod._is_multiprocess(mesh)
-        metrics.MESH_DEVICES.set(float(mesh.size))
+        self._device_engine = DeviceEngine(self.device)
+        self._multiproc = mesh is not None and mesh_mod._is_multiprocess(mesh)
+        metrics.MESH_DEVICES.set(float(mesh.size) if mesh is not None else 1.0)
 
     @property
     def device(self) -> torch.device:
@@ -276,27 +278,29 @@ class MeshSolveEngine:
         with _ENTRIES_LOCK:
             _ENTRIES.setdefault(mesh, set()).add((kind,) + statics)
 
-    # -- catalog staging ------------------------------------------------------
-    def stage_catalog(self, catalog) -> Tuple[ffd.StagedCatalog, Tuple[int, ...], Tuple[int, ...]]:
-        """Analogue of ffd.stage_catalog: the catalog uploads ONCE per
-        seqnum to the primary shard's device, and every later solve's
-        shards read their columns of it."""
-        staged, offsets, words, _ = self.stage_catalog_versioned(catalog)
-        return staged, offsets, words
+    def _rung(self, sharded, method: str, args: tuple, kw: dict):
+        """The current rung's call (after _dispatch's topology sync):
+        `sharded(mesh)`, or unsharded the DeviceEngine's `method`."""
+        if self.mesh is None:
+            return getattr(self._device_engine, method)(*args, **kw)
+        return sharded(self.mesh)
 
+    # -- catalog staging ------------------------------------------------------
     def stage_catalog_versioned(
         self, catalog
     ) -> Tuple[ffd.StagedCatalog, Tuple[int, ...], Tuple[int, ...], int]:
-        """stage_catalog plus the topology epoch the catalog was staged
-        under -- read under the reshard lock, so the stamp can never name
-        a NEWER mesh than the one holding the tensors. Callers keep the
-        stamp beside the staged handle and pass it back at dispatch
-        (`epoch=`); a membership change in between surfaces as
-        StaleTopologyError and one restage."""
+        """The catalog uploads ONCE per seqnum to the primary shard's
+        device (every later solve's shards read their columns of it),
+        stamped with the topology epoch it was staged under -- read under
+        the reshard lock, so the stamp can never name a NEWER mesh than
+        the one holding the tensors. Callers keep the stamp beside the
+        staged handle and pass it back at dispatch (`epoch=`); a
+        membership change in between surfaces as StaleTopologyError and
+        one restage."""
         with self._topo_lock:
             self._sync_topology()
             epoch = self._applied_epoch
-            staged, offsets, words = ffd.stage_catalog(catalog, self.device)
+            staged, offsets, words, _ = self._device_engine.stage_catalog_versioned(catalog)
             return staged, offsets, words, epoch
 
     # -- dispatch -------------------------------------------------------------
@@ -310,50 +314,50 @@ class MeshSolveEngine:
         ffd.ffd_solve_fused -- the caller's fetch + expand_fused path is
         unchanged. `epoch` is the topology stamp the inputs were staged
         under (stage_catalog_versioned)."""
-        kw = dict(g_max=g_max, nnz_max=nnz_max, word_offsets=word_offsets, words=words,
-                  objective=objective)
-
-        def run():
-            if self.mesh is None:
-                return ffd.ffd_solve_fused(inp, **kw)
-            self._note("fused", (g_max, nnz_max, word_offsets, words, objective))
-            cols = mesh_mod.sharded_scan_columns(self.mesh, inp, word_offsets, words, objective)
-            return ffd.ffd_solve_fused(inp, columns=cols, **kw)
-
-        return self._dispatch("fused", epoch, run)
+        return self._scan("fused", "solve_fused", ffd.ffd_solve_fused, inp, epoch, dict(
+            g_max=g_max, nnz_max=nnz_max, word_offsets=word_offsets, words=words,
+            objective=objective))
 
     def solve_compact(
         self, inp: ffd.SolveInputs, *, g_max: int, nnz_max: int,
         word_offsets: Tuple[int, ...], words: Tuple[int, ...],
         objective: str = "price", epoch: Optional[int] = None,
     ) -> ffd.CompactDecision:
-        kw = dict(g_max=g_max, nnz_max=nnz_max, word_offsets=word_offsets, words=words,
-                  objective=objective)
-
-        def run():
-            if self.mesh is None:
-                return ffd.ffd_solve_compact(inp, **kw)
-            self._note("compact", (g_max, nnz_max, word_offsets, words, objective))
-            cols = mesh_mod.sharded_scan_columns(self.mesh, inp, word_offsets, words, objective)
-            return ffd.ffd_solve_compact(inp, columns=cols, **kw)
-
-        return self._dispatch("compact", epoch, run)
+        return self._scan("compact", "solve_compact", ffd.ffd_solve_compact, inp, epoch, dict(
+            g_max=g_max, nnz_max=nnz_max, word_offsets=word_offsets, words=words,
+            objective=objective))
 
     def solve_dense(
         self, inp: ffd.SolveInputs, *, g_max: int,
         word_offsets: Tuple[int, ...], words: Tuple[int, ...],
         objective: str = "price", epoch: Optional[int] = None,
     ) -> ffd.SolveOutputs:
-        kw = dict(g_max=g_max, word_offsets=word_offsets, words=words, objective=objective)
+        return self._scan("dense", "solve_dense", ffd.ffd_solve, inp, epoch, dict(
+            g_max=g_max, word_offsets=word_offsets, words=words, objective=objective))
 
-        def run():
-            if self.mesh is None:
-                return ffd.ffd_solve(inp, **kw)
-            self._note("dense", (g_max, word_offsets, words, objective))
-            cols = mesh_mod.sharded_scan_columns(self.mesh, inp, word_offsets, words, objective)
-            return ffd.ffd_solve(inp, columns=cols, **kw)
+    def _scan(self, entry: str, method: str, fn, inp: ffd.SolveInputs, epoch: Optional[int],
+              kw: dict):
+        """fused, compact and dense: each shard computes the prologue for
+        its columns, and `fn` (the ffd entry) runs kernel A once on the
+        primary device. `kw`'s values, in order, key describe()."""
+        def sharded(mesh):
+            self._note(entry, tuple(kw.values()))
+            cols = mesh_mod.sharded_scan_columns(mesh, inp, kw["word_offsets"], kw["words"],
+                                                 kw["objective"])
+            return fn(inp, columns=cols, **kw)
 
-        return self._dispatch("dense", epoch, run)
+        return self._dispatch(entry, epoch, self._rung, sharded, method, (inp,), kw)
+
+    def refetch_dense(
+        self, inp: ffd.SolveInputs, *, g_max: int,
+        word_offsets: Tuple[int, ...], words: Tuple[int, ...],
+        objective: str = "price", epoch: Optional[int] = None,
+    ) -> tuple:
+        """`solve_dense` read through the fenced barrier as the decode
+        tuple: the refetch when a fused buffer's sparse take overflowed."""
+        f = self.fetch(self.solve_dense(inp, g_max=g_max, word_offsets=word_offsets, words=words,
+                                        objective=objective, epoch=epoch), epoch=epoch)
+        return (f.take, f.unplaced, int(f.n_open), f.gmask, f.gzone, f.gcap)
 
     def price_bound(
         self, inp: ffd.SolveInputs, placed, *,
@@ -363,19 +367,15 @@ class MeshSolveEngine:
         """The optimality-gap bound's sharded dispatch (solver/bound.py):
         enqueued, [R] totals out on the primary device -- the caller's
         fetch_bound barrier is unchanged."""
-        from karpenter_tpu_torch.solver import bound as bound_mod
+        kw = dict(word_offsets=word_offsets, words=words)
 
-        def run():
+        def sharded(mesh):
             placed_t = (placed if isinstance(placed, torch.Tensor)
                         else ffd._to_device(np.asarray(placed, np.float32), inp.req.device))
-            if self.mesh is None:
-                return bound_mod.fractional_price_bound(
-                    inp, placed_t, word_offsets=word_offsets, words=words)
             self._note("bound", (word_offsets, words))
-            return mesh_mod.sharded_price_bound(
-                self.mesh, inp, placed_t, word_offsets=word_offsets, words=words)
+            return mesh_mod.sharded_price_bound(mesh, inp, placed_t, **kw)
 
-        return self._dispatch("bound", epoch, run)
+        return self._dispatch("bound", epoch, self._rung, sharded, "price_bound", (inp, placed), kw)
 
     def repack(self, headroom, feas, req, member, excl, *, epoch: Optional[int] = None):
         """Disrupt candidate-pool repack, set axis split over every shard
@@ -390,37 +390,27 @@ class MeshSolveEngine:
         return self._repack((headroom, feas, req, member, excl), epoch, leftover_only=True)
 
     def _repack(self, arrays, epoch: Optional[int], *, leftover_only: bool):
-        from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
-
-        def run():
-            if self.mesh is None:
-                ops = disrupt_kernel.repack_from_numpy(*arrays, self.device)
-                if leftover_only:
-                    return disrupt_kernel.disrupt_repack_leftover(*ops)
-                return disrupt_kernel.disrupt_repack(*ops)
+        def sharded(mesh):
             self._note("repack", ())
             if leftover_only:
-                return mesh_mod.sharded_repack_leftover(self.mesh, *arrays)
-            return mesh_mod.sharded_repack(self.mesh, *arrays)
+                return mesh_mod.sharded_repack_leftover(mesh, *arrays)
+            return mesh_mod.sharded_repack(mesh, *arrays)
 
-        return self._dispatch("repack", epoch, run)
+        return self._dispatch("repack", epoch, self._rung, sharded,
+                              "repack_leftover" if leftover_only else "repack", arrays, {})
 
     def replace(self, leftover, creq, compat, azone, acap, cap, ovh, price, *,
                 od_col: int, epoch: Optional[int] = None):
         """Disrupt replacement search: leftover split on the set axis over
         every shard, the catalog's cap/price replicated."""
-        from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
+        args = (leftover, creq, compat, azone, acap, cap, ovh, price)
 
-        def run():
-            if self.mesh is None:
-                return disrupt_kernel.disrupt_replace(
-                    leftover, creq, compat, azone, acap, cap, ovh, price, od_col=od_col)
+        def sharded(mesh):
             self._note("replace", (od_col,))
-            return mesh_mod.sharded_replace(
-                self.mesh, leftover, creq, compat, azone, acap, cap, ovh, price,
-                od_col=od_col)
+            return mesh_mod.sharded_replace(mesh, *args, od_col=od_col)
 
-        return self._dispatch("replace", epoch, run)
+        return self._dispatch("replace", epoch, self._rung, sharded, "replace", args,
+                              dict(od_col=od_col))
 
     def fetch(self, out, *, epoch: Optional[int] = None):
         """SANCTIONED_FETCH site (analysis/checkers/torch_discipline.py):

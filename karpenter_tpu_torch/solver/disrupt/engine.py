@@ -57,7 +57,6 @@ from karpenter_tpu_torch import metrics, tracing
 from karpenter_tpu_torch.apis import NodePool, Pod, labels as wk
 from karpenter_tpu_torch.scheduling import Resources, tolerates_all
 from karpenter_tpu_torch.solver import encode
-from karpenter_tpu_torch.solver.disrupt import kernel
 from karpenter_tpu_torch.solver.encode import CatalogTensors
 from karpenter_tpu_torch.solver.oracle import ExistingNode
 
@@ -124,6 +123,24 @@ def device_eligible(pods: Sequence[Pod]) -> bool:
         if len(p.scheduling_requirements()) != 1:
             return False
     return True
+
+
+def req_rows(classes, C: int) -> np.ndarray:
+    """Kernel B's [C, R] float32 requests: one row per class, then zero
+    rows to the bucket."""
+    req = np.zeros((C, encode.R), dtype=np.float32)
+    for i, pc in enumerate(classes):
+        req[i] = pc.requests
+    return req
+
+
+def headroom_rows(nodes, N: int) -> np.ndarray:
+    """Kernel B's [N, R] float32 headroom: each node's remaining capacity,
+    scaled, then zero rows to the bucket."""
+    headroom = np.zeros((N, encode.R), dtype=np.float32)
+    for ni, node in enumerate(nodes):
+        headroom[ni] = encode.scale_vector(node.remaining().to_vector())
+    return headroom
 
 
 def _node_feasibility(
@@ -225,6 +242,8 @@ class DisruptEngine:
     as the JAX engine's does."""
 
     def __init__(self, device=None, solver=None, mesh=None):
+        from karpenter_tpu_torch.solver.device_engine import DeviceEngine
+
         self.mesh = mesh
         if solver is not None:
             self.device = solver.device
@@ -234,6 +253,8 @@ class DisruptEngine:
             from karpenter_tpu_torch.solver.service import resolve_device
 
             self.device = resolve_device(device)
+        # the local route's kernel B (unsharded) and replacement search
+        self._device_engine = DeviceEngine(self.device)
         self.solver = solver
         # keyed by object identity; holds the items list so the id stays valid
         self._catalog_cache: Dict[int, Tuple[list, CatalogTensors, torch.Tensor, torch.Tensor]] = {}
@@ -287,19 +308,12 @@ class DisruptEngine:
             # the split set axis divides evenly across the shards
             S = ((S + n - 1) // n) * n
         enc.S = S
-        R = encode.R
 
-        req = np.zeros((C, R), dtype=np.float32)
-        for i, pc in enumerate(classes):
-            req[i] = pc.requests
-        enc.req = req
+        enc.req = req_rows(classes, C)
         feas = np.zeros((C, N), dtype=bool)
         feas[: len(classes), : len(nodes)] = _node_feasibility(classes, nodes)
         enc.feas = feas
-        headroom = np.zeros((N, R), dtype=np.float32)
-        for ni, node in enumerate(nodes):
-            headroom[ni] = encode.scale_vector(node.remaining().to_vector())
-        enc.headroom = headroom
+        enc.headroom = headroom_rows(nodes, N)
 
         member = np.zeros((S, C), dtype=np.int32)
         excl = np.zeros((S, N), dtype=bool)
@@ -475,9 +489,8 @@ class DisruptEngine:
                 self.mesh, enc.headroom, enc.feas, enc.req, enc.member, enc.excl, hold=hold)
             self._leftover = leftover
             return leftover.sum(dim=1).cpu().numpy()
-        ops = kernel.repack_from_numpy(
-            enc.headroom, enc.feas, enc.req, enc.member, enc.excl, self.device)
-        leftover = kernel.disrupt_repack_leftover(*ops)
+        leftover = self._device_engine.repack_leftover(
+            enc.headroom, enc.feas, enc.req, enc.member, enc.excl)
         self._leftover = leftover
         return leftover.sum(dim=1).cpu().numpy()
 
@@ -494,7 +507,7 @@ class DisruptEngine:
                 # a remote solver's snapshot, staged here on first local use
                 staged = self.solver._local_staged(ctx.entry).staged
                 ctx.cap, ctx.price = staged.cap, staged.price
-            out = kernel.disrupt_replace(
+            out = self._device_engine.replace(
                 self._leftover, put(ctx.cs.req), put(ctx.compat), put(ctx.cs.azone),
                 put(ctx.cs.acap), ctx.cap, put(ctx.ovh), ctx.price, od_col=od_col,
             )

@@ -33,10 +33,11 @@ the tenant's own handler thread), the ping advertises ``coalesce``, and
 ``SolverClient(tenant=)`` stamps its tenant id on every op header (a
 client without one sends the frames it always sent).
 
-The mesh half: ``SolverServer(mesh=)`` (a ``fleet.shard.MeshSolveEngine``
-or a ``parallel.mesh.Mesh``) routes every device op through the sharded
+Every device op dispatches through one engine: a ``solver.device_engine.
+DeviceEngine`` on ``device``, or with ``SolverServer(mesh=)`` (a
+``fleet.shard.MeshSolveEngine`` or a ``parallel.mesh.Mesh``) the sharded
 entries -- kernel A once per solve on the primary shard, kernel B once
-per shard of a ``solve_disrupt`` repack -- and stamps each staged seqnum
+per shard of a ``solve_disrupt`` repack -- which stamp each staged seqnum
 with the topology epoch it was staged under (``tepoch`` in the stage
 reply, the ``topology_epoch`` feature). A seqnum staged under an older
 epoch restages in place at its next lookup; a device lost mid-dispatch
@@ -423,8 +424,8 @@ class _StagedEntry:
         self.staged = staged
         self.offsets = offsets
         self.words = words
-        # mesh fleet path only: the topology epoch the catalog was staged
-        # under, and the HOST catalog tensors so a topology change can be
+        # the engine's stamp (a mesh's only): the topology epoch the catalog
+        # was staged under, and the HOST catalog tensors so a topology change can be
         # healed server-side (one transparent restage at lookup -- the
         # client keeps its seqnum, no wire round-trip, no restage loop)
         self.tepoch = tepoch
@@ -456,11 +457,12 @@ class SolverServer:
         mesh=None, coalescer=None,
     ):
         from karpenter_tpu_torch.solver import shm as shm_mod
+        from karpenter_tpu_torch.solver.device_engine import DeviceEngine
         from karpenter_tpu_torch.solver.service import resolve_device
 
-        # fleet subsystem (fleet/): `mesh` routes every device dispatch
-        # through the sharded entries -- sharded == unsharded byte
-        # identity means the wire contract is byte-unchanged
+        # fleet subsystem (fleet/): `mesh` shards every device op but the
+        # convex relaxation -- sharded == unsharded byte identity means the
+        # wire contract is byte-unchanged
         if mesh is not None:
             from karpenter_tpu_torch.fleet.shard import MeshSolveEngine
 
@@ -474,6 +476,8 @@ class SolverServer:
             device = mesh.device
         self._mesh = mesh
         self.device = resolve_device(device)
+        self._device_engine = DeviceEngine(self.device)
+        self._engine = mesh if mesh is not None else self._device_engine
         # fleet subsystem (fleet/): `coalescer` is a DispatchCoalescer
         # batching concurrent per-tenant solve ops into shared dispatch
         # windows on its one dispatcher thread
@@ -753,15 +757,9 @@ class SolverServer:
             tcap=t["tcap"], price=t["price"], vocabs=[], zones=list(header["zones"]),
             words=list(words),
         )
-        tepoch = None
-        if self._mesh is not None:
-            # fleet: the catalog stages once per seqnum on the mesh's
-            # primary device, stamped with the topology epoch; the entry
-            # keeps the HOST tensors so a topology-epoch change restages
-            # transparently at the next lookup
-            staged, offsets, words, tepoch = self._mesh.stage_catalog_versioned(catalog)
-        else:
-            staged, offsets, words = ffd.stage_catalog(catalog, self.device)
+        # staged once per seqnum; a mesh's epoch stamp keeps the HOST
+        # tensors so an epoch change restages at the next lookup
+        staged, offsets, words, tepoch = self._engine.stage_catalog_versioned(catalog)
         with self._lock:
             if len(self._staged) >= 4 and seqnum not in self._staged:
                 self._staged.pop(next(iter(self._staged)))
@@ -769,7 +767,7 @@ class SolverServer:
                 metrics.SOLVER_STAGED_EVICTIONS.inc(kind="catalog")
             self._staged[seqnum] = _StagedEntry(
                 staged, offsets, words, tepoch=tepoch,
-                catalog=catalog if self._mesh is not None else None,
+                catalog=catalog if tepoch is not None else None,
             )
             self._evict_for_pressure_locked()
             self._staged_bytes_locked()
@@ -909,13 +907,7 @@ class SolverServer:
             if entry is not None:
                 self._staged.pop(seqnum)
                 self._staged[seqnum] = entry
-            if (
-                entry is not None
-                and self._mesh is not None
-                and entry.tepoch is not None
-                and entry.tepoch != self._mesh.epoch
-                and entry.catalog is not None
-            ):
+            if entry is not None and entry.tepoch != self._engine.epoch:
                 # topology changed since this seqnum staged: heal HERE --
                 # one transparent restage onto the current mesh, in place,
                 # under the lock (exactly once per epoch change; the
@@ -924,7 +916,7 @@ class SolverServer:
                 # StaleTopologyError through the dispatch guard.
                 metrics.MESH_STALE_SOLVES.inc(site="server-restage")
                 staged, offsets, words, tepoch = (
-                    self._mesh.stage_catalog_versioned(entry.catalog))
+                    self._engine.stage_catalog_versioned(entry.catalog))
                 entry.staged, entry.offsets, entry.words = staged, offsets, words
                 entry.tepoch = tepoch
         if entry is None:
@@ -955,10 +947,7 @@ class SolverServer:
         with wt.stage("device", op="solve"):
             kw = dict(g_max=int(header["g_max"]), word_offsets=entry.offsets,
                       words=entry.words, objective=str(header.get("objective", "price")))
-            if self._mesh is not None:
-                out = self._mesh.solve_dense(inp, epoch=entry.tepoch, **kw)
-            else:
-                out = ffd.ffd_solve(inp, **kw)
+            out = self._engine.solve_dense(inp, epoch=entry.tepoch, **kw)
             self._sync(wt)
         with wt.stage("fetch"):
             arrays = [a.cpu().numpy() for a in out]
@@ -981,10 +970,7 @@ class SolverServer:
             kw = dict(g_max=int(header["g_max"]), nnz_max=int(header["nnz_max"]),
                       word_offsets=entry.offsets, words=entry.words,
                       objective=str(header.get("objective", "price")))
-            if self._mesh is not None:
-                dec = self._mesh.solve_compact(inp, epoch=entry.tepoch, **kw)
-            else:
-                dec = ffd.ffd_solve_compact(inp, **kw)
+            dec = self._engine.solve_compact(inp, epoch=entry.tepoch, **kw)
             self._sync(wt)
         with wt.stage("fetch"):
             arrays = ffd.fetch_compact(dec)
@@ -1018,27 +1004,17 @@ class SolverServer:
         iters = int(header.get("iters", convex_relax.DEFAULT_ITERS))
         objective = str(header.get("objective", "price"))
         with wt.stage("device", op="solve_convex"):
-            if self._mesh is not None:
-                dense_out = self._mesh.solve_dense(
-                    inp, g_max=g_max, word_offsets=entry.offsets, words=entry.words,
-                    objective=objective, epoch=entry.tepoch,
-                )
-            else:
-                scan = ffd.solve_scan(
-                    inp, g_max=g_max, word_offsets=entry.offsets, words=entry.words,
-                    objective=objective,
-                )
-            cx = convex_relax.convex_relax(
+            out = self._engine.solve_dense(
+                inp, g_max=g_max, word_offsets=entry.offsets, words=entry.words,
+                objective=objective, epoch=entry.tepoch,
+            )
+            cx = self._device_engine.convex_relax(
                 inp, iters=iters, word_offsets=entry.offsets, words=entry.words,
             )
             self._sync(wt)
         with wt.stage("fetch"):
-            if self._mesh is not None:
-                f = self._mesh.fetch(dense_out)
-                dense_ffd = (f.take, f.unplaced, int(f.n_open), f.gmask, f.gzone, f.gcap)
-            else:
-                dense_ffd = ffd.dense_tuple(
-                    scan, inp.cap.shape[0], inp.tzone.shape[1], inp.tcap.shape[1])
+            f = ffd.SolveOutputs(*(a.cpu().numpy() for a in out))
+            dense_ffd = (f.take, f.unplaced, int(f.n_open), f.gmask, f.gzone, f.gcap)
             x, lower, trace = convex_relax.fetch_relax(cx)
             feas = cx.feas.cpu().numpy()
             cap = inp.cap.cpu().numpy()
@@ -1093,7 +1069,6 @@ class SolverServer:
         ship only the class masks (a shipped ``leftover`` tensor is the
         fallback when the depoch was evicted mid-sweep)."""
         from karpenter_tpu_torch.apis import labels as wk
-        from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
 
         wt = wt or tracing.WireTrace(None)
         depoch = header.get("depoch")
@@ -1101,15 +1076,8 @@ class SolverServer:
         left_dev = None
         if "member" in t:  # the repack half
             with wt.stage("device", op="solve_disrupt"):
-                if self._mesh is not None:
-                    left_dev = self._mesh.repack_leftover(
-                        t["headroom"], t["feas"], t["req"], t["member"], t["excl"])
-                else:
-                    left_dev = disrupt_kernel.disrupt_repack_leftover(
-                        self._put(t["headroom"], np.float32), self._put(t["feas"], bool),
-                        self._put(t["req"], np.float32), self._put(t["member"], np.int32),
-                        self._put(t["excl"], bool),
-                    )
+                left_dev = self._engine.repack_leftover(
+                    t["headroom"], t["feas"], t["req"], t["member"], t["excl"])
                 self._sync(wt)
             with wt.stage("fetch"):
                 leftover = left_dev.cpu().numpy()
@@ -1149,10 +1117,7 @@ class SolverServer:
                     self._put(t["azone"], bool), self._put(t["acap"], bool),
                     entry.staged.cap, self._put(t["ovh"], np.float32), entry.staged.price,
                 )
-                if self._mesh is not None:
-                    out = self._mesh.replace(*args, od_col=od_col, epoch=entry.tepoch)
-                else:
-                    out = disrupt_kernel.disrupt_replace(*args, od_col=od_col)
+                out = self._engine.replace(*args, od_col=od_col, epoch=entry.tepoch)
                 self._sync(wt)
             with wt.stage("fetch"):
                 arrays = [a.cpu().numpy() for a in out]

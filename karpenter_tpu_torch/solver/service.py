@@ -85,13 +85,13 @@ it loads the libraries, raises their shared-memory ceilings, loads lazy
 modules and grows the allocator -- never a plain version. A tick whose
 class-count bucket was not warmed logs so once per new (c_pad, catalog
 geometry) key. `enable_aot(exec_dir, ...)` loads the kernel-library store
-and runs the warm-up ladder over every staged catalog; the dispatch
-seams (`_dispatch_fused`, `_dispatch_bound`, `_dispatch_convex`,
-`_dispatch_disrupt_repack`) then replay an armed CUDA graph where one
-matches exactly (`karpenter_solver_kernel_dispatches_total{impl="aot"}`
-for the two kernels' entries), and take the ordinary dispatch of the
-same kernel on any miss or counted rung. `describe_aot()` is the
-/debug/aot document.
+and runs the warm-up ladder over every staged catalog. Each dispatch seam
+(`_dispatch_fused`, `_dispatch_bound`, `_dispatch_convex`,
+`_dispatch_disrupt_repack`) is one engine call (solver/device_engine.py),
+which replays an armed CUDA graph where one matches exactly
+(`karpenter_solver_kernel_dispatches_total{impl="aot"}` for the two
+kernels' entries), else takes the ordinary dispatch of the same kernel.
+`describe_aot()` is the /debug/aot document.
 
 Host-to-device uploads of a tick go through page-locked staging buffers
 with non_blocking copies (ffd._to_device), held on the _PendingSolve
@@ -99,15 +99,14 @@ until its fetch has returned: the tick waits for the card only at its
 sanctioned fetches (analysis/sync_witness.py).
 
 The mesh (`mesh=`, fleet/shard.py), as TPUSolver's: with a
-`MeshSolveEngine` (or a `parallel.mesh.Mesh`) and no client, catalog
-staging goes through the engine, stamped with its topology epoch, and the
-fused solve and the bound dispatch through its sharded entries -- the
-shards' prologue, kernel A once on the primary shard -- while the
-existing-node pre-pass (kernel B, S=1) and the convex relaxation stay
-unsharded, as in the JAX package. Mesh entries never take an armed
-graph. A topology change between ticks restages the same encoding under
-a fresh seqnum; a change mid-dispatch (`StaleTopologyError`) re-enters
-`solve_begin` once per epoch step; a change before the barrier re-solves
+`MeshSolveEngine` (or a `parallel.mesh.Mesh`) and no client, `engine` is
+the mesh's (staging stamped with its topology epoch; the shards'
+prologue, kernel A once on the primary shard; no armed graph); the
+pre-pass (kernel B, S=1) and the convex relaxation stay on
+`device_engine`, as in the JAX package. A topology change between ticks
+restages the same encoding under a fresh seqnum; a change mid-dispatch
+(`StaleTopologyError`) re-enters `solve_begin` once per epoch step; a
+change before the barrier re-solves
 (`karpenter_scheduler_pipeline_fallbacks_total{reason="stale-topology"}`).
 """
 from __future__ import annotations
@@ -130,6 +129,7 @@ from karpenter_tpu_torch.solver import bound, encode, ffd, multipool, rpc, sprea
 from karpenter_tpu_torch.solver.breaker import CircuitBreaker
 from karpenter_tpu_torch.solver.convex import relax, rounding
 from karpenter_tpu_torch.solver.convex import tier as convex_tier
+from karpenter_tpu_torch.solver.device_engine import DeviceEngine
 from karpenter_tpu_torch.solver.disrupt import engine as disrupt_engine
 from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
 from karpenter_tpu_torch.solver.encode import CatalogTensors
@@ -205,11 +205,10 @@ class _CatalogEntry(NamedTuple):
     col_pools: Optional[np.ndarray] = None
     pools: Optional[tuple] = None
     decode_types: Optional[np.ndarray] = None
-    # mesh mode only (fleet/topology.py): the topology epoch the catalog
-    # was staged under. _catalog revalidates it -- a device loss/return
-    # between ticks restages the SAME encoding onto the new mesh under a
-    # fresh seqnum, and a mid-dispatch change surfaces as
-    # StaleTopologyError
+    # the engine's stamp (a mesh's topology epoch, else None). _catalog
+    # revalidates it -- a device loss/return between ticks restages the
+    # SAME encoding onto the new mesh under a fresh seqnum; a mid-dispatch
+    # change surfaces as StaleTopologyError
     mesh_epoch: Optional[int] = None
 
 
@@ -268,13 +267,8 @@ class TorchSolver:
         # pods of any class behind (solver/convex/tier.py)
         if tier not in ("ffd", "convex"):
             raise ValueError(f"tier must be 'ffd' or 'convex', got {tier!r}")
-        # mesh-sharded production solve (fleet/shard.py): with a mesh
-        # configured (and no wire client -- the sidecar owns its own mesh
-        # in remote mode), catalog staging and the fused solve and bound
-        # route through the MeshSolveEngine's sharded entries, on the
-        # mesh's primary device. Decisions are byte-identical to the
-        # single-device path, so everything downstream -- pipelining, the
-        # degrade ladder -- is untouched.
+        # mesh-sharded production solve (fleet/shard.py): with a mesh and no
+        # wire client (the sidecar owns its own mesh), the MeshSolveEngine
         self.mesh_engine = None
         if mesh is not None and client is None:
             from karpenter_tpu_torch.fleet.shard import MeshSolveEngine
@@ -287,6 +281,10 @@ class TorchSolver:
                                  f"primary device {self.mesh_engine.device}")
             device = self.mesh_engine.device
         self.device = resolve_device(device)
+        # every entry dispatches through `engine`, but the pre-pass and
+        # the convex relaxation, which no mesh shards
+        self.device_engine = DeviceEngine(self.device)
+        self.engine = self.mesh_engine if self.mesh_engine is not None else self.device_engine
         self.tier = tier
         # the last convex differential: {"winner", "price_ffd",
         # "price_convex", "lower", "iterations"}
@@ -369,7 +367,7 @@ class TorchSolver:
             return None
         from karpenter_tpu_torch.solver import aot as aot_mod
 
-        self._aot = aot_mod.AotManager(
+        self._aot = self.device_engine.aot = aot_mod.AotManager(
             self, exec_dir=exec_dir, serialize=serialize, duty=duty, pads=pads)
         self._aot.load_store()
         return self._aot
@@ -398,10 +396,7 @@ class TorchSolver:
         with self._lock:
             entry = self._catalog_cache.pop(key, None)
             if entry is not None and entry.catalog_list is instance_types:
-                if (
-                    self.mesh_engine is not None
-                    and entry.mesh_epoch != self.mesh_engine.epoch
-                ):
+                if entry.mesh_epoch != self.engine.epoch:
                     # topology changed since this catalog was staged:
                     # restage the SAME encoding (tensors/row_cache survive)
                     # onto the current mesh under a FRESH seqnum, so
@@ -409,7 +404,7 @@ class TorchSolver:
                     # restage per epoch change, never a loop (the stamp is
                     # read under the engine's reshard lock)
                     staged, offsets, words, tepoch = (
-                        self.mesh_engine.stage_catalog_versioned(entry.tensors))
+                        self.engine.stage_catalog_versioned(entry.tensors))
                     self._seq_counter += 1
                     entry = entry._replace(
                         staged=staged, offsets=offsets, words=words,
@@ -419,18 +414,11 @@ class TorchSolver:
                 self._catalog_cache[key] = entry   # LRU touch (and publish)
                 return entry
             tensors = encode.encode_catalog(instance_types)
-            tepoch = None
-            if self.client is not None:
-                # remote mode: the sidecar stages on ITS device; the
-                # in-process rungs stage locally on first use
-                staged, offsets, words = None, (), ()
-            elif self.mesh_engine is not None:
-                # fleet: staged through the engine, stamped with the
-                # topology epoch it was staged under
-                staged, offsets, words, tepoch = (
-                    self.mesh_engine.stage_catalog_versioned(tensors))
-            else:
-                staged, offsets, words = ffd.stage_catalog(tensors, self.device)
+            # remote mode: the sidecar stages on ITS device; the
+            # in-process rungs stage locally on first use
+            staged, offsets, words, tepoch = None, (), (), None
+            if self.client is None:
+                staged, offsets, words, tepoch = self.engine.stage_catalog_versioned(tensors)
             # decode acceleration: type objects pre-sorted by cheapest
             # price so a group's survivors are one boolean fancy-index
             prices = np.array([it.cheapest_price() for it in instance_types])
@@ -1387,11 +1375,7 @@ class TorchSolver:
             # stamp it dispatched with, so no other error can loop; repeated
             # losses walk the ladder down to the unsharded rung, where the
             # engine stops classifying.
-            if (
-                self.mesh_engine is None
-                or entry.mesh_epoch is None
-                or self.mesh_engine.epoch == entry.mesh_epoch
-            ):
+            if entry.mesh_epoch is None or self.engine.epoch == entry.mesh_epoch:
                 raise  # no topology progress: a retry would loop
             return self._stale_topology(self.solve_begin, call_args, call_kwargs, e)
         pending.inp = inp
@@ -1405,38 +1389,26 @@ class TorchSolver:
         byte-identical, the ladder only moves computation."""
         metrics.SOLVER_PIPELINE_FALLBACKS.inc(reason="stale-topology")
         tracing.annotate(fallback="stale-topology")
-        if self._route_monitor.has_changed("mesh_topology", self.mesh_engine.epoch):
+        if self._route_monitor.has_changed("mesh_topology", self.engine.epoch):
             self.log.warning(
                 "mesh topology changed; restaging onto the current device set",
                 error="" if error is None else f"{type(error).__name__}: {error}"[:200],
-                epoch=self.mesh_engine.epoch,
+                epoch=self.engine.epoch,
             )
         return again(*args, **kwargs)
 
     def _dispatch_fused(self, inp: ffd.SolveInputs, nnz_max: int, offsets, words,
                         epoch: Optional[int] = None) -> torch.Tensor:
-        """The fused FFD solve (prologue, kernel A, epilogue), counted by
-        the implementation that runs: the mesh engine's sharded entry
-        when configured (`epoch` its staging stamp; never an armed
-        graph, as the JAX package keeps serialized executables off the
-        mesh), else an armed graph of the warm-up ladder (solver/aot.py)
-        when one matches these statics and input shapes exactly, else
-        the ordinary dispatch."""
-        common = dict(g_max=self.g_max, nnz_max=nnz_max, word_offsets=offsets,
-                      words=words, objective=self.objective)
-        if self.mesh_engine is not None:
-            with self._dispatch_lock:
-                buf = self.mesh_engine.solve_fused(inp, epoch=epoch, **common)
-            _count_dispatch("ffd_solve_fused", _impl(inp.req))
-            return buf
+        """The fused FFD solve (prologue, kernel A, epilogue) on the
+        engine, counted by the implementation that ran (`epoch`: the
+        staging stamp; the mesh takes no armed graph, as the JAX package
+        keeps serialized executables off the mesh)."""
         with self._dispatch_lock:
-            if self._aot is not None:
-                hit, buf = self._aot.try_call("ffd_solve_fused", (inp,), common)
-                if hit:
-                    _count_dispatch("ffd_solve_fused", "aot")
-                    return buf
-            buf = ffd.ffd_solve_fused(inp, **common)
-        _count_dispatch("ffd_solve_fused", _impl(inp.req))
+            buf = self.engine.solve_fused(inp, g_max=self.g_max, nnz_max=nnz_max,
+                                          word_offsets=offsets, words=words,
+                                          objective=self.objective, epoch=epoch)
+            impl = "aot" if self.engine.replayed else _impl(inp.req)
+        _count_dispatch("ffd_solve_fused", impl)
         return buf
 
     # -- the convex tier and the quality bound --------------------------------
@@ -1450,13 +1422,9 @@ class TorchSolver:
             # chaos site: a dispatch fault must cost the tick ONLY the
             # convex candidate
             failpoints.eval("rpc.convex.dispatch")
-            statics = dict(iters=relax.DEFAULT_ITERS, word_offsets=offsets, words=words)
             with tracing.span("dispatch_convex"), self._dispatch_lock:
-                if self._aot is not None:
-                    hit, out = self._aot.try_call("convex_relax", (inp,), statics)
-                    if hit:
-                        return out
-                return relax.convex_relax(inp, **statics)
+                return self.device_engine.convex_relax(
+                    inp, iters=relax.DEFAULT_ITERS, word_offsets=offsets, words=words)
         except Exception as e:  # noqa: BLE001 -- counted; the FFD rung owns
             # the tick (OperatorCrashed is a BaseException and flies)
             metrics.CONVEX_FALLBACKS.inc(reason="dispatch")
@@ -1512,27 +1480,16 @@ class TorchSolver:
 
     def _dispatch_bound(self, inp: ffd.SolveInputs, placed: np.ndarray, offsets, words,
                         hold: Optional[list] = None, epoch: Optional[int] = None) -> torch.Tensor:
-        """The fractional price bound on the device: the mesh engine's
-        sharded entry when configured, else an armed graph when one
-        matches, else the ordinary dispatch; the [R] totals stay there
-        until fetch_bound. The `placed` upload is pinned and non_blocking,
-        its buffer kept in `hold` (see ffd._to_device). Uncounted, as in
-        the JAX package; the current span records it all the same."""
+        """The fractional price bound on the engine; the [R] totals stay
+        on the device until fetch_bound. The `placed` upload is pinned and
+        non_blocking, its buffer kept in `hold` (see ffd._to_device).
+        Uncounted, as in the JAX package; the current span records it."""
         placed_t = ffd._to_device(placed, inp.req.device, hold)
-        statics = dict(word_offsets=offsets, words=words)
-        if self.mesh_engine is not None:
-            with self._dispatch_lock:
-                totals = self.mesh_engine.price_bound(inp, placed_t, epoch=epoch, **statics)
-            _note_dispatch("fractional_price_bound", _impl(inp.req))
-            return totals
         with self._dispatch_lock:
-            if self._aot is not None:
-                hit, totals = self._aot.try_call("fractional_price_bound", (inp, placed_t), statics)
-                if hit:
-                    _note_dispatch("fractional_price_bound", "aot")
-                    return totals
-            totals = bound.fractional_price_bound(inp, placed_t, **statics)
-        _note_dispatch("fractional_price_bound", _impl(inp.req))
+            totals = self.engine.price_bound(inp, placed_t, word_offsets=offsets, words=words,
+                                             epoch=epoch)
+            impl = "aot" if self.engine.replayed else _impl(inp.req)
+        _note_dispatch("fractional_price_bound", impl)
         return totals
 
     def _begin_quality(self, pending: _PendingSolve, dense) -> Optional[torch.Tensor]:
@@ -1698,11 +1655,7 @@ class TorchSolver:
                 else:
                     dense = self._finish_remote(pending)
         else:
-            if (
-                self.mesh_engine is not None
-                and entry.mesh_epoch is not None
-                and entry.mesh_epoch != self.mesh_engine.epoch
-            ):
+            if entry.mesh_epoch != self.engine.epoch:
                 # topology changed between dispatch and this barrier: the
                 # fused buffer was computed on a mesh that lost (or
                 # regained) a device. Same fallback rung as a mid-flight
@@ -1722,24 +1675,15 @@ class TorchSolver:
             if dense is None:
                 # sparse budget overflow: refetch the dense decision
                 with tracing.span("device", refetch="dense", **take):
-                    if self.mesh_engine is not None:
-                        try:
-                            out = self.mesh_engine.solve_dense(
-                                pending.inp, g_max=self.g_max, word_offsets=entry.offsets,
-                                words=entry.words, objective=self.objective,
-                                epoch=entry.mesh_epoch,
-                            )
-                            f = self.mesh_engine.fetch(out, epoch=entry.mesh_epoch)
-                        except rpc.StaleSeqnumError as e:
-                            # topology changed under the refetch
-                            return self._stale_topology(self.solve, pending.call_args,
-                                                        pending.call_kwargs, e)
-                        dense = (f.take, f.unplaced, int(f.n_open), f.gmask, f.gzone, f.gcap)
-                    else:
-                        dense = ffd.solve_dense_tuple(
+                    try:
+                        dense = self.engine.refetch_dense(
                             pending.inp, g_max=self.g_max, word_offsets=entry.offsets,
-                            words=entry.words, objective=self.objective,
+                            words=entry.words, objective=self.objective, epoch=entry.mesh_epoch,
                         )
+                    except rpc.StaleSeqnumError as e:
+                        # the mesh's topology changed under the refetch
+                        return self._stale_topology(self.solve, pending.call_args,
+                                                    pending.call_kwargs, e)
         # convex tier: round and judge before decode, so the decoded
         # groups are the chosen placement (and the bound bills its takes)
         if pending.cx is not None:
@@ -1901,33 +1845,24 @@ class TorchSolver:
         C = _bucket(len(classes), _C_PAD_MIN)
         N = _bucket(len(existing_nodes), 16)
         with tracing.span("pack_feasibility", classes=len(classes), nodes=len(existing_nodes)):
-            req = np.zeros((C, encode.R), dtype=np.float32)
+            req = disrupt_engine.req_rows(classes, C)
             member = np.zeros((1, C), dtype=np.int32)
-            for i, pc in enumerate(classes):
-                req[i] = pc.requests
-                member[0, i] = len(pc.pods)
+            member[0, : len(classes)] = [len(pc.pods) for pc in classes]
             feas = np.zeros((C, N), dtype=bool)
             feas[: len(classes), : len(existing_nodes)] = disrupt_engine._node_feasibility(
                 classes, existing_nodes, class_zone_pins=True)
         with tracing.span("pack_headroom"):
-            headroom = np.zeros((N, encode.R), dtype=np.float32)
-            for ni, node in enumerate(existing_nodes):
-                headroom[ni] = encode.scale_vector(node.remaining().to_vector())
+            headroom = disrupt_engine.headroom_rows(existing_nodes, N)
         return headroom, feas, req, member, np.zeros((1, N), dtype=bool)
 
     def _dispatch_disrupt_repack(self, headroom, feas, req, member, excl):
-        """Kernel B through the armed-graph rung (the pre-pass's S=1 floor
-        shape is armed by the warm-up ladder), else the ordinary
-        dispatch; counted by the implementation that runs."""
-        args = (headroom, feas, req, member, excl)
+        """Kernel B's full entry on the device engine (the warm-up ladder
+        arms the pre-pass's S=1 floor shape), counted by the
+        implementation that ran."""
         with self._dispatch_lock:
-            if self._aot is not None:
-                hit, out = self._aot.try_call("disrupt_repack", args, {})
-                if hit:
-                    _count_dispatch("disrupt_repack", "aot")
-                    return out
-            out = disrupt_kernel.disrupt_repack(*args)
-        _count_dispatch("disrupt_repack", _impl(headroom))
+            out = self.device_engine.repack(headroom, feas, req, member, excl)
+            impl = "aot" if self.device_engine.replayed else _impl(headroom)
+        _count_dispatch("disrupt_repack", impl)
         return out
 
     def _pack_existing(self, classes, existing_nodes, result: SchedulingResult) -> np.ndarray:

@@ -43,6 +43,7 @@ from karpenter_tpu.apis import Pod as JPod
 from karpenter_tpu.solver import aot as jaot
 from karpenter_tpu.solver.service import TPUSolver
 from karpenter_tpu_torch import failpoints, metrics, workload
+from karpenter_tpu_torch import tracing as ttracing
 from karpenter_tpu_torch.analysis import sync_witness
 from karpenter_tpu_torch.apis import NodePool as TNodePool
 from karpenter_tpu_torch.apis import Pod as TPod
@@ -235,6 +236,32 @@ class TestArmedDecisions:
         assert got.existing_assignments
         assert ts.last_quality == plain.last_quality
         assert_quality_equal(ts.last_quality, js.last_quality)
+
+    def test_seams_count_the_armed_rung(self, pair, port_items):  # noqa: F811
+        """Through the device engine, an armed tick's fused solve and
+        pre-pass repack count impl="aot", and the spans note all three
+        seams' replays (the bound is noted only), as armed_miss reads."""
+        _, ts = pair
+        _, tp = both_pods(7, n=12)
+        tick1 = TorchSolver(device="cpu", g_max=G).solve(TNodePool("default"), port_items, tp)
+        specs = node_specs(workload.nodes_from_result(tick1))[:16]
+        for _name, _labels, _alloc, used, _taints in specs[:6]:
+            for k in used:
+                used[k] *= 0.5
+        tp2 = [TPod(f"a{p.metadata.name}", requests=p.requests) for p in tp]
+        counted = ("ffd_solve_fused", "disrupt_repack")
+        d0 = {e: metrics.SOLVER_KERNEL_DISPATCHES.value(entry=e, impl="aot") for e in counted}
+        with ttracing.trace("tick", force=True) as root:
+            ts.solve(TNodePool("default"), port_items, tp2, existing_nodes=port_nodes(specs))
+        for e in counted:
+            assert metrics.SOLVER_KERNEL_DISPATCHES.value(entry=e, impl="aot") - d0[e] == 1, e
+        notes, stack = {}, [root]
+        while stack:
+            sp = stack.pop()
+            notes.update(sp.attributes.get("dispatch", {}))
+            stack.extend(sp.children)
+        assert notes == {"disrupt_repack": "aot", "ffd_solve_fused": "aot",
+                         "fractional_price_bound": "aot"}
 
     @pytest.mark.parametrize("pipelined", [False, True])
     def test_schedule_device_route(self, small_items, pipelined):  # noqa: F811

@@ -10,8 +10,11 @@ tests/test_mesh.py and tests/test_fleet.py:94-341 and hold:
   arrays carried over with `test_torch_ffd.port_inputs`), both
   objectives, two class buckets and a world of hundreds of classes;
 - the K split at K = 640, 1,280 and 1,920 on flat, 2x4 and uneven
-  meshes against the port's unsharded buffer;
-- `repack` and `replace` equal to the JAX mesh's;
+  meshes and the engine's unsharded rung against `DeviceEngine`;
+- `repack` and `replace` equal to the JAX mesh's and `DeviceEngine`'s;
+- one engine surface: `DeviceEngine` and `MeshSolveEngine` take every
+  shared entry with the same parameters, and an 8-shard mesh, the mesh
+  engine's unsharded rung and `DeviceEngine` agree bit for bit on each;
 - whole solves, synchronous and pipelined: `TorchSolver(mesh=)` decides
   as `TPUSolver(mesh=)` and as the unsharded solver, counted;
 - `parse_mesh_spec` parses specs and refuses oversized ones;
@@ -23,6 +26,7 @@ tests/test_mesh.py and tests/test_fleet.py:94-341 and hold:
   whose 8 shards split over two processes (the 4-rank one is gated by
   KARPENTER_TPU_MP_DRYRUN, as the JAX package's).
 """
+import inspect
 import os
 import shutil
 import tempfile
@@ -50,10 +54,10 @@ from karpenter_tpu_torch.fleet.shard import MeshSolveEngine as TEngine
 from karpenter_tpu_torch.obs import hbm as thbm
 from karpenter_tpu_torch.parallel import mesh as tmesh
 from karpenter_tpu_torch.scheduling import Resources as TResources
-from karpenter_tpu_torch.solver import bound as tbound
 from karpenter_tpu_torch.solver import encode as tencode
 from karpenter_tpu_torch.solver import ffd as tffd
 from karpenter_tpu_torch.solver import rpc as trpc
+from karpenter_tpu_torch.solver.device_engine import DeviceEngine
 from karpenter_tpu_torch.solver.disrupt import kernel as tdk
 from karpenter_tpu_torch.solver.service import TorchSolver
 from tests.test_fleet import mixed_pods
@@ -97,6 +101,26 @@ def jengine():
 @pytest.fixture(scope="module")
 def tengine():
     return TEngine(tmesh.make_mesh(8, devices=CPU8))
+
+
+def unsharded_engine():
+    """An 8-shard engine walked down its degrade ladder to the unsharded
+    rung: devices 1-7 lost (it reshards at its next dispatch)."""
+    engine = TEngine(tmesh.make_mesh(8, devices=CPU8))
+    for i in range(1, 8):
+        engine.mark_device_lost(i, "test")
+    return engine
+
+
+def port_world(port_items, k_pad=640, seed=None):  # noqa: F811
+    """(SolveInputs, offsets, words, class set) of 90 mixed pods on the
+    port's catalog, staged on the CPU."""
+    catalog = tencode.encode_catalog(port_items, k_pad=k_pad)
+    pods = port_mixed_pods(np.random.default_rng(k_pad if seed is None else seed), 90)
+    classes = tencode.group_pods(pods, extra_requirements=TNodePool("default").requirements())
+    cs = tencode.encode_classes(classes, catalog, c_pad=32)
+    staged, offsets, words = tffd.stage_catalog(catalog, "cpu")
+    return tffd.make_inputs_staged(staged, cs, packed_masks=True), offsets, words, cs
 
 
 def encoded_world(catalog_items, seed, n, *, c_pad=None, k_pad=640):  # noqa: F811
@@ -153,8 +177,8 @@ class TestMeshEngineBitIdentity:
         placed = np.asarray(jd.take).sum(axis=1).astype(np.float32)
         jb = np.asarray(jengine.price_bound(jinp, placed, word_offsets=offsets, words=words))
         tb = host(tengine.price_bound(tinp, placed, word_offsets=offsets, words=words))
-        t1 = host(tbound.fractional_price_bound(tinp, torch.from_numpy(placed),
-                                                word_offsets=offsets, words=words))
+        t1 = host(DeviceEngine("cpu").price_bound(tinp, placed, word_offsets=offsets,
+                                                  words=words))
         assert tb.tobytes() == t1.tobytes()
         np.testing.assert_allclose(tb, jb, rtol=1e-6, atol=0)
 
@@ -204,6 +228,8 @@ class TestMeshEngineBitIdentity:
         assert tmetrics.MESH_DISPATCHES.value(entry="repack") == before + 1
         assert np.asarray(jl).tobytes() == host(tl).tobytes()
         assert np.asarray(jt).tobytes() == host(tt).tobytes()
+        dl, dt = DeviceEngine("cpu").repack(headroom, feas, req, member, excl)
+        assert torch.equal(dl, tl) and torch.equal(dt, tt)
         # the replacement search over the catalog, leftover split by sets
         catalog = jencode.encode_catalog(catalog_items, k_pad=640)
         K, Z, CT = catalog.k_pad, catalog.tzone.shape[1], catalog.tcap.shape[1]
@@ -218,40 +244,39 @@ class TestMeshEngineBitIdentity:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a))
 
-        tout = tengine.replace(put(left), put(req), put(compat), put(azone), put(acap),
-                               put(catalog.cap), put(ovh), put(catalog.price), od_col=1)
-        for a, b in zip(jout, tout):
-            assert np.asarray(a).tobytes() == host(b).tobytes()
+        args = (put(left), put(req), put(compat), put(azone), put(acap), put(catalog.cap),
+                put(ovh), put(catalog.price))
+        tout = tengine.replace(*args, od_col=1)
+        dout = DeviceEngine("cpu").replace(*args, od_col=1)
+        for a, b, d in zip(jout, tout, dout):
+            assert np.asarray(a).tobytes() == host(b).tobytes() == host(d).tobytes()
 
 
 class TestKSplit:
     """8 shards split K into blocks that are not whole words (80 columns
     at K=640): the shards' columns gather unpacked and pack once on the
     primary. Pinned at the merged catalogs' widths, flat, 2x4 and an
-    uneven 3-shard mesh, against the port's unsharded entries."""
+    uneven 3-shard mesh, and the engine's unsharded rung, against
+    DeviceEngine's entries."""
 
     @pytest.mark.parametrize("k_pad", [640, 1280, 1920])
-    @pytest.mark.parametrize("layout", ["8", "2x4", "3"])
+    @pytest.mark.parametrize("layout", ["8", "2x4", "3", "unsharded"])
     def test_fused_and_bound_equal_unsharded(self, port_items, k_pad, layout):  # noqa: F811
-        mesh = {"8": lambda: tmesh.make_mesh(8, devices=CPU8),
-                "2x4": lambda: tmesh.make_mesh_2d(2, 4, devices=CPU8),
-                "3": lambda: tmesh.make_mesh(3, devices=CPU8)}[layout]()
-        catalog = tencode.encode_catalog(port_items, k_pad=k_pad)
-        pods = port_mixed_pods(np.random.default_rng(k_pad), 90)
-        classes = tencode.group_pods(pods, extra_requirements=TNodePool("default").requirements())
-        cs = tencode.encode_classes(classes, catalog, c_pad=32)
-        staged, offsets, words = tffd.stage_catalog(catalog, "cpu")
-        inp = tffd.make_inputs_staged(staged, cs, packed_masks=True)
+        engine = {"8": lambda: TEngine(tmesh.make_mesh(8, devices=CPU8)),
+                  "2x4": lambda: TEngine(tmesh.make_mesh_2d(2, 4, devices=CPU8)),
+                  "3": lambda: TEngine(tmesh.make_mesh(3, devices=CPU8)),
+                  "unsharded": unsharded_engine}[layout]()
+        inp, offsets, words, cs = port_world(port_items, k_pad)
         kw = dict(g_max=G, word_offsets=offsets, words=words, objective="price")
         nnz = tffd.nnz_budget(cs.c_pad, G)
-        want = tffd.ffd_solve_fused(inp, nnz_max=nnz, **kw)
-        cols = tmesh.sharded_scan_columns(mesh, inp, offsets, words, "price")
-        got = tffd.ffd_solve_fused(inp, nnz_max=nnz, columns=cols, **kw)
-        assert torch.equal(want, got)
+        device = DeviceEngine("cpu")
+        assert torch.equal(device.solve_fused(inp, nnz_max=nnz, **kw),
+                           engine.solve_fused(inp, nnz_max=nnz, **kw))
+        assert (engine.mesh is None) == (layout == "unsharded")
         placed = torch.from_numpy(cs.count.astype(np.float32))
         assert torch.equal(
-            tbound.fractional_price_bound(inp, placed, word_offsets=offsets, words=words),
-            tmesh.sharded_price_bound(mesh, inp, placed, word_offsets=offsets, words=words))
+            device.price_bound(inp, placed, word_offsets=offsets, words=words),
+            engine.price_bound(inp, placed, word_offsets=offsets, words=words))
 
     def test_split_plan(self):
         assert tmesh.split_bounds(10, 4) == [(0, 3), (3, 6), (6, 8), (8, 10)]
@@ -263,6 +288,71 @@ class TestKSplit:
         assert tmesh.make_mesh(8, devices=CPU8) == tmesh.make_mesh(8, devices=CPU8)
         assert tmesh.make_mesh(8, devices=CPU8) != mesh
         assert len({tmesh.make_mesh(4, devices=CPU8), tmesh.make_mesh(4, devices=CPU8)}) == 1
+
+
+# -- one engine surface ------------------------------------------------------------------
+
+ENGINE_ENTRIES = ("stage_catalog_versioned", "solve_fused", "solve_compact", "solve_dense",
+                  "refetch_dense", "price_bound", "repack", "repack_leftover", "replace")
+
+
+def host_parts(out):
+    """An entry's outputs as (dtype, shape, bytes) per array, ints as is."""
+    if isinstance(out, (int, np.integer)):
+        return [int(out)]
+    if isinstance(out, (torch.Tensor, np.ndarray)):
+        a = host(out)
+        return [(str(a.dtype), a.shape, a.tobytes())]
+    return [part for x in out for part in host_parts(x)]
+
+
+class TestOneEngine:
+    """DeviceEngine is the single-device back end of TorchSolver and the
+    sidecar and the mesh engine's unsharded rung: the two engines' shared
+    entries take the same parameters, and an 8-shard mesh, the unsharded
+    rung and DeviceEngine agree bit for bit on each entry."""
+
+    @pytest.mark.parametrize("name", ENGINE_ENTRIES)
+    def test_surfaces_match(self, name):
+        def params(cls):
+            sig = inspect.signature(getattr(cls, name))
+            return [(p.name, p.kind, p.default) for p in sig.parameters.values()]
+
+        assert params(DeviceEngine) == params(TEngine)
+        assert DeviceEngine("cpu").epoch is None and not DeviceEngine("cpu").replayed
+
+    @pytest.mark.parametrize("entry", ["fused", "compact", "dense", "refetch_dense", "bound",
+                                       "repack", "repack_leftover", "replace"])
+    def test_every_entry_agrees_across_the_rungs(self, port_items, entry):  # noqa: F811
+        inp, offsets, words, cs = port_world(port_items, seed=23)
+        kw = dict(g_max=G, word_offsets=offsets, words=words, objective="price")
+        nnz = tffd.nnz_budget(cs.c_pad, G)
+        rng = np.random.default_rng(23)
+        N, C, S, R = 16, 8, 16, tencode.R
+        pack = (rng.integers(0, 8000, (N, R)).astype(np.float32), rng.random((C, N)) < 0.8,
+                rng.integers(0, 900, (C, R)).astype(np.float32),
+                rng.integers(0, 6, (S, C)).astype(np.int32), rng.random((S, N)) < 0.2)
+        K, Z, CT = inp.cap.shape[0], inp.tzone.shape[1], inp.tcap.shape[1]
+        swap = (torch.from_numpy(rng.integers(0, 4, (S, C)).astype(np.int32)),
+                torch.from_numpy(pack[2]), torch.from_numpy(rng.random((C, K)) < 0.7),
+                torch.from_numpy(rng.random((C, Z)) < 0.8), torch.ones((C, CT), dtype=torch.bool),
+                inp.cap, torch.zeros((R,), dtype=torch.float32), inp.price)
+        call = {
+            "fused": lambda e: e.solve_fused(inp, nnz_max=nnz, **kw),
+            "compact": lambda e: e.solve_compact(inp, nnz_max=nnz, **kw),
+            "dense": lambda e: e.solve_dense(inp, **kw),
+            "refetch_dense": lambda e: e.refetch_dense(inp, **kw),
+            "bound": lambda e: e.price_bound(inp, cs.count.astype(np.float32),
+                                             word_offsets=offsets, words=words),
+            "repack": lambda e: e.repack(*pack),
+            "repack_leftover": lambda e: e.repack_leftover(*pack),
+            "replace": lambda e: e.replace(*swap, od_col=1),
+        }[entry]
+        sharded, unsharded = TEngine(tmesh.make_mesh(8, devices=CPU8)), unsharded_engine()
+        want = host_parts(call(DeviceEngine("cpu")))
+        assert host_parts(call(sharded)) == want
+        assert host_parts(call(unsharded)) == want
+        assert sharded.mesh is not None and unsharded.mesh is None
 
 
 # -- the production tick -----------------------------------------------------------------
