@@ -264,6 +264,9 @@ class PodClassSet:
     # matmul instead of a per-class Python loop. Host-side only -- never
     # shipped over the wire.
     base_req: np.ndarray = None
+    # [C] the rows' encode_classes row_cache keys (_row_key), when a
+    # row_cache was given, so per-row memos downstream reuse them
+    row_keys: List[tuple] = None
 
 
 def pack_class_masks(class_set: "PodClassSet") -> "PodClassSet":
@@ -738,6 +741,7 @@ def encode_classes(
     taints_sig = tuple((t.key, t.value, t.effect) for t in pool_taints)
     n_zones = len(catalog.zones)
     one = _one_pod()
+    row_keys = [] if row_cache is not None else None
     for c, pc in enumerate(classes):
         req[c] = pc.requests
         count[c] = len(pc.pods)
@@ -746,6 +750,7 @@ def encode_classes(
         row = rkey = None
         if row_cache is not None:
             rkey = _row_key(pc, taints_sig)
+            row_keys.append(rkey)
             row = row_cache.get(rkey)
         if row is None:
             arow = [
@@ -798,7 +803,7 @@ def encode_classes(
             node_overhead.astype(np.float32)
             if node_overhead is not None else np.zeros((R,), dtype=np.float32)
         ),
-        base_req=base_req,
+        base_req=base_req, row_keys=row_keys,
     )
 
 

@@ -111,6 +111,7 @@ change before the barrier re-solves
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -197,6 +198,9 @@ class _CatalogEntry(NamedTuple):
     order: np.ndarray                  # argsort indices into the catalog list
     catalog_list: Sequence             # strong ref: keeps the id() key sound
     row_cache: dict                    # encode_classes row memo for this encoding
+    # merged route: (row key, overhead bytes) -> the class row's opening
+    # pool index or -1 (TorchSolver._merge_masks)
+    open_memo: dict
     # the wire seqnum this snapshot stages under on the sidecar
     seqnum: str = ""
     # merged multi-pool solves only (solver/multipool.py): pool index per
@@ -205,6 +209,9 @@ class _CatalogEntry(NamedTuple):
     col_pools: Optional[np.ndarray] = None
     pools: Optional[tuple] = None
     decode_types: Optional[np.ndarray] = None
+    # [P + 1, K_pad] bool: row p the columns of pool p, the last row none
+    # (so an opening pool index of -1 picks it)
+    open_table: Optional[np.ndarray] = None
     # the engine's stamp (a mesh's topology epoch, else None). _catalog
     # revalidates it -- a device loss/return between ticks restages the
     # SAME encoding onto the new mesh under a fresh seqnum; a mid-dispatch
@@ -427,7 +434,7 @@ class TorchSolver:
             entry = _CatalogEntry(
                 tensors=tensors, staged=staged, offsets=offsets, words=words,
                 types_by_price=np.array(list(instance_types), dtype=object)[order],
-                order=order, catalog_list=instance_types, row_cache={},
+                order=order, catalog_list=instance_types, row_cache={}, open_memo={},
                 seqnum=f"{self._seq_prefix}-{self._seq_counter}", mesh_epoch=tepoch,
             )
             self._catalog_cache[key] = entry
@@ -1129,9 +1136,13 @@ class TorchSolver:
                 self._merged_cache.pop(next(iter(self._merged_cache)))
         entry = self._catalog(merged_items)
         if entry.col_pools is None:
+            open_table = np.zeros((len(pools) + 1, entry.tensors.k_pad), dtype=bool)
+            open_table[:-1, : col_pools.shape[0]] = (
+                col_pools[None, :] == np.arange(len(pools))[:, None])
             entry = entry._replace(
                 col_pools=col_pools, pools=tuple(pools),
                 decode_types=np.array(list(originals), dtype=object)[entry.order],
+                open_table=open_table,
             )
             with self._lock:
                 self._catalog_cache[id(merged_items)] = entry
@@ -1579,6 +1590,52 @@ class TorchSolver:
         result.unschedulable.update(split.unschedulable)
         return split.classes
 
+    @staticmethod
+    def _merge_masks(entry: _CatalogEntry, classes, class_set, overhead_vec, sp) -> List[int]:
+        """Each class row's opening pool (index into entry.pools, or -1)
+        and `class_set.open_allowed`, its columns. The opening pool is a
+        pure function of the class's encoded row (its row key), the
+        entry's catalog and pools, and the reserve, so it is memoised per
+        entry: only rows never seen under this entry pay the compat, the
+        fit test and pool admission."""
+        n = len(classes)
+        ovh = None if overhead_vec is None else overhead_vec.tobytes()
+        keys = [(rk, ovh) for rk in class_set.row_keys]
+        memo = entry.open_memo
+        open_pool_idx = [memo.get(k) for k in keys]
+        miss = [c for c, pi in enumerate(open_pool_idx) if pi is None]
+        sp.set(rows=n, rows_hit=n - len(miss))
+        if miss:
+            # the missed rows alone, as a set of their own
+            sub = dataclasses.replace(
+                class_set, classes=[classes[c] for c in miss], c_real=len(miss),
+                c_pad=len(miss), req=class_set.req[miss],
+                allowed=[a[miss] for a in class_set.allowed],
+                num_lo=class_set.num_lo[miss], num_hi=class_set.num_hi[miss],
+                azone=class_set.azone[miss], acap=class_set.acap[miss],
+                schedulable=class_set.schedulable[miss],
+            )
+            catalog = entry.tensors
+            compat_h = encode.compat_matrix(catalog, sub)
+            cap_h = catalog.cap
+            if overhead_vec is not None:
+                cap_h = np.maximum(cap_h - overhead_vec[None, :], np.float32(0.0))
+            fits_one_h = np.all(cap_h[None, :, :] >= sub.req[:, None, :], axis=-1)
+            admitted_all = [multipool.admitted_pools(pc, entry.pools) for pc in sub.classes]
+            # through the module: a wrapped open_allowed_mask still decides
+            _, miss_pools = multipool.open_allowed_mask(
+                sub.classes, admitted_all, entry.col_pools, compat_h, fits_one_h,
+                len(miss), catalog.k_pad,
+            )
+            if len(memo) + len(miss) > 8192:
+                memo.clear()  # bound growth across the catalog's lifetime
+            for j, c in enumerate(miss):
+                open_pool_idx[c] = memo[keys[c]] = miss_pools[j]
+        idx = np.full((class_set.c_pad,), -1, dtype=np.intp)
+        idx[:n] = open_pool_idx
+        class_set.open_allowed = entry.open_table[idx]
+        return open_pool_idx
+
     def _encode(self, pool: NodePool, entry: _CatalogEntry, classes, placed_existing: np.ndarray,
                 overhead_vec: Optional[np.ndarray] = None):
         """The classes' dense tensors for kernel A: encoded against the
@@ -1597,18 +1654,8 @@ class TorchSolver:
             # _open_group pool iteration); joins stay free across all
             # admitted columns
             with tracing.span("merge_masks", pools=len(entry.pools),
-                              columns=int(entry.col_pools.shape[0]), classes=len(classes)):
-                compat_h = encode.compat_matrix(catalog, class_set)[: len(classes)]
-                cap_h = catalog.cap
-                if overhead_vec is not None:
-                    cap_h = np.maximum(cap_h - overhead_vec[None, :], np.float32(0.0))
-                fits_one_h = np.all(cap_h[None, :, :] >= class_set.req[: len(classes), None, :],
-                                    axis=-1)
-                admitted_all = [multipool.admitted_pools(pc, entry.pools) for pc in classes]
-                class_set.open_allowed, open_pool_idx = multipool.open_allowed_mask(
-                    classes, admitted_all, entry.col_pools, compat_h, fits_one_h,
-                    class_set.c_pad, catalog.k_pad,
-                )
+                              columns=int(entry.col_pools.shape[0]), classes=len(classes)) as sp:
+                open_pool_idx = self._merge_masks(entry, classes, class_set, overhead_vec, sp)
                 # per-pool TAINTS gate joins per column (merged groups are
                 # single-pool by construction); untainted pools need no mask
                 if any(p.template.taints for p in entry.pools):

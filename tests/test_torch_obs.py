@@ -559,8 +559,9 @@ class TestSpans:
     def test_schedule_span_tree_equals_jax(self, case, small_items):  # noqa: F811
         """A traced schedule() on each route: the JAX tree once the port's
         spans are lifted out; `route` names the path taken; the merged
-        route's masks open under `encode` with its pools, columns and
-        classes, and every price solve unifies envelopes under `encode`."""
+        route's masks open under `encode` with its pools, columns,
+        classes and memo lookups, and every price solve unifies
+        envelopes under `encode`."""
         path = case.split()[0]
         kw = dict(SCHEDULE_WORLDS[case])
         spec = fuzz_spec(kw.pop("seed"), **kw)
@@ -588,8 +589,10 @@ class TestSpans:
         columns = sum(any(o.capacity_type == ct and o.available for o in it.offerings)
                       for ct in ("spot", "on-demand") for it in items)
         assert [c.name for c in encodes[0].children] == ["merge_masks", "envelopes"]
-        assert masks[0].attributes == {"pools": 2, "columns": columns,
-                                       "classes": encodes[0].attributes["classes"]}
+        classes = encodes[0].attributes["classes"]
+        # a fresh solver's first tick: no class row has an opening pool memoised
+        assert masks[0].attributes == {"pools": 2, "columns": columns, "classes": classes,
+                                       "rows": classes, "rows_hit": 0}
 
     @pytest.mark.parametrize("route", ["device", "merged"])
     def test_dense_refetch_counts_and_decides_alike(self, route, small_items, monkeypatch):  # noqa: F811
