@@ -134,6 +134,7 @@ from karpenter_tpu_torch.solver.device_engine import DeviceEngine
 from karpenter_tpu_torch.solver.disrupt import engine as disrupt_engine
 from karpenter_tpu_torch.solver.disrupt import kernel as disrupt_kernel
 from karpenter_tpu_torch.solver.encode import CatalogTensors
+from karpenter_tpu_torch.solver.kernels import ffd_scan
 from karpenter_tpu_torch.solver.oracle import (
     _ALLOW_UNDEFINED, ExistingNode, NewNodeGroup, Scheduler, SchedulingResult,
 )
@@ -174,6 +175,20 @@ def _note_dispatch(entry: str, impl: str) -> None:
 def _count_dispatch(entry: str, impl: str) -> None:
     metrics.SOLVER_KERNEL_DISPATCHES.inc(entry=entry, impl=impl)
     _note_dispatch(entry, impl)
+
+
+def _note_scan_layout(g_max: int, k_pad: int, r: int) -> None:
+    """Stamp kernel A's shared-memory layout at this solve's shape
+    (`resident`, `lean` or `scratch`; `none` where no layout fits) on the
+    current span, beside its dispatch."""
+    cur = tracing.TRACER.current()
+    if cur is None:
+        return
+    try:
+        name = ffd_scan.layout(g_max, k_pad, r)
+    except ValueError:
+        name = "none"
+    cur.attributes["scan_layout"] = name
 
 
 def _spread_keys(classes) -> set:
@@ -1420,6 +1435,7 @@ class TorchSolver:
                                           objective=self.objective, epoch=epoch)
             impl = "aot" if self.engine.replayed else _impl(inp.req)
         _count_dispatch("ffd_solve_fused", impl)
+        _note_scan_layout(self.g_max, *inp.cap.shape)
         return buf
 
     # -- the convex tier and the quality bound --------------------------------
@@ -1658,9 +1674,16 @@ class TorchSolver:
                 open_pool_idx = self._merge_masks(entry, classes, class_set, overhead_vec, sp)
                 # per-pool TAINTS gate joins per column (merged groups are
                 # single-pool by construction); untainted pools need no mask
-                if any(p.template.taints for p in entry.pools):
-                    class_set.join_allowed = multipool.join_allowed_mask(
-                        classes, entry.pools, entry.col_pools, class_set.c_pad, catalog.k_pad)
+                tainted = sum(1 for p in entry.pools if p.template.taints)
+                if tainted:
+                    with tracing.span("join_masks", tainted_pools=tainted,
+                                      classes=len(classes)) as join_sp:
+                        class_set.join_allowed = multipool.join_allowed_mask(
+                            classes, entry.pools, entry.col_pools, class_set.c_pad, catalog.k_pad)
+                        if join_sp is not tracing.NOOP:
+                            # class rows with at least one column gated off
+                            gated = ~class_set.join_allowed[: len(classes)]
+                            join_sp.set(gated_rows=int(gated.any(axis=1).sum()))
 
             def pool_of(c):
                 # envelopes unify under each class's OPENING pool -- the

@@ -49,7 +49,7 @@ from typing import Any, Dict, List, Optional
 # the port's own spans, which the JAX tree lacks: the provisioning tick's
 # host stages, then the consolidation engine's (solver/disrupt/engine.py)
 PORT_SPANS = (
-    "group", "route", "prepare", "merge_masks", "envelopes",
+    "group", "route", "prepare", "merge_masks", "join_masks", "envelopes",
     "pack_feasibility", "pack_headroom", "pack_device", "pack_assign",
     "bound", "quality",
     "encode_sets", "pool_contexts", "repack", "replace", "assemble",

@@ -556,12 +556,27 @@ class TestSpans:
         assert "prepare" in names and "pack_existing" in names
 
     @pytest.mark.parametrize("case", list(SCHEDULE_WORLDS))
-    def test_schedule_span_tree_equals_jax(self, case, small_items):  # noqa: F811
+    def test_schedule_span_tree_equals_jax(self, case, small_items, monkeypatch):  # noqa: F811
         """A traced schedule() on each route: the JAX tree once the port's
         spans are lifted out; `route` names the path taken; the merged
         route's masks open under `encode` with its pools, columns,
-        classes and memo lookups, and every price solve unifies
-        envelopes under `encode`."""
+        classes and memo lookups, the taint gate under them only where
+        a pool is tainted, kernel A's layout on the dispatch span, and
+        every price solve unifies envelopes under `encode`."""
+        from karpenter_tpu_torch.scheduling.taints import tolerates_all
+        from karpenter_tpu_torch.solver import encode as tencode
+        from karpenter_tpu_torch.solver import multipool as tmultipool
+        from karpenter_tpu_torch.solver.kernels import ffd_scan as tffd_scan
+
+        gated = []              # the gate's class rows that tolerate not every pool taint
+        join_mask = tmultipool.join_allowed_mask
+
+        def recording(classes, pools, *args):
+            taints = [tt for p in pools for tt in p.template.taints]
+            gated.append(sum(not tolerates_all(pc.pods[0].tolerations, taints) for pc in classes))
+            return join_mask(classes, pools, *args)
+
+        monkeypatch.setattr(tmultipool, "join_allowed_mask", recording)
         path = case.split()[0]
         kw = dict(SCHEDULE_WORLDS[case])
         spec = fuzz_spec(kw.pop("seed"), **kw)
@@ -576,11 +591,14 @@ class TestSpans:
         assert not any("path" in sp.attributes for sp in routes[1:])
         encodes = [sp for sp in spans(troot) if sp.name == "encode"]
         masks = [sp for sp in spans(troot) if sp.name == "merge_masks"]
+        joins = [sp for sp in spans(troot) if sp.name == "join_masks"]
         envelopes = [sp for sp in spans(troot) if sp.name == "envelopes"]
         assert len(encodes) == (0 if path == "oracle" else 1)
         assert [[c.name for c in sp.children if c.name == "envelopes"] for sp in encodes] == [
             ["envelopes"] for _ in encodes]
         assert len(envelopes) == len(encodes)
+        # the taint gate opens only where a merged pool is tainted
+        assert len(joins) == (1 if case == "merged tainted" else 0)
         if path != "merged":
             assert masks == []
             return
@@ -593,6 +611,32 @@ class TestSpans:
         # a fresh solver's first tick: no class row has an opening pool memoised
         assert masks[0].attributes == {"pools": 2, "columns": columns, "classes": classes,
                                        "rows": classes, "rows_hit": 0}
+        assert masks[0].children == joins
+        if joins:
+            # one tainted pool: a class row is gated where its pods do not
+            # tolerate that pool's taint
+            assert joins[0].attributes == {"tainted_pools": 1, "classes": classes,
+                                           "gated_rows": gated[0]}
+            assert 0 < gated[0] <= classes
+        dispatch = next(sp for sp in troot.children if sp.name == "dispatch_device")
+        k_pad = max(128, -(-columns // 128) * 128)
+        assert dispatch.attributes["scan_layout"] == tffd_scan.layout(G, k_pad, tencode.R)
+
+    @pytest.mark.parametrize("g_max, k_pad, want", [(1024, 1920, "scratch"), (1024, 1280, "lean"),
+                                                    (1024, 640, "resident")])
+    def test_the_dispatch_span_names_kernel_a_layout(self, g_max, k_pad, want):
+        """Kernel A's layout at a solve's shape lands on the span that
+        records its dispatch: the three pools' K=1920 at the benchmark's
+        G=1024 takes the scratch layout, two pools' K=1280 the lean one."""
+        from karpenter_tpu_torch.solver import encode as tencode
+        from karpenter_tpu_torch.solver import service
+
+        with ttracing.trace("tick", force=True) as root:
+            with ttracing.span("dispatch_device") as sp:
+                service._note_scan_layout(g_max, k_pad, tencode.R)
+        service._note_scan_layout(g_max, k_pad, tencode.R)        # no trace: nothing
+        assert sp.attributes == {"scan_layout": want}
+        assert "scan_layout" not in root.attributes
 
     @pytest.mark.parametrize("route", ["device", "merged"])
     def test_dense_refetch_counts_and_decides_alike(self, route, small_items, monkeypatch):  # noqa: F811
